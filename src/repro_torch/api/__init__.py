@@ -1,0 +1,36 @@
+"""Declarative SubspacePlan API (port of ``repro.api``): one plan ->
+init / apply, shared by every linear site.
+
+    from repro_torch import api
+
+    plan = api.install(api.resolve(cfg))   # decide subspaces ONCE
+    model = init_lm(cfg, device="cuda")    # plan-driven layouts
+
+``api.bridge`` carries parameter trees across from the JAX package.
+"""
+from repro_torch.api import bind, plan
+from repro_torch.api.plan import (
+    LinearSpec,
+    SubspacePlan,
+    install,
+    installed,
+    plan_of,
+    resolve,
+    resolve_linear_spec,
+    role_treated,
+    uninstall,
+)
+
+__all__ = [
+    "LinearSpec",
+    "SubspacePlan",
+    "bind",
+    "install",
+    "installed",
+    "plan",
+    "plan_of",
+    "resolve",
+    "resolve_linear_spec",
+    "role_treated",
+    "uninstall",
+]

@@ -1,0 +1,136 @@
+"""Plan-driven linear init/apply, and the ONLY place allowed to look at raw
+param-dict keys. The port of ``repro.api.bind``.
+
+Param layouts are the reference's, one leaf per key:
+
+    dense:    {"w": (O, I) [, "b"]}
+    factored: {"L": (O, K), "R": (K, I) [, "b"]}
+
+``init_params`` returns them as an ``nn.ParameterDict`` (optionally with
+leading stack dims, the layer group's ``repeat``); ``apply`` takes any
+mapping of tensors with those keys, a per-layer slice of the stack.
+
+Ported so far: the dense and factored layouts without ASI state, the
+serving path. ``apply`` raises on an ASI state, on int8-packed params, on
+project-mode factors and on tenant adapter pairs; those arrive with the
+training, deployment and tenancy slices (ROADMAP.md).
+"""
+from __future__ import annotations
+
+from typing import Mapping
+
+import torch
+from torch import nn
+
+from repro_torch.api.plan import LinearSpec
+from repro_torch.config import WasiConfig
+
+
+def init_params(spec: LinearSpec, *, generator: torch.Generator,
+                lead: tuple[int, ...] = (), dtype=torch.float32,
+                device=None, scale: float | None = None,
+                bias: bool | None = None) -> nn.ParameterDict:
+    """Random init for one linear site, in the layout its spec dictates.
+    Same distributions as the reference (normal, std ``in_dim ** -0.5``
+    split evenly over the two factors; zero bias); the numbers differ,
+    since torch and JAX draw different streams. Draws on the generator's
+    device (the CPU for a default generator), then moves to ``device``, so
+    one seed gives the same weights on every device."""
+    std = scale if scale is not None else spec.in_dim ** -0.5
+    with_bias = spec.bias if bias is None else bias
+    gen_dev = generator.device
+
+    def normal(shape, s):
+        t = torch.randn(*lead, *shape, generator=generator, device=gen_dev,
+                        dtype=torch.float32) * s
+        return nn.Parameter(t.to(device=device, dtype=dtype),
+                            requires_grad=False)
+
+    p = nn.ParameterDict()
+    if spec.mode == "factored":
+        k = spec.rank
+        split = (std / k ** 0.5) ** 0.5
+        p["L"] = normal((spec.out_dim, k), split)
+        p["R"] = normal((k, spec.in_dim), split)
+    else:
+        p["w"] = normal((spec.out_dim, spec.in_dim), std)
+    if with_bias:
+        p["b"] = nn.Parameter(torch.zeros(*lead, spec.out_dim, dtype=dtype,
+                                          device=device), requires_grad=False)
+    return p
+
+
+def apply(spec: LinearSpec, p: Mapping[str, torch.Tensor], x: torch.Tensor,
+          wasi: WasiConfig, state=None):
+    """Apply one linear site per its spec. Returns (y, new_state); the
+    state is always None on the ported layouts."""
+    if state is not None:
+        raise NotImplementedError(
+            f"site {spec.name}: ASI-compressed activations are not ported "
+            "yet (training slice, ROADMAP.md)")
+    if is_quantized(p) or spec.quant is not None:
+        raise NotImplementedError(
+            f"site {spec.name}: int8 deployment is not ported yet")
+    if "La" in p:
+        raise NotImplementedError(
+            f"site {spec.name}: tenant adapters are not ported yet")
+    if spec.mode == "project" and "L" in p:
+        raise NotImplementedError(
+            f"site {spec.name}: project-mode factors are not ported yet")
+    if spec.mode == "factored":
+        # every factored site resolves to the fused route: the CUDA kernel
+        # on the card, its plain f32 version on the CPU
+        from repro_torch.kernels.ops import lowrank_matmul
+        y = lowrank_matmul(x, p["R"], p["L"])
+    else:
+        y = torch.matmul(x, p["w"].T)
+    if "b" in p:
+        y = y + p["b"]
+    return y, None
+
+
+def linear_out_dim(p: Mapping[str, torch.Tensor]) -> int:
+    return p["L"].shape[-2] if "L" in p else p["w"].shape[-2]
+
+
+def is_linear_params(v) -> bool:
+    """Does ``v`` look like one linear's param dict (any layout)?"""
+    return isinstance(v, (Mapping, nn.ParameterDict)) and ("w" in v
+                                                          or "L" in v)
+
+
+def is_quantized(p) -> bool:
+    """Is this linear dict in an int8-packed layout?"""
+    return "sL" in p or "sW" in p
+
+
+def _children(tree):
+    if isinstance(tree, (Mapping, nn.ModuleDict, nn.ParameterDict)):
+        return list(tree.items())
+    if isinstance(tree, (list, tuple, nn.ModuleList)):
+        return [(str(i), v) for i, v in enumerate(tree)]
+    return []
+
+
+def iter_linear_dicts(tree, prefix: str = ""):
+    """Yield (path, linear_dict) for every linear param dict in a tree of
+    dicts/lists or of ``ModuleDict``/``ModuleList``/``ParameterDict``."""
+    if is_linear_params(tree):
+        yield prefix, tree
+        return
+    for k, v in _children(tree):
+        yield from iter_linear_dicts(v, f"{prefix}/{k}" if prefix else k)
+
+
+def linear_param_bytes(p) -> dict:
+    """Storage of one linear dict: {"weights", "scales", "bias"} bytes."""
+    out = {"weights": 0, "scales": 0, "bias": 0}
+    for k, v in p.items():
+        n = v.numel() * v.element_size()
+        if k in ("w", "L", "R"):
+            out["weights"] += n
+        elif k in ("sW", "sL", "sR"):
+            out["scales"] += n
+        elif k == "b":
+            out["bias"] += n
+    return out

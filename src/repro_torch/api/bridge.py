@@ -1,0 +1,96 @@
+"""Weights carried across between the JAX package and the port.
+
+``from_reference(tree, cfg, device)`` takes the reference's parameter
+pytree as ``init_lm`` returns it (nested dicts/lists; leaves numpy arrays,
+or anything ``numpy.asarray`` accepts) and gives the port's
+:class:`~repro_torch.models.lm.LanguageModel` holding the same values.
+``to_reference(model)`` gives the nested dict/list of numpy arrays back.
+
+Leaves keep their dtype. bfloat16 is carried bit for bit through a
+uint16 view, since numpy has no bfloat16 of its own: ``from_reference``
+reads a 2-byte array whose dtype is named ``bfloat16`` (the one JAX
+hands out) that way, and ``to_reference`` returns bfloat16 leaves as
+float32 arrays holding the same values (bf16 -> f32 is exact). For float32
+trees the round trip is exact, dtype included.
+"""
+from __future__ import annotations
+
+from typing import Mapping
+
+import numpy as np
+import torch
+from torch import nn
+
+from repro_torch.api import bind, plan_of
+from repro_torch.config import ModelConfig
+from repro_torch.models.lm import LanguageModel
+from repro_torch.utils.device import resolve_device
+
+_TOP = ("embed", "final_norm", "groups")
+
+
+def _tensor(a, device) -> torch.Tensor:
+    a = np.array(a, copy=True, order="C")
+    if a.dtype.name == "bfloat16":
+        t = torch.from_numpy(a.view(np.int16)).view(torch.bfloat16)
+    else:
+        t = torch.from_numpy(a)
+    return t.to(device)
+
+
+def _module(node, device):
+    if isinstance(node, Mapping):
+        if all(not isinstance(v, (Mapping, list, tuple))
+               for v in node.values()):
+            return nn.ParameterDict({
+                k: nn.Parameter(_tensor(v, device), requires_grad=False)
+                for k, v in node.items()})
+        return nn.ModuleDict({k: _module(v, device) for k, v in node.items()})
+    if isinstance(node, (list, tuple)):
+        return nn.ModuleList(_module(v, device) for v in node)
+    raise TypeError(f"unexpected node {type(node).__name__} in param tree")
+
+
+def from_reference(tree: Mapping, cfg: ModelConfig,
+                   device=None) -> LanguageModel:
+    """The port's model holding the reference tree's values on ``device``
+    (default CUDA; raises if absent)."""
+    dev = resolve_device(device)
+    missing = [k for k in _TOP if k not in tree]
+    if missing:
+        raise ValueError(f"not an LM param tree: missing {missing}")
+    extra = set(tree) - set(_TOP) - {"lm_head"}
+    if extra:
+        raise NotImplementedError(
+            f"param tree keys {sorted(extra)} belong to model parts that "
+            "are not ported yet")
+    groups = _module(tree["groups"], dev)
+    if len(groups) != len(cfg.groups):
+        raise ValueError(f"tree has {len(groups)} layer groups, config "
+                         f"{cfg.name!r} has {len(cfg.groups)}")
+    plan = plan_of(cfg)
+    for path, p in bind.iter_linear_dicts(groups):
+        site = path.split("/")[-2] + "/" + path.split("/")[-1]
+        spec = plan.spec(site)
+        if ("L" in p) != spec.factored_params:
+            raise ValueError(f"{path}: layout does not match the plan's "
+                             f"{spec.mode} site {spec.name}")
+    return LanguageModel(
+        cfg, _module(tree["embed"], dev), _module(tree["final_norm"], dev),
+        groups, _module(tree["lm_head"], dev) if "lm_head" in tree else None)
+
+
+def _numpy(node):
+    if isinstance(node, (nn.ModuleDict, nn.ParameterDict)):
+        return {k: _numpy(v) for k, v in node.items()}
+    if isinstance(node, nn.ModuleList):
+        return [_numpy(v) for v in node]
+    t = node.detach().cpu()
+    if t.dtype == torch.bfloat16:
+        t = t.float()
+    return t.numpy().copy()
+
+
+def to_reference(model: LanguageModel) -> dict:
+    """The reference's nested dict/list of numpy arrays."""
+    return {k: _numpy(v) for k, v in model.tree().items()}

@@ -1,0 +1,202 @@
+"""Decoder language model over layer groups. Port of ``repro.models.lm``
+for dense decoder LMs.
+
+The parameter tree is the reference's, as modules: ``embed`` and
+``final_norm`` are ``ParameterDict``s, ``groups`` is a ``ModuleList`` (one
+per layer group) of ``ModuleList``s (one per pattern position) of block
+``ModuleDict``s whose leaves carry the group's stacked leading ``repeat``
+dim. ``api.bridge`` maps it one-to-one onto the reference's pytree.
+
+The reference's ``lax.scan`` over a group becomes a Python loop over the
+stacked dim; ``jax.jit`` becomes eager PyTorch. Decode caches mirror the
+groups (leaves (repeat, B, S, KVH, Dh)) and are updated IN PLACE: the
+returned caches are the ones passed in.
+
+Entry points: init_lm / init_lm_cache, lm_forward (logits), lm_prefill
+(token-parallel prompt pass that fills the caches), lm_decode_step.
+"""
+from __future__ import annotations
+
+import torch
+from torch import nn
+
+from repro_torch.config import ModelConfig
+from repro_torch.models.blocks import apply_block, init_block, init_block_cache
+from repro_torch.nn.norms import apply_norm, init_norm
+from repro_torch.utils.device import resolve_device
+
+
+def _dtype(name: str) -> torch.dtype:
+    return {"float32": torch.float32, "bfloat16": torch.bfloat16,
+            "float16": torch.float16}[name]
+
+
+class LanguageModel(nn.Module):
+    """Parameter container with the reference's tree; the math lives in
+    the module-level functions, as in the reference."""
+
+    def __init__(self, cfg: ModelConfig, embed: nn.ParameterDict,
+                 final_norm: nn.ParameterDict, groups: nn.ModuleList,
+                 lm_head: nn.ParameterDict | None = None):
+        super().__init__()
+        self.cfg = cfg
+        self.embed = embed
+        self.final_norm = final_norm
+        self.groups = groups
+        if lm_head is not None:
+            self.lm_head = lm_head
+        self._views = None
+        self._views_key = None
+
+    def tree(self) -> dict:
+        """The params as the reference's nested dict/list (of modules)."""
+        t = {"embed": self.embed, "final_norm": self.final_norm,
+             "groups": self.groups}
+        if hasattr(self, "lm_head"):
+            t["lm_head"] = self.lm_head
+        return t
+
+    def layer_views(self) -> list:
+        """Per-layer params: ``views[gi][pi][j]`` is layer ``j`` of group
+        ``gi`` at pattern position ``pi``, a nested dict of views into the
+        stacked leaves. Built once, rebuilt only when a leaf's storage
+        moves (``.to()``, ``load_state_dict``)."""
+        key = tuple(p.data_ptr() for p in self.groups.parameters())
+        if self._views_key != key:
+            # plain views even when first built under inference_mode, so
+            # autograd code can use the cache later
+            with torch.inference_mode(False):
+                self._views = [[[_slice(blk, j) for j in
+                                 range(self.cfg.groups[gi].repeat)]
+                                for blk in grp] for gi, grp in
+                               enumerate(self.groups)]
+            self._views_key = key
+        return self._views
+
+
+def _slice(node, j: int):
+    if isinstance(node, (nn.ModuleDict, nn.ParameterDict)):
+        return {k: _slice(v, j) for k, v in node.items()}
+    return node[j]
+
+
+def init_lm(cfg: ModelConfig, *, device=None, dtype=None,
+            generator: torch.Generator | None = None,
+            seed: int = 0) -> LanguageModel:
+    """Init params in the layouts the config's SubspacePlan (``plan_of``)
+    dictates, drawn from ``generator`` (default: a CPU generator seeded
+    with ``seed``) and moved to ``device`` (default CUDA; raises if
+    absent). One seed gives the same weights on every device."""
+    dev = resolve_device(device)
+    dtype = dtype or _dtype(cfg.dtype)
+    if generator is None:
+        generator = torch.Generator().manual_seed(seed)
+    d, v = cfg.d_model, cfg.padded_vocab
+    gen_dev = generator.device
+
+    def normal(shape, std):
+        t = torch.randn(*shape, generator=generator, device=gen_dev) * std
+        return nn.Parameter(t.to(device=dev, dtype=dtype),
+                            requires_grad=False)
+
+    embed = nn.ParameterDict({"w": normal((v, d), 0.02)})
+    final_norm = init_norm(cfg.norm, d, dtype=dtype, device=dev)
+    lm_head = None
+    if not cfg.tie_embeddings:
+        lm_head = nn.ParameterDict({"w": normal((v, d), d ** -0.5)})
+    groups = nn.ModuleList()
+    for g in cfg.groups:
+        groups.append(nn.ModuleList(
+            init_block(kind, cfg, generator=generator, lead=(g.repeat,),
+                       dtype=dtype, device=dev) for kind in g.pattern))
+    return LanguageModel(cfg, embed, final_norm, groups, lm_head)
+
+
+def init_lm_cache(cfg: ModelConfig, batch: int, seq: int, *,
+                  dtype=torch.bfloat16, device=None) -> list:
+    """Decode caches mirroring ``groups`` (leaves stacked on ``repeat``)."""
+    dev = resolve_device(device)
+    return [[init_block_cache(kind, cfg, batch, seq, lead=(g.repeat,),
+                              dtype=dtype, device=dev)
+             for kind in g.pattern] for g in cfg.groups]
+
+
+def _layer_cache(gcache: dict, j: int) -> dict:
+    kv = gcache["kv"]
+    return {"kv": type(kv)(k=kv.k[j], v=kv.v[j])}
+
+
+def lm_backbone(model: LanguageModel, x, cfg: ModelConfig, *, states=None,
+                caches=None, pos=None, valid_len=None):
+    """Run embedded hidden states through all layer groups, a loop over
+    each group's stacked layers. Returns (x, None, caches, aux)."""
+    if states is not None:
+        raise NotImplementedError("ASI states are not ported yet")
+    views = model.layer_views()
+    for gi, g in enumerate(cfg.groups):
+        for j in range(g.repeat):
+            for pi, kind in enumerate(g.pattern):
+                cache = (None if caches is None
+                         else _layer_cache(caches[gi][pi], j))
+                x, _, _, _ = apply_block(
+                    kind, views[gi][pi][j], x, cfg, cache=cache,
+                    pos=pos, valid_len=valid_len)
+    x = apply_norm(cfg.norm, model.final_norm, x)
+    return x, None, caches, 0.0
+
+
+def _logits(model: LanguageModel, x, cfg: ModelConfig):
+    head = model.embed["w"] if cfg.tie_embeddings else model.lm_head["w"]
+    logits = torch.matmul(x, head.T)
+    if cfg.logit_softcap > 0:
+        c = cfg.logit_softcap
+        logits = c * torch.tanh(logits / c)
+    return logits
+
+
+def _embed(model: LanguageModel, tokens, cfg: ModelConfig):
+    return model.embed["w"][tokens].to(_dtype(cfg.dtype))
+
+
+def lm_forward(model: LanguageModel, tokens, cfg: ModelConfig, *,
+               caches=None, pos=None):
+    """tokens (B, S) -> logits (B, S, V). Returns (logits, None, caches,
+    aux). Float ``tokens`` are taken as precomputed embeddings."""
+    if tokens.is_floating_point():
+        x = tokens.to(_dtype(cfg.dtype))
+    else:
+        x = _embed(model, tokens, cfg)
+    x, _, nc, aux = lm_backbone(model, x, cfg, caches=caches, pos=pos)
+    return _logits(model, x, cfg), None, nc, aux
+
+
+def lm_decode_step(model: LanguageModel, token, caches, pos,
+                   cfg: ModelConfig):
+    """One serve step. token (B, 1) int; ``pos`` the absolute position of
+    this token: an int (lockstep batch) or a (B,) tensor of per-slot
+    positions. Returns (logits (B, V), caches)."""
+    x = _embed(model, token, cfg)
+    x, _, nc, _ = lm_backbone(model, x, cfg, caches=caches, pos=pos)
+    return _logits(model, x, cfg)[:, 0], nc
+
+
+def lm_prefill(model: LanguageModel, tokens, cfg: ModelConfig, *, caches,
+               valid_len=None, last_only: bool = False, pos=None):
+    """Token-parallel prefill: ONE forward over the whole prompt that also
+    writes every layer's KV cache. tokens (B, P) from absolute position 0
+    (or the int ``pos``); ``valid_len`` (B,) gives true lengths of rows
+    right-padded to a bucket. ``last_only`` gathers each row's last VALID
+    hidden state before the output projection and returns (B, 1, V).
+    Returns (logits, caches)."""
+    x = _embed(model, tokens, cfg)
+    x, _, nc, _ = lm_backbone(model, x, cfg, caches=caches,
+                              pos=0 if pos is None else pos,
+                              valid_len=valid_len)
+    if last_only:
+        if valid_len is None:
+            last = torch.full((x.shape[0],), x.shape[1] - 1,
+                              device=x.device)
+        else:
+            last = valid_len.to(x.device).long() - 1
+        x = x[torch.arange(x.shape[0], device=x.device), last][:, None]
+    return _logits(model, x, cfg), nc

@@ -57,6 +57,10 @@ def pytest_configure(config):
         "markers",
         "multidevice: needs XLA_FLAGS=--xla_force_host_platform_device_count"
         "=N set before jax init; skipped when absent")
+    config.addinivalue_line(
+        "markers",
+        "cuda: needs an NVIDIA GPU (the port's CUDA kernels); the test's "
+        "fixture skips it when torch finds no CUDA device")
 
 
 def pytest_collection_modifyitems(config, items):
