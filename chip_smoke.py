@@ -1,4 +1,5 @@
-"""Drive the PyTorch/CUDA port's serving path on one NVIDIA GPU and check it.
+"""Drive the PyTorch/CUDA port's serving and training paths on one NVIDIA GPU
+and check them.
 
     python3 chip_smoke.py
 
@@ -17,15 +18,30 @@ Phases, in order; any failure raises and the script exits non-zero:
 5. full width: qwen2-0.5b (24 layers, d_model 896, bf16, random weights
    from a seed) serves 8 requests through 4 slots; the kernel launch count
    shows every factored linear went through the kernel; one prompt's
-   logits are held against the same weights in f32 on the CPU.
+   logits are held against the same weights in f32 on the CPU;
+6. training kernels: hold the sketch forward, the backward, the Gram and
+   the CholeskyQR kernels against their plain versions at the training
+   shapes of qwen2-0.5b (M = 2048 and a ragged 1000 rows; the stacked
+   (24, O, K) factors of each site for Gram and CholeskyQR), bf16 and
+   f32, and time kernel, plain version, library yardstick and bound;
+7. smoke training parity: qwen2 smoke, ``wsi``, AdamW, refresh every 2,
+   4 steps from one seed and one batch stream on the card and on the CPU
+   (f32); losses and final factors compared, launch counts exact;
+8. full-width training: qwen2-0.5b (24 layers, bf16, ``wsi``), AdamW,
+   batch 4 x seq 512, refresh every 4, 8 steps through
+   ``launch/train.py``'s build and ``train/loop.py``; step time,
+   tokens/s, peak memory, busy share, exact launch counts, and one step
+   at batch 1 x seq 32 against the same weights in f32 on the CPU.
 
 The line before the last is a JSON object with one entry per kernel; the
 last line is {"ok": true, "device": {...}}. ``--json PATH`` also writes
-every measurement (per-shape kernel rows, serving figures) to PATH.
+every measurement (per-shape kernel rows, serving and training figures) to
+PATH.
 """
 from __future__ import annotations
 
 import argparse
+import dataclasses
 import json
 import os
 import statistics
@@ -42,11 +58,29 @@ import torch  # noqa: E402
 from repro_torch import api, configs  # noqa: E402
 from repro_torch.api.bridge import from_reference, to_reference  # noqa: E402
 from repro_torch.kernels import _build, ops, ref  # noqa: E402
+from repro_torch.config import TrainConfig  # noqa: E402
+from repro_torch.core.orthogonal import (  # noqa: E402
+    cholesky_qr_mix_ref,
+    orthonormality_error,
+)
+from repro_torch.data.synthetic import SyntheticLM  # noqa: E402
+from repro_torch.kernels import lowrank as klowrank  # noqa: E402
+from repro_torch.kernels import qr as kqr  # noqa: E402
+from repro_torch.launch import train as launch_train  # noqa: E402
 from repro_torch.launch.serve import generate  # noqa: E402
+from repro_torch.optim import global_norm  # noqa: E402
+from repro_torch.train.loop import train_loop  # noqa: E402
+from repro_torch.train.step import (  # noqa: E402
+    make_train_state,
+    make_train_step,
+    value_and_grad,
+)
 from repro_torch.models.lm import (  # noqa: E402
+    _dtype,
     init_lm,
     init_lm_cache,
     lm_decode_step,
+    lm_loss,
     lm_prefill,
 )
 from repro_torch.serve import SamplingParams, ServeEngine  # noqa: E402
@@ -134,10 +168,15 @@ def work(m, i, k, o, dtype):
     return nbytes, flops
 
 
-def bound(m, i, k, o, dtype):
-    nbytes, flops = work(m, i, k, o, dtype)
+def bound_of(nbytes, flops, dtype):
+    """The least time (ms) the card could take: bytes at the HBM rate
+    against flops at the dtype's peak, and which of the two it is."""
     tb, tf = nbytes / HBM_BYTES_S, flops / PEAK_FLOPS[dtype]
     return max(tb, tf) * 1e3, ("bytes" if tb >= tf else "operations")
+
+
+def bound(m, i, k, o, dtype):
+    return bound_of(*work(m, i, k, o, dtype), dtype)
 
 
 def inputs(m, i, k, o, dtype, gen, n_sets=1):
@@ -434,6 +473,461 @@ def profile_decode(eng, cfg, rng, card: str) -> dict:
                             e.count // 5) for e in top]}
 
 
+# ---------------------------------------------------------------------------
+# training: kernels #2-#5, smoke parity, full width
+# ---------------------------------------------------------------------------
+
+TRAIN_M = (2048, 1000)
+# how many of the seven sites share each shape (for one layer's total)
+SITE_COUNT = {"attn/wq|wo": 2, "attn/wk|wv": 2, "mlp/gate|up": 2,
+              "mlp/down": 1}
+# the stacked L (repeat, O, K) of each site, as one WSI refresh sees it
+STACKS = {"attn/wq|wo": (24, 896, 256), "attn/wk|wv": (24, 128, 128),
+          "mlp/gate|up": (24, 4864, 256), "mlp/down": (24, 896, 256)}
+TRAIN_KERNELS = ("lowrank_fwd_sketch", "lowrank_bwd", "gram", "choleskyqr")
+
+
+def itemsize(dtype) -> int:
+    return torch.tensor([], dtype=dtype).element_size()
+
+
+def sketch_work(m, i, k, o, dtype):
+    """#1's bytes and flops plus the f32 sketch h written once."""
+    nbytes, flops = work(m, i, k, o, dtype)
+    return nbytes + m * k * 4, flops
+
+
+def bwd_work(m, i, k, o, dtype):
+    """dy, x, h, L, R read once; dx, dL, dR written once; four products."""
+    it = itemsize(dtype)
+    nbytes = (m * o + m * i + o * k + k * i + m * i) * it \
+        + (m * k + o * k + k * i) * 4
+    return nbytes, 4 * m * k * (o + i)
+
+
+def gram_work(b, m, k, dtype):
+    return b * m * k * itemsize(dtype) + b * k * k * 4, 2 * b * m * k * k
+
+
+def choleskyqr_work(b, m, k, dtype):
+    """Y read once, Q and mix written once; Gram, apply and mix products,
+    plus K^3 / 3 each for the Cholesky and the triangular inverse."""
+    nbytes = 2 * b * m * k * itemsize(dtype) + b * k * k * 4
+    flops = 4 * b * m * k * k + 2 * b * k ** 3 + 2 * b * k ** 3 // 3
+    return nbytes, flops
+
+
+# yardsticks: timed here, used nowhere in the port
+def library_bwd(dy, x, h, l_, r):
+    dh = torch.matmul(dy, l_)
+    return (torch.matmul(dh, r), torch.matmul(dy.T, h.to(dy.dtype)),
+            torch.matmul(dh.T, x))
+
+
+def library_gram(y):
+    yf = y.float()
+    return torch.matmul(yf.mT, yf)
+
+
+def library_choleskyqr(y):
+    """Gram, torch.linalg.cholesky_ex (cholesky without its host-side
+    check, so it runs in a CUDA graph) and two solve_triangular."""
+    yf = y.float()
+    g = torch.matmul(yf.mT, yf)
+    k = g.shape[-1]
+    scale = torch.clamp(torch.diagonal(g, dim1=-2, dim2=-1).sum(-1) / k,
+                        min=1e-30)
+    eye = torch.eye(k, device=y.device)
+    c, _ = torch.linalg.cholesky_ex(g + (1e-6 * scale)[..., None, None]
+                                    * eye)
+    q = torch.linalg.solve_triangular(c, yf.mT, upper=False).mT
+    return q.to(y.dtype), torch.linalg.solve_triangular(c, g, upper=False)
+
+
+def held(label, got, want, n, out_dtype) -> float:
+    """Max abs error against the plain version. Tolerance: f32 sums of n
+    terms in another order, 2 n eps |result scale|; a bf16 output adds one
+    rounding (2^-7 of the scale)."""
+    want = want.float()
+    scale = want.abs().max().item()
+    tol = 2 * n * EPS32 * max(scale, 1.0)
+    if out_dtype == torch.bfloat16:
+        tol += 2.0 ** -7 * scale
+    err = (got.float() - want).abs().max().item()
+    if not err <= tol:
+        raise AssertionError(f"{label}: max abs err {err:.3e} > tol "
+                             f"{tol:.3e}")
+    return err
+
+
+def well_conditioned(b, o, k, dtype, gen):
+    """(b, o, k) with orthonormal columns scaled by 0.5-2 (cond <= 4), the
+    shape of a site's stacked L; a trained L after a refresh is like it."""
+    q, _ = torch.linalg.qr(torch.randn(b, o, k, device="cuda",
+                                       generator=gen))
+    s = 0.5 + 1.5 * torch.rand(b, 1, k, device="cuda", generator=gen)
+    return (q * s).to(dtype).contiguous()
+
+
+def timed(label, fns, sets, nbytes, flops, dtype, card, extra=""):
+    k_ms, p_ms, l_ms = (time_ms(f, sets) for f in fns)
+    b_ms, b_by = bound_of(nbytes, flops, dtype)
+    print(f"[kernel] {label} {str(dtype)[6:]:8s} kernel_ms={k_ms:.4f} "
+          f"plain_ms={p_ms:.4f} library_ms={l_ms:.4f} bound_ms={b_ms:.5f} "
+          f"({b_by}){extra} | {card}", flush=True)
+    return dict(kernel_ms=k_ms, plain_ms=p_ms, library_ms=l_ms,
+                bound_ms=b_ms, bound_by=b_by)
+
+
+def phase_train_kernels(card: str) -> dict:
+    print("== phase 6: training kernels against their plain versions",
+          flush=True)
+    gen = torch.Generator(device="cuda").manual_seed(6)
+    worst = dict.fromkeys(TRAIN_KERNELS, 0.0)
+    rows = []
+    head = {n: {"ms": 0.0, "plain_ms": 0.0, "library_ms": 0.0,
+                "bytes": 0, "flops": 0} for n in TRAIN_KERNELS}
+
+    def add(name, mult, row, nbytes, flops):
+        h = head[name]
+        h["ms"] += mult * row["kernel_ms"]
+        h["plain_ms"] += mult * row["plain_ms"]
+        h["library_ms"] += mult * row["library_ms"]
+        h["bytes"] += mult * nbytes
+        h["flops"] += mult * flops
+
+    for name, (i, k, o) in SHAPES.items():
+        for m in TRAIN_M:
+            for dtype in (torch.bfloat16, torch.float32):
+                (x, r, l_), = inputs(m, i, k, o, dtype, gen)
+                dy = torch.randn(m, o, device="cuda", generator=gen).to(dtype)
+                tag = f"{name} M={m} {str(dtype)[6:]}"
+                y, h = klowrank.lowrank_fused(x, r, l_, save_sketch=True)
+                torch.cuda.synchronize()
+                wy, wh = ref.lowrank_sketch_ref(x, r, l_)
+                e = max(held(f"sketch h {tag}", h, wh, i, torch.float32),
+                        held(f"sketch y {tag}", y, wy, i + k, dtype))
+                worst["lowrank_fwd_sketch"] = max(
+                    worst["lowrank_fwd_sketch"], e)
+                got = klowrank.lowrank_bwd(dy, x, wh, l_, r)
+                torch.cuda.synchronize()
+                want = ref.lowrank_bwd_ref(dy, x, wh, l_, r)
+                e = max(held(f"bwd dx {tag}", got[0], want[0], o + k, dtype),
+                        held(f"bwd dL {tag}", got[1], want[1], m,
+                             torch.float32),
+                        held(f"bwd dR {tag}", got[2], want[2], o + m,
+                             torch.float32))
+                worst["lowrank_bwd"] = max(worst["lowrank_bwd"], e)
+                del y, h, got, want, wy
+
+                nb, fl = sketch_work(m, i, k, o, dtype)
+                sets = inputs(m, i, k, o, dtype, gen,
+                              max(1, min(48, int(120e6 // nb) + 1)))
+                row = timed(f"lowrank_fwd_sketch {name:11s} I={i} K={k} "
+                            f"O={o} M={m:4d}",
+                            (lambda a, b, c: klowrank.lowrank_fused(
+                                a, b, c, save_sketch=True),
+                             ref.lowrank_sketch_ref, library_lowrank),
+                            sets, nb, fl, dtype, card)
+                rows.append(dict(row, kernel="lowrank_fwd_sketch", site=name,
+                                 M=m, dtype=str(dtype)[6:]))
+                if m == 2048 and dtype == torch.bfloat16:
+                    add("lowrank_fwd_sketch", SITE_COUNT[name], row, nb, fl)
+                del sets
+
+                nb, fl = bwd_work(m, i, k, o, dtype)
+                sets = []
+                for xs, rs, ls in inputs(m, i, k, o, dtype, gen,
+                                         max(1, min(48,
+                                                    int(120e6 // nb) + 1))):
+                    dys = torch.randn(m, o, device="cuda",
+                                      generator=gen).to(dtype)
+                    hs = xs.float() @ rs.float().T
+                    sets.append((dys, xs, hs, ls, rs))
+                row = timed(f"lowrank_bwd        {name:11s} I={i} K={k} "
+                            f"O={o} M={m:4d}",
+                            (klowrank.lowrank_bwd, ref.lowrank_bwd_ref,
+                             library_bwd), sets, nb, fl, dtype, card)
+                rows.append(dict(row, kernel="lowrank_bwd", site=name, M=m,
+                                 dtype=str(dtype)[6:]))
+                if m == 2048 and dtype == torch.bfloat16:
+                    add("lowrank_bwd", SITE_COUNT[name], row, nb, fl)
+                del sets
+
+    for name, (b, o, k) in STACKS.items():
+        for dtype in (torch.bfloat16, torch.float32):
+            y = well_conditioned(b, o, k, dtype, gen)
+            tag = f"{name} ({b},{o},{k}) {str(dtype)[6:]}"
+            g = ops.gram(y)
+            torch.cuda.synchronize()
+            worst["gram"] = max(worst["gram"], held(
+                f"gram {tag}", g, ref.gram_ref(y), o, torch.float32))
+            if not torch.equal(g, g.mT):
+                raise AssertionError(f"gram {tag}: G is not symmetric")
+            q, mix = kqr.choleskyqr(y)
+            torch.cuda.synchronize()
+            wq, wmix = ref.choleskyqr_ref(y)
+            # Q: a Cholesky of a cond <= 16 Gram amplifies the Gram's
+            # rounding ~16x: 1e-3 of Q's scale in f32; a bf16 Q adds one
+            # rounding (2^-7 of the scale). mix: 1e-3 of its scale.
+            # Q^T Q = I: 1e-3 (f32); a bf16 rounding of each entry of Q
+            # moves each entry of Q^T Q by <= 2^-8, K of them in a row.
+            qs, ms = wq.float().abs().max().item(), wmix.abs().max().item()
+            eq = (q.float() - wq.float()).abs().max().item()
+            em = (mix - wmix).abs().max().item()
+            tol_q = 1e-3 * qs + (2.0 ** -7 * qs if dtype == torch.bfloat16
+                                 else 0.0)
+            ortho = orthonormality_error(q).max().item()
+            tol_o = 1e-3 + (k * 2.0 ** -8 if dtype == torch.bfloat16
+                            else 0.0)
+            lq, lmix = cholesky_qr_mix_ref(y)
+            el = (mix - lmix).abs().max().item()
+            if not (eq <= tol_q and em <= 1e-3 * ms and ortho <= tol_o
+                    and el <= 1e-3 * ms):
+                raise AssertionError(
+                    f"choleskyqr {tag}: Q err {eq:.3e} (tol {tol_q:.3e}), "
+                    f"mix err {em:.3e} / ladder ref {el:.3e} (tol "
+                    f"{1e-3 * ms:.3e}), |Q^T Q - I| {ortho:.3e} (tol "
+                    f"{tol_o:.3e})")
+            worst["choleskyqr"] = max(worst["choleskyqr"], eq, em)
+            print(f"[kernel] choleskyqr {tag}: Q err {eq:.2e} mix err "
+                  f"{em:.2e} |Q^T Q - I|_F {ortho:.2e}", flush=True)
+            del g, q, mix, wq, wmix, lq, lmix
+
+            n_sets = max(1, min(16, int(120e6 // (b * o * k *
+                                                  itemsize(dtype))) + 1))
+            sets = [(well_conditioned(b, o, k, dtype, gen),)
+                    for _ in range(n_sets)]
+            nb, fl = gram_work(b, o, k, dtype)
+            row = timed(f"gram       {name:11s} ({b},{o},{k})",
+                        (ops.gram, ref.gram_ref, library_gram), sets, nb,
+                        fl, dtype, card)
+            rows.append(dict(row, kernel="gram", site=name, M=o,
+                             dtype=str(dtype)[6:]))
+            mult = SITE_COUNT[name]
+            if dtype == torch.bfloat16:
+                add("gram", mult, row, nb, fl)
+            nb, fl = choleskyqr_work(b, o, k, dtype)
+            row = timed(f"choleskyqr {name:11s} ({b},{o},{k})",
+                        (kqr.choleskyqr, ref.choleskyqr_ref,
+                         library_choleskyqr), sets, nb, fl, dtype, card)
+            rows.append(dict(row, kernel="choleskyqr", site=name, M=o,
+                             dtype=str(dtype)[6:]))
+            if dtype == torch.bfloat16:
+                add("choleskyqr", mult, row, nb, fl)
+            del sets
+    for n, h in head.items():
+        h["bound_ms"], h["bound_by"] = bound_of(h.pop("bytes"),
+                                                h.pop("flops"),
+                                                torch.bfloat16)
+        scope = ("one layer's 7 sites at M=2048" if n.startswith("lowrank")
+                 else "one refresh, 7 stacked sites (24 layers)")
+        print(f"[kernel] {n} {scope}, bf16: kernel_ms={h['ms']:.4f} "
+              f"plain_ms={h['plain_ms']:.4f} "
+              f"library_ms={h['library_ms']:.4f} "
+              f"bound_ms={h['bound_ms']:.5f} ({h['bound_by']}) | {card}",
+              flush=True)
+    return dict(rows=rows, worst=worst, headline=head)
+
+
+def _wsi_cfg(cfg, refresh: int):
+    return cfg.replace(wasi=dataclasses.replace(cfg.wasi, method="wsi",
+                                                refresh_every=refresh))
+
+
+def phase_smoke_training(card: str) -> dict:
+    print("== phase 7: qwen2 smoke training, card against CPU (f32)",
+          flush=True)
+    cfg = _wsi_cfg(configs.get_smoke("qwen2-0.5b"), 2)
+    api.install(api.resolve(cfg))
+    lr = 1e-2
+    tcfg = TrainConfig(optimizer="adamw", lr=lr, steps=4)
+    data = SyntheticLM(vocab_size=cfg.vocab_size, seq_len=16, global_batch=4,
+                       seed=1)
+    batches = [data.batch(i) for i in range(4)]
+    out = {}
+    for dev in ("cuda", "cpu"):
+        model = init_lm(cfg, device=dev, seed=7)
+        state = make_train_state(model, cfg, tcfg)
+        step = make_train_step(lm_loss, cfg, tcfg)
+        ops.reset_launches()
+        losses = []
+        for b in batches:
+            state, m = step(state, {k: v.to(dev) for k, v in b.items()})
+            losses.append(float(m["loss"]))
+        out[dev] = (losses, {n: p.detach().cpu() for n, p in
+                             model.named_parameters()
+                             if n.endswith((".L", ".R"))},
+                    ops.launch_counts())
+    per_step = 7 * cfg.n_layers
+    want = {"lowrank_fwd": 0, "lowrank_fwd_sketch": 4 * per_step,
+            "lowrank_bwd": 4 * per_step, "gram": 2 * 7, "choleskyqr": 2 * 7}
+    if out["cuda"][2] != want:
+        raise AssertionError(f"smoke training launches {out['cuda'][2]} != "
+                             f"{want}")
+    if any(out["cpu"][2].values()):
+        raise AssertionError(f"CPU training launched kernels: {out['cpu'][2]}")
+    # f32 on both sides, sums in other orders: losses within 1e-5
+    # relative. AdamW divides each gradient entry by its own magnitude plus
+    # eps = 1e-8, so an entry whose gradient is near eps, where f32
+    # rounding is a large share of it, moves by up to ~lr differently in
+    # two runs (seen: an entry with gradient -7e-9 moving 2e-4 apart, port
+    # against reference on the CPU). So each final L and R is held within
+    # 1e-3 of its norm (Frobenius) and each entry within lr.
+    loss_err = max(abs(a / b - 1) for a, b in zip(out["cuda"][0],
+                                                  out["cpu"][0]))
+    par_err = max((out["cuda"][1][n] - out["cpu"][1][n]).abs().max().item()
+                  for n in out["cpu"][1])
+    fro_err = max((torch.linalg.vector_norm(out["cuda"][1][n]
+                                            - out["cpu"][1][n])
+                   / torch.linalg.vector_norm(out["cpu"][1][n])).item()
+                  for n in out["cpu"][1])
+    if not (loss_err <= 1e-5 and fro_err <= 1e-3 and par_err <= lr):
+        raise AssertionError(f"smoke training card vs CPU: loss rel err "
+                             f"{loss_err:.3e} (tol 1e-5), L/R rel Frobenius "
+                             f"err {fro_err:.3e} (tol 1e-3), max abs err "
+                             f"{par_err:.3e} (tol {lr:.1e})")
+    print(f"[train-smoke] losses card {out['cuda'][0]} cpu {out['cpu'][0]}: "
+          f"max rel err {loss_err:.3e} (tol 1e-5); final L/R rel Frobenius "
+          f"err {fro_err:.3e} (tol 1e-3), max abs err {par_err:.3e} (tol "
+          f"{lr:.1e}); launches {out['cuda'][2]} | {card}", flush=True)
+    return dict(losses_cuda=out["cuda"][0], losses_cpu=out["cpu"][0],
+                loss_rel_err=loss_err, factor_rel_fro_err=fro_err,
+                factor_abs_err=par_err, launches=out["cuda"][2])
+
+
+def profile_train_step(state, step, batch, card: str):
+    """Device busy share of one full-width training step (no refresh)
+    under torch.profiler: device time summed over CUDA kernels against the
+    host wall clock of the step (the profiler's own host cost included, so
+    the share is a lower bound)."""
+    acts = [torch.profiler.ProfilerActivity.CPU,
+            torch.profiler.ProfilerActivity.CUDA]
+    torch.cuda.synchronize()
+    with torch.profiler.profile(activities=acts) as prof:
+        t0 = time.perf_counter()
+        state, m = step(state, batch)
+        float(m["loss"])
+        torch.cuda.synchronize()
+        wall_us = (time.perf_counter() - t0) * 1e6
+    events = [e for e in prof.key_averages()
+              if str(getattr(e, "device_type", "")).endswith("CUDA")
+              and getattr(e, "self_device_time_total", 0) > 0]
+    dev_us = sum(e.self_device_time_total for e in events)
+    if dev_us <= 0:
+        print(f"[profile] no device time in the trace: busy share not "
+              f"measured | {card}")
+        return state, {"train_busy_share": None}
+    print(f"[profile] one training step: wall {wall_us / 1e3:.3f} ms, "
+          f"device busy {dev_us / 1e3:.3f} ms, busy share "
+          f"{dev_us / wall_us:.3f} | {card}")
+    top = sorted(events, key=lambda e: -e.self_device_time_total)[:10]
+    for e in top:
+        print(f"[profile]   {e.self_device_time_total / 1e3:8.3f} ms "
+              f"{e.count:5d} calls  {e.key[:70]}")
+    return state, {"train_busy_share": dev_us / wall_us,
+                   "train_step_wall_ms_profiled": wall_us / 1e3,
+                   "train_step_device_ms": dev_us / 1e3,
+                   "train_top": [(e.key[:70], e.self_device_time_total / 1e3,
+                                  e.count) for e in top]}
+
+
+def phase_full_training(card: str) -> dict:
+    print("== phase 8: qwen2-0.5b full-width training, bf16, wsi, AdamW, "
+          "batch 4 x seq 512, refresh every 4, 8 steps", flush=True)
+    b, s, n_steps = 4, 512, 8
+    tcfg = TrainConfig(optimizer="adamw", lr=3e-4, steps=n_steps)
+    t0 = time.perf_counter()
+    cfg, plan, state, step, _ = launch_train.build(
+        "qwen2-0.5b", smoke=False, batch=b, seq=s, wasi="wsi", tcfg=tcfg,
+        device="cuda", refresh_every=4)
+    print(f"[train-full] build {time.perf_counter() - t0:.1f}s", flush=True)
+    assert {sp.name for sp in plan.specs} == set(SITES)
+    assert all(sp.mode == "factored" for sp in plan.specs)
+
+    # seeded uniform tokens: SyntheticLM's dense (vocab, vocab) bigram table
+    # would be ~92 GB at this vocab (ROADMAP.md queue 3)
+    def batch_fn(i):
+        g = torch.Generator(device="cuda").manual_seed(1000 + i)
+        t = torch.randint(0, cfg.vocab_size, (b, s + 1), device="cuda",
+                          generator=g)
+        return {"tokens": t[:, :-1], "labels": t[:, 1:]}
+
+    torch.cuda.synchronize()
+    torch.cuda.reset_peak_memory_stats()
+    ops.reset_launches()
+    state, hist = train_loop(state, step, batch_fn, tcfg, log_every=1,
+                             log_fn=lambda line: print(line, flush=True))
+    torch.cuda.synchronize()
+    counts = ops.launch_counts()
+    peak = torch.cuda.max_memory_allocated()
+    per_step = len(SITES) * cfg.n_layers
+    refreshes = n_steps // 4
+    want = {"lowrank_fwd": 0, "lowrank_fwd_sketch": n_steps * per_step,
+            "lowrank_bwd": n_steps * per_step, "gram": refreshes * len(SITES),
+            "choleskyqr": refreshes * len(SITES)}
+    if counts != want:
+        raise AssertionError(f"full training launches {counts} != {want}")
+    losses = [h["loss"] for h in hist]
+    if len(hist) != n_steps or not all(np.isfinite(x) for x in losses):
+        raise AssertionError(f"full training losses {losses}")
+    step_s = statistics.median(h["sec"] for h in hist[1:])
+    res = dict(losses=losses, step_ms_median=step_s * 1e3,
+               step_ms=[h["sec"] * 1e3 for h in hist],
+               tok_s=b * s / step_s, peak_allocated_mib=peak / 2 ** 20,
+               launches=counts)
+    print(f"[train-full] losses {[round(x, 4) for x in losses]}", flush=True)
+    print(f"[train-full] step_ms_median (steps 2-8)={step_s * 1e3:.3f} "
+          f"tok_s={b * s / step_s:.1f} peak_allocated_mib="
+          f"{peak / 2 ** 20:.1f} | {card}")
+    print(f"[train-full] launches {counts} = {n_steps} steps x {per_step} "
+          f"sketch and backward, {refreshes} refreshes x {len(SITES)} Gram "
+          f"and CholeskyQR, 0 lowrank_fwd", flush=True)
+    state, prof = profile_train_step(state, step, batch_fn(n_steps), card)
+    res.update(prof)
+
+    # one step at batch 1 x seq 32 from the same weights: card f32 and
+    # card bf16 against CPU f32
+    tree = to_reference(state.params)
+    del state, step
+    torch.cuda.empty_cache()
+    g = torch.Generator().manual_seed(5)
+    t = torch.randint(0, cfg.vocab_size, (1, 33), generator=g)
+    small = {"tokens": t[:, :-1], "labels": t[:, 1:]}
+    cfg32 = cfg.replace(dtype="float32")
+    api.install(api.resolve(cfg32))
+    out = {}
+    for name, dev, c in (("cpu32", "cpu", cfg32), ("cuda32", "cuda", cfg32),
+                         ("cuda16", "cuda", cfg)):
+        # to_reference hands bf16 leaves back as f32 holding the same values
+        model = from_reference(tree, c, dev, trainable=True).to(
+            _dtype(c.dtype))
+        loss, _, grads = value_and_grad(
+            lm_loss, model, {k: v.to(dev) for k, v in small.items()}, c)
+        out[name] = (float(loss), float(global_norm(grads)))
+        del model, grads
+    l32 = abs(out["cuda32"][0] / out["cpu32"][0] - 1)
+    g32 = abs(out["cuda32"][1] / out["cpu32"][1] - 1)
+    l16 = abs(out["cuda16"][0] / out["cpu32"][0] - 1)
+    # f32 both sides, sums in other orders through 24 layers: loss 1e-4,
+    # gradient global norm 1e-3 relative; bf16 rounds every activation to
+    # 8 significant bits: loss within 2%
+    if not (l32 <= 1e-4 and g32 <= 1e-3 and l16 <= 0.02):
+        raise AssertionError(f"full-width step vs CPU f32: {out} (loss rel "
+                             f"{l32:.2e}, grad norm rel {g32:.2e}, bf16 loss "
+                             f"rel {l16:.2e})")
+    print(f"[train-full] batch 1 x seq 32 from the trained weights: loss "
+          f"cpu f32 {out['cpu32'][0]:.6f} card f32 {out['cuda32'][0]:.6f} "
+          f"(rel {l32:.2e}, tol 1e-4) card bf16 {out['cuda16'][0]:.6f} "
+          f"(rel {l16:.2e}, tol 2e-2); grad norm cpu f32 "
+          f"{out['cpu32'][1]:.6f} card f32 {out['cuda32'][1]:.6f} (rel "
+          f"{g32:.2e}, tol 1e-3) | {card}", flush=True)
+    res.update(cpu_check=out, loss_rel_f32=l32, gnorm_rel_f32=g32,
+               loss_rel_bf16=l16)
+    api.install(api.resolve(cfg))
+    return res
+
+
 def main() -> None:
     ap = argparse.ArgumentParser(description=__doc__.splitlines()[0])
     ap.add_argument("--json", default="",
@@ -462,21 +956,42 @@ def main() -> None:
     k = phase_kernels(card)
     phase_smoke_parity(card)
     full = phase_full_width(card)
+    tk = phase_train_kernels(card)
+    smoke_train = phase_smoke_training(card)
+    train = phase_full_training(card)
 
     head = k["headline"]
-    line = {"kernels": [{
+    kernels = [{
         "name": "lowrank_fwd", "route": "cuda",
         "source": "src/repro_torch/kernels/csrc/lowrank_fwd.cu",
         "replaces": "src/repro/kernels/lowrank.py:58",
         "launches": full["launches"], "max_abs_err": k["worst"],
         "ms": head["ms"], "plain_ms": head["plain_ms"],
         "bound_ms": head["bound_ms"], "bound_by": head["bound_by"],
-        "library_ms": head["library_ms"]}]}
+        "library_ms": head["library_ms"]}]
+    sources = {"lowrank_fwd_sketch": ("lowrank_fwd.cu", "lowrank.py:70"),
+               "lowrank_bwd": ("lowrank_bwd.cu", "lowrank.py:144"),
+               "gram": ("gram.cu", "gram.py:18"),
+               "choleskyqr": ("choleskyqr.cu", "qr.py:87")}
+    for name, (src, tpu) in sources.items():
+        h = tk["headline"][name]
+        kernels.append({
+            "name": name, "route": "cuda",
+            "source": f"src/repro_torch/kernels/csrc/{src}",
+            "replaces": f"src/repro/kernels/{tpu}",
+            "launches": train["launches"][name],
+            "max_abs_err": tk["worst"][name], "ms": h["ms"],
+            "plain_ms": h["plain_ms"], "bound_ms": h["bound_ms"],
+            "bound_by": h["bound_by"], "library_ms": h["library_ms"]})
+    line = {"kernels": kernels}
     if args.json:
         os.makedirs(os.path.dirname(os.path.abspath(args.json)),
                     exist_ok=True)
         with open(args.json, "w") as f:
             json.dump({"card": card, "kernel_rows": k["rows"], "full": full,
+                       "train_kernel_rows": tk["rows"],
+                       "train_kernel_headline": tk["headline"],
+                       "smoke_training": smoke_train, "full_training": train,
                        "kernels": line["kernels"],
                        "seconds": time.perf_counter() - t_start}, f,
                       indent=1)

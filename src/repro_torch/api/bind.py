@@ -10,10 +10,15 @@ Param layouts are the reference's, one leaf per key:
 leading stack dims, the layer group's ``repeat``); ``apply`` takes any
 mapping of tensors with those keys, a per-layer slice of the stack.
 
-Ported so far: the dense and factored layouts without ASI state, the
-serving path. ``apply`` raises on an ASI state, on int8-packed params, on
-project-mode factors and on tenant adapter pairs; those arrive with the
-training, deployment and tenancy slices (ROADMAP.md).
+Ported so far: the dense and factored layouts without ASI state (serving
+and ``wsi`` training), and ``map_factored`` for the factored-mode refresh.
+``apply`` raises on an ASI state, on int8-packed params, on project-mode
+factors and on tenant adapter pairs; those arrive with later slices
+(ROADMAP.md).
+
+Parameters are built frozen (``requires_grad=False``): serving never
+needs their gradients. Training turns them trainable in one place,
+``train.step.make_train_state``.
 """
 from __future__ import annotations
 
@@ -134,3 +139,22 @@ def linear_param_bytes(p) -> dict:
         elif k == "b":
             out["bias"] += n
     return out
+
+
+def map_factored(params, fn):
+    """Apply ``fn(WSIState) -> WSIState`` to every {L, R} factor pair of a
+    param tree (the factored-mode WSI refresh). Unlike the reference, which
+    returns a new tree, the result is copied IN PLACE into the stacked
+    leaves under ``torch.no_grad``: their storage, and with it every
+    per-layer view and optimizer reference to them, stays the same. ``fn``
+    sees the whole stack, leaves (repeat, O, K) and (repeat, K, I). int8
+    factors (``sL``) are serve-frozen and left alone. Returns ``params``."""
+    from repro_torch.core.wsi import WSIState
+
+    with torch.no_grad():
+        for _, p in iter_linear_dicts(params):
+            if "L" in p and "R" in p and "w" not in p and "sL" not in p:
+                st = fn(WSIState(L=p["L"], R=p["R"]))
+                p["L"].copy_(st.L)
+                p["R"].copy_(st.R)
+    return params

@@ -6,6 +6,11 @@ or anything ``numpy.asarray`` accepts) and gives the port's
 :class:`~repro_torch.models.lm.LanguageModel` holding the same values.
 ``to_reference(model)`` gives the nested dict/list of numpy arrays back.
 
+``from_reference(..., trainable=True)`` gives leaves that require grad.
+``state_from_reference`` / ``state_to_reference`` carry a reference
+``TrainState`` across (params and the optimizer's moments and step), the
+weight carry of the training parity tests.
+
 Leaves keep their dtype. bfloat16 is carried bit for bit through a
 uint16 view, since numpy has no bfloat16 of its own: ``from_reference``
 reads a 2-byte array whose dtype is named ``bfloat16`` (the one JAX
@@ -38,23 +43,24 @@ def _tensor(a, device) -> torch.Tensor:
     return t.to(device)
 
 
-def _module(node, device):
+def _module(node, device, trainable: bool = False):
     if isinstance(node, Mapping):
         if all(not isinstance(v, (Mapping, list, tuple))
                for v in node.values()):
             return nn.ParameterDict({
-                k: nn.Parameter(_tensor(v, device), requires_grad=False)
+                k: nn.Parameter(_tensor(v, device), requires_grad=trainable)
                 for k, v in node.items()})
-        return nn.ModuleDict({k: _module(v, device) for k, v in node.items()})
+        return nn.ModuleDict({k: _module(v, device, trainable)
+                              for k, v in node.items()})
     if isinstance(node, (list, tuple)):
-        return nn.ModuleList(_module(v, device) for v in node)
+        return nn.ModuleList(_module(v, device, trainable) for v in node)
     raise TypeError(f"unexpected node {type(node).__name__} in param tree")
 
 
-def from_reference(tree: Mapping, cfg: ModelConfig,
-                   device=None) -> LanguageModel:
+def from_reference(tree: Mapping, cfg: ModelConfig, device=None, *,
+                   trainable: bool = False) -> LanguageModel:
     """The port's model holding the reference tree's values on ``device``
-    (default CUDA; raises if absent)."""
+    (default CUDA; raises if absent); frozen leaves unless ``trainable``."""
     dev = resolve_device(device)
     missing = [k for k in _TOP if k not in tree]
     if missing:
@@ -64,7 +70,7 @@ def from_reference(tree: Mapping, cfg: ModelConfig,
         raise NotImplementedError(
             f"param tree keys {sorted(extra)} belong to model parts that "
             "are not ported yet")
-    groups = _module(tree["groups"], dev)
+    groups = _module(tree["groups"], dev, trainable)
     if len(groups) != len(cfg.groups):
         raise ValueError(f"tree has {len(groups)} layer groups, config "
                          f"{cfg.name!r} has {len(cfg.groups)}")
@@ -76,8 +82,10 @@ def from_reference(tree: Mapping, cfg: ModelConfig,
             raise ValueError(f"{path}: layout does not match the plan's "
                              f"{spec.mode} site {spec.name}")
     return LanguageModel(
-        cfg, _module(tree["embed"], dev), _module(tree["final_norm"], dev),
-        groups, _module(tree["lm_head"], dev) if "lm_head" in tree else None)
+        cfg, _module(tree["embed"], dev, trainable),
+        _module(tree["final_norm"], dev, trainable), groups,
+        _module(tree["lm_head"], dev, trainable) if "lm_head" in tree
+        else None)
 
 
 def _numpy(node):
@@ -94,3 +102,75 @@ def _numpy(node):
 def to_reference(model: LanguageModel) -> dict:
     """The reference's nested dict/list of numpy arrays."""
     return {k: _numpy(v) for k, v in model.tree().items()}
+
+
+def _flat(node, prefix: str = "") -> dict:
+    """{dotted name: leaf} of a nested dict/list, in the names
+    ``named_parameters`` gives the same tree."""
+    if isinstance(node, Mapping):
+        items = node.items()
+    elif isinstance(node, (list, tuple)):
+        items = enumerate(node)
+    else:
+        return {prefix: node}
+    out = {}
+    for k, v in items:
+        out.update(_flat(v, f"{prefix}.{k}" if prefix else str(k)))
+    return out
+
+
+def _nest(template, named: dict, prefix: str = ""):
+    """The nested dict/list of ``template`` with the leaves of ``named``."""
+    if isinstance(template, Mapping):
+        return {k: _nest(v, named, f"{prefix}.{k}" if prefix else k)
+                for k, v in template.items()}
+    if isinstance(template, (list, tuple)):
+        return [_nest(v, named, f"{prefix}.{i}" if prefix else str(i))
+                for i, v in enumerate(template)]
+    return named[prefix]
+
+
+def _moments(tree, model: LanguageModel, device) -> dict | None:
+    if tree is None:
+        return None
+    flat = _flat(tree)
+    names = [n for n, _ in model.named_parameters()]
+    if sorted(flat) != sorted(names):
+        raise ValueError("optimizer moments do not match the param tree")
+    return {n: _tensor(flat[n], device).float() for n in names}
+
+
+def state_from_reference(rstate, cfg: ModelConfig, device=None):
+    """A reference ``TrainState`` (arrays as numpy or anything
+    ``numpy.asarray`` takes) -> the port's ``TrainState``: trainable params,
+    the optimizer's moments and both step counts. PowerSGD, ASI and
+    project-mode parts are not ported and must be None."""
+    from repro_torch.optim import OptState
+    from repro_torch.train.step import TrainState
+
+    if any(getattr(rstate, f) is not None for f in ("asi", "wsi", "psgd")):
+        raise NotImplementedError("ASI, project-mode and PowerSGD states "
+                                  "are not ported yet (ROADMAP.md queue 1)")
+    dev = resolve_device(device)
+    model = from_reference(rstate.params, cfg, dev, trainable=True)
+    ropt = rstate.opt
+    opt = OptState(step=int(np.asarray(ropt.step)),
+                   mu=_moments(ropt.mu, model, dev),
+                   nu=_moments(ropt.nu, model, dev))
+    return TrainState(params=model, opt=opt, step=int(np.asarray(rstate.step)))
+
+
+def state_to_reference(state) -> dict:
+    """{"params", "mu", "nu" (nested dict/list of numpy, or None), "opt_step",
+    "step"} of the port's ``TrainState``, in the reference's tree."""
+    tree = to_reference(state.params)
+
+    def moments(d):
+        if d is None:
+            return None
+        return _nest(tree, {k: v.detach().cpu().numpy().copy()
+                            for k, v in d.items()})
+
+    return {"params": tree, "mu": moments(state.opt.mu),
+            "nu": moments(state.opt.nu), "opt_step": state.opt.step,
+            "step": state.step}

@@ -10,8 +10,14 @@ plan's JSON written by either package reads in the other.
 
 Differences from the reference, all deliberate:
 
-* ``bwd_fits_vmem`` is the TPU VMEM gate of the fused backward; it stays
-  ``None`` here until the training slice brings an H100 fit rule.
+* ``bwd_fits_vmem`` is the TPU VMEM gate of the fused backward: the
+  reference takes its one-launch backward only where all of dL (O, K) and
+  dR (K, I) fit in VMEM beside the operand tiles, which admits the
+  attention sites and rejects the MLP sites at qwen2 widths. The port's
+  backward (``kernels/csrc/lowrank_bwd.cu``) keeps no whole accumulator in
+  one block: each output tile is owned by one block and the row reduction
+  runs inside it, so it serves every site and needs no fit rule. The field
+  stays ``None``.
 * Calibrated (``epsilon``) resolution raises ``NotImplementedError``; it
   needs the SVD rank picker, which arrives with the training slice.
 * The deployment stamps (``quantized``, ``with_draft``, ``with_adapter``,

@@ -1,2 +1,3 @@
-"""Core WASI math. This slice ports the rank policy only; the Tucker/WSI
-math arrives with the training slice."""
+"""Core WASI math: the rank policy, CholeskyQR (``orthogonal``) and the
+factored-mode WSI refresh (``wsi``). The Tucker/ASI math, project mode and
+PowerSGD arrive with later slices."""

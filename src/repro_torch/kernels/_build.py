@@ -2,8 +2,9 @@
 directory of the checkout, one shared library with a plain C interface per
 source, loaded with ``ctypes``.
 
-Each library's file name carries a hash of its source and flags, so an
-edited source is rebuilt and a stale library is never loaded. A build
+Each library's file name carries a hash of its source, the shared headers
+of ``csrc/`` and the flags, so an edited source or header is rebuilt and a
+stale library is never loaded. A build
 writes a temporary file and renames it into place, so processes that build
 at the same time never load a half-written library. ``build_all`` starts
 one ``nvcc`` per source, all at once.
@@ -23,7 +24,7 @@ from pathlib import Path
 
 CSRC = Path(__file__).resolve().parent / "csrc"
 BUILD_DIR = Path(__file__).resolve().parents[3] / "build" / "repro_torch_kernels"
-SOURCES = ("lowrank_fwd.cu",)
+SOURCES = ("lowrank_fwd.cu", "lowrank_bwd.cu", "gram.cu", "choleskyqr.cu")
 NVCC_FLAGS = ("-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17",
               "-O3", "-shared", "-Xcompiler", "-fPIC", "-lineinfo")
 
@@ -43,6 +44,8 @@ def nvcc() -> str:
 
 def _target(source: str) -> Path:
     text = (CSRC / source).read_bytes()
+    for header in sorted(CSRC.glob("*.cuh")):
+        text += header.read_bytes()
     digest = hashlib.sha256(text + " ".join(NVCC_FLAGS).encode()).hexdigest()
     return BUILD_DIR / f"{Path(source).stem}-{digest[:12]}.so"
 

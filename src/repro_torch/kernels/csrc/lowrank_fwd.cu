@@ -1,11 +1,15 @@
 // Fused low-rank forward for Hopper (sm_90a): y = (x R^T) L^T in one launch.
 //
 // Replaces repro/kernels/lowrank.py::_lowrank_kernel (the Pallas TPU kernel
-// reached through lowrank_fused_tiled). Same contract as the oracle
-// repro_torch/kernels/ref.py::lowrank_matmul_ref:
+// reached through lowrank_fused_tiled) and, through the entry point
+// lowrank_fwd_sketch, repro/kernels/lowrank.py::_lowrank_sketch_kernel
+// (lowrank_fused_tiled(save_sketch=True)), the forward of training. Same
+// contract as the oracles repro_torch/kernels/ref.py::lowrank_matmul_ref and
+// ::lowrank_sketch_ref:
 //   x (M, I), R (K, I), L (O, K), all row-major and of one dtype (bf16 or
-//   f32); h = x R^T is accumulated in f32 and NEVER written to device
-//   memory; y = h L^T with L promoted to f32, cast to x's dtype on store.
+//   f32); h = x R^T is accumulated in f32 and kept on chip; y = h L^T with L
+//   promoted to f32, cast to x's dtype on store. The sketch variant also
+//   writes h (M, K) f32 to device memory once, for the backward.
 //
 // What bounds it on an H100, and what the design does about each:
 //   * Decode (M = a few serve slots) is bound by BYTES: L and R must be
@@ -31,7 +35,13 @@
 // clusters along O each recompute h for their rows, which is what lets a
 // decode step with M = 4 rows still occupy ~100+ SMs (the wrapper picks G).
 // Ragged M, I, K and O are masked in the kernel; nothing is padded or
-// copied. The kernel allocates nothing and does not synchronize; the C
+// copied.
+//
+// Sketch (training). After phase 1 each cluster rank r holds k-slice r of h
+// for its BM rows in hs. The CTAs of cluster group 0 (blockIdx.x < CL) store
+// their slice to h before the cluster barrier, masked to m < M and k < K, so
+// every element of h is written once, by one CTA; the store reads only the
+// CTA's own shared memory and adds M K f32 of bytes, nothing else. The kernel allocates nothing and does not synchronize; the C
 // entry point returns cudaGetLastError() of the launch.
 //
 // Not yet done (later PRs): TMA/cp.async pipelining, wgmma, and a faster
@@ -271,8 +281,9 @@ __host__ __device__ inline int region_a_floats(int kp2) {
 template <typename T, int BM>
 __global__ void __cluster_dims__(CL, 1, 1) __launch_bounds__(THREADS)
     lowrank_fwd_kernel(const T* __restrict__ x, const T* __restrict__ r,
-                       const T* __restrict__ l, T* __restrict__ y, int M,
-                       int I, int K, int O, int KS, int OC) {
+                       const T* __restrict__ l, T* __restrict__ y,
+                       float* __restrict__ hout, int M, int I, int K, int O,
+                       int KS, int OC) {
   constexpr int MT = BM / 16;  // 16-row mma tiles per CTA
   constexpr int RM = BM / 16;  // phase-2 rows per thread
   extern __shared__ __align__(16) float smem[];
@@ -338,6 +349,15 @@ __global__ void __cluster_dims__(CL, 1, 1) __launch_bounds__(THREADS)
       }
     }
     __syncthreads();
+  }
+
+  // ---- sketch: cluster group 0 stores its k-slice of h (training only) ---
+  if (hout != nullptr && blockIdx.x < CL) {
+    for (int e = tid; e < BM * KS; e += THREADS) {
+      const int row = e / KS, c = e % KS;
+      const int m = m0 + row, k = kslice0 + c;
+      if (m < M && k < K) hout[static_cast<size_t>(m) * K + k] = hs[e];
+    }
   }
 
   // ---- gather the full h (BM x Kp) from the cluster's shared memory ------
@@ -414,8 +434,9 @@ __global__ void __cluster_dims__(CL, 1, 1) __launch_bounds__(THREADS)
 }
 
 template <typename T, int BM>
-int launch(const void* x, const void* r, const void* l, void* y, int M, int I,
-           int K, int O, int KS, int OC, int G, int smem, cudaStream_t stream) {
+int launch(const void* x, const void* r, const void* l, void* y, float* h,
+           int M, int I, int K, int O, int KS, int OC, int G, int smem,
+           cudaStream_t stream) {
   auto kern = lowrank_fwd_kernel<T, BM>;
   cudaError_t err = cudaFuncSetAttribute(
       kern, cudaFuncAttributeMaxDynamicSharedMemorySize, smem);
@@ -423,7 +444,7 @@ int launch(const void* x, const void* r, const void* l, void* y, int M, int I,
   dim3 grid(CL * G, (M + BM - 1) / BM);
   kern<<<grid, THREADS, smem, stream>>>(
       static_cast<const T*>(x), static_cast<const T*>(r),
-      static_cast<const T*>(l), static_cast<T*>(y), M, I, K, O, KS, OC);
+      static_cast<const T*>(l), static_cast<T*>(y), h, M, I, K, O, KS, OC);
   return static_cast<int>(cudaGetLastError());
 }
 
@@ -441,6 +462,22 @@ int lowrank_fwd_smem_bytes(int bm, int ks) {
   return static_cast<int>(sizeof(float)) * (a + bm * ks + TK * LS);
 }
 
+static int dispatch(const void* x, const void* r, const void* l, void* y,
+                    float* h, int M, int I, int K, int O, int dtype, int bm,
+                    int ks, int oc, int g, void* stream) {
+  const int smem = lowrank_fwd_smem_bytes(bm, ks);
+  cudaStream_t s = static_cast<cudaStream_t>(stream);
+  if (dtype == 1) {
+    if (bm == 16)
+      return launch<uint16_t, 16>(x, r, l, y, h, M, I, K, O, ks, oc, g, smem,
+                                  s);
+    return launch<uint16_t, 64>(x, r, l, y, h, M, I, K, O, ks, oc, g, smem, s);
+  }
+  if (bm == 16)
+    return launch<float, 16>(x, r, l, y, h, M, I, K, O, ks, oc, g, smem, s);
+  return launch<float, 64>(x, r, l, y, h, M, I, K, O, ks, oc, g, smem, s);
+}
+
 // dtype: 0 = float32, 1 = bfloat16. bm: 16 or 64 rows per CTA. ks: width of
 // each cluster rank's k-slice (a multiple of 8, CL * ks >= K). oc: output
 // columns per CTA; g: clusters along O (grid.x = 8 * g, g * 8 * oc >= O).
@@ -448,16 +485,15 @@ int lowrank_fwd_smem_bytes(int bm, int ks) {
 int lowrank_fwd(const void* x, const void* r, const void* l, void* y, int M,
                 int I, int K, int O, int dtype, int bm, int ks, int oc, int g,
                 void* stream) {
-  const int smem = lowrank_fwd_smem_bytes(bm, ks);
-  cudaStream_t s = static_cast<cudaStream_t>(stream);
-  if (dtype == 1) {
-    if (bm == 16)
-      return launch<uint16_t, 16>(x, r, l, y, M, I, K, O, ks, oc, g, smem, s);
-    return launch<uint16_t, 64>(x, r, l, y, M, I, K, O, ks, oc, g, smem, s);
-  }
-  if (bm == 16)
-    return launch<float, 16>(x, r, l, y, M, I, K, O, ks, oc, g, smem, s);
-  return launch<float, 64>(x, r, l, y, M, I, K, O, ks, oc, g, smem, s);
+  return dispatch(x, r, l, y, nullptr, M, I, K, O, dtype, bm, ks, oc, g,
+                  stream);
+}
+
+// The same launch, also writing the f32 sketch h (M, K) = x R^T.
+int lowrank_fwd_sketch(const void* x, const void* r, const void* l, void* y,
+                       float* h, int M, int I, int K, int O, int dtype, int bm,
+                       int ks, int oc, int g, void* stream) {
+  return dispatch(x, r, l, y, h, M, I, K, O, dtype, bm, ks, oc, g, stream);
 }
 
 }  // extern "C"

@@ -1,10 +1,15 @@
-"""Wrapper of the fused low-rank forward kernel ``csrc/lowrank_fwd.cu``:
-y = (x R^T) L^T in one launch, the rank-K ``h`` kept in f32 in shared
-memory. It replaces ``repro/kernels/lowrank.py::_lowrank_kernel``.
+"""Wrappers of the fused low-rank kernels:
 
-``lowrank_fused`` takes 2-D CUDA tensors only and launches the kernel or
-raises; it never falls back. The grid shape is chosen here, in Python,
-where the CPU tests can check it (``launch_config``).
+* ``lowrank_fused`` -> ``csrc/lowrank_fwd.cu``: y = (x R^T) L^T in one
+  launch, the rank-K ``h`` kept in f32 in shared memory. It replaces
+  ``repro/kernels/lowrank.py::_lowrank_kernel``; with ``save_sketch`` it
+  also writes ``h`` (M, K) f32 once and replaces ``_lowrank_sketch_kernel``.
+* ``lowrank_bwd`` -> ``csrc/lowrank_bwd.cu``: (dx, dL, dR) from the saved
+  sketch, replacing ``_lowrank_bwd_kernel``.
+
+Both take 2-D CUDA tensors only and launch the kernel or raise; they never
+fall back. Grid shapes and reduction splits are chosen here, in Python,
+where the CPU tests can check them (``launch_config``, ``splits``).
 """
 from __future__ import annotations
 
@@ -17,8 +22,12 @@ import torch
 from repro_torch.kernels import _build
 
 #: kernel name -> launches made by its wrapper (plain ints; a run sets them
-#: to 0 and reads them to show the main path went through the kernel)
+#: to 0 and reads them to show the main path went through the kernel).
+#: ``LAUNCHES`` counts the serving forward alone; the kernels that only
+#: training reaches count in ``TRAIN_LAUNCHES``.
 LAUNCHES: dict[str, int] = {"lowrank_fwd": 0}
+TRAIN_LAUNCHES: dict[str, int] = {"lowrank_fwd_sketch": 0, "lowrank_bwd": 0,
+                                  "gram": 0, "choleskyqr": 0}
 
 CLUSTER = 8           # CTAs per thread-block cluster (csrc: CL)
 TARGET_CTAS = 264     # about two CTAs per SM of an H100 (132 SMs)
@@ -82,54 +91,185 @@ def _lib() -> ctypes.CDLL:
             + [ctypes.c_void_p]
         lib.lowrank_fwd_smem_bytes.restype = ctypes.c_int
         lib.lowrank_fwd_smem_bytes.argtypes = [ctypes.c_int, ctypes.c_int]
+        lib.lowrank_fwd_sketch.restype = ctypes.c_int
+        lib.lowrank_fwd_sketch.argtypes = [ctypes.c_void_p] * 5 \
+            + [ctypes.c_int] * 9 + [ctypes.c_void_p]
     return lib
 
 
-def _check(x: torch.Tensor, r: torch.Tensor, l: torch.Tensor) -> None:
-    for name, t in (("x", x), ("R", r), ("L", l)):
+def check_cuda(op: str, **tensors: torch.Tensor) -> None:
+    """Device, layout and size checks every kernel wrapper makes."""
+    device = None
+    for name, t in tensors.items():
         if t.device.type != "cuda":
-            raise ValueError(f"lowrank_fused: {name} is on {t.device}, "
-                             "the kernel takes CUDA tensors only")
+            raise ValueError(f"{op}: {name} is on {t.device}, the kernel "
+                             "takes CUDA tensors only")
+        if not t.is_contiguous():
+            raise ValueError(f"{op}: {name} must be contiguous")
+        if t.numel() >= 2 ** 31:
+            raise ValueError(f"{op}: {name} too large for 32-bit sizes")
+        if device is not None and t.device != device:
+            raise ValueError(f"{op}: tensors on different devices")
+        device = t.device
+
+
+def dtype_code(op: str, t: torch.Tensor) -> int:
+    if t.dtype not in _DTYPES:
+        raise ValueError(f"{op}: dtype {t.dtype} not supported "
+                         "(bfloat16 or float32)")
+    return _DTYPES[t.dtype]
+
+
+def _check(x: torch.Tensor, r: torch.Tensor, l: torch.Tensor) -> None:
+    check_cuda("lowrank_fused", x=x, R=r, L=l)
+    for name, t in (("x", x), ("R", r), ("L", l)):
         if t.dim() != 2:
             raise ValueError(f"lowrank_fused: {name} must be 2-D, got "
                              f"{tuple(t.shape)}")
-        if not t.is_contiguous():
-            raise ValueError(f"lowrank_fused: {name} must be contiguous")
-        if t.dtype not in _DTYPES:
-            raise ValueError(f"lowrank_fused: dtype {t.dtype} not supported "
-                             "(bfloat16 or float32)")
+        dtype_code("lowrank_fused", t)
     if not (x.dtype == r.dtype == l.dtype):
         raise ValueError(f"lowrank_fused: dtypes differ ({x.dtype}, "
                          f"{r.dtype}, {l.dtype})")
-    if not (x.device == r.device == l.device):
-        raise ValueError("lowrank_fused: tensors on different devices")
     if x.shape[1] != r.shape[1] or r.shape[0] != l.shape[1]:
         raise ValueError(f"lowrank_fused: shapes x {tuple(x.shape)}, R "
                          f"{tuple(r.shape)}, L {tuple(l.shape)} do not chain")
-    if max(t.numel() for t in (x, r, l)) >= 2 ** 31:
-        raise ValueError("lowrank_fused: tensor too large for 32-bit sizes")
 
 
 def lowrank_fused(x: torch.Tensor, r_factor: torch.Tensor,
-                  l_factor: torch.Tensor) -> torch.Tensor:
+                  l_factor: torch.Tensor, *, save_sketch: bool = False):
     """y (M, O) = x (M, I) R^T (I, K) L^T (K, O), one launch of the CUDA
-    kernel on the current stream. bf16 or f32; all three of one dtype."""
+    kernel on the current stream. bf16 or f32; all three of one dtype.
+    With ``save_sketch`` returns ``(y, h)``, h (M, K) = x R^T in f32
+    written by the same launch (the training forward)."""
     _check(x, r_factor, l_factor)
     m, i = x.shape
     k, o = r_factor.shape[0], l_factor.shape[0]
     y = torch.empty((m, o), dtype=x.dtype, device=x.device)
+    h = (torch.empty((m, k), dtype=torch.float32, device=x.device)
+         if save_sketch else None)
+    if save_sketch and o == 0 and m > 0:
+        raise ValueError("lowrank_fused: the sketch needs O >= 1 (h is "
+                         "written by the CTAs that compute y)")
     if m == 0 or o == 0:
-        return y
+        return (y, h) if save_sketch else y
     cfg = launch_config(m, k, o)
     lib = _lib()
+    args = (m, i, k, o, _DTYPES[x.dtype], cfg.bm, cfg.ks, cfg.oc, cfg.groups)
     with torch.cuda.device(x.device):
         stream = torch.cuda.current_stream(x.device).cuda_stream
-        err = lib.lowrank_fwd(x.data_ptr(), r_factor.data_ptr(),
-                              l_factor.data_ptr(), y.data_ptr(), m, i, k, o,
-                              _DTYPES[x.dtype], cfg.bm, cfg.ks, cfg.oc,
-                              cfg.groups, stream)
+        if save_sketch:
+            err = lib.lowrank_fwd_sketch(x.data_ptr(), r_factor.data_ptr(),
+                                         l_factor.data_ptr(), y.data_ptr(),
+                                         h.data_ptr(), *args, stream)
+        else:
+            err = lib.lowrank_fwd(x.data_ptr(), r_factor.data_ptr(),
+                                  l_factor.data_ptr(), y.data_ptr(), *args,
+                                  stream)
+    name = "lowrank_fwd_sketch" if save_sketch else "lowrank_fwd"
     if err != 0:
-        raise RuntimeError(f"lowrank_fwd launch failed: CUDA error {err} "
+        raise RuntimeError(f"{name} launch failed: CUDA error {err} "
                            f"(M={m} I={i} K={k} O={o} {cfg})")
-    LAUNCHES["lowrank_fwd"] += 1
+    if save_sketch:
+        TRAIN_LAUNCHES[name] += 1
+        return y, h
+    LAUNCHES[name] += 1
     return y
+
+
+# ---------------------------------------------------------------------------
+# Backward: csrc/lowrank_bwd.cu (and the tiled f32 product of gemm_f32.cuh
+# that gram.cu and choleskyqr.cu share)
+# ---------------------------------------------------------------------------
+
+TILE = 64   # output tile edge of the product kernel (csrc: gemm::BM, BN)
+
+
+def splits(rows: int, cols: int, red: int, batch: int = 1) -> int:
+    """Contiguous ranges to cut a product's reduction into, so that an
+    output with few 64 x 64 tiles still fills about TARGET_CTAS blocks;
+    each range keeps at least 256 terms. 1 when the tiles alone fill the
+    card (132 SMs)."""
+    tiles = batch * _cdiv(rows, TILE) * _cdiv(cols, TILE)
+    if tiles == 0 or tiles >= TARGET_CTAS // 2:
+        return 1
+    return max(1, min(TARGET_CTAS // tiles, red // 256))
+
+
+class BwdConfig(NamedTuple):
+    dh: int   # reduction splits of dh = dy L   (over O)
+    dx: int   # ... of dx = dh R                 (over K)
+    dl: int   # ... of dL = dy^T h               (over M)
+    dr: int   # ... of dR = dh^T x               (over M)
+    ws: int   # f32 workspace the split partials need
+
+
+@functools.lru_cache(maxsize=256)
+def bwd_config(m: int, i: int, k: int, o: int) -> BwdConfig:
+    shapes = {"dh": (m, k, o), "dx": (m, i, k), "dl": (o, k, m),
+              "dr": (k, i, m)}
+    s = {n: splits(*sh) for n, sh in shapes.items()}
+    ws = max([s[n] * shapes[n][0] * shapes[n][1] for n in s if s[n] > 1],
+             default=0)
+    return BwdConfig(ws=ws, **s)
+
+
+def _bwd_lib() -> ctypes.CDLL:
+    lib = _build.library("lowrank_bwd.cu")
+    if lib.lowrank_bwd.argtypes is None:
+        lib.lowrank_bwd.restype = ctypes.c_int
+        lib.lowrank_bwd.argtypes = [ctypes.c_void_p] * 10 \
+            + [ctypes.c_int] * 9 + [ctypes.c_void_p]
+    return lib
+
+
+def lowrank_bwd(dy: torch.Tensor, x: torch.Tensor, h: torch.Tensor,
+                l_factor: torch.Tensor, r_factor: torch.Tensor):
+    """(dx, dL, dR) of y = (x R^T) L^T from the forward's saved sketch,
+    one call of the CUDA backward on the current stream. dy (M, O) and
+    x (M, I) in one dtype (bf16 or f32) with L (O, K) and R (K, I);
+    h (M, K) f32. Returns dx (M, I) in x's dtype, dL (O, K) and dR (K, I)
+    in f32 (the reference's argument order, ``lowrank_bwd_tiled``)."""
+    op = "lowrank_bwd"
+    check_cuda(op, dy=dy, x=x, h=h, L=l_factor, R=r_factor)
+    for name, t in (("dy", dy), ("x", x), ("h", h), ("L", l_factor),
+                    ("R", r_factor)):
+        if t.dim() != 2:
+            raise ValueError(f"{op}: {name} must be 2-D, got "
+                             f"{tuple(t.shape)}")
+    code = dtype_code(op, x)
+    if not (dy.dtype == x.dtype == l_factor.dtype == r_factor.dtype):
+        raise ValueError(f"{op}: dtypes differ ({dy.dtype}, {x.dtype}, "
+                         f"{l_factor.dtype}, {r_factor.dtype})")
+    if h.dtype != torch.float32:
+        raise ValueError(f"{op}: the sketch h must be float32, got {h.dtype}")
+    m, o = dy.shape
+    i = x.shape[1]
+    k = h.shape[1]
+    if (x.shape[0], h.shape[0]) != (m, m) or l_factor.shape != (o, k) \
+            or r_factor.shape != (k, i):
+        raise ValueError(f"{op}: shapes dy {tuple(dy.shape)}, x "
+                         f"{tuple(x.shape)}, h {tuple(h.shape)}, L "
+                         f"{tuple(l_factor.shape)}, R "
+                         f"{tuple(r_factor.shape)} do not chain")
+    dev = x.device
+    dx = torch.empty((m, i), dtype=x.dtype, device=dev)
+    dl = torch.empty((o, k), dtype=torch.float32, device=dev)
+    dr = torch.empty((k, i), dtype=torch.float32, device=dev)
+    if min(m, i, k, o) == 0:
+        return dx.zero_(), dl.zero_(), dr.zero_()
+    cfg = bwd_config(m, i, k, o)
+    dh = torch.empty((m, k), dtype=torch.float32, device=dev)
+    ws = torch.empty((max(cfg.ws, 1),), dtype=torch.float32, device=dev)
+    lib = _bwd_lib()
+    with torch.cuda.device(dev):
+        stream = torch.cuda.current_stream(dev).cuda_stream
+        err = lib.lowrank_bwd(dy.data_ptr(), x.data_ptr(), h.data_ptr(),
+                              l_factor.data_ptr(), r_factor.data_ptr(),
+                              dx.data_ptr(), dl.data_ptr(), dr.data_ptr(),
+                              dh.data_ptr(), ws.data_ptr(), m, i, k, o, code,
+                              cfg.dh, cfg.dx, cfg.dl, cfg.dr, stream)
+    if err != 0:
+        raise RuntimeError(f"{op} launch failed: CUDA error {err} "
+                           f"(M={m} I={i} K={k} O={o} {cfg})")
+    TRAIN_LAUNCHES[op] += 1
+    return dx, dl, dr

@@ -1,23 +1,73 @@
-"""Dispatch between the kernels and their plain versions, plus the launch
-counters.
+"""Dispatch between the kernels and their plain versions, the custom
+gradient of the factored linear, and the launch counters.
 
 A CPU tensor takes the plain PyTorch version (``ref.py``); a CUDA tensor
 launches the kernel or raises. There is no fallback from one to the other:
 the device of the input decides, and nothing else.
+
+Counters: ``LAUNCHES`` holds the serving forward (``lowrank_fwd``),
+``TRAIN_LAUNCHES`` the kernels training reaches (``lowrank_fwd_sketch``,
+``lowrank_bwd``, ``gram``, ``choleskyqr``); ``launch_counts`` reads both.
 """
 from __future__ import annotations
 
 import torch
 
 from repro_torch.kernels import ref
-from repro_torch.kernels.lowrank import LAUNCHES, lowrank_fused
+from repro_torch.kernels.gram import gram as _gram_kernel
+from repro_torch.kernels.lowrank import (
+    LAUNCHES,
+    TRAIN_LAUNCHES,
+    lowrank_bwd,
+    lowrank_fused,
+)
+from repro_torch.kernels.qr import choleskyqr
 
-__all__ = ["LAUNCHES", "lowrank_matmul", "reset_launches"]
+__all__ = ["LAUNCHES", "TRAIN_LAUNCHES", "cholesky_qr_mix",
+           "choleskyqr_fused", "gram", "launch_counts", "lowrank_bwd_fused",
+           "lowrank_matmul", "reset_launches"]
 
 
 def reset_launches() -> None:
-    for name in LAUNCHES:
-        LAUNCHES[name] = 0
+    for counts in (LAUNCHES, TRAIN_LAUNCHES):
+        for name in counts:
+            counts[name] = 0
+
+
+def launch_counts() -> dict[str, int]:
+    """Every kernel's launches: {name: count}."""
+    return {**LAUNCHES, **TRAIN_LAUNCHES}
+
+
+def _on_cpu(t: torch.Tensor) -> bool:
+    return t.device.type == "cpu"
+
+
+class _LowrankFused(torch.autograd.Function):
+    """The fused factored linear with its sketch-saving gradient (the
+    reference's ``_lowrank_fused`` and its custom VJP). Forward: the sketch
+    kernel writes y and h = x R^T (f32); (x, h, R, L) are saved and nothing
+    is recomputed. Backward: one call of the backward kernel; dx comes back
+    in x's dtype, dR and dL in the factors' dtypes. On CPU tensors both
+    halves run their plain versions through the same wiring."""
+
+    @staticmethod
+    def forward(ctx, x2, r_factor, l_factor):
+        if _on_cpu(x2):
+            y, h = ref.lowrank_sketch_ref(x2, r_factor, l_factor)
+        else:
+            x2, r_factor, l_factor = (t.contiguous() for t in
+                                      (x2, r_factor, l_factor))
+            y, h = lowrank_fused(x2, r_factor, l_factor, save_sketch=True)
+        ctx.save_for_backward(x2, h, r_factor, l_factor)
+        return y
+
+    @staticmethod
+    def backward(ctx, dy):
+        x2, h, r_factor, l_factor = ctx.saved_tensors
+        dx, dl, dr = lowrank_bwd_fused(dy.contiguous(), x2, h, l_factor,
+                                       r_factor)
+        return dx, dr.to(r_factor.dtype), dl.to(l_factor.dtype)
 
 
 def lowrank_matmul(x: torch.Tensor, r_factor: torch.Tensor,
@@ -25,11 +75,56 @@ def lowrank_matmul(x: torch.Tensor, r_factor: torch.Tensor,
     """WASI factored linear (Eq. 8): y = (x @ R^T) @ L^T, the entry every
     factored linear routes through. x (..., I), R (K, I), L (O, K) ->
     (..., O), leading dims flattened as the reference's fused wrapper
-    does. CUDA: the fused kernel (``kernels/lowrank.py``). CPU: the plain
-    f32 version (``ref.lowrank_matmul_ref``)."""
-    if x.device.type == "cpu":
-        return ref.lowrank_matmul_ref(x, r_factor, l_factor)
+    does. With grad enabled and any input requiring grad it goes through
+    ``_LowrankFused`` (sketch forward, fused backward); otherwise, as in
+    serving, CUDA launches the fused forward (``kernels/lowrank.py``) and
+    the CPU takes the plain f32 version (``ref.lowrank_matmul_ref``)."""
     lead = x.shape[:-1]
+    if torch.is_grad_enabled() and (x.requires_grad or r_factor.requires_grad
+                                    or l_factor.requires_grad):
+        y = _LowrankFused.apply(x.reshape(-1, x.shape[-1]), r_factor,
+                                l_factor)
+        return y.reshape(*lead, l_factor.shape[0])
+    if _on_cpu(x):
+        return ref.lowrank_matmul_ref(x, r_factor, l_factor)
     x2 = x.reshape(-1, x.shape[-1]).contiguous()
     y = lowrank_fused(x2, r_factor.contiguous(), l_factor.contiguous())
     return y.reshape(*lead, l_factor.shape[0])
+
+
+def lowrank_bwd_fused(dy: torch.Tensor, x: torch.Tensor, h: torch.Tensor,
+                      l_factor: torch.Tensor, r_factor: torch.Tensor):
+    """The fused backward, unconditionally: dy (M, O), x (M, I), h (M, K)
+    = x @ R^T -> (dx in x's dtype, dL f32, dR f32)."""
+    if _on_cpu(x):
+        return ref.lowrank_bwd_ref(dy, x, h, l_factor, r_factor)
+    return lowrank_bwd(dy, x, h, l_factor, r_factor)
+
+
+def gram(y: torch.Tensor) -> torch.Tensor:
+    """G = Y^T Y (f32), the CholeskyQR reduction. y (..., M, K)."""
+    if _on_cpu(y):
+        return ref.gram_ref(y)
+    return _gram_kernel(y.contiguous())
+
+
+def choleskyqr_fused(y: torch.Tensor):
+    """The fused CholeskyQR, unconditionally: y (..., M, K) ->
+    (Q (..., M, K), mix (..., K, K) f32 = Q^T Y)."""
+    if _on_cpu(y):
+        return ref.choleskyqr_ref(y)
+    return choleskyqr(y.contiguous())
+
+
+def cholesky_qr_mix(y: torch.Tensor):
+    """(Q, mix = Q^T Y) for the WSI factored refresh, the entry
+    ``core/wsi.py`` routes through. CUDA: the CholeskyQR kernel (Gram,
+    factor, apply) over every stacked index at once; the reference sends a
+    stacked operand to its jnp version instead, and the kernel computes the
+    same function. CPU: ``core.orthogonal.cholesky_qr_mix_ref``, batched,
+    with the NaN ladder of ``_shifted_cholesky`` (the kernel has the Pallas
+    kernel's sqrt and divide guards instead)."""
+    if _on_cpu(y):
+        from repro_torch.core.orthogonal import cholesky_qr_mix_ref
+        return cholesky_qr_mix_ref(y)
+    return choleskyqr(y.contiguous())

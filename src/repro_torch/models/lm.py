@@ -12,8 +12,12 @@ stacked dim; ``jax.jit`` becomes eager PyTorch. Decode caches mirror the
 groups (leaves (repeat, B, S, KVH, Dh)) and are updated IN PLACE: the
 returned caches are the ones passed in.
 
-Entry points: init_lm / init_lm_cache, lm_forward (logits), lm_prefill
-(token-parallel prompt pass that fills the caches), lm_decode_step.
+Entry points: init_lm / init_lm_cache, lm_forward (logits), lm_loss
+(training), lm_prefill (token-parallel prompt pass that fills the caches),
+lm_decode_step.
+
+``remat`` (the full config's ``"block"``) is not ported: the backward keeps
+every layer's saved activations, which the numbers do not depend on.
 """
 from __future__ import annotations
 
@@ -59,19 +63,29 @@ class LanguageModel(nn.Module):
     def layer_views(self) -> list:
         """Per-layer params: ``views[gi][pi][j]`` is layer ``j`` of group
         ``gi`` at pattern position ``pi``, a nested dict of views into the
-        stacked leaves. Built once, rebuilt only when a leaf's storage
-        moves (``.to()``, ``load_state_dict``)."""
-        key = tuple(p.data_ptr() for p in self.groups.parameters())
+        stacked leaves.
+
+        With grad enabled and any leaf trainable, the views are built anew
+        for every call, so autograd records each ``leaf[j]`` and the
+        gradients reach the stacked leaves. Otherwise (serving) they are
+        built once, under ``no_grad`` so that they never carry gradient
+        history, and rebuilt only when a leaf's storage moves (``.to()``,
+        ``load_state_dict``)."""
+        leaves = list(self.groups.parameters())
+        if torch.is_grad_enabled() and any(p.requires_grad for p in leaves):
+            return self._build_views()
+        key = tuple(p.data_ptr() for p in leaves)
         if self._views_key != key:
             # plain views even when first built under inference_mode, so
             # autograd code can use the cache later
-            with torch.inference_mode(False):
-                self._views = [[[_slice(blk, j) for j in
-                                 range(self.cfg.groups[gi].repeat)]
-                                for blk in grp] for gi, grp in
-                               enumerate(self.groups)]
+            with torch.inference_mode(False), torch.no_grad():
+                self._views = self._build_views()
             self._views_key = key
         return self._views
+
+    def _build_views(self) -> list:
+        return [[[_slice(blk, j) for j in range(self.cfg.groups[gi].repeat)]
+                 for blk in grp] for gi, grp in enumerate(self.groups)]
 
 
 def _slice(node, j: int):
@@ -168,6 +182,30 @@ def lm_forward(model: LanguageModel, tokens, cfg: ModelConfig, *,
         x = _embed(model, tokens, cfg)
     x, _, nc, aux = lm_backbone(model, x, cfg, caches=caches, pos=pos)
     return _logits(model, x, cfg), None, nc, aux
+
+
+def lm_loss(model: LanguageModel, batch: dict, cfg: ModelConfig, *,
+            states=None, policy=None):
+    """Cross-entropy (f32 reductions) + 0.01 x MoE aux. batch: {tokens
+    (B, S), labels (B, S)}; labels < 0 are masked out. Returns (loss,
+    (new_states, metrics)) with metrics ``ce``, ``aux``, ``ppl_proxy``."""
+    if policy is not None:
+        raise NotImplementedError("sharding policies arrive with the "
+                                  "distributed slice (ROADMAP.md queue 1)")
+    if states is not None:
+        raise NotImplementedError("ASI states (the wasi/asi methods) are "
+                                  "not ported yet (ROADMAP.md queue 1)")
+    from repro_torch.nn.losses import masked_xent
+
+    logits, ns, _, aux = lm_forward(model, batch["tokens"], cfg)
+    labels = batch["labels"]
+    mask = (labels >= 0).float()
+    ce = masked_xent(logits, torch.clamp(labels, min=0), mask)
+    aux = torch.as_tensor(aux, dtype=torch.float32, device=ce.device)
+    loss = ce + 0.01 * aux
+    metrics = {"ce": ce, "aux": aux,
+               "ppl_proxy": torch.exp(torch.clamp(ce, max=20.0))}
+    return loss, (ns, metrics)
 
 
 def lm_decode_step(model: LanguageModel, token, caches, pos,

@@ -1,0 +1,50 @@
+"""Training loop over a ``batch_fn(step) -> batch`` (the reference's first
+data contract, ``repro.train.loop``): step timing, logging and the metrics
+history. The batch must already be on the model's device.
+
+Not ported yet, and refused with ``NotImplementedError``: checkpoints
+(``ckpt``), the streaming ``DataIterator`` contract, measured memory
+telemetry (``memprof``) and DP batch placement (``batch_sharding``);
+see ROADMAP.md queue 1.
+"""
+from __future__ import annotations
+
+import time
+
+from repro_torch.config import TrainConfig
+from repro_torch.train.step import TrainState
+
+
+def _is_iterator(data) -> bool:
+    return hasattr(data, "next_batch") and hasattr(data, "state")
+
+
+def train_loop(state: TrainState, step_fn, data, tcfg: TrainConfig, *,
+               log_every: int = 10, ckpt=None, max_steps: int | None = None,
+               memprof: bool = False, batch_sharding=None,
+               log_fn=print) -> tuple[TrainState, list[dict]]:
+    """Runs from ``state.step`` up to ``max_steps or tcfg.steps``. Returns
+    (final_state, metrics_history); a logged step's ``sec`` is its wall
+    time up to its metrics on the host (reading them waits for the
+    device)."""
+    for what, given in (("checkpoints", ckpt is not None),
+                        ("measured memory telemetry", memprof),
+                        ("DP batch placement", batch_sharding is not None),
+                        ("the DataIterator contract", _is_iterator(data))):
+        if given:
+            raise NotImplementedError(f"train_loop: {what} is not ported "
+                                      "yet (ROADMAP.md queue 1)")
+    total = max_steps or tcfg.steps
+    history = []
+    for step in range(state.step, total):
+        t0 = time.perf_counter()
+        state, metrics = step_fn(state, data(step))
+        if step % log_every == 0 or step == total - 1:
+            m = {k: float(v) for k, v in metrics.items()}
+            m["step"] = step
+            m["sec"] = time.perf_counter() - t0
+            history.append(m)
+            log_fn(f"[train] step {step}: " +
+                   " ".join(f"{k}={v:.4g}" for k, v in m.items()
+                            if k != "step"))
+    return state, history

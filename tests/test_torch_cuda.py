@@ -92,3 +92,173 @@ def test_smem_formula_matches_the_source(cuda, bm, ks):
     limit with its own copy of the source's formula; the two agree."""
     lib = lowrank._lib()
     assert lib.lowrank_fwd_smem_bytes(bm, ks) == lowrank.smem_bytes(bm, ks)
+
+
+# ---------------------------------------------------------------------------
+# The training kernels: sketch forward, backward, Gram, CholeskyQR
+# ---------------------------------------------------------------------------
+
+from repro_torch.core.orthogonal import (  # noqa: E402
+    cholesky_qr_mix_ref,
+    orthonormality_error,
+)
+from repro_torch.kernels import gram as kgram  # noqa: E402
+from repro_torch.kernels import qr as kqr  # noqa: E402
+
+# (M, I, K, O): ragged, and the four training sites of qwen2-0.5b at a
+# ragged row count
+BWD_SHAPES = [(64, 96, 24, 48), (37, 70, 5, 33), (257, 130, 100, 7),
+              (1000, 896, 256, 896), (1000, 896, 128, 128),
+              (1000, 896, 256, 4864), (1000, 4864, 256, 896)]
+
+
+def _bwd_inputs(m, i, k, o, device, dtype, seed=0):
+    g = torch.Generator().manual_seed(seed)
+    x = torch.randn(m, i, generator=g)
+    r = torch.randn(k, i, generator=g) * i ** -0.5
+    l_ = torch.randn(o, k, generator=g) * k ** -0.5
+    dy = torch.randn(m, o, generator=g)
+    x, r, l_, dy = (t.to(device, dtype) for t in (x, r, l_, dy))
+    h = x.float() @ r.float().T
+    return dy, x, h, l_, r
+
+
+def _close(got, want, n, dtype=torch.float32):
+    """f32 sums of n terms in another order: n eps |result scale|; a bf16
+    output adds one rounding (2^-7 relative)."""
+    want = want.float()
+    scale = want.abs().max().item()
+    tol = 2 * n * EPS32 * max(scale, 1.0)
+    if dtype == torch.bfloat16:
+        tol += 2.0 ** -7 * scale
+    err = (got.float() - want).abs().max().item()
+    assert err <= tol, (err, tol)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("m,i,k,o", BWD_SHAPES)
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+def test_sketch_kernel_matches_plain_version(cuda, m, i, k, o, dtype):
+    _, x, _, l_, r = _bwd_inputs(m, i, k, o, cuda, dtype)
+    before = dict(ops.launch_counts())
+    y, h = lowrank.lowrank_fused(x, r, l_, save_sketch=True)
+    torch.cuda.synchronize()
+    after = ops.launch_counts()
+    assert after["lowrank_fwd_sketch"] == before["lowrank_fwd_sketch"] + 1
+    assert after["lowrank_fwd"] == before["lowrank_fwd"]
+    assert h.dtype == torch.float32 and h.shape == (m, k)
+    want_y, want_h = ref.lowrank_sketch_ref(x, r, l_)
+    _close(h, want_h, i)
+    _close(y, want_y, i + k, dtype)
+    # the sketch store changes nothing of y
+    assert torch.equal(y, lowrank.lowrank_fused(x, r, l_))
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("m,i,k,o", BWD_SHAPES)
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+def test_bwd_kernel_matches_plain_version(cuda, m, i, k, o, dtype):
+    """dx sums O then K terms, dL M terms, dR O then M terms."""
+    dy, x, h, l_, r = _bwd_inputs(m, i, k, o, cuda, dtype)
+    before = ops.launch_counts()["lowrank_bwd"]
+    dx, dl, dr = lowrank.lowrank_bwd(dy, x, h, l_, r)
+    torch.cuda.synchronize()
+    assert ops.launch_counts()["lowrank_bwd"] == before + 1
+    assert dx.dtype == dtype and dl.dtype == dr.dtype == torch.float32
+    want = ref.lowrank_bwd_ref(dy, x, h, l_, r)
+    _close(dx, want[0], o + k, dtype)
+    _close(dl, want[1], m)
+    _close(dr, want[2], o + m)
+    again = lowrank.lowrank_bwd(dy, x, h, l_, r)
+    assert all(torch.equal(a, b) for a, b in zip((dx, dl, dr), again))
+
+
+GRAM_SHAPES = [(1, 2048, 256), (3, 100, 40), (24, 4864, 256),
+               (24, 896, 128), (2, 37, 5)]
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("b,m,k", GRAM_SHAPES)
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+def test_gram_kernel_matches_plain_version(cuda, b, m, k, dtype):
+    y = torch.randn(b, m, k, generator=torch.Generator().manual_seed(3))
+    y = y.to(cuda, dtype)
+    if b == 1:
+        y = y[0]
+    before = ops.launch_counts()["gram"]
+    g = ops.gram(y)
+    torch.cuda.synchronize()
+    assert ops.launch_counts()["gram"] == before + 1
+    _close(g, ref.gram_ref(y), m)
+    assert torch.equal(g, g.mT)          # exactly symmetric
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("b,m,k", GRAM_SHAPES)
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+def test_choleskyqr_kernel_matches_plain_version(cuda, b, m, k, dtype):
+    """Well-conditioned Gaussian Y (M >= K). Q against the plain version
+    within 1e-3 relative (f32; the Cholesky of a K x K Gram amplifies the
+    Gram's rounding by its condition number, small here), bf16 Q within
+    two bf16 ulps; mix within 1e-3 of its scale; Q^T Q = I within 1e-3
+    (f32) or a bf16 rounding per entry summed over M (bf16)."""
+    y = torch.randn(b, m, k, generator=torch.Generator().manual_seed(4))
+    y = y.to(cuda, dtype)
+    if b == 1:
+        y = y[0]
+    before = ops.launch_counts()
+    q, mix = kqr.choleskyqr(y)
+    torch.cuda.synchronize()
+    after = ops.launch_counts()
+    assert after["choleskyqr"] == before["choleskyqr"] + 1
+    assert after["gram"] == before["gram"] + 1
+    assert q.dtype == dtype and mix.dtype == torch.float32
+    want_q, want_mix = ref.choleskyqr_ref(y)
+    qs = want_q.float().abs().max().item()
+    tol_q = 1e-3 * qs if dtype == torch.float32 else 2 * 2.0 ** -7 * qs
+    assert (q.float() - want_q.float()).abs().max().item() <= tol_q
+    ms = want_mix.abs().max().item()
+    assert (mix - want_mix).abs().max().item() <= 1e-3 * ms
+    ortho = orthonormality_error(q).max().item()
+    assert ortho <= (1e-3 if dtype == torch.float32 else 2.0 ** -7 * k)
+    # the batched plain version the CPU path takes (with its NaN ladder)
+    lq, lmix = cholesky_qr_mix_ref(y)
+    assert (mix - lmix).abs().max().item() <= 1e-3 * ms
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+def test_fused_function_gradients_on_the_card(cuda, dtype):
+    """Grads through ops.lowrank_matmul reach x, R and L, through the
+    sketch and backward kernels, and agree with the CPU's plain wiring."""
+    m, i, k, o = 300, 896, 256, 896
+    _, x, _, l_, r = _bwd_inputs(m, i, k, o, "cpu", torch.float32, seed=5)
+    dy = torch.randn(m, o, generator=torch.Generator().manual_seed(6))
+    grads = {}
+    for dev in ("cpu", cuda):
+        ts = [t.detach().to(dev, dtype).requires_grad_(True)
+              for t in (x, r, l_)]
+        before = ops.launch_counts()
+        y = ops.lowrank_matmul(*ts)
+        y.backward(dy.to(dev, dtype))
+        grads[str(dev)] = [t.grad.float().cpu() for t in ts]
+        after = ops.launch_counts()
+        if dev != "cpu":
+            assert after["lowrank_fwd_sketch"] == before["lowrank_fwd_sketch"] + 1
+            assert after["lowrank_bwd"] == before["lowrank_bwd"] + 1
+            assert after["lowrank_fwd"] == before["lowrank_fwd"]
+    for a, b, n in zip(grads[str(cuda)], grads["cpu"], (o + k, o + m, m)):
+        _close(a, b, n, dtype)
+
+
+@pytest.mark.cuda
+def test_training_wrappers_refuse_what_the_kernels_do_not_take(cuda):
+    dy, x, h, l_, r = _bwd_inputs(16, 32, 8, 24, cuda, torch.float32)
+    with pytest.raises(ValueError, match="float32"):
+        lowrank.lowrank_bwd(dy, x, h.to(torch.bfloat16), l_, r)
+    with pytest.raises(ValueError, match="do not chain"):
+        lowrank.lowrank_bwd(dy, x, h, l_[:, :4].contiguous(), r)
+    with pytest.raises(ValueError, match="CUDA tensors only"):
+        kgram.gram(x.cpu())
+    with pytest.raises(ValueError, match="not supported"):
+        kqr.choleskyqr(x.half())

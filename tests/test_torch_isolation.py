@@ -49,6 +49,11 @@ def test_port_imports_with_jax_blocked():
             "    sys.modules[m] = None\n"
             "import repro_torch.launch.serve, repro_torch.api.bridge\n"
             "import repro_torch.kernels.ops\n"
+            "import repro_torch.launch.train, repro_torch.train.loop\n"
+            "import repro_torch.core.wsi, repro_torch.core.orthogonal\n"
+            "import repro_torch.kernels.gram, repro_torch.kernels.qr\n"
+            "import repro_torch.nn.losses, repro_torch.optim\n"
+            "import repro_torch.data.synthetic\n"
             "print('ok')\n")
     env = dict(os.environ, PYTHONPATH=str(ROOT / "src"))
     proc = subprocess.run([sys.executable, "-c", code], env=env,
