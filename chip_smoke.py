@@ -29,9 +29,26 @@ Phases, in order; any failure raises and the script exits non-zero:
    (f32); losses and final factors compared, launch counts exact;
 8. full-width training: qwen2-0.5b (24 layers, bf16, ``wsi``), AdamW,
    batch 4 x seq 512, refresh every 4, 8 steps through
-   ``launch/train.py``'s build and ``train/loop.py``; step time,
-   tokens/s, peak memory, busy share, exact launch counts, and one step
-   at batch 1 x seq 32 against the same weights in f32 on the CPU.
+   ``launch/train.py``'s build and ``train/loop.py``, which saves the
+   final state with the port's ``CheckpointManager``; step time,
+   tokens/s, peak memory, busy share, exact launch counts, the
+   checkpoint read back equal, and one step at batch 1 x seq 32 against
+   the same weights in f32 on the CPU;
+9. int8 kernel: hold ``lowrank_q8`` against its plain version at the
+   seven sites' shapes, M in (4, 37, 256, 1024), bf16 and f32, and time
+   kernel, plain version, library yardstick and bound;
+10. int8 deployment at full width: phase 8's checkpoint ->
+   ``load_checkpoint`` -> ``plan.quantized("int8")`` -> ``convert.quantize``
+   -> ``save_checkpoint`` -> ``ServeEngine.from_checkpoint`` on the card
+   serves phase 5's 8 requests through 4 slots; exact launch counts (168
+   ``lowrank_q8`` per forward, no ``lowrank_fwd``), packed weight bytes,
+   one prefill's logits (card f32 and bf16) against the CPU's f32 run of
+   the same int8 tree, decode in turns against the same weights with bf16
+   factors, and qwen2 smoke int8 served on the card and the CPU with
+   equal greedy tokens.
+
+Phase 6 also holds the CholeskyQR kernel's shift ladder against the plain
+ladder on a stack with one well-conditioned and one ill-conditioned index.
 
 The line before the last is a JSON object with one entry per kernel; the
 last line is {"ok": true, "device": {...}}. ``--json PATH`` also writes
@@ -44,6 +61,7 @@ import argparse
 import dataclasses
 import json
 import os
+import shutil
 import statistics
 import subprocess
 import sys
@@ -58,6 +76,12 @@ import torch  # noqa: E402
 from repro_torch import api, configs  # noqa: E402
 from repro_torch.api.bridge import from_reference, to_reference  # noqa: E402
 from repro_torch.kernels import _build, ops, ref  # noqa: E402
+from repro_torch.api import convert  # noqa: E402
+from repro_torch.checkpoint import (  # noqa: E402
+    CheckpointManager,
+    load_manifest,
+    save_checkpoint,
+)
 from repro_torch.config import TrainConfig  # noqa: E402
 from repro_torch.core.orthogonal import (  # noqa: E402
     cholesky_qr_mix_ref,
@@ -83,6 +107,7 @@ from repro_torch.models.lm import (  # noqa: E402
     lm_loss,
     lm_prefill,
 )
+from repro_torch.quant import quantize_tensor  # noqa: E402
 from repro_torch.serve import SamplingParams, ServeEngine  # noqa: E402
 
 # H100 SXM peaks (NVIDIA data sheet, dense): HBM3 rate, bf16 tensor-core
@@ -99,6 +124,8 @@ SITES = {"attn/wq": (896, 256, 896), "attn/wk": (896, 128, 128),
 SHAPES = {"attn/wq|wo": (896, 256, 896), "attn/wk|wv": (896, 128, 128),
           "mlp/gate|up": (896, 256, 4864), "mlp/down": (4864, 256, 896)}
 MS = (4, 37, 256, 1024)
+# checkpoints of phases 8 and 10, inside the checkout (git-ignored build/)
+CKPT_DIR = os.path.join(ROOT, "build", "chip_smoke_ckpt")
 
 
 def card_line() -> str:
@@ -569,6 +596,58 @@ def well_conditioned(b, o, k, dtype, gen):
     return (q * s).to(dtype).contiguous()
 
 
+def ladder_case(card: str) -> float:
+    """The CholeskyQR kernel's shift ladder on a stack of two (896, 256)
+    f32 operands: index 0 well conditioned; index 1 Y = U diag(s) V^T, U
+    and V orthonormal (tests/test_orthogonal.py:34's U diag(s), rotated),
+    with one singular value 1 and 255 of 1e-5. The Gram's rounding (~eps
+    ||G||) then exceeds the first shift (1e-6 tr/K, ~4e-9 ||G||), so the
+    first Cholesky fails at index 1 in JAX's and torch's CPU builds for
+    every seed tried, and the 1e4-times larger shift is taken. (Unrotated,
+    U diag(logspace(0, -6)) is a graded matrix that factors at the first
+    shift; rotated, whether it fails depends on each implementation's
+    rounding.) The kernel's flags must equal the plain ladder's on the card
+    and the CPU's; Q and mix within 1e-3 of their scale, as the
+    well-conditioned cases (JAX and torch on the CPU differ by 2e-5 at
+    index 1, whose shifted Gram has condition ~2.6e4)."""
+    rng = np.random.default_rng(13)
+    m, k = 896, 256
+    y0 = np.linalg.qr(rng.standard_normal((m, k)))[0] \
+        * (0.5 + 1.5 * rng.random(k))
+    u = np.linalg.qr(rng.standard_normal((m, k)))[0]
+    v = np.linalg.qr(rng.standard_normal((k, k)))[0]
+    sv = np.full(k, 1e-5)
+    sv[0] = 1.0
+    y_cpu = torch.from_numpy(np.stack([y0, (u * sv) @ v.T]).astype(
+        np.float32))
+    y = y_cpu.cuda()
+    q, mix, flags = kqr.choleskyqr(y, with_retry=True)
+    torch.cuda.synchronize()
+    wq, wmix, wflags = ref.choleskyqr_ref(y, with_retry=True)
+    cq, cmix, cflags = cholesky_qr_mix_ref(y_cpu, with_retry=True)
+    got = [flags.cpu().tolist(), wflags.cpu().tolist(), cflags.tolist()]
+    if got[2] != [False, True] or got[0] != got[2] or got[1] != got[2]:
+        raise AssertionError(f"choleskyqr ladder flags: kernel {got[0]}, "
+                             f"plain on the card {got[1]}, CPU {got[2]} "
+                             "(want [False, True] from all three)")
+    worst = 0.0
+    for j in range(2):
+        for what, a, b in (("Q", q[j], wq[j]), ("mix", mix[j], wmix[j]),
+                           ("Q (CPU)", q[j].cpu(), cq[j]),
+                           ("mix (CPU)", mix[j].cpu(), cmix[j])):
+            scale = b.float().abs().max().item()
+            err = (a.float() - b.float()).abs().max().item()
+            if not err <= 1e-3 * scale:
+                raise AssertionError(f"choleskyqr ladder index {j} {what}: "
+                                     f"err {err:.3e} > 1e-3 x {scale:.3e}")
+            worst = max(worst, err)
+            print(f"[kernel] choleskyqr ladder index {j} {what}: err "
+                  f"{err:.2e} (scale {scale:.2e})")
+    print(f"[kernel] choleskyqr ladder: flags kernel {got[0]} == plain "
+          f"(card) {got[1]} == plain (CPU) {got[2]} | {card}", flush=True)
+    return worst
+
+
 def timed(label, fns, sets, nbytes, flops, dtype, card, extra=""):
     k_ms, p_ms, l_ms = (time_ms(f, sets) for f in fns)
     b_ms, b_by = bound_of(nbytes, flops, dtype)
@@ -716,6 +795,7 @@ def phase_train_kernels(card: str) -> dict:
             if dtype == torch.bfloat16:
                 add("choleskyqr", mult, row, nb, fl)
             del sets
+    worst["choleskyqr"] = max(worst["choleskyqr"], ladder_case(card))
     for n, h in head.items():
         h["bound_ms"], h["bound_by"] = bound_of(h.pop("bytes"),
                                                 h.pop("flops"),
@@ -760,7 +840,8 @@ def phase_smoke_training(card: str) -> dict:
                              if n.endswith((".L", ".R"))},
                     ops.launch_counts())
     per_step = 7 * cfg.n_layers
-    want = {"lowrank_fwd": 0, "lowrank_fwd_sketch": 4 * per_step,
+    want = {"lowrank_fwd": 0, "lowrank_q8": 0,
+            "lowrank_fwd_sketch": 4 * per_step,
             "lowrank_bwd": 4 * per_step, "gram": 2 * 7, "choleskyqr": 2 * 7}
     if out["cuda"][2] != want:
         raise AssertionError(f"smoke training launches {out['cuda'][2]} != "
@@ -832,11 +913,67 @@ def profile_train_step(state, step, batch, card: str):
                                   e.count) for e in top]}
 
 
+def _dotted(tree, prefix: str = ""):
+    """{dotted name: leaf} of a nested dict/list, the names
+    ``named_parameters`` gives the same tree."""
+    if isinstance(tree, dict):
+        items = tree.items()
+    elif isinstance(tree, (list, tuple)):
+        items = enumerate(tree)
+    else:
+        return {prefix: tree}
+    out = {}
+    for k, v in items:
+        out.update(_dotted(v, f"{prefix}.{k}" if prefix else str(k)))
+    return out
+
+
+def check_train_checkpoint(state, plan, n_steps: int, save_s: float,
+                           card: str) -> dict:
+    """Phase 8's checkpoint read back: the published step, label and plan,
+    and every parameter, moment and step count equal to the live state,
+    bit for bit (bf16 leaves included)."""
+    from repro_torch.checkpoint import restore_untyped
+
+    d = os.path.join(CKPT_DIR, "train")
+    m = load_manifest(d, n_steps)
+    t0 = time.perf_counter()
+    tree = restore_untyped(d, n_steps)
+    load_s = time.perf_counter() - t0
+    params, opt, step = _dotted(tree[0]), tree[1], int(tree[5])
+    if m.get("label") != "train_state" or step != n_steps \
+            or int(opt[0]) != state.opt.step:
+        raise AssertionError(f"checkpoint label {m.get('label')} step "
+                             f"{step} opt step {int(opt[0])}")
+    if convert.load_plan(d) != plan:
+        raise AssertionError("checkpoint plan differs from the run's")
+    live = dict(state.params.named_parameters())
+    mu, nu = _dotted(opt[1]), _dotted(opt[2])
+    if sorted(params) != sorted(live):
+        raise AssertionError("checkpoint params do not match the model's")
+    nbytes = 0
+    for n, p in live.items():
+        for got, want in ((params[n], p), (mu[n], state.opt.mu[n]),
+                          (nu[n], state.opt.nu[n])):
+            if got.dtype != want.dtype or not torch.equal(
+                    got, want.detach().cpu()):
+                raise AssertionError(f"checkpoint leaf {n} differs")
+            nbytes += got.numel() * got.element_size()
+    print(f"[train-full] checkpoint step {n_steps}: {m['n_leaves']} leaves, "
+          f"{nbytes / 2 ** 20:.1f} MiB, saved in {save_s:.2f}s "
+          f"(train_loop's final save), read back in {load_s:.2f}s, every "
+          f"param, moment and step equal | {card}", flush=True)
+    return {"ckpt_save_s": save_s, "ckpt_load_s": load_s,
+            "ckpt_mib": nbytes / 2 ** 20, "ckpt_leaves": m["n_leaves"]}
+
+
 def phase_full_training(card: str) -> dict:
     print("== phase 8: qwen2-0.5b full-width training, bf16, wsi, AdamW, "
           "batch 4 x seq 512, refresh every 4, 8 steps", flush=True)
     b, s, n_steps = 4, 512, 8
-    tcfg = TrainConfig(optimizer="adamw", lr=3e-4, steps=n_steps)
+    # no periodic checkpoint: train_loop saves the final state once
+    tcfg = TrainConfig(optimizer="adamw", lr=3e-4, steps=n_steps,
+                       checkpoint_every=0)
     t0 = time.perf_counter()
     cfg, plan, state, step, _ = launch_train.build(
         "qwen2-0.5b", smoke=False, batch=b, seq=s, wasi="wsi", tcfg=tcfg,
@@ -853,17 +990,28 @@ def phase_full_training(card: str) -> dict:
                           generator=g)
         return {"tokens": t[:, :-1], "labels": t[:, 1:]}
 
+    shutil.rmtree(CKPT_DIR, ignore_errors=True)
+    mgr = CheckpointManager(os.path.join(CKPT_DIR, "train"), keep=1,
+                            plan=plan, label="train_state")
+    marks = []
+
+    def log(line):
+        marks.append(time.perf_counter())
+        print(line, flush=True)
+
     torch.cuda.synchronize()
     torch.cuda.reset_peak_memory_stats()
     ops.reset_launches()
     state, hist = train_loop(state, step, batch_fn, tcfg, log_every=1,
-                             log_fn=lambda line: print(line, flush=True))
+                             log_fn=log, ckpt=mgr)
+    save_s = time.perf_counter() - marks[-1]
     torch.cuda.synchronize()
     counts = ops.launch_counts()
     peak = torch.cuda.max_memory_allocated()
     per_step = len(SITES) * cfg.n_layers
     refreshes = n_steps // 4
-    want = {"lowrank_fwd": 0, "lowrank_fwd_sketch": n_steps * per_step,
+    want = {"lowrank_fwd": 0, "lowrank_q8": 0,
+            "lowrank_fwd_sketch": n_steps * per_step,
             "lowrank_bwd": n_steps * per_step, "gram": refreshes * len(SITES),
             "choleskyqr": refreshes * len(SITES)}
     if counts != want:
@@ -883,6 +1031,7 @@ def phase_full_training(card: str) -> dict:
     print(f"[train-full] launches {counts} = {n_steps} steps x {per_step} "
           f"sketch and backward, {refreshes} refreshes x {len(SITES)} Gram "
           f"and CholeskyQR, 0 lowrank_fwd", flush=True)
+    res.update(check_train_checkpoint(state, plan, n_steps, save_s, card))
     state, prof = profile_train_step(state, step, batch_fn(n_steps), card)
     res.update(prof)
 
@@ -928,6 +1077,349 @@ def phase_full_training(card: str) -> dict:
     return res
 
 
+# ---------------------------------------------------------------------------
+# int8 deployment: kernel #6, the lifecycle at full width, smoke parity
+# ---------------------------------------------------------------------------
+
+def q8_work(m, i, k, o, dtype):
+    """x read and y written in x's dtype, the int8 factors and their f32
+    scales read once; 2 flops per multiply-add of both products."""
+    it = itemsize(dtype)
+    return (m * i + m * o) * it + k * i + o * k + 4 * (k + o), \
+        2 * m * k * (i + o)
+
+
+def q8_inputs(m, i, k, o, dtype, gen, n_sets=1):
+    sets = []
+    for _ in range(n_sets):
+        x = torch.randn(m, i, device="cuda", generator=gen).to(dtype)
+        rq, rs = quantize_tensor(torch.randn(k, i, device="cuda",
+                                             generator=gen) * i ** -0.5)
+        lq, ls = quantize_tensor(torch.randn(o, k, device="cuda",
+                                             generator=gen) * k ** -0.5)
+        sets.append((x, rq, rs, lq, ls))
+    return sets
+
+
+def library_q8(x, rf, rs, lf, ls):
+    # yardstick only, timed here and used nowhere in the port: #1's two
+    # matmuls on factors (and scales) converted to x's dtype once, outside
+    # the timed region, plus the two scale multiplies; it reads the factors
+    # at twice the int8 kernel's bytes
+    return torch.matmul(torch.matmul(x, rf.T) * rs, lf.T) * ls
+
+
+def _library_sets(sets):
+    return [(x, rq.to(x.dtype), rs.to(x.dtype), lq.to(x.dtype),
+             ls.to(x.dtype)) for x, rq, rs, lq, ls in sets]
+
+
+def phase_q8_kernels(card: str) -> dict:
+    print("== phase 9: lowrank_q8 against its plain version", flush=True)
+    gen = torch.Generator(device="cuda").manual_seed(9)
+    worst = 0.0
+    rows = []
+    for name, (i, k, o) in SHAPES.items():
+        for m in MS:
+            for dtype in (torch.bfloat16, torch.float32):
+                (x, rq, rs, lq, ls), = q8_inputs(m, i, k, o, dtype, gen)
+                got = ops.lowrank_matmul_q8(x, rq, rs, lq, ls)
+                torch.cuda.synchronize()
+                want = ref.lowrank_q8_ref(x, rq, rs, lq, ls)
+                err = (got.float() - want.float()).abs().max().item()
+                scale = want.float().abs().max().item()
+                # as kernel #1 (phase 3): f32 sums of I then K terms in
+                # another order, 2 (I + K) eps |y|; bf16 adds one rounding
+                # of the output. The int8 factors convert exactly.
+                tol = 2 * (i + k) * EPS32 * max(scale, 1.0)
+                if dtype == torch.bfloat16:
+                    tol += 2.0 ** -7 * scale
+                if not err <= tol:
+                    raise AssertionError(
+                        f"lowrank_q8 {name} M={m} {dtype}: max abs err "
+                        f"{err:.3e} > tol {tol:.3e}")
+                worst = max(worst, err)
+                nbytes, flops = q8_work(m, i, k, o, dtype)
+                sets = q8_inputs(m, i, k, o, dtype, gen,
+                                 max(1, min(48, int(120e6 // nbytes) + 1)))
+                k_ms = time_ms(ops.lowrank_matmul_q8, sets)
+                p_ms = time_ms(ref.lowrank_q8_ref, sets)
+                l_ms = time_ms(library_q8, _library_sets(sets))
+                b_ms, b_by = bound_of(nbytes, flops, dtype)
+                rows.append(dict(site=name, M=m, dtype=str(dtype)[6:],
+                                 kernel_ms=k_ms, plain_ms=p_ms,
+                                 library_ms=l_ms, bound_ms=b_ms,
+                                 bound_by=b_by, max_abs_err=err, tol=tol))
+                print(f"[kernel] lowrank_q8 {name:11s} I={i} K={k} O={o} "
+                      f"M={m:4d} {str(dtype)[6:]:8s} err={err:.2e} "
+                      f"(tol {tol:.2e}) kernel_ms={k_ms:.4f} "
+                      f"plain_ms={p_ms:.4f} library_ms={l_ms:.4f} "
+                      f"bound_ms={b_ms:.5f} ({b_by}) | {card}", flush=True)
+                del sets
+    # headline: one decode step's seven site launches of one layer (M = 4
+    # serve slots, bf16), each at its own shape
+    tot = {"ms": 0.0, "plain_ms": 0.0, "library_ms": 0.0,
+           "eager_call_ms": 0.0}
+    nbytes = flops = 0
+    for name, (i, k, o) in SITES.items():
+        b, f = q8_work(4, i, k, o, torch.bfloat16)
+        sets = q8_inputs(4, i, k, o, torch.bfloat16, gen,
+                         max(1, int(120e6 // b) + 1))
+        tot["ms"] += time_ms(ops.lowrank_matmul_q8, sets)
+        tot["plain_ms"] += time_ms(ref.lowrank_q8_ref, sets)
+        tot["library_ms"] += time_ms(library_q8, _library_sets(sets))
+        tot["eager_call_ms"] += call_ms(ops.lowrank_matmul_q8, sets)
+        nbytes, flops = nbytes + b, flops + f
+        del sets
+    b_ms, b_by = bound_of(nbytes, flops, torch.bfloat16)
+    print(f"[kernel] lowrank_q8 one layer's 7 sites at decode (M=4, bf16): "
+          f"kernel_ms={tot['ms']:.4f} plain_ms={tot['plain_ms']:.4f} "
+          f"library_ms={tot['library_ms']:.4f} bound_ms={b_ms:.5f} "
+          f"({b_by}) eager_call_ms={tot['eager_call_ms']:.4f}, {nbytes} "
+          f"bytes | {card}", flush=True)
+    return dict(rows=rows, worst=worst,
+                headline=dict(tot, bound_ms=b_ms, bound_by=b_by))
+
+
+def _count_calls(obj, name: str, counter: dict) -> None:
+    """Count calls of ``obj.name`` (an engine's prefill or decode step, one
+    model forward each) in ``counter[name]``."""
+    fn = getattr(obj, name)
+
+    def counted(*a, **kw):
+        counter[name] += 1
+        return fn(*a, **kw)
+
+    setattr(obj, name, counted)
+
+
+def phase_int8_deploy(card: str, full: dict) -> dict:
+    print("== phase 10: int8 deployment at full width: phase 8's checkpoint "
+          "-> quantize -> from_checkpoint -> serve", flush=True)
+    src, dst = (os.path.join(CKPT_DIR, d) for d in ("train", "int8"))
+    t0 = time.perf_counter()
+    tree, plan, step = convert.load_checkpoint(src)
+    t1 = time.perf_counter()
+    qplan = plan.quantized("int8")
+    qtree = convert.quantize(tree, qplan)
+    t2 = time.perf_counter()
+    save_checkpoint(dst, step, qtree, plan=qplan, label="params")
+    t3 = time.perf_counter()
+    cfg = plan.model
+    # the saves of phases 8 and 10 (~3 GB) leave dirty pages that the
+    # kernel writes back in the background, on the host the decode loop
+    # is bound by: flush them before serving is measured
+    os.sync()
+    t4 = time.perf_counter()
+    print(f"[int8] load_checkpoint {t1 - t0:.2f}s, quantize (CPU) "
+          f"{t2 - t1:.2f}s, save {t3 - t2:.2f}s (step {step}); os.sync "
+          f"{t4 - t3:.2f}s", flush=True)
+    api.uninstall(cfg)
+    eng = ServeEngine.from_checkpoint(dst, device="cuda", max_slots=4,
+                                      max_cache=512)
+    if not (eng.quantized and eng.plan == qplan):
+        raise AssertionError("from_checkpoint did not serve the int8 plan")
+    # the packed bytes the summary must report: the bf16 tied embedding,
+    # then per layer each site's int8 R (K, I) and L (O, K), f32 sR (K) and
+    # sL (O), and the bf16 bias of the q, k, v projections
+    want_bytes = cfg.padded_vocab * cfg.d_model * 2 + cfg.n_layers * sum(
+        sp.rank * (sp.in_dim + sp.out_dim) + 4 * (sp.rank + sp.out_dim)
+        + (2 * sp.out_dim if sp.bias else 0) for sp in qplan.specs)
+    calls = {"_prefill": 0, "_decode_all": 0}
+    _count_calls(eng, "_prefill", calls)
+    _count_calls(eng, "_decode_all", calls)
+    rng = np.random.default_rng(1)
+    # phase 5's warm-up and prompts (the same draws), the trained weights
+    eng.submit(list(map(int, rng.integers(0, cfg.vocab_size, 9))), max_new=4)
+    eng.run()
+    eng.reset_stats()
+    torch.cuda.synchronize()
+    torch.cuda.reset_peak_memory_stats()
+    lengths = (5, 17, 33, 64, 9, 120, 48, 200)
+    prompts = [list(map(int, rng.integers(0, cfg.vocab_size, n)))
+               for n in lengths]
+    sampled = SamplingParams(temperature=0.8, top_k=50, seed=99)
+    ops.reset_launches()
+    calls.update(_prefill=0, _decode_all=0)
+    hs = [eng.submit(p, max_new=16,
+                     sampling=sampled if i in (2, 5) else None)
+          for i, p in enumerate(prompts)]
+    eng.run()
+    torch.cuda.synchronize()
+    counts = ops.launch_counts()
+    s = eng.summary()
+    per_forward = len(SITES) * cfg.n_layers
+    forwards = calls["_prefill"] + calls["_decode_all"]
+    want = dict.fromkeys(counts, 0)
+    want["lowrank_q8"] = per_forward * forwards
+    if counts != want or calls["_decode_all"] != s["decode_steps"]:
+        raise AssertionError(f"int8 serving launches {counts} != {want} "
+                             f"({calls}, {s['decode_steps']} decode steps)")
+    for h in hs:
+        if not (h.finished and len(h.generated) == 16):
+            raise AssertionError(f"request {h.rid} ended {h.status} with "
+                                 f"{len(h.generated)} tokens")
+        if not all(0 <= t < cfg.padded_vocab for t in h.generated):
+            raise AssertionError(f"request {h.rid}: token out of range")
+    if s["weight_bytes"] != want_bytes or not s["quantized"]:
+        raise AssertionError(f"weight_bytes {s['weight_bytes']} != "
+                             f"{want_bytes} (quantized {s['quantized']})")
+    print(f"[int8] lowrank_q8 launches={counts['lowrank_q8']} = {forwards} "
+          f"forwards ({calls['_decode_all']} decode steps + "
+          f"{calls['_prefill']} prefill groups) x {per_forward}; "
+          f"lowrank_fwd={counts['lowrank_fwd']}", flush=True)
+    ttft = [h.ttft_s for h in hs]
+    tpot = [h.tpot_s for h in hs]
+    peak = torch.cuda.max_memory_allocated()
+    res = dict(prefill_tok_s=s["prefill_tok_s"],
+               decode_tok_s=s["decode_tok_s"],
+               ttft_ms_median=statistics.median(ttft) * 1e3,
+               ttft_ms_max=max(ttft) * 1e3,
+               tpot_ms_median=statistics.median(tpot) * 1e3,
+               weight_mib=s["weight_mib"], kv_mib=s["cache_bytes"] / 2**20,
+               max_memory_allocated_mib=peak / 2**20,
+               decode_steps=s["decode_steps"], prefill_calls=calls["_prefill"],
+               launches=counts["lowrank_q8"],
+               prefill_tokens=s["prefill_tokens"],
+               decode_tokens=s["decode_tokens"], wall_s=s["wall_s"],
+               load_s=t1 - t0, quantize_s=t2 - t1, save_s=t3 - t2,
+               sync_s=t4 - t3,
+               phase5_weight_mib=full["weight_mib"])
+    for key in ("prefill_tok_s", "decode_tok_s", "ttft_ms_median",
+                "ttft_ms_max", "tpot_ms_median", "weight_mib", "kv_mib",
+                "max_memory_allocated_mib"):
+        print(f"[int8] {key}={res[key]:.3f} | {card}")
+    print(f"[int8] weight_mib {s['weight_mib']:.3f} against phase 5's "
+          f"{full['weight_mib']:.3f} (bf16 factors)")
+    print(f"[int8] greedy sample rid=0: {hs[0].generated}", flush=True)
+    res.update({f"int8_{k}": v for k, v in
+                profile_decode(eng, cfg, rng, card).items()})
+    res["ab"] = serve_ab(eng, tree, plan, prompts, sampled, card)
+    del tree
+
+    # one 16-token prompt through the same int8 tree (same factors and
+    # scales; norms and embedding bf16 -> f32 exactly) in f32 on the CPU,
+    # against the card in f32 and in bf16 (the served model). f32 on both
+    # sides differs by the order of sums only: 1e-3 of the logits' scale.
+    # bf16 rounds every activation to 8 significant bits through 24
+    # layers: 10% of the scale (measured on an H100: 3.1% on phase 5's
+    # random init, 4.9% on these trained weights; PERF.md), which a wrong
+    # kernel or layout misses by far.
+    prompt = torch.tensor([prompts[3][:16]])
+    cfg32 = cfg.replace(dtype="float32")
+    api.install(api.resolve(cfg32).quantized("int8"))
+    lg = {}
+    for name, model, c, dev in (
+            ("cpu32", from_reference(qtree, cfg32, "cpu").float(), cfg32,
+             "cpu"),
+            ("cuda32", from_reference(qtree, cfg32, "cuda").float(), cfg32,
+             "cuda"),
+            ("cuda16", eng.params, cfg, "cuda")):
+        with torch.inference_mode():
+            out, _ = lm_prefill(model, prompt.to(dev), c,
+                                caches=init_lm_cache(c, 1, 16,
+                                                     dtype=_dtype(c.dtype),
+                                                     device=dev),
+                                last_only=True)
+        lg[name] = out.float().cpu()[0, 0]
+        del model, out
+    del qtree
+    b = lg["cpu32"]
+    scale = b.abs().max().item()
+    err32 = (lg["cuda32"] - b).abs().max().item()
+    err16 = (lg["cuda16"] - b).abs().max().item()
+    if not (err32 <= 1e-3 * scale and err16 <= 0.1 * scale):
+        raise AssertionError(f"int8 full-width card vs f32 CPU logits: f32 "
+                             f"{err32:.3e} (tol 1e-3 x {scale:.3e}), bf16 "
+                             f"{err16:.3e} (tol 0.1 x {scale:.3e})")
+    print(f"[int8] 16-token prompt, card vs f32 CPU (same int8 tree), last "
+          f"logits of scale {scale:.3e}: card f32 max abs err {err32:.3e} "
+          f"({err32 / scale:.2e} of scale, tol 1e-3), card bf16 {err16:.3e} "
+          f"({err16 / scale:.2e}, tol 0.1); argmax cpu {int(b.argmax())} "
+          f"card f32 {int(lg['cuda32'].argmax())} bf16 "
+          f"{int(lg['cuda16'].argmax())} | {card}", flush=True)
+    res.update(cpu_logit_err_f32=err32, cpu_logit_err=err16,
+               cpu_logit_scale=scale)
+    del eng
+    api.uninstall(cfg)
+    res.update(int8_smoke(card))
+    return res
+
+
+def serve_ab(eng8, tree, plan, prompts, sampled, card: str) -> list:
+    """Decode through the int8 engine against the same trained weights
+    with bf16 factors, in turns (bf16, int8, int8, bf16) within this call,
+    the way two versions are compared on one card. The bf16 engine's
+    config differs from the int8 one's in its name only, so both plans
+    stay installed at once."""
+    cfg16 = plan.model.replace(name=plan.model.name + "-bf16")
+    plan16 = api.install(dataclasses.replace(plan, model=cfg16))
+    eng16 = ServeEngine(from_reference(tree, cfg16, "cuda"), plan=plan16,
+                        max_slots=4, max_cache=512, device="cuda")
+    eng16.submit(prompts[0][:5], max_new=4)       # warm-up
+    eng16.run()
+    rows = []
+    for name, eng in (("bf16", eng16), ("int8", eng8), ("int8", eng8),
+                      ("bf16", eng16)):
+        eng.reset_stats()
+        hs = [eng.submit(p, max_new=16,
+                         sampling=sampled if i in (2, 5) else None)
+              for i, p in enumerate(prompts)]
+        eng.run()
+        torch.cuda.synchronize()
+        s = eng.summary()
+        row = dict(factors=name, decode_tok_s=s["decode_tok_s"],
+                   tpot_ms_median=statistics.median(h.tpot_s for h in hs)
+                   * 1e3,
+                   ttft_ms_median=statistics.median(h.ttft_s for h in hs)
+                   * 1e3, prefill_tok_s=s["prefill_tok_s"])
+        rows.append(row)
+        print(f"[int8-ab] {name:4s} factors: decode {row['decode_tok_s']:.1f}"
+              f" tok/s, TPOT median {row['tpot_ms_median']:.2f} ms, TTFT "
+              f"median {row['ttft_ms_median']:.1f} ms, prefill "
+              f"{row['prefill_tok_s']:.1f} tok/s | {card}", flush=True)
+    del eng16
+    api.uninstall(cfg16)
+    return rows
+
+
+def int8_smoke(card: str) -> dict:
+    """qwen2 smoke, f32, seeded random weights packed to int8, served on
+    the card and on the CPU from the same int8 tree: greedy tokens equal
+    (f32 on both sides; only the order of sums differs)."""
+    cfg = configs.get_smoke("qwen2-0.5b")
+    api.uninstall(cfg)
+    plan = api.install(api.resolve(cfg))
+    model = init_lm(cfg, device="cpu", seed=21)
+    qplan = plan.quantized("int8")
+    qtree = convert.quantize(model, qplan)
+    api.uninstall(cfg)
+    api.install(qplan)
+    rng = np.random.default_rng(3)
+    prompts = [list(map(int, rng.integers(0, cfg.vocab_size, n)))
+               for n in (3, 7, 5, 11, 20)]
+    toks = {}
+    for dev in ("cuda", "cpu"):
+        eng = ServeEngine(from_reference(qtree, cfg, dev), plan=qplan,
+                          max_slots=2, max_cache=64, buckets=(4, 8, 16),
+                          device=dev)
+        ops.reset_launches()
+        hs = [eng.submit(p, max_new=8) for p in prompts]
+        eng.run()
+        toks[dev] = [h.tokens for h in hs]
+        counts = ops.launch_counts()
+        if (dev == "cuda") != (counts["lowrank_q8"] > 0) \
+                or counts["lowrank_fwd"]:
+            raise AssertionError(f"int8 smoke launches on {dev}: {counts}")
+    if toks["cuda"] != toks["cpu"]:
+        raise AssertionError(f"int8 smoke greedy tokens differ: card "
+                             f"{toks['cuda']} cpu {toks['cpu']}")
+    print(f"[int8-smoke] qwen2 smoke int8, 5 prompts x 8 greedy tokens "
+          f"through 2 slots: card == CPU | {card}", flush=True)
+    api.uninstall(cfg)
+    return {"smoke_tokens_equal": True}
+
+
 def main() -> None:
     ap = argparse.ArgumentParser(description=__doc__.splitlines()[0])
     ap.add_argument("--json", default="",
@@ -959,6 +1451,9 @@ def main() -> None:
     tk = phase_train_kernels(card)
     smoke_train = phase_smoke_training(card)
     train = phase_full_training(card)
+    q8 = phase_q8_kernels(card)
+    deploy = phase_int8_deploy(card, full)
+    shutil.rmtree(CKPT_DIR, ignore_errors=True)
 
     head = k["headline"]
     kernels = [{
@@ -983,6 +1478,14 @@ def main() -> None:
             "max_abs_err": tk["worst"][name], "ms": h["ms"],
             "plain_ms": h["plain_ms"], "bound_ms": h["bound_ms"],
             "bound_by": h["bound_by"], "library_ms": h["library_ms"]})
+    h = q8["headline"]
+    kernels.append({
+        "name": "lowrank_q8", "route": "cuda",
+        "source": "src/repro_torch/kernels/csrc/lowrank_q8.cu",
+        "replaces": "src/repro/kernels/quant.py:38",
+        "launches": deploy["launches"], "max_abs_err": q8["worst"],
+        "ms": h["ms"], "plain_ms": h["plain_ms"], "bound_ms": h["bound_ms"],
+        "bound_by": h["bound_by"], "library_ms": h["library_ms"]})
     line = {"kernels": kernels}
     if args.json:
         os.makedirs(os.path.dirname(os.path.abspath(args.json)),
@@ -992,6 +1495,8 @@ def main() -> None:
                        "train_kernel_rows": tk["rows"],
                        "train_kernel_headline": tk["headline"],
                        "smoke_training": smoke_train, "full_training": train,
+                       "q8_kernel_rows": q8["rows"],
+                       "q8_headline": q8["headline"], "int8_deploy": deploy,
                        "kernels": line["kernels"],
                        "seconds": time.perf_counter() - t_start}, f,
                       indent=1)

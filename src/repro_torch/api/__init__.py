@@ -6,9 +6,11 @@ init / apply, shared by every linear site.
     plan = api.install(api.resolve(cfg))   # decide subspaces ONCE
     model = init_lm(cfg, device="cuda")    # plan-driven layouts
 
-``api.bridge`` carries parameter trees across from the JAX package.
+``api.bridge`` carries parameter trees across from the JAX package, and
+``api.convert`` factorizes, densifies and quantizes them and restores
+plan-bearing checkpoints.
 """
-from repro_torch.api import bind, plan
+from repro_torch.api import bind, convert, plan
 from repro_torch.api.plan import (
     LinearSpec,
     SubspacePlan,
@@ -25,6 +27,7 @@ __all__ = [
     "LinearSpec",
     "SubspacePlan",
     "bind",
+    "convert",
     "install",
     "installed",
     "plan",

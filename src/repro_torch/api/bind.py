@@ -11,10 +11,15 @@ leading stack dims, the layer group's ``repeat``); ``apply`` takes any
 mapping of tensors with those keys, a per-layer slice of the stack.
 
 Ported so far: the dense and factored layouts without ASI state (serving
-and ``wsi`` training), and ``map_factored`` for the factored-mode refresh.
-``apply`` raises on an ASI state, on int8-packed params, on project-mode
-factors and on tenant adapter pairs; those arrive with later slices
-(ROADMAP.md).
+and ``wsi`` training), their int8-packed deployment layouts
+(quant/quantize.py), and ``map_factored`` for the factored-mode refresh:
+
+    factored int8: {"L": int8 (O, K), "sL": f32 (O,),
+                    "R": int8 (K, I), "sR": f32 (K,) [, "b"]}
+    dense int8:    {"w": int8 (O, I), "sW": f32 (O,) [, "b"]}
+
+``apply`` raises on an ASI state, on project-mode factors and on tenant
+adapter pairs; those arrive with later slices (ROADMAP.md).
 
 Parameters are built frozen (``requires_grad=False``): serving never
 needs their gradients. Training turns them trainable in one place,
@@ -70,19 +75,36 @@ def apply(spec: LinearSpec, p: Mapping[str, torch.Tensor], x: torch.Tensor,
     """Apply one linear site per its spec. Returns (y, new_state); the
     state is always None on the ported layouts."""
     if state is not None:
+        if is_quantized(p):
+            raise ValueError(
+                f"site {spec.name}: quantized params are serve-only; ASI "
+                "states cannot thread through an int8 site")
         raise NotImplementedError(
             f"site {spec.name}: ASI-compressed activations are not ported "
             "yet (training slice, ROADMAP.md)")
-    if is_quantized(p) or spec.quant is not None:
-        raise NotImplementedError(
-            f"site {spec.name}: int8 deployment is not ported yet")
     if "La" in p:
         raise NotImplementedError(
             f"site {spec.name}: tenant adapters are not ported yet")
     if spec.mode == "project" and "L" in p:
         raise NotImplementedError(
             f"site {spec.name}: project-mode factors are not ported yet")
-    if spec.mode == "factored":
+    if is_quantized(p):
+        # int8 deployment (plan.quantized + convert.quantize): the scales
+        # fold into the products, no dequantized weight is ever formed
+        if spec.quant is None:
+            raise ValueError(
+                f"site {spec.name}: params are quantized but the spec is "
+                "not; serve under plan.quantized(...)")
+        from repro_torch.kernels.ops import dense_matmul_q8, lowrank_matmul_q8
+        if "L" in p:
+            y = lowrank_matmul_q8(x, p["R"], p["sR"], p["L"], p["sL"])
+        else:
+            y = dense_matmul_q8(x, p["w"], p["sW"])
+    elif spec.quant is not None:
+        raise ValueError(
+            f"site {spec.name}: plan stamps quant={spec.quant!r} but the "
+            "params are not packed; run convert.quantize(params, plan)")
+    elif spec.mode == "factored":
         # every factored site resolves to the fused route: the CUDA kernel
         # on the card, its plain f32 version on the CPU
         from repro_torch.kernels.ops import lowrank_matmul
@@ -109,6 +131,23 @@ def is_quantized(p) -> bool:
     return "sL" in p or "sW" in p
 
 
+def linear_layout(p) -> str:
+    """The subspace layout a param dict is in: "dense" | "factored" |
+    "project"."""
+    if "L" in p and "w" in p:
+        return "project"
+    if "L" in p:
+        return "factored"
+    return "dense"
+
+
+def linear_dims(p) -> tuple[int, int]:
+    """(out_dim, in_dim) of a linear param dict in any layout."""
+    if linear_layout(p) == "factored":
+        return int(p["L"].shape[-2]), int(p["R"].shape[-1])
+    return int(p["w"].shape[-2]), int(p["w"].shape[-1])
+
+
 def _children(tree):
     if isinstance(tree, (Mapping, nn.ModuleDict, nn.ParameterDict)):
         return list(tree.items())
@@ -125,6 +164,24 @@ def iter_linear_dicts(tree, prefix: str = ""):
         return
     for k, v in _children(tree):
         yield from iter_linear_dicts(v, f"{prefix}/{k}" if prefix else k)
+
+
+def check_layout(groups, plan) -> None:
+    """Raise ``ValueError`` where a linear dict of the layer groups does
+    not have its plan site's layout: factored sites carry L and R, and a
+    site is int8-packed exactly where the plan stamps ``quant``."""
+    for path, p in iter_linear_dicts(groups):
+        spec = plan.spec("/".join(path.split("/")[-2:]))
+        if ("L" in p) != spec.factored_params:
+            raise ValueError(f"{path}: layout does not match the plan's "
+                             f"{spec.mode} site {spec.name}")
+        if is_quantized(p) != (spec.quant is not None):
+            raise ValueError(
+                f"{path}: params are {'' if is_quantized(p) else 'not '}"
+                f"int8-packed but the plan's site {spec.name} has "
+                f"quant={spec.quant!r}; serve int8 params under "
+                "plan.quantized(...), packed by convert.quantize(params, "
+                "plan)")
 
 
 def linear_param_bytes(p) -> dict:

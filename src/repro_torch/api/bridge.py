@@ -11,12 +11,20 @@ or anything ``numpy.asarray`` accepts) and gives the port's
 ``TrainState`` across (params and the optimizer's moments and step), the
 weight carry of the training parity tests.
 
-Leaves keep their dtype. bfloat16 is carried bit for bit through a
-uint16 view, since numpy has no bfloat16 of its own: ``from_reference``
-reads a 2-byte array whose dtype is named ``bfloat16`` (the one JAX
-hands out) that way, and ``to_reference`` returns bfloat16 leaves as
-float32 arrays holding the same values (bf16 -> f32 is exact). For float32
-trees the round trip is exact, dtype included.
+Leaves keep their dtype, int8 weights and their f32 scales (an int8
+deployment tree, ``api.convert.quantize``) included; leaves may also be
+torch tensors (``api.convert.load_checkpoint`` gives those). bfloat16 is
+carried bit for bit through an int16 view, since numpy has no bfloat16 of
+its own: ``from_reference`` reads a 2-byte array whose dtype is named
+``bfloat16`` (the one JAX hands out) that way, and ``to_reference``
+returns bfloat16 leaves as float32 arrays holding the same values
+(bf16 -> f32 is exact). For float32 and int8 trees the round trip is
+exact, dtype included.
+
+The tree's layout is checked against the installed plan (``plan_of``):
+factored sites carry L and R, and a site is int8-packed exactly where the
+plan stamps ``quant``. An int8 tree cannot train: ``trainable=True``
+raises.
 """
 from __future__ import annotations
 
@@ -35,6 +43,8 @@ _TOP = ("embed", "final_norm", "groups")
 
 
 def _tensor(a, device) -> torch.Tensor:
+    if isinstance(a, torch.Tensor):
+        return a.detach().to(device).contiguous()
     a = np.array(a, copy=True, order="C")
     if a.dtype.name == "bfloat16":
         t = torch.from_numpy(a.view(np.int16)).view(torch.bfloat16)
@@ -70,17 +80,16 @@ def from_reference(tree: Mapping, cfg: ModelConfig, device=None, *,
         raise NotImplementedError(
             f"param tree keys {sorted(extra)} belong to model parts that "
             "are not ported yet")
+    if trainable and any(bind.is_quantized(p) for _, p in
+                         bind.iter_linear_dicts(tree["groups"])):
+        raise ValueError("an int8-packed param tree is serve-only: int8 "
+                         "leaves cannot require grad; dequantize it "
+                         "(api.convert.dequantize) to train")
     groups = _module(tree["groups"], dev, trainable)
     if len(groups) != len(cfg.groups):
         raise ValueError(f"tree has {len(groups)} layer groups, config "
                          f"{cfg.name!r} has {len(cfg.groups)}")
-    plan = plan_of(cfg)
-    for path, p in bind.iter_linear_dicts(groups):
-        site = path.split("/")[-2] + "/" + path.split("/")[-1]
-        spec = plan.spec(site)
-        if ("L" in p) != spec.factored_params:
-            raise ValueError(f"{path}: layout does not match the plan's "
-                             f"{spec.mode} site {spec.name}")
+    bind.check_layout(groups, plan_of(cfg))
     return LanguageModel(
         cfg, _module(tree["embed"], dev, trainable),
         _module(tree["final_norm"], dev, trainable), groups,

@@ -20,9 +20,9 @@ Differences from the reference, all deliberate:
   stays ``None``.
 * Calibrated (``epsilon``) resolution raises ``NotImplementedError``; it
   needs the SVD rank picker, which arrives with the training slice.
-* The deployment stamps (``quantized``, ``with_draft``, ``with_adapter``,
-  ``with_sharding``) are not ported yet. Their fields still load from
-  JSON, and ``api.bind.apply`` refuses a site that carries them.
+* Of the deployment stamps, ``quantized`` is ported; ``with_draft``,
+  ``with_adapter`` and ``with_sharding`` are not yet. Their fields still
+  load from JSON.
 """
 from __future__ import annotations
 
@@ -94,7 +94,8 @@ class LinearSpec:
     kernel: Kernel = "einsum"
     # fit rule of the fused backward; None until the training slice
     bwd_fits_vmem: bool | None = None
-    # deployment stamps (not ported yet; carried through JSON only)
+    # deployment stamps: ``quant`` is set by SubspacePlan.quantized; the
+    # others are not ported yet and are carried through JSON only
     quant: str | None = None
     draft: str | None = None
     adapter: int | None = None
@@ -212,6 +213,18 @@ class SubspacePlan:
             self.wasi, name, r, in_dim, out_dim, bias=bias,
             act_shape=(self.batch, self.seq, in_dim)
             if self.batch and self.seq else None)
+
+    def quantized(self, fmt: str = "int8") -> "SubspacePlan":
+        """The deployment view of this plan: every packable site (factored
+        {L, R} pairs and dense 2-D weights) stamped ``quant=fmt``; project
+        sites keep their training layout. Pair with
+        ``convert.quantize(params, plan)``; the stamped plan rides in
+        checkpoint manifests, so ``ServeEngine.from_checkpoint`` serves
+        int8 with no config in hand."""
+        specs = tuple(dataclasses.replace(s, quant=fmt)
+                      if s.mode in ("factored", "dense") else s
+                      for s in self.specs)
+        return dataclasses.replace(self, specs=specs)
 
     @property
     def is_quantized(self) -> bool:

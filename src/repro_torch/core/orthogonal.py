@@ -30,9 +30,17 @@ def gram_schmidt(y: torch.Tensor) -> torch.Tensor:
 
 def _shifted_cholesky(g: torch.Tensor, shift: float) -> torch.Tensor:
     """Lower Cholesky of g + shift*scale*I with the reference's fallback
-    ladder: where the first factorization fails, a 1e4-times larger shift
-    is taken instead. JAX signals the failure with NaNs; torch's
-    ``cholesky_ex`` reports it in ``info``, and both are checked."""
+    ladder (:func:`shifted_cholesky_ladder`)."""
+    return shifted_cholesky_ladder(g, shift)[0]
+
+
+def shifted_cholesky_ladder(g: torch.Tensor, shift: float):
+    """(C, retried): the lower Cholesky of g + shift*scale*I, scale =
+    max(tr(g)/K, 1e-30), and where that factorization fails, of
+    g + 1e4*shift*scale*I instead; ``retried`` (...,) bool says where.
+    JAX signals the failure with NaNs; torch's ``cholesky_ex`` reports it
+    in ``info``, and both are checked. Nothing waits on the device, so it
+    runs inside a CUDA graph."""
     k = g.shape[-1]
     scale = torch.clamp(torch.diagonal(g, dim1=-2, dim2=-1).sum(-1) / k,
                         min=1e-30)
@@ -41,10 +49,8 @@ def _shifted_cholesky(g: torch.Tensor, shift: float) -> torch.Tensor:
         g + (shift * scale)[..., None, None] * eye)
     c2, _ = torch.linalg.cholesky_ex(
         g + (1e4 * shift * scale)[..., None, None] * eye)
-    bad = (info1 != 0)[..., None, None] | \
-        ~torch.isfinite(c1).all(dim=-1, keepdim=True).all(dim=-2,
-                                                           keepdim=True)
-    return torch.where(bad, c2, c1)
+    bad = (info1 != 0) | ~torch.isfinite(c1).all(dim=-1).all(dim=-1)
+    return torch.where(bad[..., None, None], c2, c1), bad
 
 
 def _gram(yf: torch.Tensor) -> torch.Tensor:
@@ -60,16 +66,20 @@ def cholesky_qr(y: torch.Tensor, shift: float = 1e-6) -> torch.Tensor:
     return qt.mT.to(y.dtype)
 
 
-def cholesky_qr_mix_ref(y: torch.Tensor, shift: float = 1e-6):
+def cholesky_qr_mix_ref(y: torch.Tensor, shift: float = 1e-6, *,
+                        with_retry: bool = False):
     """(Q, M = Q^T Y) with the mix from the Gram factor,
     Q^T Y = C^{-1} (Y^T Y): a K x K triangular solve instead of a second
     sweep over Y. The plain version behind ``kernels.ops.cholesky_qr_mix``
-    on the CPU. Batched over leading dims; Q in y's dtype, mix f32."""
+    on the CPU, and of the CholeskyQR kernel. Batched over leading dims; Q
+    in y's dtype, mix f32; ``with_retry`` adds the ladder's (...,) flags."""
     yf = y.float()
     g = _gram(yf)
-    c = _shifted_cholesky(g, shift)
+    c, retried = shifted_cholesky_ladder(g, shift)
     qt = torch.linalg.solve_triangular(c, yf.mT, upper=False)
     mix = torch.linalg.solve_triangular(c, g, upper=False)
+    if with_retry:
+        return qt.mT.to(y.dtype), mix, retried
     return qt.mT.to(y.dtype), mix
 
 

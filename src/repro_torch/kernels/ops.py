@@ -5,9 +5,10 @@ A CPU tensor takes the plain PyTorch version (``ref.py``); a CUDA tensor
 launches the kernel or raises. There is no fallback from one to the other:
 the device of the input decides, and nothing else.
 
-Counters: ``LAUNCHES`` holds the serving forward (``lowrank_fwd``),
-``TRAIN_LAUNCHES`` the kernels training reaches (``lowrank_fwd_sketch``,
-``lowrank_bwd``, ``gram``, ``choleskyqr``); ``launch_counts`` reads both.
+Counters: ``LAUNCHES`` holds the serving forwards (``lowrank_fwd``, and
+``lowrank_q8`` of an int8 deployment), ``TRAIN_LAUNCHES`` the kernels
+training reaches (``lowrank_fwd_sketch``, ``lowrank_bwd``, ``gram``,
+``choleskyqr``); ``launch_counts`` reads both.
 """
 from __future__ import annotations
 
@@ -22,10 +23,12 @@ from repro_torch.kernels.lowrank import (
     lowrank_fused,
 )
 from repro_torch.kernels.qr import choleskyqr
+from repro_torch.kernels.quant import lowrank_q8
 
 __all__ = ["LAUNCHES", "TRAIN_LAUNCHES", "cholesky_qr_mix",
-           "choleskyqr_fused", "gram", "launch_counts", "lowrank_bwd_fused",
-           "lowrank_matmul", "reset_launches"]
+           "choleskyqr_fused", "dense_matmul_q8", "gram", "launch_counts",
+           "lowrank_bwd_fused", "lowrank_matmul", "lowrank_matmul_q8",
+           "lowrank_matmul_q8_fused", "reset_launches"]
 
 
 def reset_launches() -> None:
@@ -92,6 +95,35 @@ def lowrank_matmul(x: torch.Tensor, r_factor: torch.Tensor,
     return y.reshape(*lead, l_factor.shape[0])
 
 
+def lowrank_matmul_q8(x: torch.Tensor, r_q: torch.Tensor,
+                      r_s: torch.Tensor, l_q: torch.Tensor,
+                      l_s: torch.Tensor) -> torch.Tensor:
+    """Quantized factored linear, y = ((x Rq^T) * sR) Lq^T * sL, the entry
+    every int8-deployed factored site routes through (``api.bind``). x
+    (..., I); Rq int8 (K, I) + sR f32 (K,); Lq int8 (O, K) + sL f32 (O,)
+    -> (..., O) in x's dtype, leading dims flattened. CUDA: one launch of
+    the int8 kernel (``kernels/quant.py``); CPU: the plain version
+    (``ref.lowrank_q8_ref``). Serve-only: no gradient."""
+    if _on_cpu(x):
+        return ref.lowrank_q8_ref(x, r_q, r_s, l_q, l_s)
+    lead = x.shape[:-1]
+    y = lowrank_q8(x.reshape(-1, x.shape[-1]).contiguous(), r_q.contiguous(),
+                   r_s.contiguous(), l_q.contiguous(), l_s.contiguous())
+    return y.reshape(*lead, l_q.shape[0])
+
+
+#: the reference's name for its kernel entry; the port dispatches both the
+#: same way (the device of x decides)
+lowrank_matmul_q8_fused = lowrank_matmul_q8
+
+
+def dense_matmul_q8(x: torch.Tensor, w_q: torch.Tensor,
+                    w_s: torch.Tensor) -> torch.Tensor:
+    """Quantized dense linear, y = (x Wq^T) * sW, plain torch on every
+    device, as the reference computes it outside any kernel."""
+    return ref.dense_q8_ref(x, w_q, w_s)
+
+
 def lowrank_bwd_fused(dy: torch.Tensor, x: torch.Tensor, h: torch.Tensor,
                       l_factor: torch.Tensor, r_factor: torch.Tensor):
     """The fused backward, unconditionally: dy (M, O), x (M, I), h (M, K)
@@ -121,9 +153,8 @@ def cholesky_qr_mix(y: torch.Tensor):
     ``core/wsi.py`` routes through. CUDA: the CholeskyQR kernel (Gram,
     factor, apply) over every stacked index at once; the reference sends a
     stacked operand to its jnp version instead, and the kernel computes the
-    same function. CPU: ``core.orthogonal.cholesky_qr_mix_ref``, batched,
-    with the NaN ladder of ``_shifted_cholesky`` (the kernel has the Pallas
-    kernel's sqrt and divide guards instead)."""
+    same function, shift ladder included. CPU:
+    ``core.orthogonal.cholesky_qr_mix_ref``, batched."""
     if _on_cpu(y):
         from repro_torch.core.orthogonal import cholesky_qr_mix_ref
         return cholesky_qr_mix_ref(y)

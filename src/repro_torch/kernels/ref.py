@@ -6,6 +6,8 @@ from __future__ import annotations
 
 import torch
 
+from repro_torch.core.orthogonal import cholesky_qr_mix_ref
+
 
 def lowrank_matmul_ref(x: torch.Tensor, r_factor: torch.Tensor,
                        l_factor: torch.Tensor, out_dtype=None) -> torch.Tensor:
@@ -15,6 +17,24 @@ def lowrank_matmul_ref(x: torch.Tensor, r_factor: torch.Tensor,
     h = torch.matmul(x.float(), r_factor.float().T)
     y = torch.matmul(h, l_factor.float().T)
     return y.to(out_dtype or x.dtype)
+
+
+def lowrank_q8_ref(x: torch.Tensor, r_q: torch.Tensor, r_s: torch.Tensor,
+                   l_q: torch.Tensor, l_s: torch.Tensor) -> torch.Tensor:
+    """The int8 factored linear: y = ((x Rq^T) * sR) Lq^T * sL; x (..., I),
+    Rq int8 (K, I), sR f32 (K,), Lq int8 (O, K), sL f32 (O,) -> (..., O) in
+    x's dtype. The factors are converted to f32, never x quantized; both
+    products in f32 (the reference's scale-folded einsum pair)."""
+    h = torch.matmul(x.float(), r_q.float().T) * r_s
+    y = torch.matmul(h, l_q.float().T) * l_s
+    return y.to(x.dtype)
+
+
+def dense_q8_ref(x: torch.Tensor, w_q: torch.Tensor,
+                 w_s: torch.Tensor) -> torch.Tensor:
+    """The int8 dense linear: y = (x Wq^T) * sW in f32, cast to x's dtype."""
+    y = torch.matmul(x.float(), w_q.float().T) * w_s
+    return y.to(x.dtype)
 
 
 def lowrank_sketch_ref(x: torch.Tensor, r_factor: torch.Tensor,
@@ -44,21 +64,12 @@ def gram_ref(y: torch.Tensor) -> torch.Tensor:
     return yf.mT @ yf
 
 
-def choleskyqr_ref(y: torch.Tensor, shift: float = 1e-6):
+def choleskyqr_ref(y: torch.Tensor, shift: float = 1e-6, *,
+                   with_retry: bool = False):
     """(Q, mix) of the fused CholeskyQR, batched over leading dims:
     Q = Y C^-T with C C^T = Y^T Y + shift * max(tr/K, 1e-30) I, and
-    mix = C^-1 Y^T Y. Q in y's dtype, mix f32. ``cholesky_ex`` does not
-    wait on the device to check the factorization, so this runs inside a
-    CUDA graph; on an indefinite Gram its result is not a factor (the
-    reference's jnp version gives NaNs there)."""
-    yf = y.float()
-    g = yf.mT @ yf
-    k = g.shape[-1]
-    scale = torch.clamp(torch.diagonal(g, dim1=-2, dim2=-1).sum(-1) / k,
-                        min=1e-30)
-    eye = torch.eye(k, dtype=g.dtype, device=g.device)
-    c, _ = torch.linalg.cholesky_ex(g + (shift * scale)[..., None, None]
-                                    * eye)
-    qt = torch.linalg.solve_triangular(c, yf.mT, upper=False)
-    mix = torch.linalg.solve_triangular(c, g, upper=False)
-    return qt.mT.to(y.dtype), mix
+    mix = C^-1 Y^T Y; where that factorization fails, the shift is 1e4
+    times larger (the reference's ladder; ``with_retry`` adds the (...,)
+    flags of where). Q in y's dtype, mix f32. Nothing waits on the device,
+    so this runs inside a CUDA graph."""
+    return cholesky_qr_mix_ref(y, shift, with_retry=with_retry)

@@ -1,13 +1,19 @@
 """Serving launcher: thin CLI over the continuous-batching engine. Port of
-``repro.launch.serve`` (dense slots; the checkpoint, int8, paged,
-speculative, adapter and mesh flags arrive with those features).
+``repro.launch.serve`` (dense slots, int8 deployment and plan-bearing
+checkpoints; the paged, speculative, adapter and mesh flags arrive with
+those features).
 
 ``python -m repro_torch.launch.serve --arch qwen2-0.5b --full --tokens 32``
 runs on the CUDA device; ``--device cpu`` asks for the CPU.
 
 Every factored linear runs in its rank-K subspace, ``y = (x R^T) L^T``,
-through the fused CUDA kernel (kernels/csrc/lowrank_fwd.cu) on the card.
-Weights are random and prompts too, both drawn from seed 0.
+through the fused CUDA kernel (kernels/csrc/lowrank_fwd.cu) on the card;
+with ``--quant int8`` the factors are packed to int8 with per-channel
+scales and run through the int8 kernel (kernels/csrc/lowrank_q8.cu).
+``--ckpt DIR`` serves the latest step of a plan-bearing checkpoint (its
+plan carries the config; ``--quant`` packs it first unless it is packed
+already). Without ``--ckpt`` the weights are random, drawn from seed 0;
+the prompts are always.
 """
 from __future__ import annotations
 
@@ -20,6 +26,7 @@ import torch
 
 import repro_torch.configs as configs
 from repro_torch import api
+from repro_torch.api.bridge import from_reference
 from repro_torch.models.lm import (
     _dtype,
     init_lm,
@@ -101,20 +108,43 @@ def build_parser() -> argparse.ArgumentParser:
     ap.add_argument("--stream", action="store_true",
                     help="print tokens as they are generated")
     ap.add_argument("--device", default="cuda", choices=["cuda", "cpu"])
+    ap.add_argument("--quant", default=None, choices=["int8"],
+                    help="int8 deployment: pack every factored and dense "
+                         "site to int8 + per-channel scales")
+    ap.add_argument("--ckpt", default="",
+                    help="serve a plan-bearing checkpoint directory")
     return ap
 
 
 def main(argv=None) -> dict:
     args = build_parser().parse_args(argv)
-    cfg = configs.get(args.arch) if args.full else configs.get_smoke(args.arch)
-    if args.wasi is not None:
-        cfg = cfg.replace(wasi=dataclasses.replace(cfg.wasi,
-                                                   method=args.wasi))
     slots = args.max_slots or min(args.batch, 4)
     max_cache = args.prompt_len + args.tokens + 1
-    plan = api.install(api.resolve(cfg))
-    model = init_lm(cfg, device=args.device, seed=0)
-    engine = ServeEngine(model, plan=plan, max_slots=slots,
+    if args.ckpt:
+        tree, plan, _ = api.convert.load_checkpoint(args.ckpt)
+        if plan is None:
+            raise SystemExit(f"checkpoint at {args.ckpt} carries no plan")
+        if args.quant and not plan.is_quantized:
+            plan = plan.quantized(args.quant)
+            tree = api.convert.quantize(tree, plan)
+        cfg = plan.model
+    else:
+        cfg = configs.get(args.arch) if args.full \
+            else configs.get_smoke(args.arch)
+        if args.wasi is not None:
+            cfg = cfg.replace(wasi=dataclasses.replace(cfg.wasi,
+                                                       method=args.wasi))
+        plan = api.install(api.resolve(cfg))
+        tree = init_lm(cfg, device=args.device, seed=0)
+        if args.quant:
+            api.uninstall(cfg)          # the engine installs the quant view
+            plan = plan.quantized(args.quant)
+            tree = api.convert.quantize(tree, plan)
+    if not isinstance(tree, torch.nn.Module):
+        api.uninstall(cfg)
+        api.install(plan)
+        tree = from_reference(tree, cfg, args.device)
+    engine = ServeEngine(tree, plan=plan, max_slots=slots,
                          max_cache=max_cache, scheduler=args.sched,
                          device=args.device)
     sp = SamplingParams(temperature=args.temperature, top_k=args.top_k,
@@ -132,7 +162,8 @@ def main(argv=None) -> dict:
     s = engine.summary()
     stag = "" if sp.is_greedy else (f" T={sp.temperature}"
                                     f" top_k={sp.top_k} top_p={sp.top_p}")
-    print(f"[serve] arch={cfg.name} wasi={cfg.wasi.method}{stag} "
+    qtag = " quant=int8" if s["quantized"] else ""
+    print(f"[serve] arch={cfg.name} wasi={cfg.wasi.method}{qtag}{stag} "
           f"device={s['device']} sched={s['scheduler']} slots={slots} "
           f"requests={args.batch} wall={dt:.2f}s "
           f"weights={s['weight_mib']:.2f}MiB "

@@ -1,6 +1,12 @@
 """Training launcher: ``python -m repro_torch.launch.train --arch <id>``.
-Port of ``repro.launch.train`` (single device, synthetic data; the
-checkpoint, text-data, memprof and mesh flags arrive with those features).
+Port of ``repro.launch.train`` (single device, synthetic data,
+checkpoints; the text-data, memprof and mesh flags arrive with those
+features).
+
+``--ckpt-dir DIR`` saves a plan-bearing ``"train_state"`` checkpoint every
+``--ckpt-every`` steps and at the end, and resumes from the latest one on
+start; ``api.convert.load_checkpoint(DIR)`` gives its params and plan
+back, for serving (``launch.serve --ckpt DIR``) or int8 deployment.
 
 ``python -m repro_torch.launch.train --arch qwen2-0.5b --wasi wsi --full``
 trains the full config on the CUDA device; ``--device cpu`` asks for the
@@ -20,6 +26,7 @@ import dataclasses
 
 import repro_torch.configs as configs
 from repro_torch import api
+from repro_torch.checkpoint import CheckpointManager
 from repro_torch.config import TrainConfig
 from repro_torch.data.synthetic import SyntheticLM
 from repro_torch.models.lm import init_lm, lm_loss
@@ -65,14 +72,18 @@ def build_parser() -> argparse.ArgumentParser:
     ap.add_argument("--full", action="store_true",
                     help="full (assigned) config instead of smoke")
     ap.add_argument("--device", default="cuda", choices=["cuda", "cpu"])
+    ap.add_argument("--ckpt-dir", default="",
+                    help="save (and resume from) checkpoints here")
+    ap.add_argument("--ckpt-every", type=int, default=50)
     return ap
 
 
 def main(argv=None) -> list[dict]:
     args = build_parser().parse_args(argv)
     tcfg = TrainConfig(optimizer=args.optimizer, lr=args.lr,
-                       steps=args.steps)
-    cfg, _, state, step, data = build(
+                       steps=args.steps, checkpoint_every=args.ckpt_every,
+                       checkpoint_dir=args.ckpt_dir)
+    cfg, plan, state, step, data = build(
         args.arch, smoke=not args.full, batch=args.batch, seq=args.seq,
         wasi=args.wasi, tcfg=tcfg, device=args.device)
     dev = resolve_device(args.device)
@@ -83,9 +94,17 @@ def main(argv=None) -> list[dict]:
     def feed(s):
         return {k: v.to(dev) for k, v in data.batch(s).items()}
 
-    state, hist = train_loop(state, step, feed, tcfg)
-    print(f"[train] done: loss {hist[0]['loss']:.4f} -> "
-          f"{hist[-1]['loss']:.4f}")
+    # plan-bearing checkpoints: the manifest carries the resolved plan, so
+    # the checkpoint restores for serving with no config in hand
+    ckpt = (CheckpointManager(args.ckpt_dir, keep=tcfg.keep_checkpoints,
+                              plan=plan, label="train_state")
+            if args.ckpt_dir else None)
+    state, hist = train_loop(state, step, feed, tcfg, ckpt=ckpt)
+    if hist:
+        print(f"[train] done: loss {hist[0]['loss']:.4f} -> "
+              f"{hist[-1]['loss']:.4f}")
+    else:
+        print(f"[train] already trained to step {state.step}")
     return hist
 
 

@@ -70,7 +70,8 @@ class LanguageModel(nn.Module):
         gradients reach the stacked leaves. Otherwise (serving) they are
         built once, under ``no_grad`` so that they never carry gradient
         history, and rebuilt only when a leaf's storage moves (``.to()``,
-        ``load_state_dict``)."""
+        ``load_state_dict``). Every leaf is sliced alike, the int8 weights
+        and f32 scales of an int8 deployment included."""
         leaves = list(self.groups.parameters())
         if torch.is_grad_enabled() and any(p.requires_grad for p in leaves):
             return self._build_views()

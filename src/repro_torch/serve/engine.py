@@ -16,6 +16,13 @@
 * Sampling runs on the device (``serve/sampling.py``); only the (B,)
   sampled tokens reach the host each tick.
 
+* An int8 deployment (``plan.quantized("int8")`` with
+  ``convert.quantize``) serves through the same engine: every factored
+  linear then runs the int8 kernel (``kernels/csrc/lowrank_q8.cu``), and
+  ``summary()`` reports ``quantized`` and the packed ``weight_bytes``.
+  ``ServeEngine.from_checkpoint`` builds the engine from a plan-bearing
+  checkpoint with no config in hand.
+
 Where the reference jits and donates the caches, this engine runs eager
 PyTorch under ``torch.inference_mode()`` and updates the caches in place.
 Not ported yet (they raise ``NotImplementedError``): paged KV pools,
@@ -30,6 +37,7 @@ from typing import Sequence
 import numpy as np
 import torch
 
+from repro_torch.api.bind import check_layout
 from repro_torch.api.plan import SubspacePlan, install, installed, plan_of
 from repro_torch.config import ModelConfig
 from repro_torch.models.lm import (
@@ -70,6 +78,20 @@ def _tree_leaves(caches):
     return [t for group in caches for c in group for t in c["kv"]]
 
 
+def _install(plan: SubspacePlan) -> SubspacePlan:
+    """Install ``plan`` for its config, unless a different plan is
+    installed there already (a quantized plan differs from its f32 one)."""
+    current = installed(plan.model)
+    if current is None:
+        return install(plan)
+    if current != plan:
+        raise ValueError(
+            "a different SubspacePlan is already installed for this "
+            "ModelConfig; api.uninstall(cfg) it first, or build the engine "
+            "with that plan")
+    return current
+
+
 class ServeEngine:
     """Streaming continuous-batching engine over a fixed slot pool."""
 
@@ -91,19 +113,8 @@ class ServeEngine:
                 raise ValueError("ServeEngine needs a ModelConfig or a "
                                  "SubspacePlan (which carries one)")
             cfg = plan.model
-        if plan is None:
-            self.plan = plan_of(cfg)
-        else:
-            current = installed(cfg)
-            if current is None:
-                self.plan = install(plan)
-            elif current == plan:
-                self.plan = current
-            else:
-                raise ValueError(
-                    "a different SubspacePlan is already installed for this "
-                    "ModelConfig; api.uninstall(cfg) it first, or build the "
-                    "engine with that plan")
+        self.plan = plan_of(cfg) if plan is None else _install(plan)
+        check_layout(params.groups, self.plan)
         self.device = resolve_device(device)
         for p in params.parameters():
             if p.device != self.device:
@@ -138,6 +149,26 @@ class ServeEngine:
                       "decode_tokens": 0, "completed": 0, "cancelled": 0,
                       "evicted": 0, "wall_s": 0.0, "prefill_s": 0.0,
                       "decode_s": 0.0}
+
+    @classmethod
+    def from_checkpoint(cls, ckpt_dir: str, step: int | None = None,
+                        **engine_kw) -> "ServeEngine":
+        """An engine from a plan-bearing checkpoint, no config in hand: the
+        manifest's SubspacePlan carries the ModelConfig and each site's
+        layout, quant stamps included, so an int8 checkpoint saved after
+        ``convert.quantize`` serves int8 with no extra flag. The params go
+        to ``engine_kw["device"]`` (default CUDA)."""
+        from repro_torch.api.bridge import from_reference
+        from repro_torch.api.convert import load_checkpoint
+
+        tree, plan, _ = load_checkpoint(ckpt_dir, step)
+        if plan is None:
+            raise ValueError(
+                f"checkpoint at {ckpt_dir} carries no SubspacePlan; build "
+                "the engine with ServeEngine(params, cfg) instead")
+        _install(plan)
+        model = from_reference(tree, plan.model, engine_kw.get("device"))
+        return cls(model, plan=plan, **engine_kw)
 
     # -- submission / cancellation ------------------------------------------
 

@@ -1,11 +1,16 @@
 """Training loop over a ``batch_fn(step) -> batch`` (the reference's first
-data contract, ``repro.train.loop``): step timing, logging and the metrics
-history. The batch must already be on the model's device.
+data contract, ``repro.train.loop``): step timing, logging, the metrics
+history and checkpoints. The batch must already be on the model's device.
 
-Not ported yet, and refused with ``NotImplementedError``: checkpoints
-(``ckpt``), the streaming ``DataIterator`` contract, measured memory
-telemetry (``memprof``) and DP batch placement (``batch_sharding``);
-see ROADMAP.md queue 1.
+With ``ckpt`` (a ``checkpoint.CheckpointManager``) the loop restores the
+latest published state on start, saves asynchronously every
+``tcfg.checkpoint_every`` steps and synchronously at the end, as the
+reference's loop does; a ``batch_fn`` carries no reader state.
+
+Not ported yet, and refused with ``NotImplementedError``: the streaming
+``DataIterator`` contract (and with it the reader-state extra), measured
+memory telemetry (``memprof``) and DP batch placement
+(``batch_sharding``); see ROADMAP.md queue 1.
 """
 from __future__ import annotations
 
@@ -23,17 +28,21 @@ def train_loop(state: TrainState, step_fn, data, tcfg: TrainConfig, *,
                log_every: int = 10, ckpt=None, max_steps: int | None = None,
                memprof: bool = False, batch_sharding=None,
                log_fn=print) -> tuple[TrainState, list[dict]]:
-    """Runs from ``state.step`` up to ``max_steps or tcfg.steps``. Returns
-    (final_state, metrics_history); a logged step's ``sec`` is its wall
-    time up to its metrics on the host (reading them waits for the
-    device)."""
-    for what, given in (("checkpoints", ckpt is not None),
-                        ("measured memory telemetry", memprof),
+    """Runs from ``state.step`` (or the latest checkpoint of ``ckpt``) up
+    to ``max_steps or tcfg.steps``. Returns (final_state,
+    metrics_history); a logged step's ``sec`` is its wall time up to its
+    metrics on the host (reading them waits for the device)."""
+    for what, given in (("measured memory telemetry", memprof),
                         ("DP batch placement", batch_sharding is not None),
                         ("the DataIterator contract", _is_iterator(data))):
         if given:
             raise NotImplementedError(f"train_loop: {what} is not ported "
                                       "yet (ROADMAP.md queue 1)")
+    if ckpt is not None:
+        restored_step, restored = ckpt.restore_latest(state)
+        if restored is not None:
+            state = restored
+            log_fn(f"[train] resumed from checkpoint step {restored_step}")
     total = max_steps or tcfg.steps
     history = []
     for step in range(state.step, total):
@@ -47,4 +56,9 @@ def train_loop(state: TrainState, step_fn, data, tcfg: TrainConfig, *,
             log_fn(f"[train] step {step}: " +
                    " ".join(f"{k}={v:.4g}" for k, v in m.items()
                             if k != "step"))
+        if ckpt is not None and tcfg.checkpoint_every > 0 and \
+                (step + 1) % tcfg.checkpoint_every == 0:
+            ckpt.save_async(step + 1, state)
+    if ckpt is not None:
+        ckpt.save(total, state)
     return state, history

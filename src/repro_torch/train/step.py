@@ -65,6 +65,15 @@ def make_train_state(model, cfg: ModelConfig, tcfg: TrainConfig, *,
         _refuse("the data-parallel train state")
     if use_epsilon_ranks:
         _refuse("epsilon-calibrated ranks")
+    from repro_torch.api.bind import is_quantized, iter_linear_dicts
+    packed = [path for path, p in iter_linear_dicts(model.tree())
+              if is_quantized(p)]
+    if packed:
+        raise ValueError(
+            f"cannot train an int8-packed model ({len(packed)} packed "
+            f"sites, first {packed[0]}): int8 deployment is serve-only; "
+            "train the f32/bf16 params and quantize after "
+            "(api.convert.quantize)")
     model.requires_grad_(True)
     params = dict(model.named_parameters())
     return TrainState(params=model, opt=init_optimizer(params, tcfg))

@@ -262,3 +262,102 @@ def test_training_wrappers_refuse_what_the_kernels_do_not_take(cuda):
         kgram.gram(x.cpu())
     with pytest.raises(ValueError, match="not supported"):
         kqr.choleskyqr(x.half())
+
+
+def _spiked(m, k, seed):
+    """Y = U diag(s) V^T with one singular value 1 and k - 1 of 1e-5: the
+    first shifted Cholesky of its Gram fails (chip_smoke.py phase 6)."""
+    rng = np.random.default_rng(seed)
+    u = np.linalg.qr(rng.standard_normal((m, k)))[0]
+    v = np.linalg.qr(rng.standard_normal((k, k)))[0]
+    s = np.full(k, 1e-5)
+    s[0] = 1.0
+    return ((u * s) @ v.T).astype(np.float32)
+
+
+@pytest.mark.cuda
+def test_choleskyqr_kernel_takes_the_shift_ladder(cuda):
+    """A stack of a well-conditioned and an ill-conditioned index: the
+    kernel retries exactly where the plain ladder does (on the card and on
+    the CPU), and agrees within 1e-3 of the scale of Q and mix."""
+    y0 = torch.randn(896, 256, generator=torch.Generator().manual_seed(5))
+    y_cpu = torch.stack([y0, torch.from_numpy(_spiked(896, 256, 13))])
+    y = y_cpu.to(cuda)
+    q, mix, retried = kqr.choleskyqr(y, with_retry=True)
+    torch.cuda.synchronize()
+    wq, wmix, wretried = ref.choleskyqr_ref(y, with_retry=True)
+    _, cmix, cretried = cholesky_qr_mix_ref(y_cpu, with_retry=True)
+    assert cretried.tolist() == [False, True]
+    assert retried.tolist() == wretried.tolist() == cretried.tolist()
+    for j in range(2):
+        for a, b in ((q[j], wq[j]), (mix[j], wmix[j]),
+                     (mix[j].cpu(), cmix[j])):
+            scale = b.abs().max().item()
+            assert (a - b).abs().max().item() <= 1e-3 * scale
+
+
+# ---------------------------------------------------------------------------
+# The int8 kernel (kernel #6)
+# ---------------------------------------------------------------------------
+
+from repro_torch.kernels import quant as kquant  # noqa: E402
+from repro_torch.quant import quantize_tensor  # noqa: E402
+
+# (lead, I, K, O): the reference test's ragged shapes (I = 33, 257: int8
+# rows not 2-byte aligned; K = 5, 40), and the sites of qwen2-0.5b at
+# decode and prefill row counts
+Q8_SHAPES = [((4,), 16, 4, 24), ((7,), 33, 5, 17), ((130,), 257, 40, 129),
+             ((2, 64), 128, 32, 128), ((4,), 896, 256, 896),
+             ((4,), 896, 128, 128), ((4,), 896, 256, 4864),
+             ((4,), 4864, 256, 896), ((1024,), 896, 256, 4864),
+             ((37,), 4864, 256, 896)]
+
+
+def _q8_inputs(lead, i, k, o, device, dtype, seed=0):
+    g = torch.Generator().manual_seed(seed)
+    x = torch.randn(*lead, i, generator=g).to(device, dtype)
+    rq, rs = quantize_tensor(torch.randn(k, i, generator=g))
+    lq, ls = quantize_tensor(torch.randn(o, k, generator=g))
+    return (x,) + tuple(t.to(device) for t in (rq, rs, lq, ls))
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("lead,i,k,o", Q8_SHAPES)
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+def test_q8_kernel_matches_plain_version(cuda, lead, i, k, o, dtype):
+    """As kernel #1: f32 sums of I then K terms in another order, 2 (I + K)
+    eps |y|; bf16 adds one rounding of the output. Two runs give the same
+    bits."""
+    x, rq, rs, lq, ls = _q8_inputs(lead, i, k, o, cuda, dtype)
+    before = ops.launch_counts()
+    got = ops.lowrank_matmul_q8(x, rq, rs, lq, ls)
+    torch.cuda.synchronize()
+    after = ops.launch_counts()
+    assert after["lowrank_q8"] == before["lowrank_q8"] + 1
+    assert after["lowrank_fwd"] == before["lowrank_fwd"]
+    assert got.shape == (*lead, o) and got.dtype == dtype
+    _close(got, ref.lowrank_q8_ref(x, rq, rs, lq, ls), i + k, dtype)
+    assert torch.equal(got, ops.lowrank_matmul_q8(x, rq, rs, lq, ls))
+
+
+@pytest.mark.cuda
+def test_q8_wrapper_refuses_what_the_kernel_does_not_take(cuda):
+    x, rq, rs, lq, ls = _q8_inputs((8,), 32, 8, 16, cuda, torch.float32)
+    with pytest.raises(ValueError, match="int8"):
+        kquant.lowrank_q8(x, rq.float(), rs, lq, ls)
+    with pytest.raises(ValueError, match="float32"):
+        kquant.lowrank_q8(x, rq, rs.half(), lq, ls)
+    with pytest.raises(ValueError, match="do not chain"):
+        kquant.lowrank_q8(x, rq, rs, lq[:, :4].contiguous(), ls)
+    with pytest.raises(ValueError, match="CUDA tensors only"):
+        kquant.lowrank_q8(x, rq.cpu(), rs, lq, ls)
+    with pytest.raises(ValueError, match="not supported"):
+        kquant.lowrank_q8(x.half(), rq, rs, lq, ls)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("bm", [16, 64])
+@pytest.mark.parametrize("ks", [8, 32, 40])
+def test_q8_smem_formula_matches_the_source(cuda, bm, ks):
+    assert kquant._lib().lowrank_q8_smem_bytes(bm, ks) == \
+        lowrank.smem_bytes(bm, ks)

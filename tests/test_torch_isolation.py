@@ -54,6 +54,8 @@ def test_port_imports_with_jax_blocked():
             "import repro_torch.kernels.gram, repro_torch.kernels.qr\n"
             "import repro_torch.nn.losses, repro_torch.optim\n"
             "import repro_torch.data.synthetic\n"
+            "import repro_torch.checkpoint, repro_torch.quant\n"
+            "import repro_torch.api.convert, repro_torch.kernels.quant\n"
             "print('ok')\n")
     env = dict(os.environ, PYTHONPATH=str(ROOT / "src"))
     proc = subprocess.run([sys.executable, "-c", code], env=env,

@@ -327,7 +327,7 @@ def test_unported_training_modes_raise():
     state = make_train_state(model, tcfg, TrainConfig(steps=1))
     with pytest.raises(NotImplementedError, match="ROADMAP"):
         train_loop(state, lambda s, b: (s, {}), lambda s: {}, TrainConfig(),
-                   ckpt=object())
+                   memprof=True)
 
 
 def test_train_loop_logs_every_step_it_is_asked_to():
