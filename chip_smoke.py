@@ -45,7 +45,28 @@ Phases, in order; any failure raises and the script exits non-zero:
    one prefill's logits (card f32 and bf16) against the CPU's f32 run of
    the same int8 tree, decode in turns against the same weights with bf16
    factors, and qwen2 smoke int8 served on the card and the CPU with
-   equal greedy tokens.
+   equal greedy tokens;
+11. tiled matmul: hold ``matmul_tiled`` (``ops.matmul``) against its plain
+   version at ragged shapes, B row-major and a transposed view, bf16 and
+   f32, and the two-launch ``ops.lowrank_matmul_unfused`` at the seven
+   sites' shapes, M in (4, 1024, 2048), beside the fused kernel #1 at the
+   same shapes; time kernel, plain version, ``torch.matmul`` and bound;
+12. the paper's Table 2 at full width: qwen2-0.5b (24 layers, bf16,
+   batch 4 x seq 512, AdamW, refresh every 4) trained 5 steps under each
+   method, ``none``, ``asi``, ``wsi`` and ``wasi``, through
+   ``launch/train.py``'s build and ``train_loop(memprof=True)``: step
+   time, tokens/s, the allocator's peak, the saved-for-backward bytes of
+   one ``lm_loss`` forward (every layer's: ``remat`` is not ported) and
+   the time of one ``lm_forward`` without states; exact launch counts
+   (``wasi``: only Gram and CholeskyQR at the refresh, 168 ``lowrank_fwd``
+   per inference forward); the Table 2 two-launch row (the trained
+   factors of layer 0 through ``lowrank_matmul_unfused``: 14
+   ``matmul_tiled`` launches) against the fused kernel; one full-width
+   ``wasi_matmul`` per site shape saves exactly its Tucker factors, h~'s
+   last factor, L and R, and not x; one ``wasi`` and one ``none`` step
+   under the profiler (busy share); qwen2 smoke under ``wasi``
+   (SGD+momentum) trained on the card and the CPU from the same weights
+   and ASI states, compared.
 
 Phase 6 also holds the CholeskyQR kernel's shift ladder against the plain
 ladder on a stack with one well-conditioned and one ill-conditioned index.
@@ -59,6 +80,7 @@ from __future__ import annotations
 
 import argparse
 import dataclasses
+import gc
 import json
 import os
 import shutil
@@ -810,44 +832,68 @@ def phase_train_kernels(card: str) -> dict:
     return dict(rows=rows, worst=worst, headline=head)
 
 
-def _wsi_cfg(cfg, refresh: int):
-    return cfg.replace(wasi=dataclasses.replace(cfg.wasi, method="wsi",
-                                                refresh_every=refresh))
+def smoke_card_vs_cpu(method: str, tcfg: TrainConfig) -> dict:
+    """qwen2 smoke under ``method``, refresh every 2, 4 steps from one seed
+    (weights, and ASI states where the method compresses activations) and
+    one batch stream, on the card and on the CPU (f32). Per device: the
+    losses, the final L and R, the ASI state leaves after the first and
+    the last step, and the launch counts of the run."""
+    from repro_torch.models.lm import init_lm_states, map_states
+
+    cfg = configs.get_smoke("qwen2-0.5b")
+    cfg = cfg.replace(wasi=dataclasses.replace(cfg.wasi, method=method,
+                                               refresh_every=2))
+    api.uninstall(cfg)
+    api.install(api.resolve(cfg, batch=4, seq=16))
+    data = SyntheticLM(vocab_size=cfg.vocab_size, seq_len=16, global_batch=4,
+                       seed=1)
+    batches = [data.batch(i) for i in range(4)]
+
+    def leaves(tree):
+        got = []
+        map_states(lambda t: got.append(t.detach().cpu().clone()), tree)
+        return got
+
+    out = {"n_layers": cfg.n_layers}
+    for dev in ("cuda", "cpu"):
+        model = init_lm(cfg, device=dev, seed=7)
+        asi = init_lm_states(cfg, 4, 16, device=dev, seed=7) \
+            if cfg.wasi.compress_acts else None
+        state = make_train_state(model, cfg, tcfg, asi_states=asi)
+        step = make_train_step(lm_loss, cfg, tcfg)
+        ops.reset_launches()
+        losses, first = [], None
+        for b in batches:
+            state, m = step(state, {k: v.to(dev) for k, v in b.items()})
+            losses.append(float(m["loss"]))
+            if first is None:
+                first = leaves(state.asi)
+        out[dev] = dict(
+            losses=losses, launches=ops.launch_counts(), first=first,
+            states=leaves(state.asi),
+            factors={n: p.detach().cpu() for n, p in model.named_parameters()
+                     if n.endswith((".L", ".R"))})
+    api.uninstall(cfg)
+    if any(out["cpu"]["launches"].values()):
+        raise AssertionError(f"CPU {method} training launched kernels: "
+                             f"{out['cpu']['launches']}")
+    return out
 
 
 def phase_smoke_training(card: str) -> dict:
     print("== phase 7: qwen2 smoke training, card against CPU (f32)",
           flush=True)
-    cfg = _wsi_cfg(configs.get_smoke("qwen2-0.5b"), 2)
-    api.install(api.resolve(cfg))
     lr = 1e-2
-    tcfg = TrainConfig(optimizer="adamw", lr=lr, steps=4)
-    data = SyntheticLM(vocab_size=cfg.vocab_size, seq_len=16, global_batch=4,
-                       seed=1)
-    batches = [data.batch(i) for i in range(4)]
-    out = {}
-    for dev in ("cuda", "cpu"):
-        model = init_lm(cfg, device=dev, seed=7)
-        state = make_train_state(model, cfg, tcfg)
-        step = make_train_step(lm_loss, cfg, tcfg)
-        ops.reset_launches()
-        losses = []
-        for b in batches:
-            state, m = step(state, {k: v.to(dev) for k, v in b.items()})
-            losses.append(float(m["loss"]))
-        out[dev] = (losses, {n: p.detach().cpu() for n, p in
-                             model.named_parameters()
-                             if n.endswith((".L", ".R"))},
-                    ops.launch_counts())
-    per_step = 7 * cfg.n_layers
-    want = {"lowrank_fwd": 0, "lowrank_q8": 0,
-            "lowrank_fwd_sketch": 4 * per_step,
-            "lowrank_bwd": 4 * per_step, "gram": 2 * 7, "choleskyqr": 2 * 7}
-    if out["cuda"][2] != want:
-        raise AssertionError(f"smoke training launches {out['cuda'][2]} != "
-                             f"{want}")
-    if any(out["cpu"][2].values()):
-        raise AssertionError(f"CPU training launched kernels: {out['cpu'][2]}")
+    out = smoke_card_vs_cpu("wsi", TrainConfig(optimizer="adamw", lr=lr,
+                                               steps=4))
+    cuda, cpu = out["cuda"], out["cpu"]
+    per_step = 7 * out["n_layers"]
+    want = dict.fromkeys(cuda["launches"], 0)
+    want.update(lowrank_fwd_sketch=4 * per_step, lowrank_bwd=4 * per_step,
+                gram=2 * 7, choleskyqr=2 * 7)
+    if cuda["launches"] != want:
+        raise AssertionError(f"smoke training launches {cuda['launches']} "
+                             f"!= {want}")
     # f32 on both sides, sums in other orders: losses within 1e-5
     # relative. AdamW divides each gradient entry by its own magnitude plus
     # eps = 1e-8, so an entry whose gradient is near eps, where f32
@@ -855,26 +901,25 @@ def phase_smoke_training(card: str) -> dict:
     # two runs (seen: an entry with gradient -7e-9 moving 2e-4 apart, port
     # against reference on the CPU). So each final L and R is held within
     # 1e-3 of its norm (Frobenius) and each entry within lr.
-    loss_err = max(abs(a / b - 1) for a, b in zip(out["cuda"][0],
-                                                  out["cpu"][0]))
-    par_err = max((out["cuda"][1][n] - out["cpu"][1][n]).abs().max().item()
-                  for n in out["cpu"][1])
-    fro_err = max((torch.linalg.vector_norm(out["cuda"][1][n]
-                                            - out["cpu"][1][n])
-                   / torch.linalg.vector_norm(out["cpu"][1][n])).item()
-                  for n in out["cpu"][1])
+    loss_err = max(abs(a / b - 1) for a, b in zip(cuda["losses"],
+                                                  cpu["losses"]))
+    par_err = max((cuda["factors"][n] - w).abs().max().item()
+                  for n, w in cpu["factors"].items())
+    fro_err = max((torch.linalg.vector_norm(cuda["factors"][n] - w)
+                   / torch.linalg.vector_norm(w)).item()
+                  for n, w in cpu["factors"].items())
     if not (loss_err <= 1e-5 and fro_err <= 1e-3 and par_err <= lr):
         raise AssertionError(f"smoke training card vs CPU: loss rel err "
                              f"{loss_err:.3e} (tol 1e-5), L/R rel Frobenius "
                              f"err {fro_err:.3e} (tol 1e-3), max abs err "
                              f"{par_err:.3e} (tol {lr:.1e})")
-    print(f"[train-smoke] losses card {out['cuda'][0]} cpu {out['cpu'][0]}: "
+    print(f"[train-smoke] losses card {cuda['losses']} cpu {cpu['losses']}: "
           f"max rel err {loss_err:.3e} (tol 1e-5); final L/R rel Frobenius "
           f"err {fro_err:.3e} (tol 1e-3), max abs err {par_err:.3e} (tol "
-          f"{lr:.1e}); launches {out['cuda'][2]} | {card}", flush=True)
-    return dict(losses_cuda=out["cuda"][0], losses_cpu=out["cpu"][0],
+          f"{lr:.1e}); launches {cuda['launches']} | {card}", flush=True)
+    return dict(losses_cuda=cuda["losses"], losses_cpu=cpu["losses"],
                 loss_rel_err=loss_err, factor_rel_fro_err=fro_err,
-                factor_abs_err=par_err, launches=out["cuda"][2])
+                factor_abs_err=par_err, launches=cuda["launches"])
 
 
 def profile_train_step(state, step, batch, card: str):
@@ -1010,7 +1055,7 @@ def phase_full_training(card: str) -> dict:
     peak = torch.cuda.max_memory_allocated()
     per_step = len(SITES) * cfg.n_layers
     refreshes = n_steps // 4
-    want = {"lowrank_fwd": 0, "lowrank_q8": 0,
+    want = {"lowrank_fwd": 0, "lowrank_q8": 0, "matmul_tiled": 0,
             "lowrank_fwd_sketch": n_steps * per_step,
             "lowrank_bwd": n_steps * per_step, "gram": refreshes * len(SITES),
             "choleskyqr": refreshes * len(SITES)}
@@ -1051,7 +1096,7 @@ def phase_full_training(card: str) -> dict:
         # to_reference hands bf16 leaves back as f32 holding the same values
         model = from_reference(tree, c, dev, trainable=True).to(
             _dtype(c.dtype))
-        loss, _, grads = value_and_grad(
+        loss, _, grads, _ = value_and_grad(
             lm_loss, model, {k: v.to(dev) for k, v in small.items()}, c)
         out[name] = (float(loss), float(global_norm(grads)))
         del model, grads
@@ -1420,6 +1465,451 @@ def int8_smoke(card: str) -> dict:
     return {"smoke_tokens_equal": True}
 
 
+# ---------------------------------------------------------------------------
+# kernel #9 and the paper's Table 2 comparison
+# ---------------------------------------------------------------------------
+
+UNFUSED_M = (4, 1024, 2048)
+# (M, K, N) of ops.matmul: ragged on every dim, a ragged M through an
+# MLP-wide product, and the products of the two-launch row (M = 2048: a
+# d_model and mlp/down's first product, mlp/gate|up's second) and of
+# mlp/down's first at decode (M = 4)
+MM_RAGGED = ((33, 257, 129), (1000, 896, 4864), (2048, 896, 256),
+             (2048, 4864, 256), (2048, 256, 4864), (4, 4864, 256))
+METHODS = ("none", "asi", "wsi", "wasi")
+
+
+def mm_work(m, k, n, dtype, out_dtype=None):
+    """A and B read once, C written once; 2 flops per multiply-add."""
+    nbytes = (m * k + k * n) * itemsize(dtype) \
+        + m * n * itemsize(out_dtype or dtype)
+    return nbytes, 2 * m * k * n
+
+
+def unfused_work(m, i, k, o, dtype):
+    """The pair's two products: x and R read, h written in x's dtype; h
+    and L read, y written."""
+    b1, f1 = mm_work(m, i, k, dtype)
+    b2, f2 = mm_work(m, k, o, dtype)
+    return b1 + b2, f1 + f2
+
+
+def plain_unfused(x, r, l_):
+    return ref.matmul_ref(ref.matmul_ref(x, r.T), l_.T)
+
+
+def mm_tol(a, b, out_dtype) -> float:
+    """Every product exact in f32, K of them summed in f32 in another
+    order (tensor cores included): 2 K eps (|A| |B|).max(). A bf16 output
+    is rounded on each side, and two sums that straddle a rounding boundary
+    land one bf16 ulp apart: up to 2^-7 of the value (8 significant bits),
+    so 2^-7 of the scale."""
+    k = a.shape[1]
+    tol = 2 * k * EPS32 * max((a.float().abs() @ b.float().abs()).max()
+                              .item(), 1.0)
+    if out_dtype == torch.bfloat16:
+        tol += 2.0 ** -7 * (a.float() @ b.float()).abs().max().item()
+    return tol
+
+
+def held_pair(label, x, r, l_, y) -> dict:
+    """The two-launch pair y = (x R^T) L^T, one product at a time. The
+    kernel is deterministic, so ``ops.matmul(x, R^T)`` gives the bits of
+    the pair's first launch, h, written in x's dtype. h is held against the
+    plain product, and y against the plain product of that h and L^T, each
+    at ``mm_tol``: both sides round h the same way, so only each product's
+    summation order is free."""
+    h = ops.matmul(x, r.T)
+    h_err = (h.float() - ref.matmul_ref(x, r.T).float()).abs().max().item()
+    h_tol = mm_tol(x, r.T, x.dtype)
+    err = (y.float() - ref.matmul_ref(h, l_.T).float()).abs().max().item()
+    tol = mm_tol(h, l_.T, x.dtype)
+    if not (h_err <= h_tol and err <= tol):
+        raise AssertionError(f"{label}: h max abs err {h_err:.3e} (tol "
+                             f"{h_tol:.3e}), y max abs err {err:.3e} (tol "
+                             f"{tol:.3e})")
+    return dict(h_err=h_err, h_tol=h_tol, max_abs_err=err, tol=tol)
+
+
+def phase_matmul_kernels(card: str) -> dict:
+    print("== phase 11: matmul_tiled against its plain version", flush=True)
+    gen = torch.Generator(device="cuda").manual_seed(11)
+    worst = 0.0
+    rows = []
+    for m, k, n in MM_RAGGED:
+        for dtype in (torch.bfloat16, torch.float32):
+            for layout in ("n_major", "k_major"):
+                def draw():
+                    a = torch.randn(m, k, device="cuda", generator=gen)
+                    b = (torch.randn(k, n, device="cuda", generator=gen)
+                         if layout == "n_major" else
+                         torch.randn(n, k, device="cuda", generator=gen).T)
+                    return a.to(dtype), b.to(dtype)
+                a, b = draw()
+                got = ops.matmul(a, b)
+                torch.cuda.synchronize()
+                err = (got.float() - ref.matmul_ref(a, b).float()).abs() \
+                    .max().item()
+                tol = mm_tol(a, b, dtype)
+                if not err <= tol:
+                    raise AssertionError(
+                        f"matmul_tiled {m}x{k}x{n} {dtype} B {layout}: max "
+                        f"abs err {err:.3e} > tol {tol:.3e}")
+                worst = max(worst, err)
+                nbytes, flops = mm_work(m, k, n, dtype)
+                sets = [draw() for _ in range(max(1, min(
+                    48, int(120e6 // nbytes) + 1)))]
+                k_ms = time_ms(ops.matmul, sets)
+                p_ms = time_ms(ref.matmul_ref, sets)
+                l_ms = time_ms(torch.matmul, sets)
+                b_ms, b_by = bound_of(nbytes, flops, dtype)
+                rows.append(dict(shape=f"{m}x{k}x{n}", B=layout,
+                                 dtype=str(dtype)[6:], kernel_ms=k_ms,
+                                 plain_ms=p_ms, library_ms=l_ms,
+                                 bound_ms=b_ms, bound_by=b_by,
+                                 max_abs_err=err, tol=tol))
+                print(f"[kernel] matmul_tiled M={m} K={k} N={n} B {layout} "
+                      f"{str(dtype)[6:]:8s} err={err:.2e} (tol {tol:.2e}) "
+                      f"kernel_ms={k_ms:.4f} plain_ms={p_ms:.4f} "
+                      f"library_ms={l_ms:.4f} bound_ms={b_ms:.5f} ({b_by})"
+                      f" | {card}", flush=True)
+                del sets
+    pairs = []
+    for name, (i, k, o) in SHAPES.items():
+        for m in UNFUSED_M:
+            for dtype in (torch.bfloat16, torch.float32):
+                (x, r, l_), = inputs(m, i, k, o, dtype, gen)
+                got = ops.lowrank_matmul_unfused(x, r, l_)
+                torch.cuda.synchronize()
+                chk = held_pair(f"lowrank_matmul_unfused {name} M={m} "
+                                f"{dtype}", x, r, l_, got)
+                err, tol = chk["max_abs_err"], chk["tol"]
+                worst = max(worst, err, chk["h_err"])
+                # the fused kernel keeps h in f32: its gap to the pair is
+                # h's bf16 rounding, carried through L
+                gap = (got.float() - ops.lowrank_matmul(x, r, l_).float()) \
+                    .abs().max().item()
+                nbytes, flops = unfused_work(m, i, k, o, dtype)
+                sets = inputs(m, i, k, o, dtype, gen,
+                              max(1, min(48, int(120e6 // nbytes) + 1)))
+                k_ms = time_ms(ops.lowrank_matmul_unfused, sets)
+                p_ms = time_ms(plain_unfused, sets)
+                l_ms = time_ms(library_lowrank, sets)
+                f_ms = time_ms(ops.lowrank_matmul, sets)
+                kc_ms = call_ms(ops.lowrank_matmul_unfused, sets)
+                fc_ms = call_ms(ops.lowrank_matmul, sets)
+                b_ms, b_by = bound_of(nbytes, flops, dtype)
+                fb_ms, fb_by = bound(m, i, k, o, dtype)
+                pairs.append(dict(site=name, M=m, dtype=str(dtype)[6:],
+                                  kernel_ms=k_ms, plain_ms=p_ms,
+                                  library_ms=l_ms, bound_ms=b_ms,
+                                  bound_by=b_by, fused_ms=f_ms,
+                                  fused_bound_ms=fb_ms, fused_bound_by=fb_by,
+                                  kernel_call_ms=kc_ms, fused_call_ms=fc_ms,
+                                  fused_gap=gap, **chk))
+                print(f"[kernel] unfused pair {name:11s} I={i} K={k} O={o} "
+                      f"M={m:4d} {str(dtype)[6:]:8s} h err={chk['h_err']:.2e}"
+                      f" (tol {chk['h_tol']:.2e}) y err={err:.2e} (tol "
+                      f"{tol:.2e}) two_launch_ms={k_ms:.4f} fused_ms="
+                      f"{f_ms:.4f} plain_ms={p_ms:.4f} library_ms={l_ms:.4f}"
+                      f" bound_ms={b_ms:.5f} ({b_by}) fused_bound_ms="
+                      f"{fb_ms:.5f} eager_call two_launch={kc_ms:.4f} "
+                      f"fused={fc_ms:.4f} |pair-fused|={gap:.2e} | {card}",
+                      flush=True)
+                del sets
+    # headline: the Table 2 two-launch row, one layer's 7 sites at the
+    # training batch (M = 4 x 512, bf16): 14 launches
+    head = {"ms": 0.0, "plain_ms": 0.0, "library_ms": 0.0, "fused_ms": 0.0}
+    nbytes = flops = 0
+    for p in pairs:
+        if p["M"] == 2048 and p["dtype"] == "bfloat16":
+            c = SITE_COUNT[p["site"]]
+            for key, src in (("ms", "kernel_ms"), ("plain_ms", "plain_ms"),
+                             ("library_ms", "library_ms"),
+                             ("fused_ms", "fused_ms")):
+                head[key] += c * p[src]
+            i, k, o = SHAPES[p["site"]]
+            b, f = unfused_work(2048, i, k, o, torch.bfloat16)
+            nbytes, flops = nbytes + c * b, flops + c * f
+    head["bound_ms"], head["bound_by"] = bound_of(nbytes, flops,
+                                                  torch.bfloat16)
+    print(f"[kernel] matmul_tiled one layer's 7 two-launch pairs at M=2048, "
+          f"bf16 (14 launches): kernel_ms={head['ms']:.4f} "
+          f"plain_ms={head['plain_ms']:.4f} library_ms="
+          f"{head['library_ms']:.4f} bound_ms={head['bound_ms']:.5f} "
+          f"({head['bound_by']}); fused #1 at the same shapes "
+          f"{head['fused_ms']:.4f} | {card}", flush=True)
+    return dict(rows=rows, pairs=pairs, worst=worst, headline=head)
+
+
+def site_residuals(card: str) -> dict:
+    """At each distinct site shape of qwen2-0.5b at full width (bf16, batch
+    4 x seq 512, the config's ASI ranks), one ``wasi_matmul``'s saved
+    bytes equal the Tucker factors + h~'s (K, r_last) factor + L + R
+    exactly, and x's storage is not among the saved tensors."""
+    from repro_torch.api import bind
+    from repro_torch.core.asi import asi_step
+    from repro_torch.core.lowrank_linear import wasi_matmul
+    from repro_torch.utils.memprof import (
+        dense_residual_bytes,
+        measured_residual_bytes,
+    )
+
+    cfg = configs.get("qwen2-0.5b")
+    gen = torch.Generator().manual_seed(12)
+    out = {}
+    for name, (i, k, o) in SHAPES.items():
+        act = (4, 512, i)
+        x = torch.randn(*act, device="cuda").to(torch.bfloat16)
+        l_ = (torch.randn(o, k, device="cuda") * k ** -0.5).bfloat16()
+        r = (torch.randn(k, i, device="cuda") * i ** -0.5).bfloat16()
+        st = bind.asi_state(gen, act, cfg.wasi, dtype=torch.bfloat16,
+                            device="cuda")
+        with torch.no_grad():
+            xt, _ = asi_step(x, st)
+        rep = measured_residual_bytes(
+            lambda x_, lf, rr: wasi_matmul(x_, lf, rr, xt), x, l_, r)
+        tucker = 2 * (xt.core.numel() + sum(u.numel() for u in xt.us
+                                             if u is not None))
+        sketch = 2 * k * xt.us[-1].shape[1]
+        want = tucker + sketch + 2 * (l_.numel() + r.numel())
+        if rep.total_bytes != want:
+            raise AssertionError(f"wasi_matmul {name}: saved "
+                                 f"{rep.total_bytes} B != {want} B")
+        if x.untyped_storage().data_ptr() in rep.storages:
+            raise AssertionError(f"wasi_matmul {name} saved x")
+        dense = dense_residual_bytes(act, itemsize=2)
+        ranks = tuple(None if u is None else u.shape[1] for u in xt.us)
+        out[name] = dict(saved_bytes=rep.total_bytes, tucker_bytes=tucker,
+                         sketch_bytes=sketch, dense_x_bytes=dense,
+                         ranks=ranks, core=tuple(xt.core.shape))
+        print(f"[table2] wasi_matmul {name:11s} act {act} ranks {ranks}: "
+              f"saved {rep.total_bytes} B = Tucker {tucker} + h~ factor "
+              f"{sketch} + L,R {2 * (l_.numel() + r.numel())}; x not saved "
+              f"(dense x would be {dense} B) | {card}", flush=True)
+    return out
+
+
+def smoke_wasi_parity(card: str) -> dict:
+    """qwen2 smoke under ``wasi``, SGD+momentum, card against CPU
+    (``smoke_card_vs_cpu``): losses, final L/R and ASI factors compared,
+    launch counts exact (Gram and CholeskyQR at each refresh, nothing
+    else)."""
+    out = smoke_card_vs_cpu("wasi", TrainConfig(
+        optimizer="sgd", lr=0.3, momentum=0.9, steps=4, clip_norm=2.0))
+    cuda, cpu = out["cuda"], out["cpu"]
+    want = dict.fromkeys(cuda["launches"], 0)
+    want.update(gram=2 * 7, choleskyqr=2 * 7)
+    if cuda["launches"] != want:
+        raise AssertionError(f"smoke wasi launches {cuda['launches']} != "
+                             f"{want}")
+
+    def rel(a, b):
+        return max(((x - y).abs().max() / y.abs().max()).item()
+                   for x, y in zip(a, b))
+
+    # f32 both sides, sums in other orders. Losses within 1e-5 relative;
+    # L and R within 1e-4 of their scale; the ASI factors of the first
+    # step (one subspace iteration from the same state on the same
+    # activations) within 1e-4 of their scale. After 4 steps each
+    # iteration has started from the last one's factors, and at smoke
+    # ranks the gap between kept and dropped singular values is small, so
+    # rounding alone turns the subspaces: card against CPU read 7.9e-4 of
+    # the scale (SGD+momentum, two runs on an H100). Held to 2e-3, 2.5x
+    # that reading.
+    loss_err = max(abs(a / b - 1) for a, b in zip(cuda["losses"],
+                                                  cpu["losses"]))
+    par_err = rel([cuda["factors"][n] for n in cpu["factors"]],
+                  list(cpu["factors"].values()))
+    first_err = rel(cuda["first"], cpu["first"])
+    st_err = rel(cuda["states"], cpu["states"])
+    if not (loss_err <= 1e-5 and par_err <= 1e-4 and first_err <= 1e-4
+            and st_err <= 2e-3):
+        raise AssertionError(
+            f"smoke wasi card vs CPU: loss rel err {loss_err:.3e} (tol "
+            f"1e-5), L/R err {par_err:.3e} of scale (tol 1e-4), ASI factors "
+            f"err after step 1 {first_err:.3e} (tol 1e-4), after step 4 "
+            f"{st_err:.3e} of scale (tol 2e-3)")
+    print(f"[table2-smoke] wasi, SGD+momentum: losses card {cuda['losses']} "
+          f"cpu {cpu['losses']}: max rel err {loss_err:.3e} (tol 1e-5); "
+          f"final L/R err {par_err:.3e} of scale (tol 1e-4); ASI factors "
+          f"err {first_err:.3e} after step 1 (tol 1e-4), {st_err:.3e} after "
+          f"step 4 (tol 2e-3); launches {cuda['launches']} | {card}",
+          flush=True)
+    return dict(losses_cuda=cuda["losses"], losses_cpu=cpu["losses"],
+                loss_rel_err=loss_err, factor_err=par_err,
+                state_err_step1=first_err, state_err=st_err,
+                launches=cuda["launches"])
+
+
+def table2_method(method: str, card: str) -> dict:
+    """One method of the Table 2 comparison at full width: build through
+    ``launch/train.py``, train through ``train_loop(memprof=True)``, exact
+    launch counts, the saved-for-backward bytes of one ``lm_loss`` forward
+    and the time of one ``lm_forward`` without states."""
+    from repro_torch.models.lm import lm_forward
+    from repro_torch.utils.memprof import measured_residual_bytes
+
+    b, s, n_steps = 4, 512, 5
+    tcfg = TrainConfig(optimizer="adamw", lr=3e-4, steps=n_steps,
+                       checkpoint_every=0)
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    cfg, plan, state, step, _ = launch_train.build(
+        "qwen2-0.5b", smoke=False, batch=b, seq=s, wasi=method, tcfg=tcfg,
+        device="cuda", refresh_every=4)
+    build_s = time.perf_counter() - t0
+    if cfg.wasi.method != method or (state.asi is None) == \
+            cfg.wasi.compress_acts:
+        raise AssertionError(f"{method}: built {cfg.wasi.method}, ASI "
+                             f"states {state.asi is not None}")
+
+    def batch_fn(i):
+        g = torch.Generator(device="cuda").manual_seed(1000 + i)
+        t = torch.randint(0, cfg.vocab_size, (b, s + 1), device="cuda",
+                          generator=g)
+        return {"tokens": t[:, :-1], "labels": t[:, 1:]}
+
+    ops.reset_launches()
+    state, hist = train_loop(state, step, batch_fn, tcfg, log_every=1,
+                             memprof=True,
+                             log_fn=lambda line: print(line, flush=True))
+    torch.cuda.synchronize()
+    counts = ops.launch_counts()
+    per_step = len(SITES) * cfg.n_layers
+    refreshes = n_steps // 4 if cfg.wasi.factored else 0
+    want = dict.fromkeys(counts, 0)
+    if method == "wsi":
+        want.update(lowrank_fwd_sketch=n_steps * per_step,
+                    lowrank_bwd=n_steps * per_step)
+    want.update(gram=refreshes * len(SITES),
+                choleskyqr=refreshes * len(SITES))
+    if counts != want:
+        raise AssertionError(f"{method} training launches {counts} != "
+                             f"{want}")
+    losses = [h["loss"] for h in hist]
+    if len(hist) != n_steps or not all(np.isfinite(x) for x in losses):
+        raise AssertionError(f"{method} losses {losses}")
+    step_s = statistics.median(h["sec"] for h in hist[1:])
+    res = dict(method=method, build_s=build_s, losses=losses,
+               step_ms=[h["sec"] * 1e3 for h in hist],
+               step_ms_median=step_s * 1e3, tok_s=b * s / step_s,
+               dev_peak_mib=max(h["mem_dev_peak_mib"] for h in hist),
+               live_mib=hist[-1]["mem_live_mib"],
+               live_peak_mib=hist[-1]["mem_live_peak_mib"],
+               train_launches=counts)
+
+    batch = batch_fn(n_steps)
+    rep = measured_residual_bytes(
+        lambda: lm_loss(state.params, batch, cfg, states=state.asi))
+    res["residual_bytes"] = rep.total_bytes
+    res["residual_arrays"] = rep.n_arrays
+    del rep
+    torch.cuda.empty_cache()
+
+    model = state.params
+    with torch.no_grad():
+        ops.reset_launches()
+        logits, *_ = lm_forward(model, batch["tokens"], cfg)
+        torch.cuda.synchronize()
+        inf_counts = ops.launch_counts()
+        if not torch.isfinite(logits).all():
+            raise AssertionError(f"{method}: non-finite inference logits")
+        del logits
+        want = dict.fromkeys(inf_counts, 0)
+        if cfg.wasi.factored:
+            want["lowrank_fwd"] = per_step
+        if inf_counts != want:
+            raise AssertionError(f"{method} inference launches {inf_counts}"
+                                 f" != {want}")
+        times = []
+        for _ in range(6):
+            torch.cuda.synchronize()
+            t0 = time.perf_counter()
+            lm_forward(model, batch["tokens"], cfg)
+            torch.cuda.synchronize()
+            times.append(time.perf_counter() - t0)
+    res["infer_ms_median"] = statistics.median(times[1:]) * 1e3
+    res["infer_launches"] = inf_counts
+    if method == "wasi":
+        res["two_launch"] = two_launch_row(model, card)
+    if method in ("wasi", "none"):
+        state, prof = profile_train_step(state, step, batch_fn(n_steps + 1),
+                                          card)
+        res.update(prof)
+    del state, step, model
+    print(f"[table2] {method}: step_ms_median (steps 2-{n_steps})="
+          f"{res['step_ms_median']:.3f} tok_s={res['tok_s']:.1f} "
+          f"infer_ms_median={res['infer_ms_median']:.3f} dev_peak_mib="
+          f"{res['dev_peak_mib']:.1f} residual_bytes={res['residual_bytes']}"
+          f" (one lm_loss forward, every layer's saved tensors: remat none)"
+          f" train launches {counts} inference launches {inf_counts} | "
+          f"{card}", flush=True)
+    return res
+
+
+def two_launch_row(model, card: str) -> dict:
+    """The Table 2 serve row: each of layer 0's seven factored sites at the
+    training batch's rows (M = 2048, bf16, the trained factors) through
+    the fused kernel #1 and through the two-launch pair of kernel #9. The
+    pair's launches are counted here: 2 per site, 14 in all."""
+    gen = torch.Generator(device="cuda").manual_seed(13)
+    with torch.no_grad():
+        layer = model.layer_views()[0][0][0]
+        sites = {n: layer[n.split("/")[0]][n.split("/")[1]] for n in SITES}
+        xs = {n: torch.randn(2048, SITES[n][0], device="cuda",
+                             generator=gen).bfloat16() for n in SITES}
+        ops.reset_launches()
+        ys = {n: ops.lowrank_matmul_unfused(xs[n], p["R"], p["L"])
+              for n, p in sites.items()}
+        torch.cuda.synchronize()
+        counts = ops.launch_counts()
+        want = dict.fromkeys(counts, 0)
+        want["matmul_tiled"] = 2 * len(SITES)
+        if counts != want:
+            raise AssertionError(f"two-launch row launches {counts} != "
+                                 f"{want}")
+        rows = {}
+        for n, p in sites.items():
+            chk = held_pair(f"two-launch row {n}", xs[n], p["R"], p["L"],
+                            ys[n])
+            sets = [(xs[n], p["R"], p["L"])]
+            rows[n] = dict(two_launch_call_ms=call_ms(
+                ops.lowrank_matmul_unfused, sets), fused_call_ms=call_ms(
+                ops.lowrank_matmul, sets), **chk)
+    tot_u = sum(r["two_launch_call_ms"] for r in rows.values())
+    tot_f = sum(r["fused_call_ms"] for r in rows.values())
+    print(f"[table2] two-launch row, layer 0's 7 sites at M=2048 bf16: "
+          f"launches {counts['matmul_tiled']} (2 a site); eager calls "
+          f"two_launch {tot_u:.4f} ms, fused {tot_f:.4f} ms | {card}",
+          flush=True)
+    return dict(launches=counts["matmul_tiled"], sites=rows,
+                two_launch_call_ms=tot_u, fused_call_ms=tot_f)
+
+
+def phase_table2(card: str) -> dict:
+    print("== phase 12: Table 2 at full width: qwen2-0.5b none/asi/wsi/"
+          "wasi, bf16, batch 4 x seq 512, AdamW, refresh every 4, 5 steps",
+          flush=True)
+    out = {"sites": site_residuals(card)}
+    for method in METHODS:
+        out[method] = table2_method(method, card)
+        gc.collect()
+        torch.cuda.empty_cache()
+    out["smoke"] = smoke_wasi_parity(card)
+    cfg = configs.get("qwen2-0.5b")
+    api.uninstall(cfg)
+    api.install(api.resolve(cfg))
+    print("[table2] method  step_ms  tok_s  infer_ms  dev_peak_mib  "
+          "residual_MiB (remat none)")
+    for m in METHODS:
+        r = out[m]
+        print(f"[table2] {m:5s} {r['step_ms_median']:8.3f} {r['tok_s']:8.1f}"
+              f" {r['infer_ms_median']:8.3f} {r['dev_peak_mib']:9.1f} "
+              f"{r['residual_bytes'] / 2 ** 20:10.2f} | {card}", flush=True)
+    return out
+
+
 def main() -> None:
     ap = argparse.ArgumentParser(description=__doc__.splitlines()[0])
     ap.add_argument("--json", default="",
@@ -1454,6 +1944,8 @@ def main() -> None:
     q8 = phase_q8_kernels(card)
     deploy = phase_int8_deploy(card, full)
     shutil.rmtree(CKPT_DIR, ignore_errors=True)
+    mm = phase_matmul_kernels(card)
+    table2 = phase_table2(card)
 
     head = k["headline"]
     kernels = [{
@@ -1486,6 +1978,15 @@ def main() -> None:
         "launches": deploy["launches"], "max_abs_err": q8["worst"],
         "ms": h["ms"], "plain_ms": h["plain_ms"], "bound_ms": h["bound_ms"],
         "bound_by": h["bound_by"], "library_ms": h["library_ms"]})
+    h = mm["headline"]
+    kernels.append({
+        "name": "matmul_tiled", "route": "cuda",
+        "source": "src/repro_torch/kernels/csrc/matmul_tiled.cu",
+        "replaces": "src/repro/kernels/matmul_tiled.py:24",
+        "launches": table2["wasi"]["two_launch"]["launches"],
+        "max_abs_err": mm["worst"], "ms": h["ms"], "plain_ms": h["plain_ms"],
+        "bound_ms": h["bound_ms"], "bound_by": h["bound_by"],
+        "library_ms": h["library_ms"]})
     line = {"kernels": kernels}
     if args.json:
         os.makedirs(os.path.dirname(os.path.abspath(args.json)),
@@ -1497,6 +1998,8 @@ def main() -> None:
                        "smoke_training": smoke_train, "full_training": train,
                        "q8_kernel_rows": q8["rows"],
                        "q8_headline": q8["headline"], "int8_deploy": deploy,
+                       "matmul_rows": mm["rows"], "unfused_rows": mm["pairs"],
+                       "matmul_headline": mm["headline"], "table2": table2,
                        "kernels": line["kernels"],
                        "seconds": time.perf_counter() - t_start}, f,
                       indent=1)

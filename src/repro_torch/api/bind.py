@@ -10,16 +10,21 @@ Param layouts are the reference's, one leaf per key:
 leading stack dims, the layer group's ``repeat``); ``apply`` takes any
 mapping of tensors with those keys, a per-layer slice of the stack.
 
-Ported so far: the dense and factored layouts without ASI state (serving
-and ``wsi`` training), their int8-packed deployment layouts
+Ported so far: the dense and factored layouts with or without an ASI
+state (``init_state``/``asi_state``: the ``wasi`` and ``asi`` methods
+compress a site's input into Tucker factors and train through
+``core.lowrank_linear``), their int8-packed deployment layouts
 (quant/quantize.py), and ``map_factored`` for the factored-mode refresh:
 
     factored int8: {"L": int8 (O, K), "sL": f32 (O,),
                     "R": int8 (K, I), "sR": f32 (K,) [, "b"]}
     dense int8:    {"w": int8 (O, I), "sW": f32 (O,) [, "b"]}
 
-``apply`` raises on an ASI state, on project-mode factors and on tenant
-adapter pairs; those arrive with later slices (ROADMAP.md).
+What each path saves for backward is the reference's: Tucker x~ plus the
+sketch's last factor under ``wasi``, Tucker x~ under ``asi``, x plus the
+dense sketch through the fused kernel for factored sites without a state,
+dense x for vanilla. ``apply`` raises on project-mode factors and on
+tenant adapter pairs; those arrive with later slices (ROADMAP.md).
 
 Parameters are built frozen (``requires_grad=False``): serving never
 needs their gradients. Training turns them trainable in one place,
@@ -27,13 +32,15 @@ needs their gradients. Training turns them trainable in one place,
 """
 from __future__ import annotations
 
-from typing import Mapping
+from typing import Mapping, Sequence
 
 import torch
 from torch import nn
 
-from repro_torch.api.plan import LinearSpec
+from repro_torch.api.plan import LinearSpec, _act_mode_ranks, role_treated
 from repro_torch.config import WasiConfig
+from repro_torch.core.asi import ASIState, asi_init, asi_project, asi_step
+from repro_torch.core.lowrank_linear import asi_matmul, wasi_matmul
 
 
 def init_params(spec: LinearSpec, *, generator: torch.Generator,
@@ -70,18 +77,46 @@ def init_params(spec: LinearSpec, *, generator: torch.Generator,
     return p
 
 
+def asi_state(generator: torch.Generator, act_shape: Sequence[int],
+              wasi: WasiConfig, dtype=torch.float32,
+              device=None) -> ASIState | None:
+    """Warm-start ASI state for a linear whose input activation has
+    ``act_shape`` (B, N, I) or (B, H, W, I); None if compression is off."""
+    if not wasi.compress_acts:
+        return None
+    ranks = _act_mode_ranks(tuple(act_shape), wasi)
+    return asi_init(generator, act_shape, ranks, dtype, device)
+
+
+def init_state(generator: torch.Generator, spec: LinearSpec,
+               act_shape: Sequence[int], wasi: WasiConfig,
+               dtype=torch.float32, device=None) -> ASIState | None:
+    """Per-spec ASI warm-start state; None when this site's activations
+    stay dense under the plan."""
+    if not (wasi.compress_acts and role_treated(wasi, spec.role)):
+        return None
+    return asi_state(generator, act_shape, wasi, dtype, device)
+
+
 def apply(spec: LinearSpec, p: Mapping[str, torch.Tensor], x: torch.Tensor,
-          wasi: WasiConfig, state=None):
-    """Apply one linear site per its spec. Returns (y, new_state); the
-    state is always None on the ported layouts."""
-    if state is not None:
-        if is_quantized(p):
-            raise ValueError(
-                f"site {spec.name}: quantized params are serve-only; ASI "
-                "states cannot thread through an int8 site")
-        raise NotImplementedError(
-            f"site {spec.name}: ASI-compressed activations are not ported "
-            "yet (training slice, ROADMAP.md)")
+          wasi: WasiConfig, state: ASIState | None = None):
+    """Apply one linear site per its spec. Returns (y, new_state);
+    new_state is None when no ASI state is involved. With a state, x is
+    compressed (``asi_step``, or ``asi_project`` under
+    ``wasi.asi.frozen``) on a detached copy without grad, and the site
+    trains through ``wasi_matmul`` (factored) or ``asi_matmul`` (dense)."""
+    new_state = None
+
+    def compress(x_):
+        with torch.no_grad():
+            if wasi.asi.frozen:
+                return asi_project(x_.detach(), state), state
+            return asi_step(x_.detach(), state)
+
+    if state is not None and is_quantized(p):
+        raise ValueError(
+            f"site {spec.name}: quantized params are serve-only; ASI "
+            "states cannot thread through an int8 site")
     if "La" in p:
         raise NotImplementedError(
             f"site {spec.name}: tenant adapters are not ported yet")
@@ -105,15 +140,23 @@ def apply(spec: LinearSpec, p: Mapping[str, torch.Tensor], x: torch.Tensor,
             f"site {spec.name}: plan stamps quant={spec.quant!r} but the "
             "params are not packed; run convert.quantize(params, plan)")
     elif spec.mode == "factored":
-        # every factored site resolves to the fused route: the CUDA kernel
-        # on the card, its plain f32 version on the CPU
-        from repro_torch.kernels.ops import lowrank_matmul
-        y = lowrank_matmul(x, p["R"], p["L"])
+        if state is not None:
+            xt, new_state = compress(x)
+            y = wasi_matmul(x, p["L"], p["R"], xt)
+        else:
+            # every factored site without a state resolves to the fused
+            # route: the CUDA kernel on the card, its plain f32 version on
+            # the CPU
+            from repro_torch.kernels.ops import lowrank_matmul
+            y = lowrank_matmul(x, p["R"], p["L"])
+    elif state is not None:
+        xt, new_state = compress(x)
+        y = asi_matmul(x, p["w"], xt)
     else:
         y = torch.matmul(x, p["w"].T)
     if "b" in p:
         y = y + p["b"]
-    return y, None
+    return y, new_state
 
 
 def linear_out_dim(p: Mapping[str, torch.Tensor]) -> int:

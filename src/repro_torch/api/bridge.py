@@ -8,8 +8,13 @@ or anything ``numpy.asarray`` accepts) and gives the port's
 
 ``from_reference(..., trainable=True)`` gives leaves that require grad.
 ``state_from_reference`` / ``state_to_reference`` carry a reference
-``TrainState`` across (params and the optimizer's moments and step), the
-weight carry of the training parity tests.
+``TrainState`` across (params, the optimizer's moments and step, and the
+ASI warm-start states of the ``wasi``/``asi`` methods), the weight carry
+of the training parity tests. ``states_from_reference`` /
+``states_to_reference`` carry ASI states alone: the reference's
+``init_lm_states`` tree (groups, pattern positions, block dicts,
+``ASIState(us=...)`` with a leading ``repeat`` dim), identity modes
+None on both sides, so the leaves keep JAX's flatten order.
 
 Leaves keep their dtype, int8 weights and their f32 scales (an int8
 deployment tree, ``api.convert.quantize``) included; leaves may also be
@@ -149,29 +154,70 @@ def _moments(tree, model: LanguageModel, device) -> dict | None:
     return {n: _tensor(flat[n], device).float() for n in names}
 
 
+def states_from_reference(tree, device=None):
+    """ASI states of the reference (any NamedTuple with a ``us`` field is
+    an ``ASIState``; leaves numpy or anything ``numpy.asarray`` takes) ->
+    the port's, tensors on ``device`` (default CUDA; raises if absent)."""
+    from repro_torch.core.asi import ASIState
+
+    dev = resolve_device(device)
+
+    def walk(node):
+        if node is None:
+            return None
+        if isinstance(node, Mapping):
+            return {k: walk(v) for k, v in node.items()}
+        if isinstance(node, list):
+            return [walk(v) for v in node]
+        if isinstance(node, tuple) and hasattr(node, "_fields"):
+            if node._fields != ("us",):
+                raise TypeError(f"unexpected {type(node).__name__} in ASI "
+                                "states")
+            return ASIState(us=tuple(walk(u) for u in node.us))
+        if isinstance(node, tuple):
+            return tuple(walk(v) for v in node)
+        return _tensor(node, dev)
+
+    return walk(tree)
+
+
+def states_to_reference(states):
+    """The port's ASI states with numpy leaves (bf16 as f32 holding the
+    same values), structure and ``ASIState`` kept."""
+    from repro_torch.models.lm import map_states
+
+    def leaf(t):
+        t = t.detach().cpu()
+        return (t.float() if t.dtype == torch.bfloat16 else t).numpy().copy()
+
+    return map_states(leaf, states)
+
+
 def state_from_reference(rstate, cfg: ModelConfig, device=None):
     """A reference ``TrainState`` (arrays as numpy or anything
     ``numpy.asarray`` takes) -> the port's ``TrainState``: trainable params,
-    the optimizer's moments and both step counts. PowerSGD, ASI and
-    project-mode parts are not ported and must be None."""
+    the optimizer's moments, both step counts and the ASI states.
+    PowerSGD and project-mode parts are not ported and must be None."""
     from repro_torch.optim import OptState
     from repro_torch.train.step import TrainState
 
-    if any(getattr(rstate, f) is not None for f in ("asi", "wsi", "psgd")):
-        raise NotImplementedError("ASI, project-mode and PowerSGD states "
-                                  "are not ported yet (ROADMAP.md queue 1)")
+    if any(getattr(rstate, f) is not None for f in ("wsi", "psgd")):
+        raise NotImplementedError("project-mode and PowerSGD states are "
+                                  "not ported yet (ROADMAP.md queue 1)")
     dev = resolve_device(device)
     model = from_reference(rstate.params, cfg, dev, trainable=True)
     ropt = rstate.opt
     opt = OptState(step=int(np.asarray(ropt.step)),
                    mu=_moments(ropt.mu, model, dev),
                    nu=_moments(ropt.nu, model, dev))
-    return TrainState(params=model, opt=opt, step=int(np.asarray(rstate.step)))
+    return TrainState(params=model, opt=opt, step=int(np.asarray(rstate.step)),
+                      asi=states_from_reference(rstate.asi, dev))
 
 
 def state_to_reference(state) -> dict:
-    """{"params", "mu", "nu" (nested dict/list of numpy, or None), "opt_step",
-    "step"} of the port's ``TrainState``, in the reference's tree."""
+    """{"params", "mu", "nu" (nested dict/list of numpy, or None), "asi"
+    (``states_to_reference``, or None), "opt_step", "step"} of the port's
+    ``TrainState``, in the reference's tree."""
     tree = to_reference(state.params)
 
     def moments(d):
@@ -181,5 +227,5 @@ def state_to_reference(state) -> dict:
                             for k, v in d.items()})
 
     return {"params": tree, "mu": moments(state.opt.mu),
-            "nu": moments(state.opt.nu), "opt_step": state.opt.step,
-            "step": state.step}
+            "nu": moments(state.opt.nu), "asi": states_to_reference(state.asi),
+            "opt_step": state.opt.step, "step": state.step}

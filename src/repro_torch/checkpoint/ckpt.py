@@ -13,6 +13,8 @@ layout byte for byte:
   its reference param tree (``model.tree()``); the port's ``TrainState``
   as the reference's ``TrainState(params, OptState(step, mu, nu), asi,
   wsi, psgd, step)`` with the unported parts None and the steps int32.
+  ``asi`` is the ASI states' tree as the reference lays it out
+  (``ASIState(us=...)``, identity modes None, so they add no leaf).
 * bfloat16 leaves are written as the reference writes them, a 2-byte void
   array whose ``.npy`` header says ``'<V2'``, with ``"bfloat16"`` in the
   manifest, and read back through an int16 view; ``ml_dtypes`` is not
@@ -124,7 +126,7 @@ def as_tree(obj):
             params=params,
             opt=_RefOptState(step=np.asarray(opt.step, np.int32),
                              mu=moments(opt.mu), nu=moments(opt.nu)),
-            asi=None, wsi=None, psgd=None,
+            asi=_module_tree(obj.asi), wsi=None, psgd=None,
             step=np.asarray(obj.step, np.int32))
     if isinstance(obj, nn.Module) and hasattr(obj, "tree"):
         return _module_tree(obj.tree())
@@ -368,7 +370,8 @@ def restore_checkpoint(ckpt_dir: str, step: int, template, *,
 
     A model or the port's ``TrainState`` is filled IN PLACE (its
     parameters copied into) and returned; the state's optimizer moments
-    come back as new f32 tensors on each parameter's device. Any other
+    come back as new f32 tensors on each parameter's device, its ASI
+    states as new tensors on the devices of the template's. Any other
     tree comes back with its structure and CPU tensors for leaves."""
     tree = as_tree(template)
     want: list = []
@@ -398,7 +401,10 @@ def restore_checkpoint(ckpt_dir: str, step: int, template, *,
 
         opt = OptState(step=int(back.opt.step), mu=moments(back.opt.mu),
                        nu=moments(back.opt.nu))
-        return template._replace(opt=opt, step=int(back.step))
+        from repro_torch.models.lm import map_states
+        asi = map_states(lambda got, want: got.to(want.device), back.asi,
+                         template.asi)
+        return template._replace(opt=opt, step=int(back.step), asi=asi)
     if isinstance(template, nn.Module) and hasattr(template, "tree"):
         _copy_into(dict(template.named_parameters()), dict(_named(back)))
         return template

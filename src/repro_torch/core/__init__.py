@@ -1,3 +1,4 @@
-"""Core WASI math: the rank policy, CholeskyQR (``orthogonal``) and the
-factored-mode WSI refresh (``wsi``). The Tucker/ASI math, project mode and
-PowerSGD arrive with later slices."""
+"""Core WASI math: the rank policy, CholeskyQR (``orthogonal``), the
+factored-mode WSI refresh (``wsi``), the Tucker/ASI compression of saved
+activations (``asi``) and the custom-gradient matmuls that train from it
+(``lowrank_linear``). Project mode and PowerSGD arrive with later slices."""

@@ -5,10 +5,10 @@ A CPU tensor takes the plain PyTorch version (``ref.py``); a CUDA tensor
 launches the kernel or raises. There is no fallback from one to the other:
 the device of the input decides, and nothing else.
 
-Counters: ``LAUNCHES`` holds the serving forwards (``lowrank_fwd``, and
-``lowrank_q8`` of an int8 deployment), ``TRAIN_LAUNCHES`` the kernels
-training reaches (``lowrank_fwd_sketch``, ``lowrank_bwd``, ``gram``,
-``choleskyqr``); ``launch_counts`` reads both.
+Counters: ``LAUNCHES`` holds the forwards (``lowrank_fwd``, ``lowrank_q8``
+of an int8 deployment, and ``matmul_tiled`` of the two-launch baseline),
+``TRAIN_LAUNCHES`` the kernels training reaches (``lowrank_fwd_sketch``,
+``lowrank_bwd``, ``gram``, ``choleskyqr``); ``launch_counts`` reads both.
 """
 from __future__ import annotations
 
@@ -22,13 +22,14 @@ from repro_torch.kernels.lowrank import (
     lowrank_bwd,
     lowrank_fused,
 )
+from repro_torch.kernels.matmul_tiled import matmul_tiled
 from repro_torch.kernels.qr import choleskyqr
 from repro_torch.kernels.quant import lowrank_q8
 
-__all__ = ["LAUNCHES", "TRAIN_LAUNCHES", "cholesky_qr_mix",
-           "choleskyqr_fused", "dense_matmul_q8", "gram", "launch_counts",
-           "lowrank_bwd_fused", "lowrank_matmul", "lowrank_matmul_q8",
-           "lowrank_matmul_q8_fused", "reset_launches"]
+__all__ = ["LAUNCHES", "TRAIN_LAUNCHES", "cholesky_qr_mix", "choleskyqr_fused",
+           "dense_matmul_q8", "gram", "launch_counts", "lowrank_bwd_fused",
+           "lowrank_matmul", "lowrank_matmul_q8", "lowrank_matmul_q8_fused",
+           "lowrank_matmul_unfused", "matmul", "reset_launches"]
 
 
 def reset_launches() -> None:
@@ -92,6 +93,34 @@ def lowrank_matmul(x: torch.Tensor, r_factor: torch.Tensor,
         return ref.lowrank_matmul_ref(x, r_factor, l_factor)
     x2 = x.reshape(-1, x.shape[-1]).contiguous()
     y = lowrank_fused(x2, r_factor.contiguous(), l_factor.contiguous())
+    return y.reshape(*lead, l_factor.shape[0])
+
+
+def matmul(a: torch.Tensor, b: torch.Tensor) -> torch.Tensor:
+    """C = A B with f32 sums, in A's dtype. a (M, K), b (K, N), 2-D.
+    CUDA: one launch of the tiled kernel (``kernels/matmul_tiled.py``; an A
+    without unit stride along K is made contiguous first, B is read
+    through its strides); CPU: the plain version (``ref.matmul_ref``). No
+    gradient, as the reference's Pallas call has none."""
+    if _on_cpu(a):
+        return ref.matmul_ref(a, b)
+    if a.stride(-1) != 1:
+        a = a.contiguous()
+    return matmul_tiled(a, b)
+
+
+def lowrank_matmul_unfused(x: torch.Tensor, r_factor: torch.Tensor,
+                           l_factor: torch.Tensor) -> torch.Tensor:
+    """The two-launch factored linear (the reference's pre-fusion path,
+    kept for the Table 2 comparison with the fused kernel): h = x R^T, then
+    y = h L^T, each through ``matmul``. h is written to device memory in
+    x's dtype between the launches (bf16 at full width, where the fused
+    kernel keeps h in f32 on chip). x (..., I), R (K, I), L (O, K) ->
+    (..., O); R^T and L^T are strided views, read in place."""
+    lead = x.shape[:-1]
+    x2 = x.reshape(-1, x.shape[-1])
+    h = matmul(x2, r_factor.T)
+    y = matmul(h, l_factor.T)
     return y.reshape(*lead, l_factor.shape[0])
 
 

@@ -9,6 +9,12 @@ import torch
 from repro_torch.core.orthogonal import cholesky_qr_mix_ref
 
 
+def matmul_ref(a: torch.Tensor, b: torch.Tensor,
+               out_dtype=None) -> torch.Tensor:
+    """C = A B in f32, cast to ``out_dtype`` (default A's dtype)."""
+    return torch.matmul(a.float(), b.float()).to(out_dtype or a.dtype)
+
+
 def lowrank_matmul_ref(x: torch.Tensor, r_factor: torch.Tensor,
                        l_factor: torch.Tensor, out_dtype=None) -> torch.Tensor:
     """y = (x @ R^T) @ L^T; x (..., I), R (K, I), L (O, K) -> (..., O).

@@ -1,23 +1,32 @@
 """Training launcher: ``python -m repro_torch.launch.train --arch <id>``.
 Port of ``repro.launch.train`` (single device, synthetic data,
-checkpoints; the text-data, memprof and mesh flags arrive with those
-features).
+checkpoints, measured memory; the text-data and mesh flags arrive with
+those features).
 
 ``--ckpt-dir DIR`` saves a plan-bearing ``"train_state"`` checkpoint every
 ``--ckpt-every`` steps and at the end, and resumes from the latest one on
 start; ``api.convert.load_checkpoint(DIR)`` gives its params and plan
 back, for serving (``launch.serve --ckpt DIR``) or int8 deployment.
 
-``python -m repro_torch.launch.train --arch qwen2-0.5b --wasi wsi --full``
-trains the full config on the CUDA device; ``--device cpu`` asks for the
-CPU, and without ``--full`` the smoke config is used. With ``--wasi wsi``
-every factored linear runs through the sketch-saving forward and the
-fused backward (kernels/csrc/lowrank_fwd.cu, lowrank_bwd.cu), and every
-``refresh_every`` steps the WSI refresh runs the CholeskyQR kernels
-(gram.cu, choleskyqr.cu). The config default ``wasi`` method needs the
-ASI-compressed activations, not ported yet (ROADMAP.md queue 1).
-Weights are random, drawn from ``TrainConfig.seed``, and the batches come
-from ``SyntheticLM`` with the same seed.
+``python -m repro_torch.launch.train --arch qwen2-0.5b --full`` trains the
+full config on the CUDA device under its own method, ``wasi``;
+``--device cpu`` asks for the CPU, and without ``--full`` the smoke config
+is used. ``--wasi`` picks another method:
+
+* ``wasi`` (the config default): factored weights, every linear input
+  compressed to Tucker factors by one ASI step (``core/asi.py``) and the
+  backward from the factors (``core/lowrank_linear.py``); the ASI states
+  come from ``init_lm_states`` and ride in ``TrainState.asi``;
+* ``asi``: dense weights, compressed inputs;
+* ``wsi``: factored weights through the sketch-saving forward and the
+  fused backward (kernels/csrc/lowrank_fwd.cu, lowrank_bwd.cu);
+* ``none``: dense weights, plain autograd.
+
+Under ``wasi`` and ``wsi`` the WSI refresh runs the CholeskyQR kernels
+(gram.cu, choleskyqr.cu) every ``refresh_every`` steps. ``--memprof`` logs
+the measured memory columns (``train/loop.py``). Weights are random,
+drawn from ``TrainConfig.seed``, and the batches come from ``SyntheticLM``
+with the same seed.
 """
 from __future__ import annotations
 
@@ -29,7 +38,7 @@ from repro_torch import api
 from repro_torch.checkpoint import CheckpointManager
 from repro_torch.config import TrainConfig
 from repro_torch.data.synthetic import SyntheticLM
-from repro_torch.models.lm import init_lm, lm_loss
+from repro_torch.models.lm import _dtype, init_lm, init_lm_states, lm_loss
 from repro_torch.train.loop import train_loop
 from repro_torch.train.step import make_train_state, make_train_step
 from repro_torch.utils.device import resolve_device
@@ -39,9 +48,11 @@ def build(arch: str, *, smoke: bool, batch: int, seq: int, wasi: str | None,
           tcfg: TrainConfig, device=None, refresh_every: int | None = None):
     """(cfg, plan, state, step, dataset) for one training run: the plan
     resolved once with the activation-shape hint and installed, the model
-    initialised from ``tcfg.seed`` on ``device`` (default CUDA; raises if
-    absent) and made trainable, the single-device step. ``refresh_every``
-    overrides the config's WSI refresh period (scripts only; no flag)."""
+    and, under ``wasi``/``asi``, the ASI states (``batch`` x ``seq``
+    activations, the config's dtype) initialised from ``tcfg.seed`` on
+    ``device`` (default CUDA; raises if absent), the model made trainable,
+    the single-device step. ``refresh_every`` overrides the config's WSI
+    refresh period (scripts only; no flag)."""
     dev = resolve_device(device)
     cfg = configs.get_smoke(arch) if smoke else configs.get(arch)
     if wasi is not None:
@@ -55,7 +66,10 @@ def build(arch: str, *, smoke: bool, batch: int, seq: int, wasi: str | None,
                           global_batch=batch, seed=tcfg.seed)
     plan = api.install(api.resolve(cfg, batch=batch, seq=seq))
     model = init_lm(cfg, device=dev, seed=tcfg.seed)
-    state = make_train_state(model, cfg, tcfg)
+    asi = (init_lm_states(cfg, batch, seq, dtype=_dtype(cfg.dtype),
+                          device=dev, seed=tcfg.seed)
+           if cfg.wasi.compress_acts else None)
+    state = make_train_state(model, cfg, tcfg, asi_states=asi)
     step = make_train_step(lm_loss, cfg, tcfg)
     return cfg, plan, state, step, dataset
 
@@ -75,6 +89,8 @@ def build_parser() -> argparse.ArgumentParser:
     ap.add_argument("--ckpt-dir", default="",
                     help="save (and resume from) checkpoints here")
     ap.add_argument("--ckpt-every", type=int, default=50)
+    ap.add_argument("--memprof", action="store_true",
+                    help="log measured memory columns (utils/memprof.py)")
     return ap
 
 
@@ -99,7 +115,8 @@ def main(argv=None) -> list[dict]:
     ckpt = (CheckpointManager(args.ckpt_dir, keep=tcfg.keep_checkpoints,
                               plan=plan, label="train_state")
             if args.ckpt_dir else None)
-    state, hist = train_loop(state, step, feed, tcfg, ckpt=ckpt)
+    state, hist = train_loop(state, step, feed, tcfg, ckpt=ckpt,
+                             memprof=args.memprof)
     if hist:
         print(f"[train] done: loss {hist[0]['loss']:.4f} -> "
               f"{hist[-1]['loss']:.4f}")

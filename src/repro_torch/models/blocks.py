@@ -3,6 +3,7 @@ for the ``dense`` kind (attention + MLP, pre-norm residuals); the other
 kinds arrive with their model families and raise until then.
 
     init_block(kind, cfg, ...)              -> params (nn.ModuleDict)
+    init_block_state(kind, cfg, B, S, ...)  -> ASI warm-start states
     init_block_cache(kind, cfg, B, S, ...)  -> decode cache
     apply_block(kind, params, x, cfg, ...)  -> (x, cache, states, aux)
 """
@@ -12,8 +13,13 @@ import torch
 from torch import nn
 
 from repro_torch.config import ModelConfig
-from repro_torch.nn.attention import apply_attention, init_attention, init_cache
-from repro_torch.nn.mlp import apply_mlp, init_mlp
+from repro_torch.nn.attention import (
+    apply_attention,
+    init_attention,
+    init_attention_state,
+    init_cache,
+)
+from repro_torch.nn.mlp import apply_mlp, init_mlp, init_mlp_state
 from repro_torch.nn.norms import apply_norm, init_norm
 
 PORTED_KINDS = ("dense",)
@@ -44,6 +50,16 @@ def init_block(kind: str, cfg: ModelConfig, *, generator: torch.Generator,
     })
 
 
+def init_block_state(kind: str, cfg: ModelConfig, batch: int, seq: int, *,
+                     generator: torch.Generator, dtype=torch.float32,
+                     device=None) -> dict:
+    """ASI warm-start states of one layer: {"attn": ..., "mlp": ...}."""
+    _check_kind(kind)
+    kw = dict(generator=generator, dtype=dtype, device=device)
+    return {"attn": init_attention_state(cfg, batch, seq, **kw),
+            "mlp": init_mlp_state(cfg, batch, seq, **kw)}
+
+
 def init_block_cache(kind: str, cfg: ModelConfig, batch: int, seq: int, *,
                      lead: tuple[int, ...] = (), dtype=torch.bfloat16,
                      device=None) -> dict:
@@ -61,13 +77,13 @@ def apply_block(kind: str, p, x: torch.Tensor, cfg: ModelConfig, *,
     _check_kind(kind)
     st = states or {}
     h = apply_norm(cfg.norm, p["ln1"], x)
-    a, new_kv, _ = apply_attention(
+    a, new_kv, s_attn = apply_attention(
         p["attn"], h, cfg, causal=True, window=block_window(kind, cfg),
         cache=None if cache is None else cache["kv"], pos=pos,
         states=st.get("attn"), valid_len=valid_len)
     x = x + a
     h = apply_norm(cfg.norm, p["ln2"], x)
-    f, _ = apply_mlp(p["mlp"], h, cfg, st.get("mlp"))
+    f, s_mlp = apply_mlp(p["mlp"], h, cfg, st.get("mlp"))
     x = x + f
     new_cache = None if cache is None else {"kv": new_kv}
-    return x, new_cache, {}, 0.0
+    return x, new_cache, {"attn": s_attn, "mlp": s_mlp}, 0.0

@@ -10,14 +10,22 @@ dim. ``api.bridge`` maps it one-to-one onto the reference's pytree.
 The reference's ``lax.scan`` over a group becomes a Python loop over the
 stacked dim; ``jax.jit`` becomes eager PyTorch. Decode caches mirror the
 groups (leaves (repeat, B, S, KVH, Dh)) and are updated IN PLACE: the
-returned caches are the ones passed in.
+returned caches are the ones passed in. ASI warm-start states (the
+``wasi``/``asi`` methods) mirror the groups too, as the reference's
+``init_lm_states`` lays them out: per group a list per pattern position
+of block state trees whose factors carry the leading ``repeat`` dim
+(identity modes stay None). The loop hands layer ``j`` its slice and
+stacks the refreshed states it returns into new tensors, as the scan's
+``ys`` do.
 
-Entry points: init_lm / init_lm_cache, lm_forward (logits), lm_loss
-(training), lm_prefill (token-parallel prompt pass that fills the caches),
-lm_decode_step.
+Entry points: init_lm / init_lm_states / init_lm_cache, lm_forward
+(logits), lm_loss (training), lm_prefill (token-parallel prompt pass that
+fills the caches), lm_decode_step.
 
 ``remat`` (the full config's ``"block"``) is not ported: the backward keeps
-every layer's saved activations, which the numbers do not depend on.
+every layer's saved activations, so the saved-for-backward bytes at full
+width are those of ``remat="none"`` (``utils.memprof`` measures them);
+the computed values do not depend on it.
 """
 from __future__ import annotations
 
@@ -25,7 +33,12 @@ import torch
 from torch import nn
 
 from repro_torch.config import ModelConfig
-from repro_torch.models.blocks import apply_block, init_block, init_block_cache
+from repro_torch.models.blocks import (
+    apply_block,
+    init_block,
+    init_block_cache,
+    init_block_state,
+)
 from repro_torch.nn.norms import apply_norm, init_norm
 from repro_torch.utils.device import resolve_device
 
@@ -127,6 +140,51 @@ def init_lm(cfg: ModelConfig, *, device=None, dtype=None,
     return LanguageModel(cfg, embed, final_norm, groups, lm_head)
 
 
+def map_states(fn, *trees):
+    """Map ``fn`` over the tensor leaves of state trees with one structure
+    (dicts, lists, tuples and NamedTuples, None an empty subtree)."""
+    t0 = trees[0]
+    if t0 is None:
+        return None
+    if isinstance(t0, dict):
+        return {k: map_states(fn, *(t[k] for t in trees)) for k in t0}
+    if isinstance(t0, list):
+        return [map_states(fn, *(t[i] for t in trees))
+                for i in range(len(t0))]
+    if isinstance(t0, tuple):
+        kids = [map_states(fn, *(t[i] for t in trees))
+                for i in range(len(t0))]
+        return type(t0)(*kids) if hasattr(t0, "_fields") else tuple(kids)
+    return fn(*trees)
+
+
+def _stack_states(per_layer: list):
+    """Per-layer state trees -> one tree with a leading ``repeat`` dim."""
+    return map_states(lambda *ts: torch.stack(ts), *per_layer)
+
+
+def _layer_states(stacked, j: int):
+    """Layer ``j``'s slice of a stacked state tree (views)."""
+    return map_states(lambda t: t[j], stacked)
+
+
+def init_lm_states(cfg: ModelConfig, batch: int, seq: int, *,
+                   dtype=torch.float32, device=None,
+                   generator: torch.Generator | None = None,
+                   seed: int = 0) -> list:
+    """ASI warm-start states mirroring ``groups``: per group, per pattern
+    position, a block state tree stacked on the group's ``repeat`` dim.
+    Drawn from ``generator`` (default: a CPU generator seeded with
+    ``seed``) and moved to ``device`` (default CUDA; raises if absent)."""
+    dev = resolve_device(device)
+    if generator is None:
+        generator = torch.Generator().manual_seed(seed)
+    return [[_stack_states([
+        init_block_state(kind, cfg, batch, seq, generator=generator,
+                         dtype=dtype, device=dev) for _ in range(g.repeat)])
+        for kind in g.pattern] for g in cfg.groups]
+
+
 def init_lm_cache(cfg: ModelConfig, batch: int, seq: int, *,
                   dtype=torch.bfloat16, device=None) -> list:
     """Decode caches mirroring ``groups`` (leaves stacked on ``repeat``)."""
@@ -144,20 +202,27 @@ def _layer_cache(gcache: dict, j: int) -> dict:
 def lm_backbone(model: LanguageModel, x, cfg: ModelConfig, *, states=None,
                 caches=None, pos=None, valid_len=None):
     """Run embedded hidden states through all layer groups, a loop over
-    each group's stacked layers. Returns (x, None, caches, aux)."""
-    if states is not None:
-        raise NotImplementedError("ASI states are not ported yet")
+    each group's stacked layers. Returns (x, new_states, caches, aux);
+    new_states is None without ``states``."""
     views = model.layer_views()
+    new_states = []
     for gi, g in enumerate(cfg.groups):
+        out = [[] for _ in g.pattern]
         for j in range(g.repeat):
             for pi, kind in enumerate(g.pattern):
                 cache = (None if caches is None
                          else _layer_cache(caches[gi][pi], j))
-                x, _, _, _ = apply_block(
+                st = (None if states is None
+                      else _layer_states(states[gi][pi], j))
+                x, _, ns, _ = apply_block(
                     kind, views[gi][pi][j], x, cfg, cache=cache,
-                    pos=pos, valid_len=valid_len)
+                    pos=pos, states=st, valid_len=valid_len)
+                if states is not None:
+                    out[pi].append(ns)
+        if states is not None:
+            new_states.append([_stack_states(o) for o in out])
     x = apply_norm(cfg.norm, model.final_norm, x)
-    return x, None, caches, 0.0
+    return x, (new_states if states is not None else None), caches, 0.0
 
 
 def _logits(model: LanguageModel, x, cfg: ModelConfig):
@@ -174,15 +239,16 @@ def _embed(model: LanguageModel, tokens, cfg: ModelConfig):
 
 
 def lm_forward(model: LanguageModel, tokens, cfg: ModelConfig, *,
-               caches=None, pos=None):
-    """tokens (B, S) -> logits (B, S, V). Returns (logits, None, caches,
+               states=None, caches=None, pos=None):
+    """tokens (B, S) -> logits (B, S, V). Returns (logits, states, caches,
     aux). Float ``tokens`` are taken as precomputed embeddings."""
     if tokens.is_floating_point():
         x = tokens.to(_dtype(cfg.dtype))
     else:
         x = _embed(model, tokens, cfg)
-    x, _, nc, aux = lm_backbone(model, x, cfg, caches=caches, pos=pos)
-    return _logits(model, x, cfg), None, nc, aux
+    x, ns, nc, aux = lm_backbone(model, x, cfg, states=states,
+                                 caches=caches, pos=pos)
+    return _logits(model, x, cfg), ns, nc, aux
 
 
 def lm_loss(model: LanguageModel, batch: dict, cfg: ModelConfig, *,
@@ -193,12 +259,10 @@ def lm_loss(model: LanguageModel, batch: dict, cfg: ModelConfig, *,
     if policy is not None:
         raise NotImplementedError("sharding policies arrive with the "
                                   "distributed slice (ROADMAP.md queue 1)")
-    if states is not None:
-        raise NotImplementedError("ASI states (the wasi/asi methods) are "
-                                  "not ported yet (ROADMAP.md queue 1)")
     from repro_torch.nn.losses import masked_xent
 
-    logits, ns, _, aux = lm_forward(model, batch["tokens"], cfg)
+    logits, ns, _, aux = lm_forward(model, batch["tokens"], cfg,
+                                    states=states)
     labels = batch["labels"]
     mask = (labels >= 0).float()
     ce = masked_xent(logits, torch.clamp(labels, min=0), mask)

@@ -25,7 +25,7 @@ from typing import NamedTuple
 import torch
 from torch import nn
 
-from repro_torch.api import bind, plan_of
+from repro_torch.api import bind, plan_of, role_treated
 from repro_torch.config import ModelConfig
 from repro_torch.nn.rotary import apply_rope
 
@@ -61,6 +61,24 @@ def init_attention(cfg: ModelConfig, *, generator: torch.Generator,
             scale=(h * dh) ** -0.5 / max(cfg.total_pattern_layers, 1) ** 0.5,
             **kw),
     })
+
+
+def init_attention_state(cfg: ModelConfig, batch: int, seq: int, *,
+                         generator: torch.Generator, dtype=torch.float32,
+                         device=None) -> dict:
+    """ASI warm-start states for the four projections (train path); {}
+    when the plan leaves attention's activations dense."""
+    d, h, dh = cfg.d_model, cfg.n_heads, cfg.resolved_head_dim
+    w = cfg.wasi
+    if not (w.compress_acts and role_treated(w, "attn")):
+        return {}
+    kw = dict(dtype=dtype, device=device)
+    return {
+        "wq": bind.asi_state(generator, (batch, seq, d), w, **kw),
+        "wk": bind.asi_state(generator, (batch, seq, d), w, **kw),
+        "wv": bind.asi_state(generator, (batch, seq, d), w, **kw),
+        "wo": bind.asi_state(generator, (batch, seq, h * dh), w, **kw),
+    }
 
 
 # ---------------------------------------------------------------------------
@@ -290,11 +308,14 @@ def apply_attention(p, x: torch.Tensor, cfg: ModelConfig, *,
     b, sq, _ = x.shape
     plan = plan_of(cfg)
     st = states or {}
+    new_st = dict(st)
 
     def proj(name, inp):
         spec = plan.linear(f"attn/{name}", inp.shape[-1],
                            bind.linear_out_dim(p[name]))
-        y, _ = bind.apply(spec, p[name], inp, cfg.wasi, st.get(name))
+        y, ns = bind.apply(spec, p[name], inp, cfg.wasi, st.get(name))
+        if ns is not None:
+            new_st[name] = ns
         return y
 
     def maybe_rope(t, positions):
@@ -332,4 +353,4 @@ def apply_attention(p, x: torch.Tensor, cfg: ModelConfig, *,
         new_cache = cache_update(cache, k, v, pos, window=window)
         o = decode_attention(q, new_cache, pos, window=window)
     out = proj("wo", o.reshape(b, sq, h * dh))
-    return out, new_cache, {}
+    return out, new_cache, new_st

@@ -8,14 +8,19 @@ and the refresh update IN PLACE (``optimizer_update``,
 ``api.bind.map_factored``), and the returned state is the same model with
 the new optimizer state and step count.
 
+ASI states (the ``wasi``/``asi`` methods, ``make_train_state(asi_states=
+...)``) ride in ``TrainState.asi``: the loss returns the refreshed states,
+and under ``tcfg.microbatch > 1`` they carry from one microbatch to the
+next, as the reference's scan carry does. They are new tensors each step,
+not updated in place.
+
 Factored WASI maintenance: after the update of step ``s``, when
 ``(s + 1) % refresh_every == 0``, every (L, R) pair is re-orthogonalized
 (``core.wsi.wsi_refresh_factored``: one CholeskyQR per stacked site).
 
 Not ported yet, and refused with ``NotImplementedError``: PowerSGD
 (``tcfg.powersgd_rank``), the data-parallel step (``mesh=``,
-``mean_fn=``), project mode and ASI states (the ``wasi``/``asi`` methods).
-See ROADMAP.md queue 1.
+``mean_fn=``) and project mode. See ROADMAP.md queue 1.
 """
 from __future__ import annotations
 
@@ -36,11 +41,12 @@ from repro_torch.optim import (
 
 
 class TrainState(NamedTuple):
-    """The reference's ``TrainState`` without the ASI, project-mode and
+    """The reference's ``TrainState`` without the project-mode and
     PowerSGD states, which are not ported."""
     params: Any         # the model (LanguageModel); leaves updated in place
     opt: OptState
     step: int = 0
+    asi: Any = None     # ASI warm-start states (models.lm.init_lm_states)
 
 
 def _refuse(what: str) -> None:
@@ -56,9 +62,6 @@ def make_train_state(model, cfg: ModelConfig, tcfg: TrainConfig, *,
     frozen, and this is where training turns them on."""
     if cfg.wasi.project:
         _refuse("project update mode")
-    if cfg.wasi.compress_acts or asi_states is not None:
-        _refuse(f"the {cfg.wasi.method!r} method (ASI-compressed "
-                "activations)")
     if tcfg.powersgd_rank > 0:
         _refuse("PowerSGD gradient compression")
     if dp_degree:
@@ -76,21 +79,25 @@ def make_train_state(model, cfg: ModelConfig, tcfg: TrainConfig, *,
             "(api.convert.quantize)")
     model.requires_grad_(True)
     params = dict(model.named_parameters())
-    return TrainState(params=model, opt=init_optimizer(params, tcfg))
+    return TrainState(params=model, opt=init_optimizer(params, tcfg),
+                      asi=asi_states)
 
 
-def value_and_grad(loss_fn, model, batch, cfg: ModelConfig):
-    """(loss, metrics, grads) of one batch; grads a {name: tensor} dict
-    in the params' dtypes (zeros for a leaf the loss does not reach, as
-    ``jax.grad`` gives)."""
+def value_and_grad(loss_fn, model, batch, cfg: ModelConfig, states=None):
+    """(loss, metrics, grads, new_states) of one batch; ``states`` (ASI
+    warm starts, or None) go into the loss and its refreshed states come
+    out; grads a {name: tensor} dict in the params' dtypes (zeros for a
+    leaf the loss does not reach, as ``jax.grad`` gives)."""
     params = dict(model.named_parameters())
     with torch.enable_grad():
-        loss, (_, metrics) = loss_fn(model, batch, cfg)
+        loss, (new_states, metrics) = loss_fn(model, batch, cfg,
+                                              states=states)
         grads = torch.autograd.grad(loss, list(params.values()),
                                     allow_unused=True)
     grads = {k: torch.zeros_like(p) if g is None else g
              for (k, p), g in zip(params.items(), grads)}
-    return loss.detach(), {k: v.detach() for k, v in metrics.items()}, grads
+    return (loss.detach(), {k: v.detach() for k, v in metrics.items()},
+            grads, new_states)
 
 
 def _microbatches(batch: dict, nm: int) -> list[dict]:
@@ -100,22 +107,25 @@ def _microbatches(batch: dict, nm: int) -> list[dict]:
 
 def make_train_step(loss_fn, cfg: ModelConfig, tcfg: TrainConfig, *,
                     policy=None, mean_fn=None, mesh=None):
-    """loss_fn(model, batch, cfg) -> (loss, (states, metrics)).
+    """loss_fn(model, batch, cfg, states=...) -> (loss, (states, metrics)).
 
     Returns step(state, batch) -> (state, metrics). ``tcfg.microbatch > 1``
     accumulates f32 gradients over that many slices of the batch's leading
-    dim and averages them, as the reference's scan does."""
+    dim and averages them, the ASI states carried from slice to slice, as
+    the reference's scan does."""
     if mesh is not None or mean_fn is not None or policy is not None:
         _refuse("the data-parallel (mesh) train step")
     schedule = make_schedule(tcfg)
 
     def step(state: TrainState, batch: dict) -> tuple[TrainState, dict]:
         model = state.params
+        new_asi = state.asi
         if tcfg.microbatch > 1:
             nm = tcfg.microbatch
             grads, losses, metset = None, [], []
             for mb in _microbatches(batch, nm):
-                loss, mets, g = value_and_grad(loss_fn, model, mb, cfg)
+                loss, mets, g, new_asi = value_and_grad(
+                    loss_fn, model, mb, cfg, new_asi)
                 if grads is None:
                     grads = {k: torch.zeros(v.shape, dtype=torch.float32,
                                             device=v.device)
@@ -127,7 +137,8 @@ def make_train_step(loss_fn, cfg: ModelConfig, tcfg: TrainConfig, *,
             metrics = {k: torch.stack([m[k] for m in metset]).mean()
                        for k in metset[0]}
         else:
-            loss, metrics, grads = value_and_grad(loss_fn, model, batch, cfg)
+            loss, metrics, grads, new_asi = value_and_grad(
+                loss_fn, model, batch, cfg, state.asi)
 
         grads, gnorm = clip_by_global_norm(grads, tcfg.clip_norm)
         lr = schedule(state.step)
@@ -140,6 +151,7 @@ def make_train_step(loss_fn, cfg: ModelConfig, tcfg: TrainConfig, *,
 
         metrics = dict(metrics)
         metrics.update({"loss": loss, "grad_norm": gnorm, "lr": lr})
-        return state._replace(opt=new_opt, step=state.step + 1), metrics
+        return state._replace(opt=new_opt, step=state.step + 1,
+                              asi=new_asi), metrics
 
     return step

@@ -361,3 +361,135 @@ def test_q8_wrapper_refuses_what_the_kernel_does_not_take(cuda):
 def test_q8_smem_formula_matches_the_source(cuda, bm, ks):
     assert kquant._lib().lowrank_q8_smem_bytes(bm, ks) == \
         lowrank.smem_bytes(bm, ks)
+
+
+# ---------------------------------------------------------------------------
+# The tiled matmul (kernel #9) and the two-launch factored linear
+# ---------------------------------------------------------------------------
+
+from repro_torch.kernels import matmul_tiled as kmm  # noqa: E402
+
+# (M, K, N): ragged edges on every dim, one row, strides that do and do
+# not allow 16-byte loads (lda 257, 70; B rows of 300 or 1000), 128- and
+# 64-wide tiles, and the products of the two-launch pair at qwen2-0.5b's
+# sites
+MM_SHAPES = [(33, 257, 129), (1, 5, 3), (130, 70, 7), (257, 16, 300),
+             (70, 40, 1000), (1000, 896, 4864), (4, 4864, 256),
+             (2048, 256, 896), (2048, 4864, 256)]
+
+
+def _mm_tol(a, b, got_dtype):
+    """Every product exact in f32 (bf16 x bf16 too), K of them summed in
+    f32 in another order, tensor cores included: at most 2 K eps times the
+    sum of |terms| of each output, bounded by (|A| |B|).max(). A bf16
+    output is rounded on each side: two sums that straddle a rounding
+    boundary land one bf16 ulp apart, up to 2^-7 of the value."""
+    k = a.shape[1]
+    absab = (a.float().abs() @ b.float().abs()).max().item()
+    tol = 2 * k * EPS32 * max(absab, 1.0)
+    if got_dtype == torch.bfloat16:
+        want_scale = (a.float() @ b.float()).abs().max().item()
+        tol += 2.0 ** -7 * want_scale
+    return tol
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("m,k,n", MM_SHAPES)
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+@pytest.mark.parametrize("b_layout", ["n_major", "k_major"])
+def test_matmul_kernel_matches_plain_version(cuda, m, k, n, dtype, b_layout):
+    g = torch.Generator().manual_seed(m + k + n)
+    a = torch.randn(m, k, generator=g).to(cuda, dtype)
+    if b_layout == "n_major":
+        b = torch.randn(k, n, generator=g).to(cuda, dtype)
+    else:   # a transposed view, as lowrank_matmul_unfused passes R.T
+        b = torch.randn(n, k, generator=g).to(cuda, dtype).T
+    before = ops.launch_counts()["matmul_tiled"]
+    got = ops.matmul(a, b)
+    torch.cuda.synchronize()
+    assert ops.launch_counts()["matmul_tiled"] == before + 1
+    assert got.shape == (m, n) and got.dtype == dtype
+    want = ref.matmul_ref(a, b)
+    assert (got.float() - want.float()).abs().max().item() <= \
+        _mm_tol(a, b, dtype)
+    assert torch.equal(got, ops.matmul(a, b))
+    # the kernel's f32 output of bf16 operands: one f32 rounding only
+    wide = kmm.matmul_tiled(a, b, torch.float32)
+    assert wide.dtype == torch.float32
+    assert (wide - ref.matmul_ref(a, b, torch.float32)).abs().max().item() \
+        <= _mm_tol(a, b, torch.float32)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("m", [4, 1000])
+@pytest.mark.parametrize("i,k,o", [(896, 256, 4864), (4864, 256, 896),
+                                   (896, 128, 128)])
+def test_unfused_pair_against_plain_and_fused(cuda, m, i, k, o):
+    """Two launches, h written in x's dtype between them, held one product
+    at a time: h (the first launch's bits: the kernel is deterministic)
+    against the plain product, y against the plain product of that h and
+    L^T, each within its product's bound. Against the fused kernel #1,
+    which keeps h in f32: both outputs' bounds, plus h's bf16 rounding
+    (at most 2^-8 |h|) and both first products' f32 sums (2 I eps
+    (|x| |R^T|) each), carried through L."""
+    x, r, l_ = _inputs((m,), i, k, o, cuda, torch.bfloat16)
+    before = ops.launch_counts()["matmul_tiled"]
+    got = ops.lowrank_matmul_unfused(x, r, l_)
+    torch.cuda.synchronize()
+    assert ops.launch_counts()["matmul_tiled"] == before + 2
+    h = ops.matmul(x, r.T)
+    assert h.dtype == torch.bfloat16
+    assert (h.float() - ref.matmul_ref(x, r.T).float()).abs().max().item() \
+        <= _mm_tol(x, r.T, torch.bfloat16)
+    tol = _mm_tol(h, l_.T, torch.bfloat16)
+    assert (got.float() - ref.matmul_ref(h, l_.T).float()).abs().max() \
+        .item() <= tol
+    fused = ops.lowrank_matmul(x, r, l_)
+    hf = x.float() @ r.float().T
+    dh = 2.0 ** -8 * hf.abs() \
+        + 4 * i * EPS32 * (x.float().abs() @ r.float().abs().T)
+    tol_f = 2 * tol + (dh @ l_.float().abs().T).max().item()
+    assert (got.float() - fused.float()).abs().max().item() <= tol_f
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+def test_matmul_kernel_on_unaligned_views(cuda, dtype):
+    """Operands that start one element into their storage (no 16-byte
+    loads) and a B whose strides are both above 1 (read element by
+    element): the same results as the plain version."""
+    g = torch.Generator().manual_seed(9)
+    big = torch.randn(96, 201, generator=g).to(cuda, dtype)
+    a = big[:, 1:]                        # (96, 200), offset 1, lda 201
+    bbig = torch.randn(2, 200, 65, generator=g).to(cuda, dtype)
+    for b in (bbig[0, :, 1:],             # row-major, offset 1
+              bbig[:, :, :3].permute(1, 0, 2).reshape(200, 6),  # a copy
+              bbig.transpose(0, 1)[:, 0, :64]):   # strides (65, 1) view
+        got = ops.matmul(a, b)
+        torch.cuda.synchronize()
+        want = ref.matmul_ref(a, b)
+        assert (got.float() - want.float()).abs().max().item() <= \
+            _mm_tol(a, b, dtype)
+    b = torch.randn(64, 200 * 3, generator=g).to(cuda, dtype)[:, ::3].T
+    assert b.stride() == (3, 600)         # neither stride is 1
+    got = ops.matmul(a, b)
+    assert (got.float() - ref.matmul_ref(a, b).float()).abs().max().item() \
+        <= _mm_tol(a, b, dtype)
+
+
+@pytest.mark.cuda
+def test_matmul_wrapper_refuses_what_the_kernel_does_not_take(cuda):
+    a = torch.randn(8, 16, device=cuda)
+    b = torch.randn(16, 4, device=cuda)
+    with pytest.raises(ValueError, match="CUDA tensors only"):
+        kmm.matmul_tiled(a, b.cpu())
+    with pytest.raises(ValueError, match="one dtype"):
+        kmm.matmul_tiled(a, b.bfloat16())
+    with pytest.raises(ValueError, match="not supported"):
+        kmm.matmul_tiled(a.half(), b.half())
+    with pytest.raises(ValueError, match="do not chain"):
+        kmm.matmul_tiled(a, b[:8])
+    with pytest.raises(ValueError, match="unit stride"):
+        kmm.matmul_tiled(torch.randn(16, 8, device=cuda).T, b)
+    with pytest.raises(ValueError, match="2-D"):
+        kmm.matmul_tiled(a[None], b)

@@ -56,6 +56,9 @@ def test_port_imports_with_jax_blocked():
             "import repro_torch.data.synthetic\n"
             "import repro_torch.checkpoint, repro_torch.quant\n"
             "import repro_torch.api.convert, repro_torch.kernels.quant\n"
+            "import repro_torch.core.asi, repro_torch.core.lowrank_linear\n"
+            "import repro_torch.kernels.matmul_tiled\n"
+            "import repro_torch.utils.memprof\n"
             "print('ok')\n")
     env = dict(os.environ, PYTHONPATH=str(ROOT / "src"))
     proc = subprocess.run([sys.executable, "-c", code], env=env,
@@ -66,7 +69,7 @@ def test_port_imports_with_jax_blocked():
 
 def test_entry_points_refuse_to_fall_back_to_cpu(monkeypatch):
     from repro_torch import configs
-    from repro_torch.models.lm import init_lm, init_lm_cache
+    from repro_torch.models.lm import init_lm, init_lm_cache, init_lm_states
     from repro_torch.serve import ServeEngine
 
     cfg = configs.get_smoke("qwen2-0.5b")
@@ -76,6 +79,8 @@ def test_entry_points_refuse_to_fall_back_to_cpu(monkeypatch):
         init_lm(cfg)
     with pytest.raises(RuntimeError, match="no CUDA device"):
         init_lm_cache(cfg, 1, 8)
+    with pytest.raises(RuntimeError, match="no CUDA device"):
+        init_lm_states(cfg, 1, 8)
     with pytest.raises(RuntimeError, match="no CUDA device"):
         ServeEngine(model, cfg, max_slots=1, max_cache=16)
     # asking for the CPU explicitly is fine

@@ -90,7 +90,8 @@ def test_cpu_path_never_counts_a_launch():
     x, r, l_ = _inputs((8,), 32, 8, 16)
     tops.lowrank_matmul(torch.from_numpy(x), torch.from_numpy(r),
                         torch.from_numpy(l_))
-    assert tops.LAUNCHES == {"lowrank_fwd": 0, "lowrank_q8": 0}
+    assert tops.LAUNCHES == {"lowrank_fwd": 0, "lowrank_q8": 0,
+                            "matmul_tiled": 0}
 
 
 def test_kernel_wrapper_refuses_cpu_tensors():

@@ -177,7 +177,7 @@ def test_one_step_gradients_match_reference(reference_init):
     tree = jax.tree.map(np.asarray, reference_init)
     model = from_reference(tree, tcfg, "cpu")
     make_train_state(model, tcfg, TrainConfig(steps=1))
-    loss, metrics, grads = value_and_grad(tlm.lm_loss, model,
+    loss, metrics, grads, _ = value_and_grad(tlm.lm_loss, model,
                                           _torch_batch(batch), tcfg)
     (wloss, (_, wmet)), wgrads = jax.jit(jax.value_and_grad(
         lambda p: rlm.lm_loss(p, jax.tree.map(jnp.asarray, batch), rcfg),
@@ -317,9 +317,10 @@ def test_launcher_trains_on_the_cpu_and_refuses_a_silent_fallback(
 def test_unported_training_modes_raise():
     rcfg, tcfg = _cfgs()
     model = tlm.init_lm(tcfg, device="cpu")
-    wasi = tcfg.replace(wasi=dataclasses.replace(tcfg.wasi, method="wasi"))
+    project = tcfg.replace(wasi=dataclasses.replace(tcfg.wasi,
+                                                    update_mode="project"))
     with pytest.raises(NotImplementedError, match="ROADMAP"):
-        make_train_state(model, wasi, TrainConfig())
+        make_train_state(model, project, TrainConfig())
     with pytest.raises(NotImplementedError, match="ROADMAP"):
         make_train_state(model, tcfg, TrainConfig(powersgd_rank=2))
     with pytest.raises(NotImplementedError, match="ROADMAP"):
@@ -327,7 +328,7 @@ def test_unported_training_modes_raise():
     state = make_train_state(model, tcfg, TrainConfig(steps=1))
     with pytest.raises(NotImplementedError, match="ROADMAP"):
         train_loop(state, lambda s, b: (s, {}), lambda s: {}, TrainConfig(),
-                   memprof=True)
+                   batch_sharding=object())
 
 
 def test_train_loop_logs_every_step_it_is_asked_to():
