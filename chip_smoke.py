@@ -66,7 +66,31 @@ Phases, in order; any failure raises and the script exits non-zero:
    last factor, L and R, and not x; one ``wasi`` and one ``none`` step
    under the profiler (busy share); qwen2 smoke under ``wasi``
    (SGD+momentum) trained on the card and the CPU from the same weights
-   and ASI states, compared.
+   and ASI states, compared;
+13. flash attention: hold ``flash_attention`` (kernel #7, ``ops``) against
+   its plain version on the reference's sweep (ragged 100, GQA, windows,
+   dh 16-128, causal and not; f32 and bf16) and the main paths' shapes
+   (ViT-B/16 at batch 64, f32, bidirectional; qwen2-0.5b's training rows
+   and one prefill bucket, bf16, causal); time kernel, plain version,
+   ``scaled_dot_product_attention`` and bound; one backward through
+   ``_FlashAttention`` against autograd of the plain version;
+14. ViT smoke: vit-smoke under project-mode ``wasi``, SGD+momentum, 4
+   steps on the card and the CPU from the same params, ASI states and WSI
+   states; losses, W, (L, R) and ASI factors compared; exact launches;
+15. the paper's Fig. 5 / Tab. 1 at full width: ViT-B/16 (12 layers, d
+   768, f32, random init from a seed) on ``SyntheticVision`` (10
+   classes, 196 patches of 768, noise 0.5), batch 64, SGD+momentum, 10
+   steps per row: ``none``, ``asi`` and project-mode ``wasi`` at epsilon
+   0.8 under scope "mlp" (Fig. 5), and ``wasi`` under scope "all" (Tab.
+   1); step time, images/s, the allocator's peak, the saved bytes of one
+   ``vit_loss``, one ``vit_forward`` without states, the busy share of
+   one step, the picked ranks, the loss after step 10, and exact launch
+   counts (12 of #7 per forward, none in the backward).
+
+Every full-sequence attention (training, a forward without caches, the
+prefill at offset 0) goes through kernel #7, so phases 5, 7, 8, 10 and 12
+count its launches too: 24 per qwen2-0.5b forward or prefill call, none
+per decode step.
 
 Phase 6 also holds the CholeskyQR kernel's shift ladder against the plain
 ladder on a stack with one well-conditioned and one ill-conditioned index.
@@ -82,6 +106,7 @@ import argparse
 import dataclasses
 import gc
 import json
+import math
 import os
 import shutil
 import statistics
@@ -414,9 +439,16 @@ def phase_full_width(card: str) -> dict:
                              f"multiple of {per_forward} covering "
                              f"{s['decode_steps']} decode steps")
     forwards = launches // per_forward
+    prefills = forwards - s["decode_steps"]
+    flash = ops.LAUNCHES["flash_attention"]
+    if flash != cfg.n_layers * prefills:
+        raise AssertionError(f"flash_attention launches {flash} != "
+                             f"{cfg.n_layers} x {prefills} prefill calls "
+                             "(0 per decode step)")
     print(f"[full] lowrank_fwd launches={launches} = {forwards} forwards x "
           f"{per_forward} ({s['decode_steps']} decode steps + "
-          f"{forwards - s['decode_steps']} prefill groups)")
+          f"{prefills} prefill groups); flash_attention launches={flash} = "
+          f"{prefills} prefill calls x {cfg.n_layers}, 0 per decode step")
     # no NaN logits: one more prefill over every prompt's first 5 tokens
     with torch.inference_mode():
         c = init_lm_cache(cfg, 8, 16, device="cuda")
@@ -434,7 +466,7 @@ def phase_full_width(card: str) -> dict:
                weight_mib=s["weight_mib"], kv_mib=s["cache_bytes"] / 2**20,
                max_memory_allocated_mib=peak / 2**20,
                decode_steps=s["decode_steps"], launches=launches,
-               prefill_tokens=s["prefill_tokens"],
+               flash_launches=flash, prefill_tokens=s["prefill_tokens"],
                decode_tokens=s["decode_tokens"], wall_s=s["wall_s"])
     for key in ("prefill_tok_s", "decode_tok_s", "ttft_ms_median",
                 "ttft_ms_max", "tpot_ms_median", "weight_mib", "kv_mib",
@@ -890,7 +922,8 @@ def phase_smoke_training(card: str) -> dict:
     per_step = 7 * out["n_layers"]
     want = dict.fromkeys(cuda["launches"], 0)
     want.update(lowrank_fwd_sketch=4 * per_step, lowrank_bwd=4 * per_step,
-                gram=2 * 7, choleskyqr=2 * 7)
+                gram=2 * 7, choleskyqr=2 * 7,
+                flash_attention=4 * out["n_layers"])
     if cuda["launches"] != want:
         raise AssertionError(f"smoke training launches {cuda['launches']} "
                              f"!= {want}")
@@ -1056,6 +1089,7 @@ def phase_full_training(card: str) -> dict:
     per_step = len(SITES) * cfg.n_layers
     refreshes = n_steps // 4
     want = {"lowrank_fwd": 0, "lowrank_q8": 0, "matmul_tiled": 0,
+            "flash_attention": n_steps * cfg.n_layers,
             "lowrank_fwd_sketch": n_steps * per_step,
             "lowrank_bwd": n_steps * per_step, "gram": refreshes * len(SITES),
             "choleskyqr": refreshes * len(SITES)}
@@ -1075,7 +1109,8 @@ def phase_full_training(card: str) -> dict:
           f"{peak / 2 ** 20:.1f} | {card}")
     print(f"[train-full] launches {counts} = {n_steps} steps x {per_step} "
           f"sketch and backward, {refreshes} refreshes x {len(SITES)} Gram "
-          f"and CholeskyQR, 0 lowrank_fwd", flush=True)
+          f"and CholeskyQR, {n_steps} x {cfg.n_layers} flash_attention "
+          "(forward only), 0 lowrank_fwd", flush=True)
     res.update(check_train_checkpoint(state, plan, n_steps, save_s, card))
     state, prof = profile_train_step(state, step, batch_fn(n_steps), card)
     res.update(prof)
@@ -1297,6 +1332,7 @@ def phase_int8_deploy(card: str, full: dict) -> dict:
     forwards = calls["_prefill"] + calls["_decode_all"]
     want = dict.fromkeys(counts, 0)
     want["lowrank_q8"] = per_forward * forwards
+    want["flash_attention"] = cfg.n_layers * calls["_prefill"]
     if counts != want or calls["_decode_all"] != s["decode_steps"]:
         raise AssertionError(f"int8 serving launches {counts} != {want} "
                              f"({calls}, {s['decode_steps']} decode steps)")
@@ -1312,6 +1348,8 @@ def phase_int8_deploy(card: str, full: dict) -> dict:
     print(f"[int8] lowrank_q8 launches={counts['lowrank_q8']} = {forwards} "
           f"forwards ({calls['_decode_all']} decode steps + "
           f"{calls['_prefill']} prefill groups) x {per_forward}; "
+          f"flash_attention={counts['flash_attention']} = "
+          f"{calls['_prefill']} prefill calls x {cfg.n_layers}; "
           f"lowrank_fwd={counts['lowrank_fwd']}", flush=True)
     ttft = [h.ttft_s for h in hs]
     tpot = [h.tpot_s for h in hs]
@@ -1699,7 +1737,8 @@ def smoke_wasi_parity(card: str) -> dict:
         optimizer="sgd", lr=0.3, momentum=0.9, steps=4, clip_norm=2.0))
     cuda, cpu = out["cuda"], out["cpu"]
     want = dict.fromkeys(cuda["launches"], 0)
-    want.update(gram=2 * 7, choleskyqr=2 * 7)
+    want.update(gram=2 * 7, choleskyqr=2 * 7,
+                flash_attention=4 * out["n_layers"])
     if cuda["launches"] != want:
         raise AssertionError(f"smoke wasi launches {cuda['launches']} != "
                              f"{want}")
@@ -1783,7 +1822,8 @@ def table2_method(method: str, card: str) -> dict:
         want.update(lowrank_fwd_sketch=n_steps * per_step,
                     lowrank_bwd=n_steps * per_step)
     want.update(gram=refreshes * len(SITES),
-                choleskyqr=refreshes * len(SITES))
+                choleskyqr=refreshes * len(SITES),
+                flash_attention=n_steps * cfg.n_layers)
     if counts != want:
         raise AssertionError(f"{method} training launches {counts} != "
                              f"{want}")
@@ -1817,6 +1857,7 @@ def table2_method(method: str, card: str) -> dict:
             raise AssertionError(f"{method}: non-finite inference logits")
         del logits
         want = dict.fromkeys(inf_counts, 0)
+        want["flash_attention"] = cfg.n_layers
         if cfg.wasi.factored:
             want["lowrank_fwd"] = per_step
         if inf_counts != want:
@@ -1910,6 +1951,401 @@ def phase_table2(card: str) -> dict:
     return out
 
 
+# ---------------------------------------------------------------------------
+# kernel #7 and the paper's ViT-B/16 fine-tuning (Fig. 5 / Tab. 1)
+# ---------------------------------------------------------------------------
+
+# (B, S, H, KVH, dh, causal, window): the reference's sweep
+# (tests/test_kernels.py:146-168: ragged 100, GQA, windows 64/128, dh
+# 16-128, causal and not), run in f32 and bf16
+FLASH_SWEEP = ((2, 128, 4, 2, 32, True, 0), (1, 256, 4, 4, 64, True, 64),
+               (2, 100, 2, 1, 16, False, 0), (1, 384, 2, 2, 128, True, 128),
+               (1, 64, 8, 2, 96, True, 0))
+# the main paths' shapes, each in its own dtype: ViT-B/16 training at
+# batch 64 (phase 15), qwen2-0.5b training rows (phases 8, 12), one
+# prefill bucket of phase 5 (2 prompts in the 256 bucket)
+FLASH_PATH = {"vit": (64, 197, 12, 12, 64, False, 0, torch.float32),
+              "qwen2_train": (4, 512, 14, 2, 64, True, 0, torch.bfloat16),
+              "qwen2_prefill": (2, 256, 14, 2, 64, True, 0, torch.bfloat16)}
+VIT_BATCH, VIT_PATCHES, VIT_PATCH_DIM, VIT_CLASSES = 64, 196, 768, 10
+VIT_STEPS = 10
+# Fig. 5's rows (scope "mlp", the paper's PAPER_WASI) and Tab. 1's
+# (scope "all"): (row name, method, scope)
+VIT_ROWS = (("none", "none", "mlp"), ("asi", "asi", "mlp"),
+            ("wasi", "wasi", "mlp"), ("wasi_all", "wasi", "all"))
+
+
+def visible_pairs(sq, sk, causal, window) -> int:
+    """(query, key) pairs the mask lets through: the work this run's
+    data needs."""
+    qpos = np.arange(sq)[:, None]
+    kpos = np.arange(sk)[None, :]
+    ok = np.ones((sq, sk), bool)
+    if causal:
+        ok &= kpos <= qpos
+    if window > 0:
+        ok &= kpos > qpos - window
+    return int(ok.sum())
+
+
+def flash_work(b, s, h, kvh, dh, causal, window, dtype):
+    """(bytes, flops): q, k, v read once, o written once; 4 dh flops per
+    visible (query, key) pair and head (q k^T and p v)."""
+    item = itemsize(dtype)
+    nbytes = (2 * b * s * h * dh + 2 * b * s * kvh * dh) * item
+    return nbytes, 4 * b * h * visible_pairs(s, s, causal, window) * dh
+
+
+def flash_tol(want, dtype) -> float:
+    """f32: 2e-5 at unit-normal inputs (the online softmax's
+    reassociation); bf16: 2 ulps of the output's scale (p is rounded to
+    bf16 before p . v, as the TPU kernel does, and o is rounded on both
+    sides)."""
+    if dtype == torch.float32:
+        return 2e-5
+    scale = want.float().abs().max().item()
+    return 2 * 2.0 ** (math.floor(math.log2(scale)) - 7)
+
+
+def flash_inputs(b, s, h, kvh, dh, dtype, gen, n_sets=1):
+    return [tuple(torch.randn(b, s, n, dh, device="cuda",
+                              generator=gen).to(dtype)
+                  for n in (h, kvh, kvh)) for _ in range(n_sets)]
+
+
+def library_flash(causal, window, s):
+    """The yardstick: one ``scaled_dot_product_attention`` call on the
+    (B, H, S, dh) views, GQA by ``enable_gqa``, the window as a boolean
+    mask. Timed here, used nowhere in the port."""
+    import torch.nn.functional as F
+
+    mask = None
+    if window > 0:
+        qpos = torch.arange(s, device="cuda")[:, None]
+        kpos = torch.arange(s, device="cuda")[None, :]
+        mask = kpos > qpos - window
+        if causal:
+            mask &= kpos <= qpos
+
+    def fn(q, k, v):
+        qt, kt, vt = (t.transpose(1, 2) for t in (q, k, v))
+        o = F.scaled_dot_product_attention(
+            qt, kt, vt, attn_mask=mask, is_causal=causal and mask is None,
+            enable_gqa=True)
+        return o.transpose(1, 2)
+    return fn
+
+
+def phase_flash_kernel(card: str) -> dict:
+    print("== phase 13: flash_attention against its plain version",
+          flush=True)
+    gen = torch.Generator(device="cuda").manual_seed(13)
+    cases = [(f"sweep {c}", *c, dt) for c in FLASH_SWEEP
+             for dt in (torch.float32, torch.bfloat16)]
+    cases += [(name, *c) for name, c in FLASH_PATH.items()]
+    rows, worst = [], 0.0
+    for name, b, s, h, kvh, dh, causal, window, dtype in cases:
+        (q, k, v), = flash_inputs(b, s, h, kvh, dh, dtype, gen)
+        got = ops.flash_attention(q, k, v, causal=causal, window=window)
+        torch.cuda.synchronize()
+        want = ref.flash_attention_ref(q, k, v, causal=causal, window=window)
+        err = (got.float() - want.float()).abs().max().item()
+        tol = flash_tol(want, dtype)
+        if not err <= tol:
+            raise AssertionError(f"flash_attention {name} {dtype}: max abs "
+                                 f"err {err:.3e} > tol {tol:.3e}")
+        worst = max(worst, err)
+        del got, want
+        nbytes, flops = flash_work(b, s, h, kvh, dh, causal, window, dtype)
+        n_sets = max(1, min(24, int(120e6 // nbytes) + 1))
+        sets = flash_inputs(b, s, h, kvh, dh, dtype, gen, n_sets)
+
+        def kern(q_, k_, v_, causal=causal, window=window):
+            return ops.flash_attention(q_, k_, v_, causal=causal,
+                                       window=window)
+
+        def plain(q_, k_, v_, causal=causal, window=window):
+            return ref.flash_attention_ref(q_, k_, v_, causal=causal,
+                                           window=window)
+
+        k_ms, p_ms = time_ms(kern, sets), time_ms(plain, sets)
+        l_ms = time_ms(library_flash(causal, window, s), sets)
+        b_ms, b_by = bound_of(nbytes, flops, dtype)
+        rows.append(dict(case=name, B=b, S=s, H=h, KVH=kvh, dh=dh,
+                         causal=causal, window=window, dtype=str(dtype)[6:],
+                         kernel_ms=k_ms, plain_ms=p_ms, library_ms=l_ms,
+                         bound_ms=b_ms, bound_by=b_by, max_abs_err=err,
+                         tol=tol))
+        print(f"[kernel] flash_attention {name:13s} B={b} S={s} H={h}/{kvh} "
+              f"dh={dh} causal={int(causal)} window={window} "
+              f"{str(dtype)[6:]:8s} err={err:.2e} (tol {tol:.2e}) "
+              f"kernel_ms={k_ms:.4f} plain_ms={p_ms:.4f} library_ms="
+              f"{l_ms:.4f} bound_ms={b_ms:.5f} ({b_by}) | {card}",
+              flush=True)
+        del sets
+    # one backward through _FlashAttention (kernel forward, plain f32
+    # recompute) against autograd of the plain version, ViT's heads at
+    # batch 4: the same f32 math in another order, 1e-5 of the scale
+    (q, k, v), = flash_inputs(4, 197, 12, 12, 64, torch.float32, gen)
+    ts = [t.requires_grad_(True) for t in (q, k, v)]
+    before = ops.launch_counts()["flash_attention"]
+    out = ops.flash_attention(*ts, causal=False)
+    dy = torch.randn(out.shape, device="cuda", generator=gen)
+    got = torch.autograd.grad(out, ts, dy)
+    if ops.launch_counts()["flash_attention"] != before + 1:
+        raise AssertionError("the backward launched the forward kernel")
+    want = torch.autograd.grad(ref.flash_attention_ref(*ts, causal=False),
+                               ts, dy)
+    bwd_err = max(((a - w).abs().max() / w.abs().max()).item()
+                  for a, w in zip(got, want))
+    if not bwd_err <= 1e-5:
+        raise AssertionError(f"flash_attention backward: dq/dk/dv err "
+                             f"{bwd_err:.3e} of scale > 1e-5")
+    print(f"[kernel] flash_attention backward (ViT heads, B=4, f32): dq, "
+          f"dk, dv against autograd of the plain version {bwd_err:.2e} of "
+          f"scale (tol 1e-5); 1 forward launch, none in the backward | "
+          f"{card}", flush=True)
+    head = next(r for r in rows if r["case"] == "vit")
+    return dict(rows=rows, worst=worst, backward_rel_err=bwd_err,
+                headline=dict(ms=head["kernel_ms"],
+                              plain_ms=head["plain_ms"],
+                              library_ms=head["library_ms"],
+                              bound_ms=head["bound_ms"],
+                              bound_by=head["bound_by"]))
+
+
+def _vit_cfg(method: str, scope: str, smoke: bool = False):
+    cfg = configs.get_smoke("vit-base") if smoke else configs.get("vit-base")
+    return cfg.replace(wasi=dataclasses.replace(
+        cfg.wasi, method=method, scope=scope, update_mode="project"))
+
+
+def phase_vit_smoke(card: str) -> dict:
+    """vit-smoke under project-mode ``wasi`` (SGD+momentum), 4 steps on
+    the card and on the CPU (f32) from the same seeded params and ASI
+    states and the CPU's WSI states (the truncated SVD's signs differ
+    between LAPACK and cuSOLVER, so the card takes the CPU's factors)."""
+    from repro_torch.core.wsi import WSIState
+    from repro_torch.data.synthetic import SyntheticVision
+    from repro_torch.models.lm import map_states
+    from repro_torch.models.vit import init_vit, init_vit_states, vit_loss
+
+    print("== phase 14: ViT smoke, project-mode wasi, card against CPU "
+          "(f32)", flush=True)
+    b, n_patch, p_dim, n_cls = 8, 16, 24, 4
+    cfg = _vit_cfg("wasi", "all", smoke=True)
+    api.uninstall(cfg)
+    api.install(api.resolve(cfg, batch=b, seq=n_patch + 1))
+    tcfg = TrainConfig(optimizer="sgd", lr=0.05, momentum=0.9, steps=4,
+                       clip_norm=2.0, checkpoint_every=0)
+    data = SyntheticVision(n_cls, n_patch, p_dim, b, seed=0, noise=0.5)
+    batches = [data.batch(i) for i in range(4)]
+
+    def leaves(tree):
+        got = []
+        map_states(lambda t: got.append(t.detach().cpu().clone()), tree)
+        return got
+
+    out, wsi0 = {}, None
+    for dev in ("cpu", "cuda"):
+        model = init_vit(cfg, n_cls, p_dim, n_patch, device=dev, seed=7)
+        asi = init_vit_states(cfg, b, n_patch, device=dev, seed=7)
+        state = make_train_state(model, cfg, tcfg, asi_states=asi,
+                                 use_epsilon_ranks=True)
+        if wsi0 is None:
+            wsi0 = state.wsi
+        state = state._replace(wsi={k: WSIState(v.L.to(dev), v.R.to(dev))
+                                    for k, v in wsi0.items()})
+        step = make_train_step(vit_loss, cfg, tcfg)
+        ops.reset_launches()
+        losses, first = [], None
+        for bt in batches:
+            state, m = step(state, {k: v.to(dev) for k, v in bt.items()})
+            losses.append(float(m["loss"]))
+            if first is None:
+                first = leaves(state.asi)
+        out[dev] = dict(losses=losses, launches=ops.launch_counts(),
+                        first=first, states=leaves(state.asi),
+                        params={n: p.detach().cpu() for n, p in
+                                model.named_parameters()},
+                        wsi=leaves(state.wsi))
+    api.uninstall(cfg)
+    cuda, cpu = out["cuda"], out["cpu"]
+    want = dict.fromkeys(cuda["launches"], 0)
+    want["flash_attention"] = 4 * cfg.n_layers
+    if cuda["launches"] != want or any(cpu["launches"].values()):
+        raise AssertionError(f"ViT smoke launches: card {cuda['launches']} "
+                             f"(want {want}), CPU {cpu['launches']}")
+
+    def rel(a, b_):
+        return max(((x - y).abs().max() / y.abs().max()).item()
+                   for x, y in zip(a, b_))
+
+    # f32 both sides, sums in other orders. Losses within 1e-5 relative;
+    # W within 1e-5 of each leaf's scale (SGD moves W by the same f32
+    # gradient; PR 14's SGD bound); the WSI (L, R) after 4 steps within
+    # 1e-4 of their scale, phase 12's limit on factors after 4 steps (one
+    # subspace iteration a step, each against W that differs in its last
+    # bits); the ASI factors within 1e-4 after step 1 and 2e-3 after
+    # step 4, phase 12's limits (rounding turns the subspaces at smoke
+    # ranks: card against CPU read 7.9e-4 under qwen2 wasi).
+    loss_err = max(abs(a / b_ - 1) for a, b_ in zip(cuda["losses"],
+                                                   cpu["losses"]))
+    w_err = rel([cuda["params"][n] for n in cpu["params"]],
+                list(cpu["params"].values()))
+    wsi_err = rel(cuda["wsi"], cpu["wsi"])
+    first_err = rel(cuda["first"], cpu["first"])
+    st_err = rel(cuda["states"], cpu["states"])
+    if not (loss_err <= 1e-5 and w_err <= 1e-5 and wsi_err <= 1e-4
+            and first_err <= 1e-4 and st_err <= 2e-3):
+        raise AssertionError(
+            f"ViT smoke card vs CPU: loss rel err {loss_err:.3e} (tol "
+            f"1e-5), W err {w_err:.3e} of scale (tol 1e-5), WSI (L, R) "
+            f"{wsi_err:.3e} (tol 1e-4), ASI factors after step 1 "
+            f"{first_err:.3e} (tol 1e-4), after step 4 {st_err:.3e} (tol "
+            f"2e-3)")
+    print(f"[vit-smoke] project wasi, SGD+momentum, 4 steps: losses card "
+          f"{cuda['losses']} cpu {cpu['losses']}: max rel err "
+          f"{loss_err:.3e} (tol 1e-5); W err {w_err:.3e} of scale (tol "
+          f"1e-5); WSI (L, R) err {wsi_err:.3e} (tol 1e-4); ASI factors err "
+          f"{first_err:.3e} after step 1 (tol 1e-4), {st_err:.3e} after "
+          f"step 4 (tol 2e-3); launches {cuda['launches']} | {card}",
+          flush=True)
+    return dict(losses_cuda=cuda["losses"], losses_cpu=cpu["losses"],
+                loss_rel_err=loss_err, w_err=w_err, wsi_err=wsi_err,
+                state_err_step1=first_err, state_err=st_err,
+                launches=cuda["launches"])
+
+
+def vit_row(row: str, method: str, scope: str, batches: list,
+            card: str) -> dict:
+    """One row of Fig. 5 / Tab. 1 at full ViT-B/16 width: train
+    ``VIT_STEPS`` steps through ``train_loop(memprof=True)``, exact launch
+    counts (12 of #7 per forward, none in the backward), the saved bytes
+    of one ``vit_loss``, one ``vit_forward`` without states, the busy
+    share of one step, the ranks picked."""
+    from repro_torch.core.project import project_forward_params
+    from repro_torch.models.vit import (
+        init_vit,
+        init_vit_states,
+        vit_forward,
+        vit_loss,
+    )
+    from repro_torch.utils.memprof import measured_residual_bytes
+
+    cfg = _vit_cfg(method, scope)
+    api.uninstall(cfg)
+    api.install(api.resolve(cfg, batch=VIT_BATCH, seq=VIT_PATCHES + 1))
+    tcfg = TrainConfig(optimizer="sgd", lr=0.05, momentum=0.9,
+                       steps=VIT_STEPS, checkpoint_every=0)
+    torch.cuda.synchronize()
+    torch.cuda.empty_cache()
+    t0 = time.perf_counter()
+    model = init_vit(cfg, VIT_CLASSES, VIT_PATCH_DIM, VIT_PATCHES,
+                     device="cuda", seed=0)
+    asi = init_vit_states(cfg, VIT_BATCH, VIT_PATCHES, device="cuda",
+                          seed=0) if cfg.wasi.compress_acts else None
+    state = make_train_state(model, cfg, tcfg, asi_states=asi,
+                             use_epsilon_ranks=True)
+    torch.cuda.synchronize()
+    build_s = time.perf_counter() - t0
+    ranks = {p: int(st.L.shape[-1]) for p, st in (state.wsi or {}).items()}
+    step = make_train_step(vit_loss, cfg, tcfg)
+    ops.reset_launches()
+    state, hist = train_loop(state, step, lambda i: batches[i], tcfg,
+                             log_every=1, memprof=True,
+                             log_fn=lambda line: print(line, flush=True))
+    torch.cuda.synchronize()
+    counts = ops.launch_counts()
+    want = dict.fromkeys(counts, 0)
+    want["flash_attention"] = VIT_STEPS * cfg.n_layers
+    if counts != want:
+        raise AssertionError(f"ViT {row} training launches {counts} != "
+                             f"{want}")
+    losses = [h["loss"] for h in hist]
+    if len(hist) != VIT_STEPS or not all(np.isfinite(x) for x in losses):
+        raise AssertionError(f"ViT {row} losses {losses}")
+    step_s = statistics.median(h["sec"] for h in hist[1:])
+    res = dict(row=row, method=method, scope=scope, build_s=build_s,
+               losses=losses, step_ms=[h["sec"] * 1e3 for h in hist],
+               step_ms_median=step_s * 1e3, images_s=VIT_BATCH / step_s,
+               dev_peak_mib=max(h["mem_dev_peak_mib"] for h in hist),
+               train_launches=counts, ranks=ranks)
+
+    batch = batches[0]
+    fwd = state.params if state.wsi is None else project_forward_params(
+        state.params, state.wsi)
+    rep = measured_residual_bytes(
+        lambda: vit_loss(fwd, batch, cfg, states=state.asi))
+    res["residual_bytes"] = rep.total_bytes
+    del rep, fwd
+    torch.cuda.empty_cache()
+    with torch.no_grad():
+        ops.reset_launches()
+        logits, _ = vit_forward(model, batch["patches"], cfg)
+        torch.cuda.synchronize()
+        inf_counts = ops.launch_counts()
+        want = dict.fromkeys(inf_counts, 0)
+        want["flash_attention"] = cfg.n_layers
+        if inf_counts != want or not torch.isfinite(logits).all():
+            raise AssertionError(f"ViT {row} inference launches "
+                                 f"{inf_counts} != {want}, or non-finite "
+                                 "logits")
+        times = []
+        for _ in range(6):
+            torch.cuda.synchronize()
+            t0 = time.perf_counter()
+            vit_forward(model, batch["patches"], cfg)
+            torch.cuda.synchronize()
+            times.append(time.perf_counter() - t0)
+    res["infer_ms_median"] = statistics.median(times[1:]) * 1e3
+    state, prof = profile_train_step(state, step, batches[1], card)
+    res.update(prof)
+    del state, step, model
+    api.uninstall(cfg)
+    shown = {p.split("/")[-2]: k for p, k in ranks.items()}
+    print(f"[vit] {row}: step_ms_median (steps 2-{VIT_STEPS})="
+          f"{res['step_ms_median']:.3f} images_s={res['images_s']:.1f} "
+          f"infer_ms_median={res['infer_ms_median']:.3f} dev_peak_mib="
+          f"{res['dev_peak_mib']:.1f} residual_bytes={res['residual_bytes']}"
+          f" loss_step{VIT_STEPS}={losses[-1]:.4f} ranks (random init, eps "
+          f"{cfg.wasi.epsilon}) {shown or '-'} train launches "
+          f"{counts['flash_attention']} flash ({cfg.n_layers} a forward, 0 "
+          f"in the backward) inference {inf_counts['flash_attention']} | "
+          f"{card}", flush=True)
+    return res
+
+
+def phase_vit_fig5(card: str) -> dict:
+    from repro_torch.data.synthetic import SyntheticVision
+
+    print(f"== phase 15: Fig. 5 / Tab. 1 at full width: ViT-B/16 (12 "
+          f"layers, d 768, f32, random init), batch {VIT_BATCH}, "
+          f"{VIT_PATCHES} patches of {VIT_PATCH_DIM}, SGD+momentum, "
+          f"{VIT_STEPS} steps per row", flush=True)
+    data = SyntheticVision(VIT_CLASSES, VIT_PATCHES, VIT_PATCH_DIM,
+                           VIT_BATCH, seed=0, noise=0.5)
+    # set-up: every batch drawn and moved to the card before training
+    batches = [{k: v.cuda() for k, v in data.batch(i).items()}
+               for i in range(VIT_STEPS)]
+    out = {}
+    for row, method, scope in VIT_ROWS:
+        out[row] = vit_row(row, method, scope, batches, card)
+        gc.collect()
+        torch.cuda.empty_cache()
+    print("[vit] row       step_ms  images_s  infer_ms  dev_peak_mib  "
+          "residual_MiB  busy  loss10")
+    for row, _, _ in VIT_ROWS:
+        r = out[row]
+        print(f"[vit] {row:8s} {r['step_ms_median']:8.3f} "
+              f"{r['images_s']:8.1f} {r['infer_ms_median']:8.3f} "
+              f"{r['dev_peak_mib']:9.1f} "
+              f"{r['residual_bytes'] / 2 ** 20:10.2f} "
+              f"{r.get('train_busy_share') or 0:.3f} {r['losses'][-1]:.4f} | "
+              f"{card}", flush=True)
+    return out
+
+
 def main() -> None:
     ap = argparse.ArgumentParser(description=__doc__.splitlines()[0])
     ap.add_argument("--json", default="",
@@ -1946,6 +2382,9 @@ def main() -> None:
     shutil.rmtree(CKPT_DIR, ignore_errors=True)
     mm = phase_matmul_kernels(card)
     table2 = phase_table2(card)
+    fk = phase_flash_kernel(card)
+    vit_smoke = phase_vit_smoke(card)
+    vit = phase_vit_fig5(card)
 
     head = k["headline"]
     kernels = [{
@@ -1987,6 +2426,15 @@ def main() -> None:
         "max_abs_err": mm["worst"], "ms": h["ms"], "plain_ms": h["plain_ms"],
         "bound_ms": h["bound_ms"], "bound_by": h["bound_by"],
         "library_ms": h["library_ms"]})
+    h = fk["headline"]
+    kernels.append({
+        "name": "flash_attention", "route": "cuda",
+        "source": "src/repro_torch/kernels/csrc/flash_attn.cu",
+        "replaces": "src/repro/kernels/flash_attention.py:26",
+        "launches": vit["wasi"]["train_launches"]["flash_attention"],
+        "max_abs_err": fk["worst"], "ms": h["ms"], "plain_ms": h["plain_ms"],
+        "bound_ms": h["bound_ms"], "bound_by": h["bound_by"],
+        "library_ms": h["library_ms"]})
     line = {"kernels": kernels}
     if args.json:
         os.makedirs(os.path.dirname(os.path.abspath(args.json)),
@@ -2000,6 +2448,10 @@ def main() -> None:
                        "q8_headline": q8["headline"], "int8_deploy": deploy,
                        "matmul_rows": mm["rows"], "unfused_rows": mm["pairs"],
                        "matmul_headline": mm["headline"], "table2": table2,
+                       "flash_rows": fk["rows"],
+                       "flash_headline": fk["headline"],
+                       "flash_backward_rel_err": fk["backward_rel_err"],
+                       "vit_smoke": vit_smoke, "vit_fig5": vit,
                        "kernels": line["kernels"],
                        "seconds": time.perf_counter() - t_start}, f,
                       indent=1)

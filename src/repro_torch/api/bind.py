@@ -5,26 +5,31 @@ Param layouts are the reference's, one leaf per key:
 
     dense:    {"w": (O, I) [, "b"]}
     factored: {"L": (O, K), "R": (K, I) [, "b"]}
+    project:  {"w": (O, I) [, "L", "R"] [, "b"]}  (factors injected per
+              step by core/project.py, or carried by a converted
+              checkpoint)
 
 ``init_params`` returns them as an ``nn.ParameterDict`` (optionally with
 leading stack dims, the layer group's ``repeat``); ``apply`` takes any
 mapping of tensors with those keys, a per-layer slice of the stack.
 
-Ported so far: the dense and factored layouts with or without an ASI
+Ported: the dense, factored and project layouts with or without an ASI
 state (``init_state``/``asi_state``: the ``wasi`` and ``asi`` methods
 compress a site's input into Tucker factors and train through
 ``core.lowrank_linear``), their int8-packed deployment layouts
-(quant/quantize.py), and ``map_factored`` for the factored-mode refresh:
+(quant/quantize.py), ``map_factored`` for the factored-mode refresh and
+``inject_factors``/``extract_project_factors`` for project mode:
 
     factored int8: {"L": int8 (O, K), "sL": f32 (O,),
                     "R": int8 (K, I), "sR": f32 (K,) [, "b"]}
     dense int8:    {"w": int8 (O, I), "sW": f32 (O,) [, "b"]}
 
 What each path saves for backward is the reference's: Tucker x~ plus the
-sketch's last factor under ``wasi``, Tucker x~ under ``asi``, x plus the
+sketch's last factor under ``wasi``, Tucker x~ under ``asi``, Tucker x~
+plus L and R in project mode (x, L and R without a state), x plus the
 dense sketch through the fused kernel for factored sites without a state,
-dense x for vanilla. ``apply`` raises on project-mode factors and on
-tenant adapter pairs; those arrive with later slices (ROADMAP.md).
+dense x for vanilla. ``apply`` raises on tenant adapter pairs; those
+arrive with a later slice (ROADMAP.md).
 
 Parameters are built frozen (``requires_grad=False``): serving never
 needs their gradients. Training turns them trainable in one place,
@@ -40,7 +45,12 @@ from torch import nn
 from repro_torch.api.plan import LinearSpec, _act_mode_ranks, role_treated
 from repro_torch.config import WasiConfig
 from repro_torch.core.asi import ASIState, asi_init, asi_project, asi_step
-from repro_torch.core.lowrank_linear import asi_matmul, wasi_matmul
+from repro_torch.core.lowrank_linear import (
+    asi_matmul,
+    wasi_matmul,
+    wasi_matmul_project,
+    wsi_matmul_project_exact,
+)
 
 
 def init_params(spec: LinearSpec, *, generator: torch.Generator,
@@ -120,9 +130,6 @@ def apply(spec: LinearSpec, p: Mapping[str, torch.Tensor], x: torch.Tensor,
     if "La" in p:
         raise NotImplementedError(
             f"site {spec.name}: tenant adapters are not ported yet")
-    if spec.mode == "project" and "L" in p:
-        raise NotImplementedError(
-            f"site {spec.name}: project-mode factors are not ported yet")
     if is_quantized(p):
         # int8 deployment (plan.quantized + convert.quantize): the scales
         # fold into the products, no dequantized weight is ever formed
@@ -139,6 +146,14 @@ def apply(spec: LinearSpec, p: Mapping[str, torch.Tensor], x: torch.Tensor,
         raise ValueError(
             f"site {spec.name}: plan stamps quant={spec.quant!r} but the "
             "params are not packed; run convert.quantize(params, plan)")
+    elif spec.mode == "project" and "L" in p:
+        # factored forward, dense-W gradient (paper Eq. 9-11); the factors
+        # come from the per-step WSI injection or a converted checkpoint
+        if state is not None:
+            xt, new_state = compress(x)
+            y = wasi_matmul_project(x, p["w"], p["L"], p["R"], xt)
+        else:
+            y = wsi_matmul_project_exact(x, p["w"], p["L"], p["R"])
     elif spec.mode == "factored":
         if state is not None:
             xt, new_state = compress(x)
@@ -150,6 +165,7 @@ def apply(spec: LinearSpec, p: Mapping[str, torch.Tensor], x: torch.Tensor,
             from repro_torch.kernels.ops import lowrank_matmul
             y = lowrank_matmul(x, p["R"], p["L"])
     elif state is not None:
+        # dense weights (ASI baseline, or an un-injected project site)
         xt, new_state = compress(x)
         y = asi_matmul(x, p["w"], xt)
     else:
@@ -209,13 +225,23 @@ def iter_linear_dicts(tree, prefix: str = ""):
         yield from iter_linear_dicts(v, f"{prefix}/{k}" if prefix else k)
 
 
+def _layout_fits(p, mode: str) -> bool:
+    """Does a linear dict's layout fit a site of ``mode``? Factored sites
+    carry L and R and no w; dense sites w alone; project sites w, with or
+    without the (L, R) a converted checkpoint carries."""
+    layout = linear_layout(p)
+    if mode == "project":
+        return layout in ("project", "dense")
+    return layout == ("factored" if mode == "factored" else "dense")
+
+
 def check_layout(groups, plan) -> None:
-    """Raise ``ValueError`` where a linear dict of the layer groups does
-    not have its plan site's layout: factored sites carry L and R, and a
-    site is int8-packed exactly where the plan stamps ``quant``."""
+    """Raise ``ValueError`` where a linear dict of the layer blocks does
+    not have its plan site's layout (``_layout_fits``), or is int8-packed
+    where the plan stamps no ``quant`` (or the other way round)."""
     for path, p in iter_linear_dicts(groups):
         spec = plan.spec("/".join(path.split("/")[-2:]))
-        if ("L" in p) != spec.factored_params:
+        if not _layout_fits(p, spec.mode):
             raise ValueError(f"{path}: layout does not match the plan's "
                              f"{spec.mode} site {spec.name}")
         if is_quantized(p) != (spec.quant is not None):
@@ -258,3 +284,66 @@ def map_factored(params, fn):
                 p["L"].copy_(st.L)
                 p["R"].copy_(st.R)
     return params
+
+
+def inject_factors(params, states: dict):
+    """The param tree with (L, R) from ``states`` (a path-keyed
+    ``WSIState`` dict, paths ending "/w") detached beside each dense W, so
+    ``apply`` takes the project path. Returns plain nested dicts and lists
+    holding the same leaves (W itself, not a copy, so its gradient
+    reaches the parameter); the model is not changed."""
+    def patch(node, prefix=""):
+        if isinstance(node, (Mapping, nn.ModuleDict, nn.ParameterDict)):
+            node = dict(node.items())
+            st = states.get(prefix + "/w") if "w" in node else None
+            if st is not None:
+                node["L"] = st.L.detach()
+                node["R"] = st.R.detach()
+                return node
+            return {k: patch(v, f"{prefix}/{k}" if prefix else k)
+                    for k, v in node.items()}
+        if isinstance(node, (list, tuple, nn.ModuleList)):
+            return [patch(v, f"{prefix}/{i}" if prefix else str(i))
+                    for i, v in enumerate(node)]
+        return node
+
+    return patch(params)
+
+
+def extract_project_factors(params):
+    """Split converted project-mode params {"w", "L", "R"} into a dense
+    param tree plus a path-keyed {".../w": WSIState} dict (the keying of
+    ``core.project.init_project_states``) for warm-starting the WSI
+    states. A tree of nn containers is stripped IN PLACE (its L and R
+    entries deleted) and returned; a plain tree is copied. Trees without
+    carried factors return (params, {})."""
+    from repro_torch.core.wsi import WSIState
+
+    factors: dict = {}
+
+    def strip(node, prefix=""):
+        if isinstance(node, (Mapping, nn.ModuleDict, nn.ParameterDict)):
+            if "w" in node and "L" in node and "R" in node:
+                factors[prefix + "/w"] = WSIState(L=node["L"], R=node["R"])
+                if isinstance(node, nn.ParameterDict):
+                    del node["L"], node["R"]
+                    return node
+                return {k: v for k, v in node.items() if k not in ("L", "R")}
+            kids = {k: strip(v, f"{prefix}/{k}" if prefix else k)
+                    for k, v in node.items()}
+            return node if isinstance(node, nn.Module) else kids
+        if isinstance(node, nn.ModuleList):
+            for i, v in enumerate(node):
+                strip(v, f"{prefix}/{i}" if prefix else str(i))
+            return node
+        if isinstance(node, (list, tuple)):
+            t = [strip(v, f"{prefix}/{i}" if prefix else str(i))
+                 for i, v in enumerate(node)]
+            return t if isinstance(node, list) else tuple(t)
+        return node
+
+    tree = params.tree() if hasattr(params, "tree") else params
+    stripped = strip(tree)
+    if not factors:
+        return params, {}
+    return (params if hasattr(params, "tree") else stripped), factors

@@ -1,10 +1,12 @@
 """Weights carried across between the JAX package and the port.
 
 ``from_reference(tree, cfg, device)`` takes the reference's parameter
-pytree as ``init_lm`` returns it (nested dicts/lists; leaves numpy arrays,
-or anything ``numpy.asarray`` accepts) and gives the port's
-:class:`~repro_torch.models.lm.LanguageModel` holding the same values.
-``to_reference(model)`` gives the nested dict/list of numpy arrays back.
+pytree as ``init_lm`` or ``init_vit`` returns it (nested dicts/lists;
+leaves numpy arrays, or anything ``numpy.asarray`` accepts) and gives the
+port's :class:`~repro_torch.models.lm.LanguageModel` or
+:class:`~repro_torch.models.vit.VisionTransformer` (by ``cfg.family``)
+holding the same values. ``to_reference(model)`` gives the nested
+dict/list of numpy arrays back.
 
 ``from_reference(..., trainable=True)`` gives leaves that require grad.
 ``state_from_reference`` / ``state_to_reference`` carry a reference
@@ -13,8 +15,11 @@ ASI warm-start states of the ``wasi``/``asi`` methods), the weight carry
 of the training parity tests. ``states_from_reference`` /
 ``states_to_reference`` carry ASI states alone: the reference's
 ``init_lm_states`` tree (groups, pattern positions, block dicts,
-``ASIState(us=...)`` with a leading ``repeat`` dim), identity modes
-None on both sides, so the leaves keep JAX's flatten order.
+``ASIState(us=...)`` with a leading ``repeat`` dim) or ``init_vit_states``
+tree, identity modes None on both sides, so the leaves keep JAX's flatten
+order. ``wsi_from_reference`` carries project mode's ``{path:
+WSIState(L, R)}`` dict in, whose paths the two packages spell alike;
+``states_to_reference`` takes it out as it takes any state tree.
 
 Leaves keep their dtype, int8 weights and their f32 scales (an int8
 deployment tree, ``api.convert.quantize``) included; leaves may also be
@@ -44,7 +49,8 @@ from repro_torch.config import ModelConfig
 from repro_torch.models.lm import LanguageModel
 from repro_torch.utils.device import resolve_device
 
-_TOP = ("embed", "final_norm", "groups")
+_TOP = {"lm": ("embed", "final_norm", "groups"),
+        "vit": ("patch", "cls", "pos", "blocks", "final_norm", "head")}
 
 
 def _tensor(a, device) -> torch.Tensor:
@@ -59,6 +65,8 @@ def _tensor(a, device) -> torch.Tensor:
 
 
 def _module(node, device, trainable: bool = False):
+    if not isinstance(node, (Mapping, list, tuple)):
+        return nn.Parameter(_tensor(node, device), requires_grad=trainable)
     if isinstance(node, Mapping):
         if all(not isinstance(v, (Mapping, list, tuple))
                for v in node.values()):
@@ -73,23 +81,35 @@ def _module(node, device, trainable: bool = False):
 
 
 def from_reference(tree: Mapping, cfg: ModelConfig, device=None, *,
-                   trainable: bool = False) -> LanguageModel:
+                   trainable: bool = False):
     """The port's model holding the reference tree's values on ``device``
-    (default CUDA; raises if absent); frozen leaves unless ``trainable``."""
+    (default CUDA; raises if absent); frozen leaves unless ``trainable``.
+    A ``LanguageModel``, or a ``VisionTransformer`` for the ``vit``
+    family."""
     dev = resolve_device(device)
-    missing = [k for k in _TOP if k not in tree]
+    top = _TOP["vit" if cfg.family == "vit" else "lm"]
+    missing = [k for k in top if k not in tree]
     if missing:
-        raise ValueError(f"not an LM param tree: missing {missing}")
-    extra = set(tree) - set(_TOP) - {"lm_head"}
+        raise ValueError(f"not a {cfg.family} param tree: missing "
+                         f"{missing}")
+    extra = set(tree) - set(top) - ({"lm_head"} if cfg.family != "vit"
+                                     else set())
     if extra:
         raise NotImplementedError(
             f"param tree keys {sorted(extra)} belong to model parts that "
             "are not ported yet")
+    layers = tree["blocks" if cfg.family == "vit" else "groups"]
     if trainable and any(bind.is_quantized(p) for _, p in
-                         bind.iter_linear_dicts(tree["groups"])):
+                         bind.iter_linear_dicts(layers)):
         raise ValueError("an int8-packed param tree is serve-only: int8 "
                          "leaves cannot require grad; dequantize it "
                          "(api.convert.dequantize) to train")
+    if cfg.family == "vit":
+        from repro_torch.models.vit import VisionTransformer
+
+        mods = {k: _module(tree[k], dev, trainable) for k in top}
+        bind.check_layout(mods["blocks"], plan_of(cfg))
+        return VisionTransformer(cfg, **mods)
     groups = _module(tree["groups"], dev, trainable)
     if len(groups) != len(cfg.groups):
         raise ValueError(f"tree has {len(groups)} layer groups, config "
@@ -103,7 +123,7 @@ def from_reference(tree: Mapping, cfg: ModelConfig, device=None, *,
 
 
 def _numpy(node):
-    if isinstance(node, (nn.ModuleDict, nn.ParameterDict)):
+    if isinstance(node, (Mapping, nn.ModuleDict, nn.ParameterDict)):
         return {k: _numpy(v) for k, v in node.items()}
     if isinstance(node, nn.ModuleList):
         return [_numpy(v) for v in node]
@@ -113,7 +133,7 @@ def _numpy(node):
     return t.numpy().copy()
 
 
-def to_reference(model: LanguageModel) -> dict:
+def to_reference(model) -> dict:
     """The reference's nested dict/list of numpy arrays."""
     return {k: _numpy(v) for k, v in model.tree().items()}
 
@@ -144,7 +164,7 @@ def _nest(template, named: dict, prefix: str = ""):
     return named[prefix]
 
 
-def _moments(tree, model: LanguageModel, device) -> dict | None:
+def _moments(tree, model, device) -> dict | None:
     if tree is None:
         return None
     flat = _flat(tree)
@@ -193,17 +213,30 @@ def states_to_reference(states):
     return map_states(leaf, states)
 
 
+def wsi_from_reference(wsi, device=None):
+    """Project mode's ``{path: WSIState(L, R)}`` of the reference (leaves
+    numpy or anything ``numpy.asarray`` takes) -> the port's, tensors on
+    ``device`` (default CUDA; raises if absent); None stays None."""
+    from repro_torch.core.wsi import WSIState
+
+    if wsi is None:
+        return None
+    dev = resolve_device(device)
+    return {path: WSIState(L=_tensor(st.L, dev), R=_tensor(st.R, dev))
+            for path, st in wsi.items()}
+
+
 def state_from_reference(rstate, cfg: ModelConfig, device=None):
     """A reference ``TrainState`` (arrays as numpy or anything
     ``numpy.asarray`` takes) -> the port's ``TrainState``: trainable params,
-    the optimizer's moments, both step counts and the ASI states.
-    PowerSGD and project-mode parts are not ported and must be None."""
+    the optimizer's moments, both step counts, the ASI states and project
+    mode's WSI states. PowerSGD is not ported and must be None."""
     from repro_torch.optim import OptState
     from repro_torch.train.step import TrainState
 
-    if any(getattr(rstate, f) is not None for f in ("wsi", "psgd")):
-        raise NotImplementedError("project-mode and PowerSGD states are "
-                                  "not ported yet (ROADMAP.md queue 1)")
+    if rstate.psgd is not None:
+        raise NotImplementedError("PowerSGD states are not ported yet "
+                                  "(ROADMAP.md queue 1)")
     dev = resolve_device(device)
     model = from_reference(rstate.params, cfg, dev, trainable=True)
     ropt = rstate.opt
@@ -211,13 +244,14 @@ def state_from_reference(rstate, cfg: ModelConfig, device=None):
                    mu=_moments(ropt.mu, model, dev),
                    nu=_moments(ropt.nu, model, dev))
     return TrainState(params=model, opt=opt, step=int(np.asarray(rstate.step)),
-                      asi=states_from_reference(rstate.asi, dev))
+                      asi=states_from_reference(rstate.asi, dev),
+                      wsi=wsi_from_reference(rstate.wsi, dev))
 
 
 def state_to_reference(state) -> dict:
     """{"params", "mu", "nu" (nested dict/list of numpy, or None), "asi"
-    (``states_to_reference``, or None), "opt_step", "step"} of the port's
-    ``TrainState``, in the reference's tree."""
+    and "wsi" (``states_to_reference``, or None), "opt_step", "step"} of
+    the port's ``TrainState``, in the reference's tree."""
     tree = to_reference(state.params)
 
     def moments(d):
@@ -228,4 +262,5 @@ def state_to_reference(state) -> dict:
 
     return {"params": tree, "mu": moments(state.opt.mu),
             "nu": moments(state.opt.nu), "asi": states_to_reference(state.asi),
+            "wsi": states_to_reference(state.wsi),
             "opt_step": state.opt.step, "step": state.step}

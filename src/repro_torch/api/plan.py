@@ -18,8 +18,9 @@ Differences from the reference, all deliberate:
   one block: each output tile is owned by one block and the row reduction
   runs inside it, so it serves every site and needs no fit rule. The field
   stays ``None``.
-* Calibrated (``epsilon``) resolution raises ``NotImplementedError``; it
-  needs the SVD rank picker, which arrives with the training slice.
+* Calibrated (``epsilon``) resolution raises ``NotImplementedError``.
+  Project-mode training picks its epsilon ranks from the weights instead
+  (``core.project.init_project_states(use_epsilon=True)``).
 * Of the deployment stamps, ``quantized`` is ported; ``with_draft``,
   ``with_adapter`` and ``with_sharding`` are not yet. Their fields still
   load from JSON.
@@ -274,12 +275,14 @@ def model_config_from_json(d: Mapping[str, Any]) -> ModelConfig:
 
 def _site_dims(cfg: ModelConfig) -> list[tuple[str, str, int, int, bool, int]]:
     """Enumerate (name, role, in_dim, out_dim, bias, act_in_dim) linear
-    sites of a dense decoder LM. Families the port cannot run yet raise."""
+    sites of a dense decoder LM or a ViT (attention and the MLP, gated
+    only under SwiGLU). Families the port cannot run yet raise."""
     kinds = {k for g in cfg.groups for k in g.pattern}
-    if cfg.family != "lm" or kinds - {"dense"}:
+    if cfg.family not in ("lm", "vit") or kinds - {"dense"}:
         raise NotImplementedError(
             f"config {cfg.name!r} ({cfg.family}, blocks {sorted(kinds)}) "
-            "is not ported yet; only dense decoder LMs are (ROADMAP.md)")
+            "is not ported yet; only dense decoder LMs and ViTs are "
+            "(ROADMAP.md)")
     d, f = cfg.d_model, cfg.d_ff
     h, kvh, dh = cfg.n_heads, cfg.n_kv_heads, cfg.resolved_head_dim
     sites = [("attn/wq", "attn", d, h * dh, cfg.qkv_bias, d),

@@ -9,12 +9,14 @@ layout byte for byte:
 * Leaf order is JAX's flatten order of the same tree (dicts by sorted key,
   lists and tuples in order, NamedTuples by field, None an empty subtree),
   so a directory written by either package restores in the other.
-* The port's trees are ``nn.Module``s. A ``LanguageModel`` is written as
-  its reference param tree (``model.tree()``); the port's ``TrainState``
-  as the reference's ``TrainState(params, OptState(step, mu, nu), asi,
-  wsi, psgd, step)`` with the unported parts None and the steps int32.
-  ``asi`` is the ASI states' tree as the reference lays it out
-  (``ASIState(us=...)``, identity modes None, so they add no leaf).
+* The port's trees are ``nn.Module``s. A ``LanguageModel`` or a
+  ``VisionTransformer`` is written as its reference param tree
+  (``model.tree()``); the port's ``TrainState`` as the reference's
+  ``TrainState(params, OptState(step, mu, nu), asi, wsi, psgd, step)``
+  with PowerSGD's part None and the steps int32. ``asi`` is the ASI
+  states' tree as the reference lays it out (``ASIState(us=...)``,
+  identity modes None, so they add no leaf); ``wsi`` project mode's
+  ``{path: WSIState(L, R)}`` (None in the other modes).
 * bfloat16 leaves are written as the reference writes them, a 2-byte void
   array whose ``.npy`` header says ``'<V2'``, with ``"bfloat16"`` in the
   manifest, and read back through an int16 view; ``ml_dtypes`` is not
@@ -126,7 +128,8 @@ def as_tree(obj):
             params=params,
             opt=_RefOptState(step=np.asarray(opt.step, np.int32),
                              mu=moments(opt.mu), nu=moments(opt.nu)),
-            asi=_module_tree(obj.asi), wsi=None, psgd=None,
+            asi=_module_tree(obj.asi), wsi=_module_tree(obj.wsi),
+            psgd=None,
             step=np.asarray(obj.step, np.int32))
     if isinstance(obj, nn.Module) and hasattr(obj, "tree"):
         return _module_tree(obj.tree())
@@ -370,8 +373,8 @@ def restore_checkpoint(ckpt_dir: str, step: int, template, *,
 
     A model or the port's ``TrainState`` is filled IN PLACE (its
     parameters copied into) and returned; the state's optimizer moments
-    come back as new f32 tensors on each parameter's device, its ASI
-    states as new tensors on the devices of the template's. Any other
+    come back as new f32 tensors on each parameter's device, its ASI and
+    WSI states as new tensors on the devices of the template's. Any other
     tree comes back with its structure and CPU tensors for leaves."""
     tree = as_tree(template)
     want: list = []
@@ -402,9 +405,11 @@ def restore_checkpoint(ckpt_dir: str, step: int, template, *,
         opt = OptState(step=int(back.opt.step), mu=moments(back.opt.mu),
                        nu=moments(back.opt.nu))
         from repro_torch.models.lm import map_states
-        asi = map_states(lambda got, want: got.to(want.device), back.asi,
-                         template.asi)
-        return template._replace(opt=opt, step=int(back.step), asi=asi)
+        asi, wsi = (map_states(lambda got, want: got.to(want.device), b, t)
+                    for b, t in ((back.asi, template.asi),
+                                 (back.wsi, template.wsi)))
+        return template._replace(opt=opt, step=int(back.step), asi=asi,
+                                 wsi=wsi)
     if isinstance(template, nn.Module) and hasattr(template, "tree"):
         _copy_into(dict(template.named_parameters()), dict(_named(back)))
         return template

@@ -11,6 +11,8 @@ from repro_torch.config import ModelConfig
 
 ARCHS = (
     "qwen2-0.5b",
+    # the paper's own model
+    "vit-base",
 )
 
 

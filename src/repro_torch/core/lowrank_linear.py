@@ -1,17 +1,20 @@
 """WASI linear layers: factored weights + compressed saved activations.
 Port of ``repro.core.lowrank_linear``.
 
-Two custom-gradient matmuls cover the paper's ``wasi`` and ``asi``
-methods:
+Four custom-gradient matmuls cover the paper's experiment matrix:
 
-  wasi_matmul  factored W = L R  AND  ASI-compressed residuals   (WASI)
-  asi_matmul   dense W, ASI-compressed residuals                 (ASI)
+  wasi_matmul    factored W = L R  AND  ASI-compressed residuals (WASI)
+  asi_matmul     dense W, ASI-compressed residuals               (ASI)
+  wasi_matmul_project  forward through (L, R), gradient delivered to the
+                 FULL W via f_LR (paper Eq. 9-11, "project" update mode)
+  wsi_matmul_project_exact  the same without compression: dW = dy^T x
 
 Math (3D activations; 4D analogous, paper App. A.1):
   forward   y = (x R^T) L^T                       (Eq. 8)
   dx        = (dy L) R                            (Eq. 10)
   dL[o,k]   = sum_bn dy[b,n,o] h~[b,n,k],  h~ = x~ R^T
   dR[k,i]   = sum_bn dh[b,n,k] x~[b,n,i],  dh = dy L
+  dW[o,i]   = sum_bn dy[b,n,o] x~[b,n,i]          (project mode, Eqs. 15-18)
 
 where x~ is the Tucker form of x; the contractions consume the factors
 directly (``core.asi.flr_weight_grad_*``), the dense activation is never
@@ -20,14 +23,19 @@ rebuilt. h~ is itself a Tucker tensor whose last factor is R @ U_last.
 What is saved for backward is exactly what the reference's fwd rules
 return, and never ``x``: for ``wasi_matmul`` the Tucker factors of x~, the
 (K, r_last) last factor of h~ (built at forward time) and L, R; for
-``asi_matmul`` the Tucker factors of x~ and W. ``utils.memprof``
-measures it. The forward's products run in x's dtype (h rounded to it, as
-the reference's einsum pair does), not through the fused kernel.
+``asi_matmul`` the Tucker factors of x~ and W; for
+``wasi_matmul_project`` the Tucker factors, L and R (never W), for
+``wsi_matmul_project_exact`` x, L and R. ``utils.memprof`` measures
+it. The forward's products run in x's dtype (h rounded to it, as the
+reference's einsum pair does), not through the fused kernel.
 
 The ASI state is threaded functionally: the caller compresses
 ``x.detach()`` under ``torch.no_grad()`` outside the Function (the
 reference's ``stop_gradient``), and the factors ride in as inputs that get
-no gradient. The project-mode Functions wait for the project-mode slice.
+no gradient. In project mode L and R come from the WSI states
+(``core/project.py``), detached: their gradients are zeros, as the
+reference's VJPs return them, and the train step never asks for them (the
+reference strips them with ``_strip_lr``).
 """
 from __future__ import annotations
 
@@ -119,6 +127,51 @@ class _AsiMatmul(torch.autograd.Function):
         return (dx, dw.to(w.dtype), None, *(None for _ in xt.us))
 
 
+def _zeros_if_needed(ctx, i: int, t: torch.Tensor):
+    return torch.zeros_like(t) if ctx.needs_input_grad[i] else None
+
+
+class _WasiMatmulProject(torch.autograd.Function):
+    """Forward through the factors, gradient on the full W (the
+    reference's ``wasi_matmul_project``): saves the Tucker factors of x~,
+    L and R."""
+
+    @staticmethod
+    def forward(ctx, x, w, l_factor, r_factor, core, *us):
+        ctx.w_dtype = w.dtype
+        _pack(ctx, TuckerFactors(core=core, us=tuple(us)), l_factor,
+              r_factor)
+        return (x @ r_factor.T) @ l_factor.T
+
+    @staticmethod
+    def backward(ctx, dy):
+        xt, (l_factor, r_factor) = _unpack(ctx, 2)
+        dx = (dy @ l_factor) @ r_factor                     # Eq. 10
+        dw = _flr(xt, dy)                                   # Eqs. 15-18
+        return (dx, dw.to(ctx.w_dtype), _zeros_if_needed(ctx, 2, l_factor),
+                _zeros_if_needed(ctx, 3, r_factor), None,
+                *(None for _ in xt.us))
+
+
+class _WsiMatmulProjectExact(torch.autograd.Function):
+    """Project mode without activation compression (the reference's
+    ``wsi_matmul_project_exact``): factored forward, exact dense gradient
+    dW = dy^T x; saves x, L and R."""
+
+    @staticmethod
+    def forward(ctx, x, w, l_factor, r_factor):
+        ctx.save_for_backward(x, l_factor, r_factor)
+        return (x @ r_factor.T) @ l_factor.T
+
+    @staticmethod
+    def backward(ctx, dy):
+        x, l_factor, r_factor = ctx.saved_tensors
+        dx = (dy @ l_factor) @ r_factor
+        dw = dy.reshape(-1, dy.shape[-1]).T @ x.reshape(-1, x.shape[-1])
+        return (dx, dw, _zeros_if_needed(ctx, 2, l_factor),
+                _zeros_if_needed(ctx, 3, r_factor))
+
+
 def wasi_matmul(x: torch.Tensor, l_factor: torch.Tensor,
                 r_factor: torch.Tensor, xt: TuckerFactors) -> torch.Tensor:
     """y = (x @ R^T) @ L^T with Tucker residuals. x (..., I), L (O, K),
@@ -130,6 +183,23 @@ def asi_matmul(x: torch.Tensor, w: torch.Tensor,
                xt: TuckerFactors) -> torch.Tensor:
     """y = x @ W^T with Tucker residuals. w (O, I)."""
     return _AsiMatmul.apply(x, w, xt.core, *xt.us)
+
+
+def wasi_matmul_project(x: torch.Tensor, w: torch.Tensor,
+                        l_factor: torch.Tensor, r_factor: torch.Tensor,
+                        xt: TuckerFactors) -> torch.Tensor:
+    """y = (x @ R^T) @ L^T; the gradient lands on w (O, I) as f_LR(x~,
+    dy), x's as (dy L) R. L and R are derived from w by WSI outside the
+    step."""
+    return _WasiMatmulProject.apply(x, w, l_factor, r_factor, xt.core,
+                                    *xt.us)
+
+
+def wsi_matmul_project_exact(x: torch.Tensor, w: torch.Tensor,
+                             l_factor: torch.Tensor,
+                             r_factor: torch.Tensor) -> torch.Tensor:
+    """y = (x @ R^T) @ L^T with the exact dense gradient dW = dy^T x."""
+    return _WsiMatmulProjectExact.apply(x, w, l_factor, r_factor)
 
 
 # ---------------------------------------------------------------------------

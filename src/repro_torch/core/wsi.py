@@ -2,12 +2,15 @@
 
 State per layer: factors (L, R) with W ~= L @ R, L (O, K), R (K, I).
 
-* ``factored`` update mode (ported): L and R are the trainable parameters,
-  and every ``refresh_every`` steps ``wsi_refresh_factored`` re-balances
-  the pair through one CholeskyQR with its mixing matrix.
-* ``project`` mode keeps the full W and re-extracts (L, R) each step with
-  ``wsi_step``; its t = 0 ``wsi_init`` needs the truncated SVD of
-  ``core/svd.py`` and waits for the project-mode slice (ROADMAP.md).
+  t = 0 : L, R <- truncated SVD of W (``wsi_init``)
+  t > 0 : R^T  <- W^T L_{t-1};  L <- orth(W R^T)  (``wsi_step``, CholeskyQR)
+
+* ``project`` update mode (paper Eq. 9-11): the full W is the parameter;
+  the gradient updates W, then one ``wsi_step`` re-extracts the (L, R)
+  the next forward uses (``core/project.py``).
+* ``factored`` update mode: L and R are the trainable parameters, and
+  every ``refresh_every`` steps ``wsi_refresh_factored`` re-balances the
+  pair through one CholeskyQR with its mixing matrix.
 """
 from __future__ import annotations
 
@@ -16,11 +19,19 @@ from typing import NamedTuple
 import torch
 
 from repro_torch.core.orthogonal import cholesky_qr
+from repro_torch.core.svd import truncated_svd
 
 
 class WSIState(NamedTuple):
     L: torch.Tensor  # (..., O, K)
     R: torch.Tensor  # (..., K, I)
+
+
+def wsi_init(w: torch.Tensor, k: int) -> WSIState:
+    """t = 0: the rank-k truncated SVD of W (paper Alg. 1 lines 3-4);
+    batched over leading dims, one k for the whole stack."""
+    f = truncated_svd(w, k)
+    return WSIState(L=f.L, R=f.R)
 
 
 def wsi_step(w: torch.Tensor, prev: WSIState) -> WSIState:

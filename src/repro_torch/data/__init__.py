@@ -1,2 +1,3 @@
-"""Data: the procedural token stream of ``synthetic.py``. The tokenizers,
-text sources and the streaming pipeline arrive with the data slice."""
+"""Data: the procedural token and vision streams of ``synthetic.py``. The
+tokenizers, text sources and the streaming pipeline arrive with the data
+slice."""

@@ -1,14 +1,18 @@
-"""Deterministic synthetic token stream. Port of ``SyntheticLM`` of
-``repro.data.synthetic``.
+"""Deterministic synthetic data. Port of ``SyntheticLM`` and
+``SyntheticVision`` of ``repro.data.synthetic``.
 
 A Markov token stream with per-sequence latent "topics": the next-token
 distribution mixes a global (vocab, vocab) bigram table and a topic's
 unigram boost, so a model measurably learns. Batches are a pure function
 of (seed, step).
 
+``SyntheticVision``: per-class prototype patch sequences plus Gaussian
+noise, for the ViT path.
+
 The draws come from ``torch.Generator`` streams on the CPU, so the tokens
-differ from the reference's ``jax.random`` ones for the same seed; parity
-tests hand the reference's batches across as numpy. Tokens are int64.
+and patches differ from the reference's ``jax.random`` ones for the same
+seed; parity tests hand the reference's batches across as numpy. Tokens
+and labels are int64.
 Like the reference, the bigram table is dense: at a vocab of 151936 it
 would be about 92 GB of f32, so neither package can draw this stream at
 qwen2-0.5b's full vocab (ROADMAP.md queue 3).
@@ -64,3 +68,29 @@ class SyntheticLM:
         labels = torch.stack(toks, dim=1)
         tokens = torch.cat([start[:, None], labels[:, :-1]], dim=1)
         return {"tokens": tokens, "labels": labels}
+
+
+@dataclass(frozen=True)
+class SyntheticVision:
+    n_classes: int
+    n_patches: int
+    patch_dim: int
+    global_batch: int
+    seed: int = 0
+    noise: float = 1.0
+
+    def _protos(self) -> torch.Tensor:
+        g = torch.Generator().manual_seed(self.seed)
+        return torch.randn(self.n_classes, self.n_patches, self.patch_dim,
+                           generator=g)
+
+    def batch(self, step: int, batch_size: int | None = None) -> dict:
+        """Batch for a global step: {patches (B, N, P) f32, labels (B,)},
+        a pure function of (seed, step), on the CPU."""
+        b = batch_size or self.global_batch
+        g = torch.Generator().manual_seed(
+            (self.seed + 1) * 1_000_003 + int(step))
+        labels = torch.randint(0, self.n_classes, (b,), generator=g)
+        noise = torch.randn(b, self.n_patches, self.patch_dim, generator=g)
+        return {"patches": self._protos()[labels] + self.noise * noise,
+                "labels": labels}

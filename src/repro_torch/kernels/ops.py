@@ -6,7 +6,8 @@ launches the kernel or raises. There is no fallback from one to the other:
 the device of the input decides, and nothing else.
 
 Counters: ``LAUNCHES`` holds the forwards (``lowrank_fwd``, ``lowrank_q8``
-of an int8 deployment, and ``matmul_tiled`` of the two-launch baseline),
+of an int8 deployment, ``matmul_tiled`` of the two-launch baseline and
+``flash_attention``),
 ``TRAIN_LAUNCHES`` the kernels training reaches (``lowrank_fwd_sketch``,
 ``lowrank_bwd``, ``gram``, ``choleskyqr``); ``launch_counts`` reads both.
 """
@@ -15,6 +16,7 @@ from __future__ import annotations
 import torch
 
 from repro_torch.kernels import ref
+from repro_torch.kernels.flash_attention import flash_attention_cuda
 from repro_torch.kernels.gram import gram as _gram_kernel
 from repro_torch.kernels.lowrank import (
     LAUNCHES,
@@ -27,9 +29,10 @@ from repro_torch.kernels.qr import choleskyqr
 from repro_torch.kernels.quant import lowrank_q8
 
 __all__ = ["LAUNCHES", "TRAIN_LAUNCHES", "cholesky_qr_mix", "choleskyqr_fused",
-           "dense_matmul_q8", "gram", "launch_counts", "lowrank_bwd_fused",
-           "lowrank_matmul", "lowrank_matmul_q8", "lowrank_matmul_q8_fused",
-           "lowrank_matmul_unfused", "matmul", "reset_launches"]
+           "dense_matmul_q8", "flash_attention", "gram", "launch_counts",
+           "lowrank_bwd_fused", "lowrank_matmul", "lowrank_matmul_q8",
+           "lowrank_matmul_q8_fused", "lowrank_matmul_unfused", "matmul",
+           "reset_launches"]
 
 
 def reset_launches() -> None:
@@ -188,3 +191,58 @@ def cholesky_qr_mix(y: torch.Tensor):
         from repro_torch.core.orthogonal import cholesky_qr_mix_ref
         return cholesky_qr_mix_ref(y)
     return choleskyqr(y.contiguous())
+
+
+class _FlashAttention(torch.autograd.Function):
+    """Attention with the flash kernel's forward (the reference has no
+    backward kernel for it). Forward: the kernel on a CUDA tensor, the
+    plain ``ref.flash_attention_ref`` on a CPU tensor; only q, k and v are
+    saved, never the (B, H, Sq, Sk) probabilities. Backward: the f32
+    softmax recomputed in plain PyTorch, dq, dk and dv in the inputs'
+    dtypes, dk and dv summed over each KV head's group of query heads; the
+    counterpart of the reference's autodiff through ``dense_attention``."""
+
+    @staticmethod
+    def forward(ctx, q, k, v, causal, window):
+        ctx.causal, ctx.window = causal, window
+        ctx.save_for_backward(q, k, v)
+        return _flash_forward(q, k, v, causal, window)
+
+    @staticmethod
+    def backward(ctx, do):
+        q, k, v = ctx.saved_tensors
+        b, sq, h, dh = q.shape
+        kvh = k.shape[2]
+        p = ref.flash_attention_probs(q, k, causal=ctx.causal,
+                                      window=ctx.window)
+        dog = do.float().reshape(b, sq, kvh, h // kvh, dh)
+        dv = torch.einsum("bhgqk,bqhgd->bkhd", p, dog)
+        dp = torch.einsum("bqhgd,bkhd->bhgqk", dog, v.float())
+        ds = p * (dp - (dp * p).sum(-1, keepdim=True)) * dh ** -0.5
+        dq = torch.einsum("bhgqk,bkhd->bqhgd", ds, k.float())
+        qg = q.float().reshape(b, sq, kvh, h // kvh, dh)
+        dk = torch.einsum("bhgqk,bqhgd->bkhd", ds, qg)
+        return (dq.reshape(b, sq, h, dh).to(q.dtype), dk.to(k.dtype),
+                dv.to(v.dtype), None, None)
+
+
+def _flash_forward(q, k, v, causal, window):
+    if _on_cpu(q):
+        return ref.flash_attention_ref(q, k, v, causal=causal, window=window)
+    return flash_attention_cuda(q, k, v, causal=causal, window=window)
+
+
+def flash_attention(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor, *,
+                    causal: bool = True, window: int = 0) -> torch.Tensor:
+    """GQA attention over a full sequence from position 0: q (B, Sq, H,
+    dh), k and v (B, Sk, KVH, dh) -> (B, Sq, H, dh) in q's dtype, f32
+    scores and softmax, mask causal and/or sliding-window (``window`` > 0)
+    or none. CUDA: one launch of the flash kernel
+    (``kernels/flash_attention.py``), reading the heads through their
+    strides; CPU: the plain version (``ref.flash_attention_ref``). With grad
+    enabled and any input requiring grad it goes through
+    ``_FlashAttention``, whose backward is plain PyTorch."""
+    if torch.is_grad_enabled() and (q.requires_grad or k.requires_grad
+                                    or v.requires_grad):
+        return _FlashAttention.apply(q, k, v, causal, window)
+    return _flash_forward(q, k, v, causal, window)

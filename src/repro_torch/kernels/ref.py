@@ -79,3 +79,36 @@ def choleskyqr_ref(y: torch.Tensor, shift: float = 1e-6, *,
     flags of where). Q in y's dtype, mix f32. Nothing waits on the device,
     so this runs inside a CUDA graph."""
     return cholesky_qr_mix_ref(y, shift, with_retry=with_retry)
+
+
+def flash_attention_probs(q: torch.Tensor, k: torch.Tensor, *,
+                          causal: bool = True,
+                          window: int = 0) -> torch.Tensor:
+    """The f32 softmax of the flash attention kernel's function: q (B, Sq,
+    H, dh), k (B, Sk, KVH, dh), query head h reading KV head h // (H //
+    KVH); scores q k^T dh^-0.5, key kpos visible to query qpos (from 0)
+    where, with ``causal``, kpos <= qpos and, with ``window`` > 0, kpos >
+    qpos - window. Returns p (B, KVH, G, Sq, Sk), G = H // KVH."""
+    b, sq, h, dh = q.shape
+    sk, kvh = k.shape[1], k.shape[2]
+    qf = q.float().reshape(b, sq, kvh, h // kvh, dh)
+    s = torch.einsum("bqhgd,bkhd->bhgqk", qf, k.float()) * dh ** -0.5
+    qpos = torch.arange(sq, device=q.device)[:, None]
+    kpos = torch.arange(sk, device=q.device)[None, :]
+    ok = torch.ones((sq, sk), dtype=torch.bool, device=q.device)
+    if causal:
+        ok &= kpos <= qpos
+    if window > 0:
+        ok &= kpos > qpos - window
+    return torch.softmax(torch.where(ok, s, -1e30), dim=-1)
+
+
+def flash_attention_ref(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
+                        *, causal: bool = True,
+                        window: int = 0) -> torch.Tensor:
+    """The flash attention kernel's function in f32: softmax
+    (``flash_attention_probs``) times v (B, Sk, KVH, dh). Returns o (B,
+    Sq, H, dh) in q's dtype."""
+    p = flash_attention_probs(q, k, causal=causal, window=window)
+    o = torch.einsum("bhgqk,bkhd->bqhgd", p, v.float())
+    return o.reshape(q.shape).to(q.dtype)

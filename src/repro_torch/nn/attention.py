@@ -4,8 +4,18 @@ one-token decode attention, full and rolling KV caches. Port of
 
 Shapes are the reference's: hidden (B, S, d); heads (B, S, H, Dh); GQA
 repeats each of the KVH key/value heads over G = H // KVH query heads by a
-reshape. Attention itself is plain PyTorch, as it is plain JAX in the
-reference (its Pallas flash kernel is on no model path).
+reshape.
+
+Every attention over a full sequence from position 0 (training, a
+forward without caches, ViT's bidirectional blocks, and the prefill at
+offset 0) goes through ``kernels.ops.flash_attention``: the flash kernel
+on the card, its plain version on the CPU. The reference runs
+``dense_attention`` there up to ``chunked_threshold`` tokens and
+``chunked_attention`` above; the kernel computes the same function at
+every length. A prefill at an offset > 0 keeps the reference's choice
+(the kernel has no query offset), and decode keeps ``decode_attention``.
+``dense_attention`` and ``chunked_attention`` stay as the counterparts of
+the reference's functions.
 
 Differences from the reference, deliberate:
 
@@ -27,6 +37,7 @@ from torch import nn
 
 from repro_torch.api import bind, plan_of, role_treated
 from repro_torch.config import ModelConfig
+from repro_torch.kernels import ops
 from repro_torch.nn.rotary import apply_rope
 
 NEG_INF = -1e30
@@ -291,7 +302,8 @@ def apply_attention(p, x: torch.Tensor, cfg: ModelConfig, *,
     """Attention sublayer (projections + core + output projection).
 
     Modes:
-      - train:   cache None            -> full (chunked) attention over x
+      - train:   cache None            -> full attention over x (the flash
+                 kernel)
       - prefill: cache given, S > 1    -> token-parallel forward over the
                  prompt from offset ``pos`` (an int, normally 0); K/V of all
                  positions written in one pass, ``valid_len`` (B,) masking
@@ -329,8 +341,7 @@ def apply_attention(p, x: torch.Tensor, cfg: ModelConfig, *,
     if cache is None:  # train / full-sequence forward
         positions = torch.arange(sq, device=x.device)
         q, k = maybe_rope(q, positions), maybe_rope(k, positions)
-        attn = chunked_attention if sq > chunked_threshold else dense_attention
-        o = attn(q, k, v, causal=causal, window=window)
+        o = ops.flash_attention(q, k, v, causal=causal, window=window)
         new_cache = None
     elif sq > 1:  # token-parallel prefill
         if is_vector_pos(pos):
@@ -342,8 +353,12 @@ def apply_attention(p, x: torch.Tensor, cfg: ModelConfig, *,
         q, k = maybe_rope(q, positions), maybe_rope(k, positions)
         new_cache = cache_update_prefill(cache, k, v, offset, window=window,
                                          valid_len=valid_len)
-        attn = chunked_attention if sq > chunked_threshold else dense_attention
-        o = attn(q, k, v, causal=causal, window=window, q_offset=offset)
+        if offset == 0:
+            o = ops.flash_attention(q, k, v, causal=causal, window=window)
+        else:
+            attn = (chunked_attention if sq > chunked_threshold
+                    else dense_attention)
+            o = attn(q, k, v, causal=causal, window=window, q_offset=offset)
     else:  # decode one token at ``pos`` (int, or (B,) per row)
         if is_vector_pos(pos):
             rope_pos = pos.to(x.device)[:, None]

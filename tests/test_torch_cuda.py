@@ -493,3 +493,122 @@ def test_matmul_wrapper_refuses_what_the_kernel_does_not_take(cuda):
         kmm.matmul_tiled(torch.randn(16, 8, device=cuda).T, b)
     with pytest.raises(ValueError, match="2-D"):
         kmm.matmul_tiled(a[None], b)
+
+
+# ---------------------------------------------------------------------------
+# kernel #7: flash attention
+# ---------------------------------------------------------------------------
+
+import math  # noqa: E402
+
+from repro_torch.kernels import flash_attention as kflash  # noqa: E402
+
+# (B, Sq=Sk, H, KVH, dh, causal, window): the reference's sweep
+# (tests/test_kernels.py::test_flash_attention_sweep: ragged 100, GQA,
+# windows, dh 16-128), the path's shapes (ViT-B/16 at batch 4, qwen2's
+# training rows), dh 8, 24 and 256 (the padded head dims), and a window
+# without causal
+FLASH_CASES = [(2, 128, 4, 2, 32, True, 0), (1, 256, 4, 4, 64, True, 64),
+               (2, 100, 2, 1, 16, False, 0), (1, 384, 2, 2, 128, True, 128),
+               (1, 64, 8, 2, 96, True, 0), (4, 197, 12, 12, 64, False, 0),
+               (4, 512, 14, 2, 64, True, 0), (2, 70, 4, 2, 8, True, 0),
+               (1, 130, 3, 1, 24, False, 0), (1, 80, 2, 2, 256, True, 0),
+               (2, 150, 4, 2, 40, False, 33)]
+
+
+def flash_tol(want: torch.Tensor, dtype) -> float:
+    """f32: 2e-5 at unit-normal inputs, the online softmax's reassociation
+    (expf and FMAs in another order). bf16: 2 ulps of the output's scale:
+    the kernel rounds p to bf16 before p . v (as the TPU kernel does) and
+    both sides round o to bf16."""
+    if dtype == torch.float32:
+        return 2e-5
+    scale = want.float().abs().max().item()
+    return 2 * 2.0 ** (math.floor(math.log2(scale)) - 7)
+
+
+def _qkv(b, s, h, kvh, dh, device, dtype, seed=0):
+    g = torch.Generator().manual_seed(seed)
+    return tuple(torch.randn(b, s, n, dh, generator=g).to(device, dtype)
+                 for n in (h, kvh, kvh))
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("b,s,h,kvh,dh,causal,window", FLASH_CASES)
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+def test_flash_kernel_matches_plain_version(cuda, b, s, h, kvh, dh, causal,
+                                            window, dtype):
+    q, k, v = _qkv(b, s, h, kvh, dh, cuda, dtype, seed=s + dh)
+    before = ops.launch_counts()["flash_attention"]
+    got = ops.flash_attention(q, k, v, causal=causal, window=window)
+    torch.cuda.synchronize()
+    assert ops.launch_counts()["flash_attention"] == before + 1
+    assert got.shape == q.shape and got.dtype == dtype and got.is_contiguous()
+    want = ref.flash_attention_ref(q, k, v, causal=causal, window=window)
+    err = (got.float() - want.float()).abs().max().item()
+    assert err <= flash_tol(want, dtype), err
+    assert torch.equal(got, ops.flash_attention(q, k, v, causal=causal,
+                                                window=window))
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+def test_flash_kernel_reads_strided_views(cuda, dtype):
+    """q, k and v as views: heads sliced out of a wider tensor, a (B, H,
+    S, dh) tensor permuted to (B, S, H, dh), and a storage offset of one
+    element (no 16-byte loads): the same results as on contiguous
+    copies."""
+    g = torch.Generator().manual_seed(3)
+    qkv = torch.randn(2, 90, 4 + 2 + 2, 32, generator=g).to(cuda, dtype)
+    q, k, v = qkv[:, :, :4], qkv[:, :, 4:6], qkv[:, :, 6:]
+    kt = torch.randn(2, 2, 90, 32, generator=g).to(cuda, dtype)
+    off = torch.randn(2 * 90 * 2 * 32 + 1, generator=g).to(cuda, dtype)
+    vo = off[1:].view(2, 90, 2, 32)
+    for kk, vv in ((k, v), (kt.permute(0, 2, 1, 3), vo)):
+        got = ops.flash_attention(q, kk, vv, causal=True)
+        want = ops.flash_attention(q.contiguous(), kk.contiguous(),
+                                   vv.contiguous(), causal=True)
+        ref_o = ref.flash_attention_ref(q, kk, vv, causal=True)
+        assert (got.float() - want.float()).abs().max().item() <= \
+            flash_tol(ref_o, dtype)
+        assert (got.float() - ref_o.float()).abs().max().item() <= \
+            flash_tol(ref_o, dtype)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("causal,window", [(True, 0), (False, 0),
+                                           (True, 48)])
+def test_flash_gradient_matches_autograd_of_the_plain_version(cuda, causal,
+                                                              window):
+    """``_FlashAttention``: the kernel forward, the plain recomputed
+    backward; dq, dk, dv against autograd through ``ref`` (f32, GQA):
+    within 1e-5 of their scale (the same f32 math in another order)."""
+    ts = [t.requires_grad_(True) for t in _qkv(2, 97, 6, 2, 32, cuda,
+                                               torch.float32, seed=5)]
+    before = ops.launch_counts()["flash_attention"]
+    out = ops.flash_attention(*ts, causal=causal, window=window)
+    dy = torch.randn_like(out)
+    got = torch.autograd.grad(out, ts, dy)
+    assert ops.launch_counts()["flash_attention"] == before + 1
+    want_o = ref.flash_attention_ref(*ts, causal=causal, window=window)
+    want = torch.autograd.grad(want_o, ts, dy)
+    for a, w in zip(got, want):
+        scale = w.abs().max().item()
+        assert (a - w).abs().max().item() <= 1e-5 * scale
+
+
+@pytest.mark.cuda
+def test_flash_wrapper_refuses_what_the_kernel_does_not_take(cuda):
+    q, k, v = _qkv(1, 16, 4, 2, 32, cuda, torch.float32)
+    with pytest.raises(ValueError, match="CUDA tensors only"):
+        kflash.flash_attention_cuda(q, k.cpu(), v)
+    with pytest.raises(ValueError, match="one dtype"):
+        kflash.flash_attention_cuda(q, k.bfloat16(), v)
+    with pytest.raises(ValueError, match="multiple of 8"):
+        kflash.flash_attention_cuda(q[..., :12], k[..., :12], v[..., :12])
+    with pytest.raises(ValueError, match="multiple of"):
+        kflash.flash_attention_cuda(q[:, :, :3], k, v)
+    with pytest.raises(ValueError, match="unit stride"):
+        kflash.flash_attention_cuda(q[..., ::2], k[..., :16], v[..., :16])
+    with pytest.raises(ValueError, match="not supported"):
+        kflash.flash_attention_cuda(q.half(), k.half(), v.half())

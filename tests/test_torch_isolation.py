@@ -59,6 +59,9 @@ def test_port_imports_with_jax_blocked():
             "import repro_torch.core.asi, repro_torch.core.lowrank_linear\n"
             "import repro_torch.kernels.matmul_tiled\n"
             "import repro_torch.utils.memprof\n"
+            "import repro_torch.core.svd, repro_torch.core.project\n"
+            "import repro_torch.models.vit, repro_torch.configs.vit_base\n"
+            "import repro_torch.kernels.flash_attention\n"
             "print('ok')\n")
     env = dict(os.environ, PYTHONPATH=str(ROOT / "src"))
     proc = subprocess.run([sys.executable, "-c", code], env=env,
@@ -85,3 +88,17 @@ def test_entry_points_refuse_to_fall_back_to_cpu(monkeypatch):
         ServeEngine(model, cfg, max_slots=1, max_cache=16)
     # asking for the CPU explicitly is fine
     ServeEngine(model, cfg, max_slots=1, max_cache=16, device="cpu")
+
+
+def test_vit_entry_points_refuse_to_fall_back_to_cpu(monkeypatch):
+    from repro_torch import configs
+    from repro_torch.models.vit import init_vit, init_vit_states
+
+    cfg = configs.get_smoke("vit-base")
+    init_vit(cfg, 4, 24, 16, device="cpu")
+    init_vit_states(cfg, 2, 16, device="cpu")
+    monkeypatch.setattr(torch.cuda, "is_available", lambda: False)
+    with pytest.raises(RuntimeError, match="no CUDA device"):
+        init_vit(cfg, 4, 24, 16)
+    with pytest.raises(RuntimeError, match="no CUDA device"):
+        init_vit_states(cfg, 2, 16)
