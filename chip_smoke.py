@@ -73,7 +73,10 @@ Phases, in order; any failure raises and the script exits non-zero:
    (ViT-B/16 at batch 64, f32, bidirectional; qwen2-0.5b's training rows
    and one prefill bucket, bf16, causal); time kernel, plain version,
    ``scaled_dot_product_attention`` and bound; one backward through
-   ``_FlashAttention`` against autograd of the plain version;
+   ``_FlashAttention`` against autograd of the plain version; the tiled
+   backward (above 2,048 tokens) at qwen2-0.5b's heads, bf16, causal: at
+   4,096 tokens against autograd of the plain version, at 32,768 tokens
+   one forward and backward with the allocator's peak;
 14. ViT smoke: vit-smoke under project-mode ``wasi``, SGD+momentum, 4
    steps on the card and the CPU from the same params, ASI states and WSI
    states; losses, W, (L, R) and ASI factors compared; exact launches;
@@ -85,12 +88,33 @@ Phases, in order; any failure raises and the script exits non-zero:
    1); step time, images/s, the allocator's peak, the saved bytes of one
    ``vit_loss``, one ``vit_forward`` without states, the busy share of
    one step, the picked ranks, the loss after step 10, and exact launch
-   counts (12 of #7 per forward, none in the backward).
+   counts (12 of #7 per forward, none in the backward);
+16. SSD scan: hold ``ssd_scan`` (kernel #8) against its plain version,
+   y and the final state, on the reference's sweep, ragged S and the
+   path's shapes (zamba2-7b's 4 x 256 prefill bucket, one 4,096-token
+   prompt); time kernel, plain version and bound (no library call
+   computes this function);
+17. zamba2 smoke, card against CPU (f32): the same seeded weights,
+   prefill with ragged ``valid_len`` then teacher-forced decode, logits
+   and caches compared at every step, exact launches; the card's engine
+   against its own lockstep ``generate``;
+18. zamba2-7b at full width (81 Mamba-2 layers, the shared attention
+   block after every sixth, bf16, weights drawn on the card from a
+   seed) serves phase 5's 8 requests and one of 700 tokens through 4
+   slots at ``max_cache`` 1024: decode and prefill tok/s, TTFT, TPOT,
+   weight and cache bytes (KV, SSM, conv), the allocator's peak, the
+   busy share of a decode tick and of a prefill under the profiler,
+   exact launches (81 of #8 and 13 of #7 per prefill call, none per
+   decode step, 334 of #1 per forward or decode step); kernel #1 timed
+   at zamba2's site shapes; one prompt's logits at full width and
+   reduced depth (5 ``mamba2`` + 1 ``mamba2_attn``), bf16 on the card
+   against the same weights in f32 on the CPU.
 
 Every full-sequence attention (training, a forward without caches, the
 prefill at offset 0) goes through kernel #7, so phases 5, 7, 8, 10 and 12
 count its launches too: 24 per qwen2-0.5b forward or prefill call, none
-per decode step.
+per decode step. Every Mamba-2 scan of a train or prefill pass goes
+through kernel #8 (phases 17, 18).
 
 Phase 6 also holds the CholeskyQR kernel's shift ladder against the plain
 ladder on a stack with one well-conditioned and one ill-conditioned index.
@@ -156,6 +180,7 @@ from repro_torch.models.lm import (  # noqa: E402
 )
 from repro_torch.quant import quantize_tensor  # noqa: E402
 from repro_torch.serve import SamplingParams, ServeEngine  # noqa: E402
+from repro_torch.serve.engine import _tree_leaves  # noqa: E402
 
 # H100 SXM peaks (NVIDIA data sheet, dense): HBM3 rate, bf16 tensor-core
 # rate, f32 rate outside the tensor cores
@@ -270,6 +295,44 @@ def library_lowrank(x, r, l_):
     return torch.matmul(torch.matmul(x, r.T), l_.T)
 
 
+def lowrank_row(tag, name, m, i, k, o, dtype, gen, card: str) -> dict:
+    """Kernel #1 at one shape: held to its plain version, then timed
+    beside the plain version, the library's two matmuls and the bound."""
+    (x, r, l_), = inputs(m, i, k, o, dtype, gen)
+    got = ops.lowrank_matmul(x, r, l_)
+    torch.cuda.synchronize()
+    want = ref.lowrank_matmul_ref(x, r, l_)
+    err = (got.float() - want.float()).abs().max().item()
+    scale = want.float().abs().max().item()
+    # f32: sums of I then K terms in another order, bounded by 2 (I + K)
+    # eps |y|; bf16 adds one rounding of the output
+    tol = 2 * (i + k) * EPS32 * max(scale, 1.0)
+    if dtype == torch.bfloat16:
+        tol += 2.0 ** -7 * scale
+    if not err <= tol:
+        raise AssertionError(f"lowrank_fwd {name} M={m} {dtype}: max abs "
+                             f"err {err:.3e} > tol {tol:.3e}")
+    del x, r, l_, got, want
+    nbytes, _ = work(m, i, k, o, dtype)
+    n_sets = max(1, min(48, int(120e6 // nbytes) + 1))
+    sets = inputs(m, i, k, o, dtype, gen, n_sets)
+    k_ms = time_ms(ops.lowrank_matmul, sets)
+    p_ms = time_ms(ref.lowrank_matmul_ref, sets)
+    l_ms = time_ms(library_lowrank, sets)
+    kc_ms = call_ms(ops.lowrank_matmul, sets)
+    b_ms, b_by = bound(m, i, k, o, dtype)
+    bm = klowrank.launch_config(m, k, o).bm
+    print(f"{tag} lowrank_fwd {name:11s} I={i} K={k} O={o} M={m:4d} "
+          f"{str(dtype)[6:]:8s} {bm}-row tiles err={err:.2e} (tol "
+          f"{tol:.2e}) kernel_ms={k_ms:.4f} plain_ms={p_ms:.4f} "
+          f"library_ms={l_ms:.4f} bound_ms={b_ms:.5f} ({b_by}) "
+          f"eager_call_ms={kc_ms:.4f} | {card}", flush=True)
+    return dict(site=name, M=m, I=i, K=k, O=o, dtype=str(dtype)[6:],
+                tile_rows=bm, kernel_ms=k_ms, plain_ms=p_ms, library_ms=l_ms,
+                bound_ms=b_ms, bound_by=b_by, kernel_call_ms=kc_ms,
+                max_abs_err=err, tol=tol)
+
+
 def phase_kernels(card: str) -> dict:
     print("== phase 3: lowrank_fwd against its plain version", flush=True)
     gen = torch.Generator(device="cuda").manual_seed(0)
@@ -278,42 +341,10 @@ def phase_kernels(card: str) -> dict:
     for name, (i, k, o) in SHAPES.items():
         for m in MS:
             for dtype in (torch.bfloat16, torch.float32):
-                (x, r, l_), = inputs(m, i, k, o, dtype, gen)
-                got = ops.lowrank_matmul(x, r, l_)
-                torch.cuda.synchronize()
-                want = ref.lowrank_matmul_ref(x, r, l_)
-                err = (got.float() - want.float()).abs().max().item()
-                scale = want.float().abs().max().item()
-                # f32: sums of I then K terms in another order, bounded by
-                # 2 (I + K) eps |y|; bf16 adds one rounding of the output
-                tol = 2 * (i + k) * EPS32 * max(scale, 1.0)
-                if dtype == torch.bfloat16:
-                    tol += 2.0 ** -7 * scale
-                if not err <= tol:
-                    raise AssertionError(
-                        f"lowrank_fwd {name} M={m} {dtype}: max abs err "
-                        f"{err:.3e} > tol {tol:.3e}")
-                worst = max(worst, err)
-                nbytes, _ = work(m, i, k, o, dtype)
-                n_sets = max(1, min(48, int(120e6 // nbytes) + 1))
-                sets = inputs(m, i, k, o, dtype, gen, n_sets)
-                k_ms = time_ms(ops.lowrank_matmul, sets)
-                p_ms = time_ms(ref.lowrank_matmul_ref, sets)
-                l_ms = time_ms(library_lowrank, sets)
-                kc_ms = call_ms(ops.lowrank_matmul, sets)
-                b_ms, b_by = bound(m, i, k, o, dtype)
-                rows.append(dict(site=name, M=m, dtype=str(dtype)[6:],
-                                 kernel_ms=k_ms, plain_ms=p_ms,
-                                 library_ms=l_ms, bound_ms=b_ms,
-                                 bound_by=b_by, kernel_call_ms=kc_ms,
-                                 max_abs_err=err, tol=tol))
-                print(f"[kernel] lowrank_fwd {name:11s} I={i} K={k} O={o} "
-                      f"M={m:4d} {str(dtype)[6:]:8s} err={err:.2e} "
-                      f"(tol {tol:.2e}) kernel_ms={k_ms:.4f} "
-                      f"plain_ms={p_ms:.4f} library_ms={l_ms:.4f} "
-                      f"bound_ms={b_ms:.5f} ({b_by}) "
-                      f"eager_call_ms={kc_ms:.4f} | {card}", flush=True)
-                del sets
+                row = lowrank_row("[kernel]", name, m, i, k, o, dtype, gen,
+                                  card)
+                worst = max(worst, row["max_abs_err"])
+                rows.append(row)
     # headline: one decode step's seven site launches of one layer (M = 4
     # serve slots, bf16), each at its own shape
     tot = {"ms": 0.0, "plain_ms": 0.0, "library_ms": 0.0,
@@ -511,6 +542,14 @@ def phase_full_width(card: str) -> dict:
     return res
 
 
+def device_events(prof) -> list:
+    """The profile's device-side kernel rows (an aten op's row repeats the
+    device time of the kernels it launched, so those are left out)."""
+    return [e for e in prof.key_averages()
+            if str(getattr(e, "device_type", "")).endswith("CUDA")
+            and getattr(e, "self_device_time_total", 0) > 0]
+
+
 def profile_decode(eng, cfg, rng, card: str) -> dict:
     """Device busy share of steady decode: 4 requests decoding, 5 engine
     ticks under torch.profiler; device time summed over CUDA kernels
@@ -530,11 +569,7 @@ def profile_decode(eng, cfg, rng, card: str) -> dict:
         torch.cuda.synchronize()
         wall_us = (time.perf_counter() - t0) * 1e6
     eng.run()
-    # device-side kernel rows only: an aten op's row repeats the device
-    # time of the kernels it launched
-    events = [e for e in prof.key_averages()
-              if str(getattr(e, "device_type", "")).endswith("CUDA")
-              and getattr(e, "self_device_time_total", 0) > 0]
+    events = device_events(prof)
     dev_us = sum(e.self_device_time_total for e in events)
     if dev_us <= 0:
         print(f"[profile] no device time in the trace: busy share not "
@@ -1089,7 +1124,7 @@ def phase_full_training(card: str) -> dict:
     per_step = len(SITES) * cfg.n_layers
     refreshes = n_steps // 4
     want = {"lowrank_fwd": 0, "lowrank_q8": 0, "matmul_tiled": 0,
-            "flash_attention": n_steps * cfg.n_layers,
+            "ssd_scan": 0, "flash_attention": n_steps * cfg.n_layers,
             "lowrank_fwd_sketch": n_steps * per_step,
             "lowrank_bwd": n_steps * per_step, "gram": refreshes * len(SITES),
             "choleskyqr": refreshes * len(SITES)}
@@ -2105,13 +2140,80 @@ def phase_flash_kernel(card: str) -> dict:
           f"dk, dv against autograd of the plain version {bwd_err:.2e} of "
           f"scale (tol 1e-5); 1 forward launch, none in the backward | "
           f"{card}", flush=True)
+    tiled = tiled_backward(gen, card)
     head = next(r for r in rows if r["case"] == "vit")
     return dict(rows=rows, worst=worst, backward_rel_err=bwd_err,
+                tiled_backward=tiled,
                 headline=dict(ms=head["kernel_ms"],
                               plain_ms=head["plain_ms"],
                               library_ms=head["library_ms"],
                               bound_ms=head["bound_ms"],
                               bound_by=head["bound_by"]))
+
+
+def tiled_backward(gen, card: str) -> dict:
+    """The attention backward above ``ops.DENSE_BWD_MAX`` tokens, tiled by
+    query blocks and KV chunks of 1024, at qwen2-0.5b's heads (14 query,
+    2 KV, dh 64), bf16, causal: at 4,096 tokens dq, dk, dv against
+    autograd of the plain version (both in f32, then rounded to bf16: 2
+    bf16 ulps of each gradient's scale); at 32,768 tokens, batch 1, one
+    forward and backward, its time and the allocator's peak (the dense
+    backward would hold three f32 (1, 2, 7, S, S) tensors, 60 GB each)."""
+    h, kvh, dh = 14, 2, 64
+    (q, k, v), = flash_inputs(1, 4096, h, kvh, dh, torch.bfloat16, gen)
+    ts = [t.requires_grad_(True) for t in (q, k, v)]
+    out = ops.flash_attention(*ts, causal=True)
+    dy = torch.randn(out.shape, device="cuda", generator=gen).bfloat16()
+    got = torch.autograd.grad(out, ts, dy)
+    want = torch.autograd.grad(ref.flash_attention_ref(*ts, causal=True),
+                               ts, dy)
+    errs, tols = [], []
+    for name, a, w in zip(("dq", "dk", "dv"), got, want):
+        err = (a.float() - w.float()).abs().max().item()
+        tol = flash_tol(w, torch.bfloat16)
+        tols.append(tol)
+        if not err <= tol:
+            raise AssertionError(f"tiled attention backward at 4096 tokens:"
+                                 f" {name} err {err:.3e} > {tol:.3e}")
+        errs.append(err)
+    print(f"[kernel] attention backward, 4096 tokens (tiled 1024 x 1024), "
+          f"qwen2 heads 14/2 dh 64 bf16 causal: dq, dk, dv against autograd "
+          f"of the plain version, max abs err {max(errs):.3e} (tol 2 bf16 "
+          f"ulps of each scale: {', '.join(f'{t:.3e}' for t in tols)}) | "
+          f"{card}", flush=True)
+    del q, k, v, ts, out, dy, got, want
+    gc.collect()
+    torch.cuda.empty_cache()
+    s = 32768
+    (q, k, v), = flash_inputs(1, s, h, kvh, dh, torch.bfloat16, gen)
+    ts = [t.requires_grad_(True) for t in (q, k, v)]
+    dy = torch.randn(1, s, h, dh, device="cuda", generator=gen).bfloat16()
+    torch.cuda.synchronize()
+    base = torch.cuda.memory_allocated()
+    torch.cuda.reset_peak_memory_stats()
+    t0 = time.perf_counter()
+    out = ops.flash_attention(*ts, causal=True)
+    got = torch.autograd.grad(out, ts, dy)
+    torch.cuda.synchronize()
+    secs = time.perf_counter() - t0
+    peak = torch.cuda.max_memory_allocated()
+    if not all(torch.isfinite(g).all() for g in got):
+        raise AssertionError("tiled attention backward at 32768 tokens: "
+                             "non-finite gradients")
+    dense_gb = h * s * s * 4 / 1e9      # one f32 (1, 2, 7, S, S) tensor
+    print(f"[kernel] attention forward + backward, 32768 tokens, batch 1, "
+          f"bf16 causal: {secs:.3f} s, allocator peak {peak / 2**20:.1f} MiB"
+          f" ({(peak - base) / 2**20:.1f} MiB above the inputs and dy; the "
+          f"dense backward's three f32 score tensors: {dense_gb:.1f} GB "
+          f"each) | "
+          f"{card}", flush=True)
+    del q, k, v, ts, out, dy, got
+    gc.collect()
+    torch.cuda.empty_cache()
+    return dict(err_4096=max(errs), seconds_32768=secs,
+                peak_mib_32768=peak / 2**20,
+                above_inputs_mib_32768=(peak - base) / 2**20,
+                dense_scores_gb_32768=dense_gb)
 
 
 def _vit_cfg(method: str, scope: str, smoke: bool = False):
@@ -2346,6 +2448,424 @@ def phase_vit_fig5(card: str) -> dict:
     return out
 
 
+# ---------------------------------------------------------------------------
+# kernel #8 and zamba2-7b serving (Mamba-2 + shared attention)
+# ---------------------------------------------------------------------------
+
+# (Bz, S, H, dh, N, chunk): the reference's sweep
+# (tests/test_kernels.py:186-188), ragged S (100 with chunk 32, one chunk
+# of 37), then the path's shapes: zamba2-7b's prefill bucket (4 prompts of
+# 256, one chunk) and one 4,096-token prompt (16 chunks: the carried
+# state counts)
+SSD_SWEEP = ((2, 32, 4, 8, 4, 8), (1, 64, 2, 16, 8, 16),
+             (1, 128, 8, 32, 16, 32), (2, 100, 4, 16, 8, 32),
+             (1, 37, 2, 8, 4, 37))
+SSD_PATH = {"zamba2_prefill": (4, 256, 112, 64, 64, 256),
+            "zamba2_4096": (1, 4096, 112, 64, 64, 256)}
+# zamba2-7b's factored sites per layer: 3 in each Mamba-2 mixer, 7 in the
+# shared attention + MLP block
+ZAMBA_MIXER_SITES, ZAMBA_SHARED_SITES = 3, 7
+
+
+def ssd_work(bz, s, h, dh, n, chunk):
+    """(bytes, flops): u, dt, A, B, C read once, y and the final state
+    written once (f32). Per batch row and chunk of ql steps: C B^T once
+    (shared by every head), 2 N flops per (query, key) pair on or below
+    the diagonal; per head on top, 2 dh per such pair (G u) and 4 ql N dh
+    (the carried state's term and the state update)."""
+    nbytes = 4 * (2 * bz * s * h * dh + bz * s * h + h + 2 * bz * s * n
+                  + bz * h * dh * n)
+    flops = 0
+    for c0 in range(0, s, chunk):
+        ql = min(chunk, s - c0)
+        pairs = ql * (ql + 1) // 2
+        flops += 2 * pairs * n + h * (2 * pairs * dh + 4 * ql * n * dh)
+    return nbytes, bz * flops
+
+
+def ssd_tol(want) -> float:
+    """1e-4 of the output's scale (at least 1e-4): f32 sums of up to Q + N
+    terms and the prefix sum of dt A in other orders; the plain f32
+    version sits within 8.1e-6 of the scale from a float64 evaluation at
+    these shapes (tests/test_torch_cuda.py::ssd_tol)."""
+    return 1e-4 * max(1.0, want.abs().max().item())
+
+
+def ssd_inputs(bz, s, h, dh, n, gen, n_sets=1):
+    sets = []
+    for _ in range(n_sets):
+        u = torch.randn(bz, s, h, dh, device="cuda", generator=gen)
+        dt = torch.nn.functional.softplus(
+            torch.randn(bz, s, h, device="cuda", generator=gen))
+        a = -torch.exp(torch.randn(h, device="cuda", generator=gen))
+        b = torch.randn(bz, s, n, device="cuda", generator=gen)
+        c = torch.randn(bz, s, n, device="cuda", generator=gen)
+        sets.append((u, dt, a, b, c))
+    return sets
+
+
+def phase_ssd_kernel(card: str) -> dict:
+    from repro_torch.kernels.ssd_scan import ssd_scan_cuda
+
+    print("== phase 16: ssd_scan (kernel #8) against its plain version",
+          flush=True)
+    gen = torch.Generator(device="cuda").manual_seed(16)
+    cases = [(f"sweep {c}", *c) for c in SSD_SWEEP]
+    cases += [(name, *c) for name, c in SSD_PATH.items()]
+    rows, worst = [], 0.0
+    for name, bz, s, h, dh, n, chunk in cases:
+        (args,) = ssd_inputs(bz, s, h, dh, n, gen)
+        y, final = ssd_scan_cuda(*args, chunk)
+        torch.cuda.synchronize()
+        want_y, want_s = ref.ssd_scan_ref(*args, chunk)
+        err_y = (y - want_y).abs().max().item()
+        err_s = (final - want_s).abs().max().item()
+        tol_y, tol_s = ssd_tol(want_y), ssd_tol(want_s)
+        if not (err_y <= tol_y and err_s <= tol_s):
+            raise AssertionError(f"ssd_scan {name}: y err {err_y:.3e} (tol "
+                                 f"{tol_y:.3e}), state err {err_s:.3e} (tol "
+                                 f"{tol_s:.3e})")
+        worst = max(worst, err_y, err_s)
+        del y, final, want_y, want_s, args
+        nbytes, flops = ssd_work(bz, s, h, dh, n, chunk)
+        n_sets = max(1, min(24, int(120e6 // nbytes) + 1))
+        sets = ssd_inputs(bz, s, h, dh, n, gen, n_sets)
+
+        def kern(*a, chunk=chunk):
+            return ssd_scan_cuda(*a, chunk)
+
+        def plain(*a, chunk=chunk):
+            return ref.ssd_scan_ref(*a, chunk)
+
+        k_ms, p_ms = time_ms(kern, sets), time_ms(plain, sets)
+        b_ms, b_by = bound_of(nbytes, flops, torch.float32)
+        rows.append(dict(case=name, Bz=bz, S=s, H=h, dh=dh, N=n,
+                         chunk=chunk, kernel_ms=k_ms, plain_ms=p_ms,
+                         library_ms=None, bound_ms=b_ms, bound_by=b_by,
+                         max_abs_err_y=err_y, max_abs_err_state=err_s,
+                         tol_y=tol_y, tol_state=tol_s, gflop=flops / 1e9))
+        print(f"[kernel] ssd_scan {name:14s} Bz={bz} S={s} H={h} dh={dh} "
+              f"N={n} chunk={chunk} err y={err_y:.2e} (tol {tol_y:.2e}) "
+              f"state={err_s:.2e} (tol {tol_s:.2e}) kernel_ms={k_ms:.4f} "
+              f"plain_ms={p_ms:.4f} library_ms=none bound_ms={b_ms:.5f} "
+              f"({b_by}) | {card}", flush=True)
+        del sets
+    gc.collect()
+    torch.cuda.empty_cache()
+    head = next(r for r in rows if r["case"] == "zamba2_prefill")
+    return dict(rows=rows, worst=worst,
+                headline=dict(ms=head["kernel_ms"], plain_ms=head["plain_ms"],
+                              library_ms=None, bound_ms=head["bound_ms"],
+                              bound_by=head["bound_by"]))
+
+
+# zamba2-7b's factored site shapes (I, K, O): rank 896 (bcdt_proj 128),
+# where #1's launch_config drops to 16-row tiles
+ZAMBA_SHAPES = {"ssm/in_proj": (3584, 896, 14336),
+                "ssm/bcdt_proj": (3584, 128, 240),
+                "ssm/out_proj": (7168, 896, 3584),
+                "attn/wq|wk|wv|wo": (3584, 896, 3584),
+                "mlp/gate|up": (3584, 896, 14336),
+                "mlp/down": (14336, 896, 3584)}
+
+
+def zamba2_lowrank_rows(card: str) -> list:
+    """Kernel #1 at zamba2-7b's site shapes, bf16, a decode step's rows
+    (M = 4) and a prefill bucket's (M = 1024)."""
+    gen = torch.Generator(device="cuda").manual_seed(18)
+    return [lowrank_row("[zamba2]", name, m, i, k, o, torch.bfloat16, gen,
+                        card)
+            for name, (i, k, o) in ZAMBA_SHAPES.items() for m in (4, 1024)]
+
+
+def zamba2_per_forward(cfg) -> tuple[int, int, int]:
+    """(#1 per forward or decode step, #8 and #7 per prefill call)."""
+    kinds = [k for g in cfg.groups for k in g.pattern * g.repeat]
+    n_mamba = sum(k in ("mamba2", "mamba2_attn") for k in kinds)
+    n_attn = sum(k == "mamba2_attn" for k in kinds)
+    return (ZAMBA_MIXER_SITES * n_mamba + ZAMBA_SHARED_SITES * n_attn,
+            n_mamba, n_attn)
+
+
+def phase_zamba2_smoke(card: str) -> dict:
+    print("== phase 17: zamba2 smoke, card against CPU (f32)", flush=True)
+    cfg = configs.get_smoke("zamba2-7b")
+    api.install(api.resolve(cfg))
+    per_fwd, per_ssd, per_flash = zamba2_per_forward(cfg)
+    gpu = init_lm(cfg, device="cuda", seed=11)
+    cpu = init_lm(cfg, device="cpu", seed=11)
+    rng = np.random.default_rng(0)
+    # 13 tokens: a chunk of 8 and a ragged one of 5; rows padded to it
+    toks = torch.from_numpy(rng.integers(0, cfg.vocab_size, (3, 13)))
+    vl = torch.tensor([13, 4, 9])
+    # f32 on both sides, sums in other orders (#1's split reduction, #8's
+    # tiles and prefix sum, cuBLAS): a few ulps per op through 3 layers,
+    # 1e-4 on logits of magnitude ~1, as phase 4
+    tol = 1e-4
+    worst = 0.0
+    with torch.inference_mode():
+        caches = {d: init_lm_cache(cfg, 3, 32, dtype=torch.float32, device=d)
+                  for d in ("cuda", "cpu")}
+        out = {}
+        ops.reset_launches()
+        for d, model in (("cuda", gpu), ("cpu", cpu)):
+            lg, caches[d] = lm_prefill(model, toks.to(d), cfg,
+                                       caches=caches[d],
+                                       valid_len=vl.to(d), last_only=True)
+            out[d] = lg[:, 0].cpu()
+        want = {"lowrank_fwd": per_fwd, "ssd_scan": per_ssd,
+                "flash_attention": per_flash}
+        got = {k: ops.LAUNCHES[k] for k in want}
+        if got != want:
+            raise AssertionError(f"zamba2 smoke prefill launches {got} != "
+                                 f"{want}")
+        worst = max(worst, (out["cuda"] - out["cpu"]).abs().max().item())
+        pos = vl.clone()
+        for _ in range(6):
+            nxt = torch.from_numpy(rng.integers(0, cfg.vocab_size, (3, 1)))
+            for d, model in (("cuda", gpu), ("cpu", cpu)):
+                lg, caches[d] = lm_decode_step(model, nxt.to(d), caches[d],
+                                               pos.to(d), cfg)
+                out[d] = lg.cpu()
+            worst = max(worst, (out["cuda"] - out["cpu"]).abs().max().item())
+            pos += 1
+        want["lowrank_fwd"] += 6 * per_fwd
+        got = {k: ops.LAUNCHES[k] for k in want}
+        if got != want:
+            raise AssertionError(f"zamba2 smoke decode launches {got} != "
+                                 f"{want} (none of #8, #7 per decode step)")
+        state_err = max(
+            (a.cpu() - b).abs().max().item() for a, b in zip(
+                _tree_leaves(caches["cuda"]), _tree_leaves(caches["cpu"])))
+    if not (worst <= tol and state_err <= tol):
+        raise AssertionError(f"zamba2 smoke card vs CPU: logits differ by "
+                             f"{worst:.3e}, caches by {state_err:.3e} > "
+                             f"{tol:.1e}")
+    print(f"[zamba2] smoke prefill (13 tokens, valid_len 13/4/9) + 6 teacher-"
+          f"forced decode steps: max |card - cpu| logits = {worst:.3e}, "
+          f"caches (SSD states, conv buffers, KV) = {state_err:.3e} (tol "
+          f"{tol:.1e}); launches per prefill: {per_ssd} ssd_scan, "
+          f"{per_flash} flash_attention, {per_fwd} lowrank_fwd; per decode "
+          f"step {per_fwd} lowrank_fwd only | {card}")
+    eng = ServeEngine(gpu, cfg, max_slots=2, max_cache=64,
+                      buckets=(4, 8, 16), device="cuda")
+    prompts = [list(map(int, rng.integers(0, cfg.vocab_size, n)))
+               for n in (3, 7, 5, 11, 20)]
+    hs = [eng.submit(p, max_new=6) for p in prompts]
+    eng.run()
+    for p, h in zip(prompts, hs):
+        want_t = generate(gpu, cfg, torch.tensor([p], device="cuda"),
+                          max_cache=64, n_new=6)[0].tolist()
+        if h.tokens != want_t:
+            raise AssertionError(f"zamba2 card engine {h.tokens} != lockstep"
+                                 f" generate {want_t}")
+    print(f"[zamba2] smoke engine (2 slots, 5 prompts, buckets 4/8/16, a "
+          f"20-token prompt padded to 32: 4 chunks) == lockstep generate on "
+          f"the card | "
+          f"{card}", flush=True)
+    return dict(logit_err=worst, cache_err=state_err)
+
+
+def cache_mib_by_kind(caches) -> dict:
+    """Decode-cache MiB of the engine: KV, SSD states, conv buffers."""
+    out = {"kv": 0, "ssm": 0, "conv": 0}
+    for group in caches:
+        for c in group:
+            if "kv" in c:
+                out["kv"] += sum(t.numel() * t.element_size() for t in c["kv"])
+            if "ssm" in c:
+                st = c["ssm"]
+                out["ssm"] += st.ssm.numel() * st.ssm.element_size()
+                out["conv"] += sum(t.numel() * t.element_size()
+                                   for t in st.conv)
+    return {k: v / 2**20 for k, v in out.items()}
+
+
+def profile_prefill(eng, cfg, rng, card: str) -> dict:
+    """Device busy share of one prefill tick: 4 prompts of 200 tokens (the
+    256 bucket, one chunk through #8) admitted and prefilled by one engine
+    tick under torch.profiler (max_new 1: no decode follows)."""
+    for _ in range(4):
+        eng.submit(list(map(int, rng.integers(0, cfg.vocab_size, 200))),
+                   max_new=1)
+    torch.cuda.synchronize()
+    acts = [torch.profiler.ProfilerActivity.CPU,
+            torch.profiler.ProfilerActivity.CUDA]
+    with torch.profiler.profile(activities=acts) as prof:
+        t0 = time.perf_counter()
+        eng.step()
+        torch.cuda.synchronize()
+        wall_us = (time.perf_counter() - t0) * 1e6
+    eng.run()
+    events = device_events(prof)
+    dev_us = sum(e.self_device_time_total for e in events)
+    if dev_us <= 0:
+        print(f"[profile] no device time in the prefill trace: busy share "
+              f"not measured | {card}")
+        return {"prefill_busy_share": None}
+    print(f"[profile] 1 prefill tick (4 x 200 tokens, bucket 256): wall "
+          f"{wall_us / 1e3:.3f} ms, device busy {dev_us / 1e3:.3f} ms, busy "
+          f"share {dev_us / wall_us:.3f} | {card}")
+    top = sorted(events, key=lambda e: -e.self_device_time_total)[:8]
+    for e in top:
+        print(f"[profile]   {e.self_device_time_total / 1e3:8.3f} ms "
+              f"{e.count:5d} calls  {e.key[:70]}")
+    return {"prefill_busy_share": dev_us / wall_us,
+            "prefill_tick_wall_ms": wall_us / 1e3,
+            "prefill_tick_device_ms": dev_us / 1e3,
+            "prefill_top": [(e.key[:70], e.self_device_time_total / 1e3,
+                             e.count) for e in top]}
+
+
+def zamba2_reduced_logits(cfg, card: str) -> float:
+    """One 16-token prompt at full width and reduced depth (the first
+    pattern once: 5 mamba2 + 1 mamba2_attn), bf16 on the card against the
+    same weights in f32 on the CPU. bf16 rounds every activation to 8
+    significant bits. The limits are stated against the RMS of the CPU's
+    logits (a typical logit) and set from this check's readings on the
+    H100 (max abs err 0.1098, RMS err 0.0273, RMS logit 1.005, max |logit|
+    4.032): the RMS error within 4% of it, the largest error within 15%,
+    about 1.4x the readings. A wrong kernel or layout gives an RMS error
+    near the logits' own."""
+    from repro_torch.config import LayerGroup
+
+    red = cfg.replace(n_layers=len(cfg.groups[0].pattern), groups=(
+        LayerGroup(pattern=cfg.groups[0].pattern, repeat=1),))
+    api.install(api.resolve(red))
+    gen = torch.Generator(device="cuda").manual_seed(18)
+    model = init_lm(red, device="cuda", generator=gen)
+    prompt = torch.from_numpy(np.random.default_rng(18).integers(
+        0, red.vocab_size, (1, 16)))
+    with torch.inference_mode():
+        lg_gpu, _ = lm_prefill(model, prompt.cuda(), red,
+                               caches=init_lm_cache(red, 1, 16,
+                                                    device="cuda"),
+                               last_only=True)
+    tree = to_reference(model)
+    del model
+    red32 = red.replace(dtype="float32")
+    api.install(api.resolve(red32))
+    cpu32 = from_reference(tree, red32, "cpu").float()
+    del tree
+    with torch.inference_mode():
+        lg_cpu, _ = lm_prefill(cpu32, prompt, red32,
+                               caches=init_lm_cache(red32, 1, 16,
+                                                    dtype=torch.float32,
+                                                    device="cpu"),
+                               last_only=True)
+    a, b = lg_gpu.float().cpu()[0, 0], lg_cpu[0, 0]
+    err = (a - b).abs().max().item()
+    scale = b.abs().max().item()
+    rms = b.square().mean().sqrt().item()
+    rms_err = (a - b).square().mean().sqrt().item()
+    if not (rms_err <= 0.04 * rms and err <= 0.15 * rms):
+        raise AssertionError(f"zamba2 reduced depth: bf16 card vs f32 CPU "
+                             f"logits: RMS err {rms_err:.3e} (limit 0.04 x "
+                             f"{rms:.3e}), max abs err {err:.3e} (limit 0.15 "
+                             f"x {rms:.3e})")
+    print(f"[zamba2] full width, 6 layers (5 mamba2 + 1 mamba2_attn), 16-"
+          f"token prompt, bf16 card vs f32 CPU last logits: max abs err "
+          f"{err:.4e}, RMS err {rms_err:.4e}, RMS logit {rms:.4e}, max "
+          f"|logit| {scale:.4e}, argmax card {int(a.argmax())} cpu "
+          f"{int(b.argmax())} | {card}", flush=True)
+    return err
+
+
+def phase_zamba2_full(card: str) -> dict:
+    print("== phase 18: zamba2-7b full width (81 Mamba-2 layers, shared "
+          "attention after every 6th, d 3584, bf16), 9 requests, 4 slots",
+          flush=True)
+    cfg = configs.get("zamba2-7b")
+    plan = api.install(api.resolve(cfg))
+    per_fwd, per_ssd, per_flash = zamba2_per_forward(cfg)
+    assert (per_fwd, per_ssd, per_flash) == (334, 81, 13)
+    assert all(s.mode == "factored" for s in plan.specs)
+    t0 = time.perf_counter()
+    # weights drawn on the card from a seeded CUDA generator
+    gen = torch.Generator(device="cuda").manual_seed(0)
+    model = init_lm(cfg, device="cuda", generator=gen)
+    torch.cuda.synchronize()
+    param_mib = sum(p.numel() * p.element_size()
+                    for p in model.parameters()) / 2**20
+    print(f"[zamba2] init {time.perf_counter() - t0:.1f}s, parameters "
+          f"{param_mib:.1f} MiB", flush=True)
+    eng = ServeEngine(model, plan=plan, max_slots=4, max_cache=1024,
+                      device="cuda")
+    rng = np.random.default_rng(1)
+    eng.submit(list(map(int, rng.integers(0, cfg.vocab_size, 9))), max_new=4)
+    eng.run()
+    eng.reset_stats()
+    torch.cuda.synchronize()
+    torch.cuda.reset_peak_memory_stats()
+
+    # phase 5's 8 requests, and one 700-token prompt (bucket 768: three
+    # chunks of 256 through #8)
+    lengths = (5, 17, 33, 64, 9, 120, 48, 200, 700)
+    prompts = [list(map(int, rng.integers(0, cfg.vocab_size, n)))
+               for n in lengths]
+    sampled = SamplingParams(temperature=0.8, top_k=50, seed=99)
+    ops.reset_launches()
+    hs = [eng.submit(p, max_new=16,
+                     sampling=sampled if i in (2, 5) else None)
+          for i, p in enumerate(prompts)]
+    eng.run()
+    torch.cuda.synchronize()
+    launches = {k: ops.LAUNCHES[k] for k in ("lowrank_fwd", "ssd_scan",
+                                             "flash_attention")}
+    s = eng.summary()
+    for h in hs:
+        if not (h.finished and len(h.generated) == 16):
+            raise AssertionError(f"request {h.rid} ended {h.status} with "
+                                 f"{len(h.generated)} tokens")
+        if not all(0 <= t < cfg.padded_vocab for t in h.generated):
+            raise AssertionError(f"request {h.rid}: token out of range")
+    lr = launches["lowrank_fwd"]
+    if lr % per_fwd or lr < per_fwd * s["decode_steps"]:
+        raise AssertionError(f"lowrank_fwd launches {lr} is not a multiple "
+                             f"of {per_fwd} covering {s['decode_steps']} "
+                             "decode steps")
+    prefills = lr // per_fwd - s["decode_steps"]
+    if launches["ssd_scan"] != per_ssd * prefills or \
+            launches["flash_attention"] != per_flash * prefills:
+        raise AssertionError(f"launches {launches}: want {per_ssd} ssd_scan"
+                             f" and {per_flash} flash_attention x {prefills}"
+                             f" prefill calls, none per decode step")
+    print(f"[zamba2] launches {launches}: lowrank_fwd = {lr // per_fwd} "
+          f"forwards x {per_fwd} ({s['decode_steps']} decode steps + "
+          f"{prefills} prefill calls); ssd_scan = {prefills} x {per_ssd}, "
+          f"flash_attention = {prefills} x {per_flash}; 0 of either per "
+          f"decode step", flush=True)
+    ttft = [h.ttft_s for h in hs]
+    tpot = [h.tpot_s for h in hs]
+    peak = torch.cuda.max_memory_allocated()
+    cache = cache_mib_by_kind(eng.caches)
+    res = dict(prefill_tok_s=s["prefill_tok_s"], decode_tok_s=s["decode_tok_s"],
+               ttft_ms_median=statistics.median(ttft) * 1e3,
+               ttft_ms_max=max(ttft) * 1e3, ttft_ms_700=ttft[-1] * 1e3,
+               tpot_ms_median=statistics.median(tpot) * 1e3,
+               weight_mib=s["weight_mib"], param_mib=param_mib,
+               cache_mib=s["cache_bytes"] / 2**20, kv_mib=cache["kv"],
+               ssm_mib=cache["ssm"], conv_mib=cache["conv"],
+               max_memory_allocated_mib=peak / 2**20,
+               decode_steps=s["decode_steps"], prefill_calls=prefills,
+               launches=launches, prefill_tokens=s["prefill_tokens"],
+               decode_tokens=s["decode_tokens"], wall_s=s["wall_s"])
+    for key in ("prefill_tok_s", "decode_tok_s", "ttft_ms_median",
+                "ttft_ms_max", "ttft_ms_700", "tpot_ms_median", "weight_mib",
+                "param_mib", "cache_mib", "kv_mib", "ssm_mib", "conv_mib",
+                "max_memory_allocated_mib"):
+        print(f"[zamba2] {key}={res[key]:.3f} | {card}")
+    print(f"[zamba2] greedy sample rid=0: {hs[0].generated}")
+    res.update(profile_decode(eng, cfg, rng, card))
+    res.update(profile_prefill(eng, cfg, rng, card))
+    del eng, model
+    res["lowrank_rows"] = zamba2_lowrank_rows(card)
+    gc.collect()
+    torch.cuda.empty_cache()
+    res["reduced_depth_logit_err"] = zamba2_reduced_logits(cfg, card)
+    return res
+
+
 def main() -> None:
     ap = argparse.ArgumentParser(description=__doc__.splitlines()[0])
     ap.add_argument("--json", default="",
@@ -2385,6 +2905,9 @@ def main() -> None:
     fk = phase_flash_kernel(card)
     vit_smoke = phase_vit_smoke(card)
     vit = phase_vit_fig5(card)
+    ssd = phase_ssd_kernel(card)
+    z_smoke = phase_zamba2_smoke(card)
+    zamba = phase_zamba2_full(card)
 
     head = k["headline"]
     kernels = [{
@@ -2435,6 +2958,15 @@ def main() -> None:
         "max_abs_err": fk["worst"], "ms": h["ms"], "plain_ms": h["plain_ms"],
         "bound_ms": h["bound_ms"], "bound_by": h["bound_by"],
         "library_ms": h["library_ms"]})
+    h = ssd["headline"]
+    kernels.append({
+        "name": "ssd_scan", "route": "cuda",
+        "source": "src/repro_torch/kernels/csrc/ssd_scan.cu",
+        "replaces": "src/repro/kernels/ssd_scan.py:27",
+        "launches": zamba["launches"]["ssd_scan"],
+        "max_abs_err": ssd["worst"], "ms": h["ms"], "plain_ms": h["plain_ms"],
+        "bound_ms": h["bound_ms"], "bound_by": h["bound_by"],
+        "library_ms": None})
     line = {"kernels": kernels}
     if args.json:
         os.makedirs(os.path.dirname(os.path.abspath(args.json)),
@@ -2451,7 +2983,11 @@ def main() -> None:
                        "flash_rows": fk["rows"],
                        "flash_headline": fk["headline"],
                        "flash_backward_rel_err": fk["backward_rel_err"],
+                       "flash_tiled_backward": fk["tiled_backward"],
                        "vit_smoke": vit_smoke, "vit_fig5": vit,
+                       "ssd_rows": ssd["rows"],
+                       "ssd_headline": ssd["headline"],
+                       "zamba2_smoke": z_smoke, "zamba2_full": zamba,
                        "kernels": line["kernels"],
                        "seconds": time.perf_counter() - t_start}, f,
                       indent=1)

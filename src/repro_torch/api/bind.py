@@ -42,7 +42,12 @@ from typing import Mapping, Sequence
 import torch
 from torch import nn
 
-from repro_torch.api.plan import LinearSpec, _act_mode_ranks, role_treated
+from repro_torch.api.plan import (
+    LEAF_TO_SPEC,
+    LinearSpec,
+    _act_mode_ranks,
+    role_treated,
+)
 from repro_torch.config import WasiConfig
 from repro_torch.core.asi import ASIState, asi_init, asi_project, asi_step
 from repro_torch.core.lowrank_linear import (
@@ -240,7 +245,7 @@ def check_layout(groups, plan) -> None:
     not have its plan site's layout (``_layout_fits``), or is int8-packed
     where the plan stamps no ``quant`` (or the other way round)."""
     for path, p in iter_linear_dicts(groups):
-        spec = plan.spec("/".join(path.split("/")[-2:]))
+        spec = plan.spec(LEAF_TO_SPEC[path.split("/")[-1]][0])
         if not _layout_fits(p, spec.mode):
             raise ValueError(f"{path}: layout does not match the plan's "
                              f"{spec.mode} site {spec.name}")

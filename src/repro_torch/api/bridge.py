@@ -21,7 +21,8 @@ order. ``wsi_from_reference`` carries project mode's ``{path:
 WSIState(L, R)}`` dict in, whose paths the two packages spell alike;
 ``states_to_reference`` takes it out as it takes any state tree.
 
-Leaves keep their dtype, int8 weights and their f32 scales (an int8
+Leaves keep their dtype (a Mamba-2 mixer's f32 ``A_log``, ``dt_bias``
+and ``D`` beside bf16 weights included), int8 weights and their f32 scales (an int8
 deployment tree, ``api.convert.quantize``) included; leaves may also be
 torch tensors (``api.convert.load_checkpoint`` gives those). bfloat16 is
 carried bit for bit through an int16 view, since numpy has no bfloat16 of
@@ -46,7 +47,7 @@ from torch import nn
 
 from repro_torch.api import bind, plan_of
 from repro_torch.config import ModelConfig
-from repro_torch.models.lm import LanguageModel
+from repro_torch.models.lm import LanguageModel, needs_shared
 from repro_torch.utils.device import resolve_device
 
 _TOP = {"lm": ("embed", "final_norm", "groups"),
@@ -68,13 +69,14 @@ def _module(node, device, trainable: bool = False):
     if not isinstance(node, (Mapping, list, tuple)):
         return nn.Parameter(_tensor(node, device), requires_grad=trainable)
     if isinstance(node, Mapping):
-        if all(not isinstance(v, (Mapping, list, tuple))
+        if all(isinstance(v, (Mapping, list, tuple))
                for v in node.values()):
-            return nn.ParameterDict({
-                k: nn.Parameter(_tensor(v, device), requires_grad=trainable)
-                for k, v in node.items()})
-        return nn.ModuleDict({k: _module(v, device, trainable)
-                              for k, v in node.items()})
+            return nn.ModuleDict({k: _module(v, device, trainable)
+                                  for k, v in node.items()})
+        # leaves, or leaves beside subtrees (a Mamba-2 mixer): a
+        # ParameterDict holds both, the subtrees as submodules
+        return nn.ParameterDict({k: _module(v, device, trainable)
+                                 for k, v in node.items()})
     if isinstance(node, (list, tuple)):
         return nn.ModuleList(_module(v, device, trainable) for v in node)
     raise TypeError(f"unexpected node {type(node).__name__} in param tree")
@@ -88,6 +90,8 @@ def from_reference(tree: Mapping, cfg: ModelConfig, device=None, *,
     family."""
     dev = resolve_device(device)
     top = _TOP["vit" if cfg.family == "vit" else "lm"]
+    if cfg.family != "vit" and needs_shared(cfg):
+        top += ("shared_attn",)       # zamba2's shared attention block
     missing = [k for k in top if k not in tree]
     if missing:
         raise ValueError(f"not a {cfg.family} param tree: missing "
@@ -114,12 +118,16 @@ def from_reference(tree: Mapping, cfg: ModelConfig, device=None, *,
     if len(groups) != len(cfg.groups):
         raise ValueError(f"tree has {len(groups)} layer groups, config "
                          f"{cfg.name!r} has {len(cfg.groups)}")
+    shared = (_module(tree["shared_attn"], dev, trainable)
+              if "shared_attn" in tree else None)
     bind.check_layout(groups, plan_of(cfg))
+    if shared is not None:
+        bind.check_layout(shared, plan_of(cfg))
     return LanguageModel(
         cfg, _module(tree["embed"], dev, trainable),
         _module(tree["final_norm"], dev, trainable), groups,
         _module(tree["lm_head"], dev, trainable) if "lm_head" in tree
-        else None)
+        else None, shared)
 
 
 def _numpy(node):

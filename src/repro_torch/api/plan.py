@@ -275,25 +275,46 @@ def model_config_from_json(d: Mapping[str, Any]) -> ModelConfig:
 
 def _site_dims(cfg: ModelConfig) -> list[tuple[str, str, int, int, bool, int]]:
     """Enumerate (name, role, in_dim, out_dim, bias, act_in_dim) linear
-    sites of a dense decoder LM or a ViT (attention and the MLP, gated
-    only under SwiGLU). Families the port cannot run yet raise."""
+    sites for a config, by family + block kinds, as the reference does:
+    attention and the MLP (gated only under SwiGLU) where a block kind
+    has them, the Mamba sites, deduplicated by name. Families and kinds
+    the port cannot run yet raise."""
     kinds = {k for g in cfg.groups for k in g.pattern}
-    if cfg.family not in ("lm", "vit") or kinds - {"dense"}:
+    unported = kinds - {"dense", "mamba2", "mamba2_attn"}
+    if cfg.family not in ("lm", "vit") or unported:
         raise NotImplementedError(
             f"config {cfg.name!r} ({cfg.family}, blocks {sorted(kinds)}) "
-            "is not ported yet; only dense decoder LMs and ViTs are "
-            "(ROADMAP.md)")
+            "is not ported yet; only dense and Mamba-2 decoder LMs and "
+            "ViTs are (ROADMAP.md)")
     d, f = cfg.d_model, cfg.d_ff
     h, kvh, dh = cfg.n_heads, cfg.n_kv_heads, cfg.resolved_head_dim
-    sites = [("attn/wq", "attn", d, h * dh, cfg.qkv_bias, d),
-             ("attn/wk", "attn", d, kvh * dh, cfg.qkv_bias, d),
-             ("attn/wv", "attn", d, kvh * dh, cfg.qkv_bias, d),
-             ("attn/wo", "attn", h * dh, d, False, h * dh)]
-    if cfg.mlp_act == "swiglu":
-        sites.append(("mlp/gate", "mlp", d, f, False, d))
-    sites += [("mlp/up", "mlp", d, f, False, d),
-              ("mlp/down", "mlp", f, d, False, f)]
-    return sites
+    sites: list[tuple[str, str, int, int, bool, int]] = []
+    has_attn = cfg.family == "vit" or bool(kinds & {"dense", "mamba2_attn"})
+    has_mlp = has_attn
+    if has_attn:
+        sites += [("attn/wq", "attn", d, h * dh, cfg.qkv_bias, d),
+                  ("attn/wk", "attn", d, kvh * dh, cfg.qkv_bias, d),
+                  ("attn/wv", "attn", d, kvh * dh, cfg.qkv_bias, d),
+                  ("attn/wo", "attn", h * dh, d, False, h * dh)]
+    if has_mlp:
+        if cfg.mlp_act == "swiglu":
+            sites.append(("mlp/gate", "mlp", d, f, False, d))
+        sites += [("mlp/up", "mlp", d, f, False, d),
+                  ("mlp/down", "mlp", f, d, False, f)]
+    if kinds & {"mamba2", "mamba2_attn"}:
+        ssm = cfg.ssm
+        di = ssm.expand * d
+        n = ssm.d_state
+        nh = di // ssm.head_dim
+        sites += [("ssm/in_proj", "ssm", d, 2 * di, False, d),
+                  ("ssm/bcdt_proj", "ssm_small", d, 2 * n + nh, False, d),
+                  ("ssm/out_proj", "ssm", di, d, False, di)]
+    seen, out = set(), []
+    for s in sites:
+        if s[0] not in seen:
+            seen.add(s[0])
+            out.append(s)
+    return out
 
 
 def resolve(cfg: ModelConfig, *, batch: int | None = None,

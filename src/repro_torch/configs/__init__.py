@@ -13,6 +13,8 @@ ARCHS = (
     "qwen2-0.5b",
     # the paper's own model
     "vit-base",
+    # hybrid: Mamba-2 blocks with a shared attention block
+    "zamba2-7b",
 )
 
 

@@ -25,11 +25,12 @@ from repro_torch.kernels import _build
 #: to 0 and reads them to show the main path went through the kernel).
 #: ``LAUNCHES`` counts the forwards (``lowrank_fwd``, ``lowrank_q8`` of an
 #: int8 deployment, kernels/quant.py, ``matmul_tiled`` of the two-launch
-#: baseline, kernels/matmul_tiled.py, and ``flash_attention``,
-#: kernels/flash_attention.py); the kernels that only training reaches
-#: count in ``TRAIN_LAUNCHES``.
+#: baseline, kernels/matmul_tiled.py, ``flash_attention``,
+#: kernels/flash_attention.py, and ``ssd_scan``, kernels/ssd_scan.py); the
+#: kernels that only training reaches count in ``TRAIN_LAUNCHES``.
 LAUNCHES: dict[str, int] = {"lowrank_fwd": 0, "lowrank_q8": 0,
-                            "matmul_tiled": 0, "flash_attention": 0}
+                            "matmul_tiled": 0, "flash_attention": 0,
+                            "ssd_scan": 0}
 TRAIN_LAUNCHES: dict[str, int] = {"lowrank_fwd_sketch": 0, "lowrank_bwd": 0,
                                   "gram": 0, "choleskyqr": 0}
 

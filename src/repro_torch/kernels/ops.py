@@ -6,8 +6,8 @@ launches the kernel or raises. There is no fallback from one to the other:
 the device of the input decides, and nothing else.
 
 Counters: ``LAUNCHES`` holds the forwards (``lowrank_fwd``, ``lowrank_q8``
-of an int8 deployment, ``matmul_tiled`` of the two-launch baseline and
-``flash_attention``),
+of an int8 deployment, ``matmul_tiled`` of the two-launch baseline,
+``flash_attention`` and ``ssd_scan``),
 ``TRAIN_LAUNCHES`` the kernels training reaches (``lowrank_fwd_sketch``,
 ``lowrank_bwd``, ``gram``, ``choleskyqr``); ``launch_counts`` reads both.
 """
@@ -27,12 +27,13 @@ from repro_torch.kernels.lowrank import (
 from repro_torch.kernels.matmul_tiled import matmul_tiled
 from repro_torch.kernels.qr import choleskyqr
 from repro_torch.kernels.quant import lowrank_q8
+from repro_torch.kernels.ssd_scan import ssd_scan_cuda
 
 __all__ = ["LAUNCHES", "TRAIN_LAUNCHES", "cholesky_qr_mix", "choleskyqr_fused",
            "dense_matmul_q8", "flash_attention", "gram", "launch_counts",
            "lowrank_bwd_fused", "lowrank_matmul", "lowrank_matmul_q8",
            "lowrank_matmul_q8_fused", "lowrank_matmul_unfused", "matmul",
-           "reset_launches"]
+           "reset_launches", "ssd_scan"]
 
 
 def reset_launches() -> None:
@@ -193,14 +194,26 @@ def cholesky_qr_mix(y: torch.Tensor):
     return choleskyqr(y.contiguous())
 
 
+#: above this many query or key tokens the attention backward is tiled
+#: (the reference's ``chunked_threshold``, where it switches from
+#: ``dense_attention`` to the checkpointed ``chunked_attention``)
+DENSE_BWD_MAX = 2048
+#: query-block and KV-chunk length of the tiled backward (the reference's
+#: ``chunked_attention`` defaults)
+BWD_TILE = 1024
+
+
 class _FlashAttention(torch.autograd.Function):
     """Attention with the flash kernel's forward (the reference has no
     backward kernel for it). Forward: the kernel on a CUDA tensor, the
     plain ``ref.flash_attention_ref`` on a CPU tensor; only q, k and v are
-    saved, never the (B, H, Sq, Sk) probabilities. Backward: the f32
-    softmax recomputed in plain PyTorch, dq, dk and dv in the inputs'
+    saved, never the (B, H, Sq, Sk) probabilities. Backward: plain
+    PyTorch, the f32 softmax recomputed, dq, dk and dv in the inputs'
     dtypes, dk and dv summed over each KV head's group of query heads; the
-    counterpart of the reference's autodiff through ``dense_attention``."""
+    counterpart of the reference's autodiff through ``dense_attention`` up
+    to ``DENSE_BWD_MAX`` tokens (``_attention_bwd_dense``, the whole
+    softmax at once) and through ``chunked_attention`` above
+    (``_attention_bwd_tiled``, one tile of scores at a time)."""
 
     @staticmethod
     def forward(ctx, q, k, v, causal, window):
@@ -211,19 +224,105 @@ class _FlashAttention(torch.autograd.Function):
     @staticmethod
     def backward(ctx, do):
         q, k, v = ctx.saved_tensors
-        b, sq, h, dh = q.shape
-        kvh = k.shape[2]
-        p = ref.flash_attention_probs(q, k, causal=ctx.causal,
-                                      window=ctx.window)
-        dog = do.float().reshape(b, sq, kvh, h // kvh, dh)
-        dv = torch.einsum("bhgqk,bqhgd->bkhd", p, dog)
-        dp = torch.einsum("bqhgd,bkhd->bhgqk", dog, v.float())
-        ds = p * (dp - (dp * p).sum(-1, keepdim=True)) * dh ** -0.5
-        dq = torch.einsum("bhgqk,bkhd->bqhgd", ds, k.float())
-        qg = q.float().reshape(b, sq, kvh, h // kvh, dh)
-        dk = torch.einsum("bhgqk,bqhgd->bkhd", ds, qg)
-        return (dq.reshape(b, sq, h, dh).to(q.dtype), dk.to(k.dtype),
-                dv.to(v.dtype), None, None)
+        if max(q.shape[1], k.shape[1]) <= DENSE_BWD_MAX:
+            grads = _attention_bwd_dense(q, k, v, do, ctx.causal, ctx.window)
+        else:
+            grads = _attention_bwd_tiled(q, k, v, do, ctx.causal, ctx.window,
+                                         BWD_TILE, BWD_TILE)
+        return (*grads, None, None)
+
+
+def _attention_bwd_dense(q, k, v, do, causal, window):
+    """(dq, dk, dv) from the whole (B, KVH, G, Sq, Sk) f32 softmax."""
+    b, sq, h, dh = q.shape
+    kvh = k.shape[2]
+    p = ref.flash_attention_probs(q, k, causal=causal, window=window)
+    dog = do.float().reshape(b, sq, kvh, h // kvh, dh)
+    dv = torch.einsum("bhgqk,bqhgd->bkhd", p, dog)
+    dp = torch.einsum("bqhgd,bkhd->bhgqk", dog, v.float())
+    ds = p * (dp - (dp * p).sum(-1, keepdim=True)) * dh ** -0.5
+    dq = torch.einsum("bhgqk,bkhd->bqhgd", ds, k.float())
+    qg = q.float().reshape(b, sq, kvh, h // kvh, dh)
+    dk = torch.einsum("bhgqk,bqhgd->bkhd", ds, qg)
+    return (dq.reshape(b, sq, h, dh).to(q.dtype), dk.to(k.dtype),
+            dv.to(v.dtype))
+
+
+def _attention_bwd_tiled(q, k, v, do, causal, window, q_tile, kv_tile):
+    """(dq, dk, dv) of the same function, recomputed tile by tile: per
+    query block of ``q_tile`` rows, a first pass over the KV chunks of
+    ``kv_tile`` keys recomputes the row max m, the normaliser l and the
+    output o (online softmax, f32), and D = rowsum(do * o); a second pass
+    recomputes each chunk's p = exp(s - m) / l and gives dv += p^T do,
+    ds = p (do v^T - D) dh^-0.5, dq += ds k and dk += ds^T q. A chunk that
+    lies wholly outside the causal or window range of the block is
+    skipped. At most one (B, KVH, G, q_tile, kv_tile) tile of scores
+    lives at a time (p, and dp turned into ds in place)."""
+    b, sq, h, dh = q.shape
+    sk, kvh = k.shape[1], k.shape[2]
+    g = h // kvh
+    scale = dh ** -0.5
+    qg = q.float().reshape(b, sq, kvh, g, dh)
+    dog = do.float().reshape(b, sq, kvh, g, dh)
+    kf, vf = k.float(), v.float()
+    dq = torch.zeros_like(qg)
+    dk = torch.zeros((b, sk, kvh, dh), dtype=torch.float32, device=q.device)
+    dv = torch.zeros_like(dk)
+
+    def chunks(q0, q1):
+        for c0 in range(0, sk, kv_tile):
+            c1 = min(c0 + kv_tile, sk)
+            if causal and c0 > q1 - 1:
+                break
+            if window > 0 and c1 - 1 <= q0 - window:
+                continue
+            yield c0, c1
+
+    def scores(qb, q0, q1, c0, c1):
+        s = torch.einsum("bqhgd,bkhd->bhgqk", qb, kf[:, c0:c1]) * scale
+        qpos = torch.arange(q0, q1, device=q.device)[:, None]
+        kpos = torch.arange(c0, c1, device=q.device)[None, :]
+        ok = torch.ones((q1 - q0, c1 - c0), dtype=torch.bool,
+                        device=q.device)
+        if causal:
+            ok &= kpos <= qpos
+        if window > 0:
+            ok &= kpos > qpos - window
+        return s.masked_fill_(~ok, -1e30)
+
+    for q0 in range(0, sq, q_tile):
+        q1 = min(q0 + q_tile, sq)
+        qb, dob = qg[:, q0:q1], dog[:, q0:q1]
+        m = torch.full((b, kvh, g, q1 - q0, 1), -1e30, dtype=torch.float32,
+                       device=q.device)
+        l = torch.zeros_like(m)
+        o = torch.zeros((b, kvh, g, q1 - q0, dh), dtype=torch.float32,
+                        device=q.device)
+        for c0, c1 in chunks(q0, q1):
+            s = scores(qb, q0, q1, c0, c1)
+            m_new = torch.maximum(m, s.amax(-1, keepdim=True))
+            corr = torch.exp(m - m_new)
+            p = s.sub_(m_new).exp_()
+            l = l * corr + p.sum(-1, keepdim=True)
+            o = o * corr + torch.einsum("bhgqk,bkhd->bhgqd", p,
+                                        vf[:, c0:c1])
+            m = m_new
+            del s, p
+        dsum = (dob * (o / l).permute(0, 3, 1, 2, 4)).sum(-1)   # (b,q,h,g)
+        dsum = dsum.permute(0, 2, 3, 1)[..., None]
+        del o
+        for c0, c1 in chunks(q0, q1):
+            p = scores(qb, q0, q1, c0, c1).sub_(m).exp_().div_(l)
+            dv[:, c0:c1] += torch.einsum("bhgqk,bqhgd->bkhd", p, dob)
+            ds = torch.einsum("bqhgd,bkhd->bhgqk", dob, vf[:, c0:c1])
+            ds.sub_(dsum).mul_(p).mul_(scale)
+            del p
+            dq[:, q0:q1] += torch.einsum("bhgqk,bkhd->bqhgd", ds,
+                                         kf[:, c0:c1])
+            dk[:, c0:c1] += torch.einsum("bhgqk,bqhgd->bkhd", ds, qb)
+            del ds
+    return (dq.reshape(b, sq, h, dh).to(q.dtype), dk.to(k.dtype),
+            dv.to(v.dtype))
 
 
 def _flash_forward(q, k, v, causal, window):
@@ -246,3 +345,30 @@ def flash_attention(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor, *,
                                     or v.requires_grad):
         return _FlashAttention.apply(q, k, v, causal, window)
     return _flash_forward(q, k, v, causal, window)
+
+
+def ssd_scan(u: torch.Tensor, dt: torch.Tensor, A: torch.Tensor,
+             B: torch.Tensor, C: torch.Tensor, D: torch.Tensor, chunk: int,
+             *, return_final: bool = False):
+    """The Mamba-2 SSD chunked scan with the skip term: u (Bz, S, H, dh),
+    dt (Bz, S, H) > 0, A (H,) < 0, B and C (Bz, S, N), D (H,) -> y
+    (Bz, S, H, dh) f32 = scan + D.u, and with ``return_final`` also the
+    (Bz, H, dh, N) f32 state after the last step; a ragged S behaves as
+    zero-padded steps with dt = 0 (``ref.ssd_scan_ref``). The counterpart
+    of the reference's ``repro.nn.mamba._ssd_chunked``. CUDA: one launch of
+    the scan kernel (``kernels/ssd_scan.py``), which masks the ragged
+    chunk itself, so no padding needs slicing off; the kernel has no
+    gradient, as the reference's Pallas kernel has none, so a CUDA input
+    that requires grad raises. CPU: the plain version, differentiable."""
+    if _on_cpu(u):
+        y, final = ref.ssd_scan_ref(u, dt, A, B, C, chunk)
+    else:
+        if torch.is_grad_enabled() and any(
+                t.requires_grad for t in (u, dt, A, B, C, D)):
+            raise NotImplementedError(
+                "ssd_scan has no backward on the card: training the "
+                "Mamba-2 family waits for its slice (ROADMAP.md queue 1, "
+                "zamba2 training)")
+        y, final = ssd_scan_cuda(u, dt, A, B, C, chunk)
+    y = y + D.float()[None, None, :, None] * u.float()
+    return (y, final) if return_final else y

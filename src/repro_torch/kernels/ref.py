@@ -112,3 +112,55 @@ def flash_attention_ref(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
     p = flash_attention_probs(q, k, causal=causal, window=window)
     o = torch.einsum("bhgqk,bkhd->bqhgd", p, v.float())
     return o.reshape(q.shape).to(q.dtype)
+
+
+def ssd_scan_ref(u: torch.Tensor, dt: torch.Tensor, A: torch.Tensor,
+                 B: torch.Tensor, C: torch.Tensor, chunk: int):
+    """The SSD (Mamba-2) chunked scan in f32, without the D.u skip term:
+    u (Bz, S, H, dh), dt (Bz, S, H) > 0, A (H,) < 0, B and C (Bz, S, N).
+    Per chunk of ``chunk`` steps, with cum = cumsum(dt A) inside it and
+    L[i, j] = exp(cum_i - cum_j) for j <= i (0 above the diagonal):
+
+        y = ((C B^T) * L)(dt u) + exp(cum) * (C S^T)
+        S <- exp(cum_Q) S + (dt u exp(cum_Q - cum))^T B
+
+    from S = 0. A ragged S is zero-padded to a chunk multiple with dt = 0
+    (identity steps) and the padding sliced off. Returns (y (Bz, S, H,
+    dh), final S (Bz, H, dh, N)). A copy of the reference's
+    ``repro.nn.mamba._ssd_chunked`` (a Python loop in place of its
+    ``lax.scan``); differentiable by autograd."""
+    u, dt, A, B, C = (t.float() for t in (u, dt, A, B, C))
+    b, s, h, dh = u.shape
+    n = B.shape[-1]
+    s_orig = s
+    if s % chunk != 0:
+        pad = chunk - s % chunk
+        u = torch.nn.functional.pad(u, (0, 0, 0, 0, 0, pad))
+        dt = torch.nn.functional.pad(dt, (0, 0, 0, pad))
+        B = torch.nn.functional.pad(B, (0, 0, 0, pad))
+        C = torch.nn.functional.pad(C, (0, 0, 0, pad))
+        s = s + pad
+    tri = torch.tril(torch.ones((chunk, chunk), dtype=torch.bool,
+                                device=u.device))
+    state = torch.zeros((b, h, dh, n), dtype=torch.float32, device=u.device)
+    ys = []
+    for c0 in range(0, s, chunk):
+        ucb, dtb = u[:, c0:c0 + chunk], dt[:, c0:c0 + chunk]
+        Bb, Cb = B[:, c0:c0 + chunk], C[:, c0:c0 + chunk]
+        da = dtb * A[None, None, :]                             # (B,Q,H)
+        cum = torch.cumsum(da, dim=1)
+        li = cum[:, :, None, :] - cum[:, None, :, :]            # (B,Q,Q,H)
+        L = torch.where(tri[None, :, :, None], torch.exp(li),
+                        torch.zeros((), device=u.device))
+        cbm = torch.einsum("bqn,bkn->bqk", Cb, Bb)              # (B,Q,Q)
+        du = dtb[..., None] * ucb                               # (B,Q,H,dh)
+        y_intra = torch.einsum("bqkh,bkhd->bqhd", cbm[..., None] * L, du)
+        decay_in = torch.exp(cum)                               # (B,Q,H)
+        y_inter = torch.einsum("bqn,bhdn,bqh->bqhd", Cb, state, decay_in)
+        decay_out = torch.exp(cum[:, -1:, :] - cum)             # (B,Q,H)
+        s_c = torch.einsum("bqh,bqhd,bqn->bhdn", decay_out, du, Bb)
+        chunk_decay = torch.exp(torch.sum(da, dim=1))           # (B,H)
+        state = chunk_decay[..., None, None] * state + s_c
+        ys.append(y_intra + y_inter)
+    y = torch.cat(ys, dim=1)[:, :s_orig]
+    return y, state

@@ -1,6 +1,10 @@
 """Per-kind transformer block init/apply. Port of ``repro.models.blocks``
-for the ``dense`` kind (attention + MLP, pre-norm residuals); the other
-kinds arrive with their model families and raise until then.
+for the ``dense`` kind (attention + MLP, pre-norm residuals) and the
+Mamba-2 kinds: ``mamba2`` (pre-norm Mamba-2 mixer) and zamba2's
+``mamba2_attn`` (the mixer, then the SHARED attention + MLP block, whose
+weights are passed in as ``shared``: one copy for the whole net, while
+each occurrence keeps its own KV cache). The other kinds arrive with their
+model families and raise until then.
 
     init_block(kind, cfg, ...)              -> params (nn.ModuleDict)
     init_block_state(kind, cfg, B, S, ...)  -> ASI warm-start states
@@ -19,10 +23,17 @@ from repro_torch.nn.attention import (
     init_attention_state,
     init_cache,
 )
+from repro_torch.nn.mamba import (
+    apply_mamba2,
+    init_mamba2,
+    init_mamba2_cache,
+    init_mamba2_state,
+)
 from repro_torch.nn.mlp import apply_mlp, init_mlp, init_mlp_state
 from repro_torch.nn.norms import apply_norm, init_norm
 
-PORTED_KINDS = ("dense",)
+PORTED_KINDS = ("dense", "mamba2", "mamba2_attn")
+MAMBA_KINDS = ("mamba2", "mamba2_attn")
 
 
 def _check_kind(kind: str) -> None:
@@ -42,6 +53,10 @@ def init_block(kind: str, cfg: ModelConfig, *, generator: torch.Generator,
     _check_kind(kind)
     d = cfg.d_model
     kw = dict(lead=lead, dtype=dtype, device=device)
+    if kind in MAMBA_KINDS:
+        return nn.ModuleDict({
+            "ln": init_norm(cfg.norm, d, **kw),
+            "mixer": init_mamba2(cfg, generator=generator, **kw)})
     return nn.ModuleDict({
         "ln1": init_norm(cfg.norm, d, **kw),
         "attn": init_attention(cfg, generator=generator, **kw),
@@ -53,9 +68,17 @@ def init_block(kind: str, cfg: ModelConfig, *, generator: torch.Generator,
 def init_block_state(kind: str, cfg: ModelConfig, batch: int, seq: int, *,
                      generator: torch.Generator, dtype=torch.float32,
                      device=None) -> dict:
-    """ASI warm-start states of one layer: {"attn": ..., "mlp": ...}."""
+    """ASI warm-start states of one layer: {"attn": ..., "mlp": ...}, or
+    {"mixer": ...} for a Mamba-2 layer; the shared attention of
+    ``mamba2_attn`` runs without ASI (its weights are shared across
+    layers), so its entry is {}."""
     _check_kind(kind)
     kw = dict(generator=generator, dtype=dtype, device=device)
+    if kind == "mamba2":
+        return {"mixer": init_mamba2_state(cfg, batch, seq, **kw)}
+    if kind == "mamba2_attn":
+        return {"mixer": init_mamba2_state(cfg, batch, seq, **kw),
+                "shared_attn": {}}
     return {"attn": init_attention_state(cfg, batch, seq, **kw),
             "mlp": init_mlp_state(cfg, batch, seq, **kw)}
 
@@ -63,19 +86,52 @@ def init_block_state(kind: str, cfg: ModelConfig, batch: int, seq: int, *,
 def init_block_cache(kind: str, cfg: ModelConfig, batch: int, seq: int, *,
                      lead: tuple[int, ...] = (), dtype=torch.bfloat16,
                      device=None) -> dict:
+    """{"kv": KVCache} of an attention layer, {"ssm": MambaState} of a
+    Mamba-2 layer, both for ``mamba2_attn`` (its shared attention sees the
+    full sequence)."""
     _check_kind(kind)
+    kw = dict(lead=lead, dtype=dtype, device=device)
+    if kind in MAMBA_KINDS:
+        out = {"ssm": init_mamba2_cache(cfg, batch, **kw)}
+        if kind == "mamba2_attn":
+            out["kv"] = init_cache(cfg, batch, seq, window=0, **kw)
+        return out
     return {"kv": init_cache(cfg, batch, seq, window=block_window(kind, cfg),
-                             lead=lead, dtype=dtype, device=device)}
+                             **kw)}
 
 
 def apply_block(kind: str, p, x: torch.Tensor, cfg: ModelConfig, *,
-                cache: dict | None = None, pos=None, states=None,
-                valid_len=None):
+                shared=None, cache: dict | None = None, pos=None,
+                states=None, valid_len=None):
     """Returns (x, new_cache, new_states, aux_loss). With a cache and S > 1
     this is a token-parallel PREFILL step; ``valid_len`` (B,) masks
-    right-padded rows out of the cache writes."""
+    right-padded rows out of the cache writes and freezes recurrent
+    states past each row's length. KV caches are written in place; a
+    Mamba-2 layer returns its new state in ``new_cache["ssm"]``."""
     _check_kind(kind)
     st = states or {}
+    if kind in MAMBA_KINDS:
+        h = apply_norm(cfg.norm, p["ln"], x)
+        m, new_ssm, s_m = apply_mamba2(
+            p["mixer"], h, cfg, state=None if cache is None else cache["ssm"],
+            states=st.get("mixer"), valid_len=valid_len)
+        new_st = {"mixer": s_m}
+        x = x + m
+        new_cache = None if cache is None else {"ssm": new_ssm}
+        if kind == "mamba2_attn":
+            h = apply_norm(cfg.norm, shared["ln"], x)
+            a, new_kv, s_sh = apply_attention(
+                shared["attn"], h, cfg, causal=True, window=0,
+                cache=None if cache is None else cache["kv"], pos=pos,
+                states=st.get("shared_attn"), valid_len=valid_len)
+            new_st["shared_attn"] = s_sh
+            x = x + a
+            h = apply_norm(cfg.norm, shared["ln2"], x)
+            f, _ = apply_mlp(shared["mlp"], h, cfg, None)
+            x = x + f
+            if new_cache is not None:
+                new_cache["kv"] = new_kv
+        return x, new_cache, new_st, 0.0
     h = apply_norm(cfg.norm, p["ln1"], x)
     a, new_kv, s_attn = apply_attention(
         p["attn"], h, cfg, causal=True, window=block_window(kind, cfg),

@@ -1,5 +1,7 @@
 """Decoder language model over layer groups. Port of ``repro.models.lm``
-for dense decoder LMs.
+for dense decoder LMs and the Mamba-2 hybrid (zamba2: ``shared_attn``,
+one attention + MLP block whose weights every ``mamba2_attn`` layer
+shares).
 
 The parameter tree is the reference's, as modules: ``embed`` and
 ``final_norm`` are ``ParameterDict``s, ``groups`` is a ``ModuleList`` (one
@@ -16,7 +18,10 @@ returned caches are the ones passed in. ASI warm-start states (the
 of block state trees whose factors carry the leading ``repeat`` dim
 (identity modes stay None). The loop hands layer ``j`` its slice and
 stacks the refreshed states it returns into new tensors, as the scan's
-``ys`` do.
+``ys`` do. A Mamba-2 layer's cache is ``{"ssm": MambaState(ssm, conv=
+(conv_u, conv_bc))}`` (``mamba2_attn`` adds its ``"kv"``); its new state
+is copied back into the stacked leaves, so those caches too are updated
+in place.
 
 Entry points: init_lm / init_lm_states / init_lm_cache, lm_forward
 (logits), lm_loss (training), lm_prefill (token-parallel prompt pass that
@@ -39,6 +44,8 @@ from repro_torch.models.blocks import (
     init_block_cache,
     init_block_state,
 )
+from repro_torch.nn.attention import init_attention
+from repro_torch.nn.mlp import init_mlp
 from repro_torch.nn.norms import apply_norm, init_norm
 from repro_torch.utils.device import resolve_device
 
@@ -54,7 +61,8 @@ class LanguageModel(nn.Module):
 
     def __init__(self, cfg: ModelConfig, embed: nn.ParameterDict,
                  final_norm: nn.ParameterDict, groups: nn.ModuleList,
-                 lm_head: nn.ParameterDict | None = None):
+                 lm_head: nn.ParameterDict | None = None,
+                 shared_attn: nn.ModuleDict | None = None):
         super().__init__()
         self.cfg = cfg
         self.embed = embed
@@ -62,6 +70,8 @@ class LanguageModel(nn.Module):
         self.groups = groups
         if lm_head is not None:
             self.lm_head = lm_head
+        if shared_attn is not None:
+            self.shared_attn = shared_attn
         self._views = None
         self._views_key = None
 
@@ -71,6 +81,8 @@ class LanguageModel(nn.Module):
              "groups": self.groups}
         if hasattr(self, "lm_head"):
             t["lm_head"] = self.lm_head
+        if hasattr(self, "shared_attn"):
+            t["shared_attn"] = self.shared_attn
         return t
 
     def layer_views(self) -> list:
@@ -108,6 +120,11 @@ def _slice(node, j: int):
     return node[j]
 
 
+def needs_shared(cfg: ModelConfig) -> bool:
+    """Does the config run zamba2's shared attention block?"""
+    return any("mamba2_attn" in g.pattern for g in cfg.groups)
+
+
 def init_lm(cfg: ModelConfig, *, device=None, dtype=None,
             generator: torch.Generator | None = None,
             seed: int = 0) -> LanguageModel:
@@ -132,12 +149,20 @@ def init_lm(cfg: ModelConfig, *, device=None, dtype=None,
     lm_head = None
     if not cfg.tie_embeddings:
         lm_head = nn.ParameterDict({"w": normal((v, d), d ** -0.5)})
+    shared = None
+    if needs_shared(cfg):
+        kw = dict(dtype=dtype, device=dev)
+        shared = nn.ModuleDict({
+            "ln": init_norm(cfg.norm, d, **kw),
+            "attn": init_attention(cfg, generator=generator, **kw),
+            "ln2": init_norm(cfg.norm, d, **kw),
+            "mlp": init_mlp(cfg, generator=generator, **kw)})
     groups = nn.ModuleList()
     for g in cfg.groups:
         groups.append(nn.ModuleList(
             init_block(kind, cfg, generator=generator, lead=(g.repeat,),
                        dtype=dtype, device=dev) for kind in g.pattern))
-    return LanguageModel(cfg, embed, final_norm, groups, lm_head)
+    return LanguageModel(cfg, embed, final_norm, groups, lm_head, shared)
 
 
 def map_states(fn, *trees):
@@ -195,8 +220,16 @@ def init_lm_cache(cfg: ModelConfig, batch: int, seq: int, *,
 
 
 def _layer_cache(gcache: dict, j: int) -> dict:
-    kv = gcache["kv"]
-    return {"kv": type(kv)(k=kv.k[j], v=kv.v[j])}
+    """Layer ``j``'s slice of a stacked cache (views)."""
+    return map_states(lambda t: t[j], gcache)
+
+
+def _write_back(layer_cache: dict, new_cache: dict) -> None:
+    """Copy a Mamba-2 layer's new recurrent and conv state into its slice
+    of the stacked cache (KV slices are written in place already)."""
+    if "ssm" in new_cache:
+        map_states(lambda dst, src: dst.copy_(src), layer_cache["ssm"],
+                   new_cache["ssm"])
 
 
 def lm_backbone(model: LanguageModel, x, cfg: ModelConfig, *, states=None,
@@ -205,6 +238,7 @@ def lm_backbone(model: LanguageModel, x, cfg: ModelConfig, *, states=None,
     each group's stacked layers. Returns (x, new_states, caches, aux);
     new_states is None without ``states``."""
     views = model.layer_views()
+    shared = getattr(model, "shared_attn", None)
     new_states = []
     for gi, g in enumerate(cfg.groups):
         out = [[] for _ in g.pattern]
@@ -214,9 +248,11 @@ def lm_backbone(model: LanguageModel, x, cfg: ModelConfig, *, states=None,
                          else _layer_cache(caches[gi][pi], j))
                 st = (None if states is None
                       else _layer_states(states[gi][pi], j))
-                x, _, ns, _ = apply_block(
-                    kind, views[gi][pi][j], x, cfg, cache=cache,
-                    pos=pos, states=st, valid_len=valid_len)
+                x, nc, ns, _ = apply_block(
+                    kind, views[gi][pi][j], x, cfg, shared=shared,
+                    cache=cache, pos=pos, states=st, valid_len=valid_len)
+                if cache is not None:
+                    _write_back(cache, nc)
                 if states is not None:
                     out[pi].append(ns)
         if states is not None:

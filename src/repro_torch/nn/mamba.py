@@ -1,0 +1,239 @@
+"""Mamba-2 (SSD) blocks. Port of the Mamba-2 half of ``repro.nn.mamba``.
+
+Modes, as the reference's: train (no state), token-parallel prefill
+(state given, S > 1: the full-sequence scan also emits the final SSD
+state and both conv buffers, so decode continues exactly where a scanned
+prefill would) and decode (state given, S == 1: the one-token recurrence,
+plain PyTorch). The chunked scan of train and prefill goes through
+``kernels.ops.ssd_scan``: kernel #8 (``kernels/csrc/ssd_scan.cu``) on the
+card, its plain version on the CPU. The reference's block runs the plain
+``_ssd_chunked`` there; the kernel computes the same function.
+
+Decode keeps O(1) recurrent state per layer: the (B, H, dh, N) f32 SSD
+state and two rolling conv buffers, (B, d_conv - 1, d_inner) for u and
+(B, d_conv - 1, 2 N) for B and C.
+
+Projections (``in_proj``, ``bcdt_proj``, ``out_proj``) bind through the
+SubspacePlan, so WASI factoring applies. Parameters are the reference's
+dict, with the layer group's stack dims in front (``lead``): an
+``nn.ParameterDict`` holding the three linear dicts as submodules beside
+the conv, decay, skip and norm leaves, which keep their own dtypes
+(``A_log``, ``dt_bias`` and ``D`` are f32 at every model dtype).
+
+Mamba-1 (``falcon-mamba-7b``) is not ported yet (ROADMAP.md queue 1).
+"""
+from __future__ import annotations
+
+from typing import NamedTuple
+
+import torch
+import torch.nn.functional as F
+from torch import nn
+
+from repro_torch.api import bind, plan_of, role_treated
+from repro_torch.config import ModelConfig
+from repro_torch.kernels import ops
+from repro_torch.nn.attention import is_vector_pos
+
+
+class MambaState(NamedTuple):
+    ssm: torch.Tensor  # (B, H, dh, N) f32
+    conv: tuple        # rolling conv input buffers (B, d_conv - 1, ch)
+
+
+def _causal_conv(x: torch.Tensor, w: torch.Tensor,
+                 b: torch.Tensor) -> torch.Tensor:
+    """Depthwise causal conv1d. x (B, S, C), w (K, C) -> (B, S, C)."""
+    k = w.shape[0]
+    xp = F.pad(x, (0, 0, k - 1, 0))
+    out = sum(xp[:, i:i + x.shape[1], :] * w[i][None, None, :]
+              for i in range(k))
+    return out + b[None, None, :]
+
+
+def _conv_step(state_buf: torch.Tensor, x_t: torch.Tensor, w: torch.Tensor,
+               b: torch.Tensor):
+    """One decode step of the causal conv. state_buf (B, K-1, C), x_t
+    (B, C) -> (new buffer, y (B, C))."""
+    window = torch.cat([state_buf, x_t[:, None, :]], dim=1)   # (B, K, C)
+    y = torch.einsum("bkc,kc->bc", window, w) + b[None, :]
+    return window[:, 1:, :], y
+
+
+def _prefill_conv_buf(prev_buf: torch.Tensor, raw_seq: torch.Tensor,
+                      count) -> torch.Tensor:
+    """Rolling conv buffer after consuming ``count`` tokens of ``raw_seq``
+    (pre-conv inputs): what a scan of ``_conv_step`` from position 0 would
+    leave behind. ``count`` is an int or a (B,) per-row valid length, so
+    right-padded prefill rows pick up their own last K-1 real inputs.
+    ``prev_buf`` gives only the buffer's shape, never its contents (a
+    recycled serve slot hands in a stale one)."""
+    b, km1 = prev_buf.shape[0], prev_buf.shape[1]
+    hist = torch.cat([torch.zeros_like(prev_buf), raw_seq.to(prev_buf.dtype)],
+                     dim=1)
+    if is_vector_pos(count):
+        cnt = count.to(hist.device).long()
+    else:
+        cnt = torch.full((b,), int(count), device=hist.device)
+    idx = cnt[:, None] + torch.arange(km1, device=hist.device)[None, :]
+    return torch.gather(hist, 1, idx[..., None].expand(-1, -1,
+                                                       hist.shape[-1]))
+
+
+def init_mamba2(cfg: ModelConfig, *, generator: torch.Generator,
+                lead: tuple[int, ...] = (), dtype=torch.float32,
+                device=None) -> nn.ParameterDict:
+    d = cfg.d_model
+    ssm = cfg.ssm
+    di = ssm.expand * d
+    n = ssm.d_state
+    nh = di // ssm.head_dim
+    plan = plan_of(cfg)
+    kw = dict(generator=generator, lead=lead, dtype=dtype, device=device)
+    gen_dev = generator.device
+
+    def leaf(t, dt=dtype):
+        return nn.Parameter(t.to(device=device, dtype=dt),
+                            requires_grad=False)
+
+    def conv_w(ch):
+        return leaf(torch.randn(*lead, ssm.d_conv, ch, generator=generator,
+                                device=gen_dev) * ssm.d_conv ** -0.5)
+
+    def full(size, value, dt=dtype):
+        return leaf(torch.full((*lead, size), value, dtype=torch.float32), dt)
+
+    p = nn.ParameterDict()
+    p["in_proj"] = bind.init_params(plan.linear("ssm/in_proj", d, 2 * di),
+                                    **kw)
+    p["bcdt_proj"] = bind.init_params(
+        plan.linear("ssm/bcdt_proj", d, 2 * n + nh), **kw)
+    p["out_proj"] = bind.init_params(plan.linear("ssm/out_proj", di, d),
+                                     scale=di ** -0.5, **kw)
+    p["conv_w"] = conv_w(di)
+    p["conv_b"] = full(di, 0.0)
+    p["conv_w_bc"] = conv_w(2 * n)
+    p["conv_b_bc"] = full(2 * n, 0.0)
+    p["A_log"] = full(nh, 0.0, torch.float32)
+    p["dt_bias"] = full(nh, 0.0, torch.float32)
+    p["D"] = full(nh, 1.0, torch.float32)
+    p["norm_scale"] = full(di, 1.0)
+    return p
+
+
+def init_mamba2_state(cfg: ModelConfig, batch: int, seq: int, *,
+                      generator: torch.Generator, dtype=torch.float32,
+                      device=None) -> dict:
+    """ASI warm-start states of the three projections (train path); {}
+    when the plan leaves the SSM's activations dense."""
+    w = cfg.wasi
+    if not (w.compress_acts and role_treated(w, "ssm")):
+        return {}
+    d = cfg.d_model
+    di = cfg.ssm.expand * d
+    kw = dict(dtype=dtype, device=device)
+    return {
+        "in_proj": bind.asi_state(generator, (batch, seq, d), w, **kw),
+        "bcdt_proj": bind.asi_state(generator, (batch, seq, d), w, **kw),
+        "out_proj": bind.asi_state(generator, (batch, seq, di), w, **kw),
+    }
+
+
+def apply_mamba2(p, x: torch.Tensor, cfg: ModelConfig, *,
+                 state: MambaState | None = None, states=None,
+                 valid_len=None):
+    """Returns (y, new_state, new_asi_states). ``valid_len`` (B,) freezes
+    the recurrence (dt = 0) past each row's true prompt length for
+    right-padded prefill."""
+    ssm = cfg.ssm
+    di = ssm.expand * cfg.d_model
+    n = ssm.d_state
+    nh = di // ssm.head_dim
+    dh = ssm.head_dim
+    st = states or {}
+    new_st = dict(st)
+    prefill = state is not None and x.shape[1] > 1
+    plan = plan_of(cfg)
+
+    def lin(name, inp):
+        spec = plan.linear(f"ssm/{name}", inp.shape[-1],
+                           bind.linear_out_dim(p[name]))
+        y, ns = bind.apply(spec, p[name], inp, cfg.wasi, st.get(name))
+        if ns is not None:
+            new_st[name] = ns
+        return y
+
+    proj = lin("in_proj", x)                                # (B, S, 2 di)
+    u, z = torch.split(proj, di, dim=-1)
+    bcdt = lin("bcdt_proj", x)                              # (B, S, 2n+nh)
+    Bv, Cv, dt_raw = torch.split(bcdt, [n, n, nh], dim=-1)
+    A = -torch.exp(p["A_log"])
+
+    if state is None or prefill:
+        u_raw, bc_raw = u, torch.cat([Bv, Cv], dim=-1)
+        u = _causal_conv(u, p["conv_w"], p["conv_b"])
+        u = F.silu(u.float()).to(x.dtype)
+        bc = _causal_conv(bc_raw, p["conv_w_bc"], p["conv_b_bc"])
+        bc = F.silu(bc.float()).to(x.dtype)
+        Bv, Cv = torch.split(bc, n, dim=-1)
+        dt = F.softplus(dt_raw.float() + p["dt_bias"][None, None])
+        bsz, s, _ = u.shape
+        if valid_len is not None:
+            live = (torch.arange(s, device=x.device)[None, :]
+                    < valid_len.to(x.device)[:, None])
+            dt = torch.where(live[..., None], dt, 0.0)      # identity steps
+        scanned = ops.ssd_scan(u.reshape(bsz, s, nh, dh).float(), dt, A,
+                               Bv.float(), Cv.float(), p["D"],
+                               min(ssm.chunk, s), return_final=prefill)
+        if prefill:
+            y, s_final = scanned
+            cnt = s if valid_len is None else valid_len
+            conv_u_prev, conv_bc_prev = state.conv
+            new_state = MambaState(
+                ssm=s_final,
+                conv=(_prefill_conv_buf(conv_u_prev, u_raw, cnt),
+                      _prefill_conv_buf(conv_bc_prev, bc_raw, cnt)))
+        else:
+            y = scanned
+            new_state = None
+        y = y.reshape(bsz, s, di)
+    else:  # decode one token
+        conv_u, conv_bc = state.conv
+        conv_u, u1 = _conv_step(conv_u, u[:, 0], p["conv_w"], p["conv_b"])
+        u1 = F.silu(u1.float())
+        bc1 = torch.cat([Bv[:, 0], Cv[:, 0]], dim=-1)
+        conv_bc, bc1 = _conv_step(conv_bc, bc1, p["conv_w_bc"],
+                                  p["conv_b_bc"])
+        bc1 = F.silu(bc1.float())
+        B1, C1 = torch.split(bc1, n, dim=-1)
+        dt = F.softplus(dt_raw[:, 0].float() + p["dt_bias"][None])
+        uh = u1.reshape(-1, nh, dh)
+        a = torch.exp(dt * A[None])                         # (B, H)
+        h_new = (a[..., None, None] * state.ssm
+                 + (dt[..., None] * uh)[..., None] * B1[:, None, None, :])
+        y = (torch.einsum("bhdn,bn->bhd", h_new, C1)
+             + p["D"][None, :, None] * uh)
+        y = y.reshape(-1, 1, di)
+        new_state = MambaState(ssm=h_new, conv=(conv_u, conv_bc))
+
+    # gated RMSNorm (the Mamba-2 norm before out_proj)
+    yz = y.float() * F.silu(z.float())
+    var = torch.mean(yz * yz, dim=-1, keepdim=True)
+    yz = yz * torch.rsqrt(var + 1e-6) * p["norm_scale"].float()
+    out = lin("out_proj", yz.to(x.dtype))
+    return out, new_state, new_st
+
+
+def init_mamba2_cache(cfg: ModelConfig, batch: int, *,
+                      lead: tuple[int, ...] = (), dtype=torch.float32,
+                      device=None) -> MambaState:
+    ssm = cfg.ssm
+    di = ssm.expand * cfg.d_model
+    nh = di // ssm.head_dim
+    return MambaState(
+        ssm=torch.zeros((*lead, batch, nh, ssm.head_dim, ssm.d_state),
+                        dtype=torch.float32, device=device),
+        conv=(torch.zeros((*lead, batch, ssm.d_conv - 1, di), dtype=dtype,
+                          device=device),
+              torch.zeros((*lead, batch, ssm.d_conv - 1, 2 * ssm.d_state),
+                          dtype=dtype, device=device)))

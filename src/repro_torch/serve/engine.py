@@ -2,7 +2,8 @@
 ``repro.serve.engine`` in DENSE-SLOT mode.
 
 * The engine owns ONE set of batched decode caches (``init_lm_cache`` with
-  batch = max_slots). A slot is a batch row: admitting a request prefills
+  batch = max_slots: KV caches, and for Mamba-2 layers the SSM state and
+  both conv buffers). A slot is a batch row: admitting a request prefills
   its prompt into that row, finishing (or cancelling, or evicting) frees
   the row for the next queued request.
 * Prefill is token-parallel (``lm_prefill``): admitted prompts are
@@ -46,6 +47,7 @@ from repro_torch.models.lm import (
     init_lm_cache,
     lm_decode_step,
     lm_prefill,
+    map_states,
 )
 from repro_torch.serve.sampling import SamplingParams, sample_tokens
 from repro_torch.serve.scheduler import Scheduler, make_scheduler
@@ -68,14 +70,12 @@ def bucket_for(length: int, buckets: Sequence[int],
     return int(min(-(-length // big) * big, cap))
 
 
-def _tree_map(fn, caches):
-    """Apply ``fn`` to every cache tensor; same nesting back."""
-    return [[{"kv": type(c["kv"])(*(fn(t) for t in c["kv"]))}
-             for c in group] for group in caches]
-
-
 def _tree_leaves(caches):
-    return [t for group in caches for c in group for t in c["kv"]]
+    """Every cache tensor (KV, SSM state, both conv buffers), in one
+    order."""
+    out = []
+    map_states(out.append, caches)
+    return out
 
 
 def _install(plan: SubspacePlan) -> SubspacePlan:
@@ -273,7 +273,7 @@ class ServeEngine:
         as one batch, scatter back; sample each row's first token."""
         dev = self.device
         rows_t = torch.as_tensor(rows, device=dev)
-        sub = _tree_map(lambda a: a[:, rows_t], self.caches)
+        sub = map_states(lambda a: a[:, rows_t], self.caches)
         logits, sub = lm_prefill(self.params, torch.as_tensor(toks,
                                                               device=dev),
                                  self.cfg, caches=sub,
@@ -372,7 +372,8 @@ class ServeEngine:
             self.stats[k] = type(self.stats[k])()
 
     def cache_bytes(self) -> int:
-        """Device bytes of the decode caches (slots x max_cache per layer)."""
+        """Device bytes of the decode caches (slots x max_cache per layer,
+        and every Mamba-2 layer's SSM state and conv buffers)."""
         from repro_torch.utils.memprof import array_bytes
         return int(sum(array_bytes(a) for a in _tree_leaves(self.caches)))
 

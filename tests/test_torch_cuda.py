@@ -612,3 +612,94 @@ def test_flash_wrapper_refuses_what_the_kernel_does_not_take(cuda):
         kflash.flash_attention_cuda(q[..., ::2], k[..., :16], v[..., :16])
     with pytest.raises(ValueError, match="not supported"):
         kflash.flash_attention_cuda(q.half(), k.half(), v.half())
+
+
+# ---------------------------------------------------------------------------
+# kernel #8: the Mamba-2 SSD chunked scan
+# ---------------------------------------------------------------------------
+
+from repro_torch.kernels import ssd_scan as kssd  # noqa: E402
+
+# (Bz, S, H, dh, N, chunk): the reference's sweep
+# (tests/test_kernels.py::test_ssd_scan_kernel), ragged S (a short last
+# chunk; one chunk of 37), zamba2's prefill bucket with its real widths
+# (dh 64, N 64, Q 256; 16 of its 112 heads) and a 3-chunk prompt
+SSD_CASES = [(2, 32, 4, 8, 4, 8), (1, 64, 2, 16, 8, 16),
+             (1, 128, 8, 32, 16, 32), (2, 100, 3, 16, 8, 32),
+             (1, 37, 2, 8, 4, 37), (2, 256, 16, 64, 64, 256),
+             (1, 700, 4, 64, 64, 256)]
+
+
+def ssd_tol(want: torch.Tensor) -> float:
+    """1e-4 of the output's scale (at least 1e-4): f32 sums of up to
+    Q + N terms and the prefix sum of dt A over the chunk in other
+    orders. The plain f32 version sits within 8.1e-6 of the scale from a
+    float64 evaluation at these shapes (CPU), so this is >10x either
+    side's rounding."""
+    return 1e-4 * max(1.0, want.abs().max().item())
+
+
+def _ssd_inputs(bz, s, h, dh, n, device, seed=0):
+    g = torch.Generator().manual_seed(seed)
+    u = torch.randn(bz, s, h, dh, generator=g)
+    dt = torch.nn.functional.softplus(torch.randn(bz, s, h, generator=g))
+    a = -torch.exp(torch.randn(h, generator=g))
+    b = torch.randn(bz, s, n, generator=g)
+    c = torch.randn(bz, s, n, generator=g)
+    return tuple(t.to(device) for t in (u, dt, a, b, c))
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("bz,s,h,dh,n,chunk", SSD_CASES)
+def test_ssd_scan_kernel_matches_plain_version(cuda, bz, s, h, dh, n, chunk):
+    """y (without D.u) and the final state against ``ref.ssd_scan_ref``;
+    ``ops.ssd_scan`` launches the kernel once and adds D.u."""
+    args = _ssd_inputs(bz, s, h, dh, n, cuda, seed=s + dh)
+    y, final = kssd.ssd_scan_cuda(*args, chunk)
+    torch.cuda.synchronize()
+    want_y, want_s = ref.ssd_scan_ref(*args, chunk)
+    assert y.shape == want_y.shape and final.shape == want_s.shape
+    assert (y - want_y).abs().max().item() <= ssd_tol(want_y)
+    assert (final - want_s).abs().max().item() <= ssd_tol(want_s)
+    d = torch.randn(h, device=cuda)
+    before = ops.launch_counts()["ssd_scan"]
+    y2, final2 = ops.ssd_scan(*args, d, chunk, return_final=True)
+    assert ops.launch_counts()["ssd_scan"] == before + 1
+    assert torch.equal(final2, final)
+    assert torch.equal(y2, y + d[None, None, :, None] * args[0])
+
+
+@pytest.mark.cuda
+def test_ssd_scan_refuses_grad_on_the_card(cuda):
+    """The kernel has no backward (nor has the reference's): a CUDA input
+    that requires grad raises, and nothing runs the plain version."""
+    args = list(_ssd_inputs(1, 16, 2, 8, 4, cuda))
+    args[0].requires_grad_(True)
+    before = ops.launch_counts()["ssd_scan"]
+    with pytest.raises(NotImplementedError, match="no backward"):
+        ops.ssd_scan(*args, torch.ones(2, device=cuda), 8)
+    assert ops.launch_counts()["ssd_scan"] == before
+    with torch.no_grad():
+        ops.ssd_scan(*args, torch.ones(2, device=cuda), 8)
+    assert ops.launch_counts()["ssd_scan"] == before + 1
+
+
+@pytest.mark.cuda
+def test_ssd_scan_wrapper_refuses_what_the_kernel_does_not_take(cuda):
+    u, dt, a, b, c = _ssd_inputs(1, 16, 2, 8, 4, cuda)
+    with pytest.raises(ValueError, match="CUDA tensors only"):
+        kssd.ssd_scan_cuda(u, dt.cpu(), a, b, c, 8)
+    with pytest.raises(ValueError, match="do not match"):
+        kssd.ssd_scan_cuda(u, dt[:, :8], a, b, c, 8)
+    wide = torch.zeros(1, 16, 2, 80, device=cuda)
+    with pytest.raises(ValueError, match="must be in"):
+        kssd.ssd_scan_cuda(wide, dt, a, b, c, 8)
+    with pytest.raises(ValueError, match="shared memory"):
+        kssd.ssd_scan_cuda(u, dt, a, b, c, 1 << 16)
+
+
+@pytest.mark.cuda
+def test_ssd_scan_smem_formula_matches_the_source(cuda):
+    lib = kssd._lib()
+    for q in (8, 37, 256, 1024):
+        assert lib.ssd_scan_smem_bytes(q) == kssd.smem_bytes(q)

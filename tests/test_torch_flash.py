@@ -152,3 +152,43 @@ def test_apply_attention_matches_reference(arch, causal):
     np.testing.assert_allclose(tc.k.numpy(), np.asarray(rc.k), atol=1e-6)
     np.testing.assert_allclose(tc.v.numpy(), np.asarray(rc.v), atol=1e-6)
     assert set(ops.launch_counts().values()) == {0}
+
+
+@pytest.mark.parametrize("causal,window,h,kvh", [
+    (True, 0, 4, 2), (False, 0, 4, 4), (True, 12, 4, 1), (False, 12, 6, 2),
+    (True, 0, 2, 2)])
+def test_tiled_backward_equals_dense_backward(causal, window, h, kvh):
+    """The tiled backward (used above ``DENSE_BWD_MAX`` tokens) with
+    ragged 16-row query blocks and 16-key chunks at S = 40 against the
+    dense backward: dq, dk, dv at f32 1e-5 (the same f32 math, the softmax
+    recomputed per tile, sums in another order)."""
+    q, k, v = (torch.from_numpy(t) for t in _qkv(2, 40, h, kvh, 16,
+                                                   h + kvh + window))
+    do = torch.from_numpy(np.random.default_rng(5).standard_normal(
+        q.shape).astype(np.float32))
+    want = ops._attention_bwd_dense(q, k, v, do, causal, window)
+    for q_tile, kv_tile in ((16, 16), (16, 7), (40, 13)):
+        got = ops._attention_bwd_tiled(q, k, v, do, causal, window, q_tile,
+                                       kv_tile)
+        for g, w in zip(got, want):
+            assert g.shape == w.shape and g.dtype == w.dtype
+            np.testing.assert_allclose(g.numpy(), w.numpy(), rtol=0,
+                                       atol=1e-5)
+
+
+@pytest.mark.parametrize("s,path", [(2048, "dense"), (2049, "tiled")])
+def test_flash_backward_picks_dense_up_to_2048_tokens(monkeypatch, s, path):
+    """``_FlashAttention`` keeps the dense backward up to 2048 tokens and
+    tiles above, as the reference switches to ``chunked_attention``."""
+    called = []
+    for name in ("dense", "tiled"):
+        fn = getattr(ops, f"_attention_bwd_{name}")
+        monkeypatch.setattr(
+            ops, f"_attention_bwd_{name}",
+            lambda *a, _n=name, _f=fn: called.append(_n) or _f(*a))
+    assert ops.DENSE_BWD_MAX == 2048 and ops.BWD_TILE == 1024
+    q, k, v = (torch.from_numpy(t).requires_grad_(True)
+               for t in _qkv(1, s, 1, 1, 8, 3))
+    out = ops.flash_attention(q, k, v, causal=True)
+    torch.autograd.grad(out.sum(), (q, k, v))
+    assert called == [path]

@@ -91,7 +91,8 @@ def test_cpu_path_never_counts_a_launch():
     tops.lowrank_matmul(torch.from_numpy(x), torch.from_numpy(r),
                         torch.from_numpy(l_))
     assert tops.LAUNCHES == {"lowrank_fwd": 0, "lowrank_q8": 0,
-                            "matmul_tiled": 0, "flash_attention": 0}
+                            "matmul_tiled": 0, "flash_attention": 0,
+                            "ssd_scan": 0}
 
 
 def test_kernel_wrapper_refuses_cpu_tensors():
