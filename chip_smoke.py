@@ -24,6 +24,9 @@ Phases, in order; any failure raises and the script exits non-zero:
    shapes of qwen2-0.5b (M = 2048 and a ragged 1000 rows; the stacked
    (24, O, K) factors of each site for Gram and CholeskyQR), bf16 and
    f32, and time kernel, plain version, library yardstick and bound;
+   bf16 sketch and backward take the tensor-core route (bf16 pieces of
+   h and dh), f32 the FMA kernels; each shape prints its route and the
+   error margin (tolerance over error);
 7. smoke training parity: qwen2 smoke, ``wsi``, AdamW, refresh every 2,
    4 steps from one seed and one batch stream on the card and on the CPU
    (f32); losses and final factors compared, launch counts exact;
@@ -31,7 +34,8 @@ Phases, in order; any failure raises and the script exits non-zero:
    batch 4 x seq 512, refresh every 4, 8 steps through
    ``launch/train.py``'s build and ``train/loop.py``, which saves the
    final state with the port's ``CheckpointManager``; step time,
-   tokens/s, peak memory, busy share, exact launch counts, the
+   tokens/s, peak memory, busy share (and #2's and #3's share of the
+   step's device time), exact launch counts, the
    checkpoint read back equal, and one step at batch 1 x seq 32 against
    the same weights in f32 on the CPU;
 9. int8 kernel: hold ``lowrank_q8`` against its plain version at the
@@ -660,20 +664,45 @@ def library_choleskyqr(y):
     return q.to(y.dtype), torch.linalg.solve_triangular(c, g, upper=False)
 
 
-def held(label, got, want, n, out_dtype) -> float:
-    """Max abs error against the plain version. Tolerance: f32 sums of n
-    terms in another order, 2 n eps |result scale|; a bf16 output adds one
-    rounding (2^-7 of the scale)."""
-    want = want.float()
-    scale = want.abs().max().item()
+def held_tol(want, n, out_dtype) -> float:
+    """Tolerance against the plain version: f32 sums of n terms in another
+    order, 2 n eps |result scale|; a bf16 output adds one rounding (2^-7 of
+    the scale)."""
+    scale = want.float().abs().max().item()
     tol = 2 * n * EPS32 * max(scale, 1.0)
     if out_dtype == torch.bfloat16:
         tol += 2.0 ** -7 * scale
-    err = (got.float() - want).abs().max().item()
+    return tol
+
+
+def held(label, got, want, n, out_dtype) -> float:
+    """Max abs error against the plain version, within ``held_tol``."""
+    tol = held_tol(want, n, out_dtype)
+    err = (got.float() - want.float()).abs().max().item()
     if not err <= tol:
         raise AssertionError(f"{label}: max abs err {err:.3e} > tol "
                              f"{tol:.3e}")
     return err
+
+
+def held_margin(label, checks) -> tuple[float, dict]:
+    """``held`` over (name, got, want, n, out_dtype) checks: the largest
+    error, and the smallest margin (tolerance over error) per output dtype.
+    A bf16 output's margin is bounded by its one rounding (an output that
+    rounds the other way is an error of one ulp, up to 2^-7 of the scale,
+    against 2^-7 of the scale plus the f32 part), an f32 output's is not."""
+    worst, margin = 0.0, {}
+    for name, got, want, n, out_dtype in checks:
+        err = held(f"{label} {name}", got, want, n, out_dtype)
+        worst = max(worst, err)
+        key = str(out_dtype)[6:]
+        margin[key] = min(margin.get(key, math.inf),
+                          held_tol(want, n, out_dtype) / max(err, 1e-30))
+    return worst, margin
+
+
+def margin_text(margin: dict) -> str:
+    return ", ".join(f"{k} outputs {v:.1f}x" for k, v in margin.items())
 
 
 def well_conditioned(b, o, k, dtype, gen):
@@ -737,14 +766,21 @@ def ladder_case(card: str) -> float:
     return worst
 
 
-def timed(label, fns, sets, nbytes, flops, dtype, card, extra=""):
+def timed(label, fns, sets, nbytes, flops, dtype, card, extra="",
+          eager=False):
+    """Kernel, plain and library times (CUDA graphs) and the bound; with
+    ``eager`` also one eager call of the kernel's wrapper, host included."""
     k_ms, p_ms, l_ms = (time_ms(f, sets) for f in fns)
     b_ms, b_by = bound_of(nbytes, flops, dtype)
+    row = dict(kernel_ms=k_ms, plain_ms=p_ms, library_ms=l_ms,
+               bound_ms=b_ms, bound_by=b_by)
+    if eager:
+        row["eager_call_ms"] = call_ms(fns[0], sets)
+        extra += f" eager_call_ms={row['eager_call_ms']:.4f}"
     print(f"[kernel] {label} {str(dtype)[6:]:8s} kernel_ms={k_ms:.4f} "
           f"plain_ms={p_ms:.4f} library_ms={l_ms:.4f} bound_ms={b_ms:.5f} "
           f"({b_by}){extra} | {card}", flush=True)
-    return dict(kernel_ms=k_ms, plain_ms=p_ms, library_ms=l_ms,
-                bound_ms=b_ms, bound_by=b_by)
+    return row
 
 
 def phase_train_kernels(card: str) -> dict:
@@ -754,11 +790,13 @@ def phase_train_kernels(card: str) -> dict:
     worst = dict.fromkeys(TRAIN_KERNELS, 0.0)
     rows = []
     head = {n: {"ms": 0.0, "plain_ms": 0.0, "library_ms": 0.0,
-                "bytes": 0, "flops": 0} for n in TRAIN_KERNELS}
+                "eager_call_ms": 0.0, "bytes": 0, "flops": 0}
+            for n in TRAIN_KERNELS}
 
     def add(name, mult, row, nbytes, flops):
         h = head[name]
         h["ms"] += mult * row["kernel_ms"]
+        h["eager_call_ms"] += mult * row.get("eager_call_ms", 0.0)
         h["plain_ms"] += mult * row["plain_ms"]
         h["library_ms"] += mult * row["library_ms"]
         h["bytes"] += mult * nbytes
@@ -770,22 +808,29 @@ def phase_train_kernels(card: str) -> dict:
                 (x, r, l_), = inputs(m, i, k, o, dtype, gen)
                 dy = torch.randn(m, o, device="cuda", generator=gen).to(dtype)
                 tag = f"{name} M={m} {str(dtype)[6:]}"
+                # bf16 at these widths: the tensor-core kernels
+                # (gemm_bf16.cuh); f32: the f32 FMA kernels
+                route = ("tensor cores" if klowrank.tensor_core_route(
+                    dtype, (i, k, o), (x, r, l_, dy)) else "f32 FMA")
                 y, h = klowrank.lowrank_fused(x, r, l_, save_sketch=True)
                 torch.cuda.synchronize()
                 wy, wh = ref.lowrank_sketch_ref(x, r, l_)
-                e = max(held(f"sketch h {tag}", h, wh, i, torch.float32),
-                        held(f"sketch y {tag}", y, wy, i + k, dtype))
+                e, mg = held_margin(f"sketch {tag}", (
+                    ("h", h, wh, i, torch.float32),
+                    ("y", y, wy, i + k, dtype)))
                 worst["lowrank_fwd_sketch"] = max(
                     worst["lowrank_fwd_sketch"], e)
                 got = klowrank.lowrank_bwd(dy, x, wh, l_, r)
                 torch.cuda.synchronize()
                 want = ref.lowrank_bwd_ref(dy, x, wh, l_, r)
-                e = max(held(f"bwd dx {tag}", got[0], want[0], o + k, dtype),
-                        held(f"bwd dL {tag}", got[1], want[1], m,
-                             torch.float32),
-                        held(f"bwd dR {tag}", got[2], want[2], o + m,
-                             torch.float32))
-                worst["lowrank_bwd"] = max(worst["lowrank_bwd"], e)
+                eb, mb = held_margin(f"bwd {tag}", (
+                    ("dx", got[0], want[0], o + k, dtype),
+                    ("dL", got[1], want[1], m, torch.float32),
+                    ("dR", got[2], want[2], o + m, torch.float32)))
+                worst["lowrank_bwd"] = max(worst["lowrank_bwd"], eb)
+                print(f"[kernel] {tag} route={route}: sketch err {e:.2e} "
+                      f"(margin {margin_text(mg)}) bwd err {eb:.2e} (margin "
+                      f"{margin_text(mb)})", flush=True)
                 del y, h, got, want, wy
 
                 nb, fl = sketch_work(m, i, k, o, dtype)
@@ -796,9 +841,10 @@ def phase_train_kernels(card: str) -> dict:
                             (lambda a, b, c: klowrank.lowrank_fused(
                                 a, b, c, save_sketch=True),
                              ref.lowrank_sketch_ref, library_lowrank),
-                            sets, nb, fl, dtype, card)
+                            sets, nb, fl, dtype, card, eager=True)
                 rows.append(dict(row, kernel="lowrank_fwd_sketch", site=name,
-                                 M=m, dtype=str(dtype)[6:]))
+                                 M=m, dtype=str(dtype)[6:], route=route,
+                                 max_abs_err=e, margin=mg))
                 if m == 2048 and dtype == torch.bfloat16:
                     add("lowrank_fwd_sketch", SITE_COUNT[name], row, nb, fl)
                 del sets
@@ -815,9 +861,11 @@ def phase_train_kernels(card: str) -> dict:
                 row = timed(f"lowrank_bwd        {name:11s} I={i} K={k} "
                             f"O={o} M={m:4d}",
                             (klowrank.lowrank_bwd, ref.lowrank_bwd_ref,
-                             library_bwd), sets, nb, fl, dtype, card)
+                             library_bwd), sets, nb, fl, dtype, card,
+                            eager=True)
                 rows.append(dict(row, kernel="lowrank_bwd", site=name, M=m,
-                                 dtype=str(dtype)[6:]))
+                                 dtype=str(dtype)[6:], route=route,
+                                 max_abs_err=eb, margin=mb))
                 if m == 2048 and dtype == torch.bfloat16:
                     add("lowrank_bwd", SITE_COUNT[name], row, nb, fl)
                 del sets
@@ -891,11 +939,13 @@ def phase_train_kernels(card: str) -> dict:
                                                 torch.bfloat16)
         scope = ("one layer's 7 sites at M=2048" if n.startswith("lowrank")
                  else "one refresh, 7 stacked sites (24 layers)")
+        eager = (f" eager_call_ms={h['eager_call_ms']:.4f}"
+                 if h["eager_call_ms"] else "")
         print(f"[kernel] {n} {scope}, bf16: kernel_ms={h['ms']:.4f} "
               f"plain_ms={h['plain_ms']:.4f} "
               f"library_ms={h['library_ms']:.4f} "
-              f"bound_ms={h['bound_ms']:.5f} ({h['bound_by']}) | {card}",
-              flush=True)
+              f"bound_ms={h['bound_ms']:.5f} ({h['bound_by']}){eager} | "
+              f"{card}", flush=True)
     return dict(rows=rows, worst=worst, headline=head)
 
 
@@ -990,11 +1040,22 @@ def phase_smoke_training(card: str) -> dict:
                 factor_abs_err=par_err, launches=cuda["launches"])
 
 
+def train_kernel_of(key: str):
+    """Which of #2 and #3 launched a kernel, by its name: every kernel of
+    gemm_bf16.cuh (namespace gemm16) in a training step is one of theirs;
+    #2's products read both operands k-major (Config<..., true, true>),
+    #3's never do, and the split pass is #3's alone."""
+    if "gemm16::" not in key:
+        return None
+    return "lowrank_fwd_sketch" if "true, true>" in key else "lowrank_bwd"
+
+
 def profile_train_step(state, step, batch, card: str):
     """Device busy share of one full-width training step (no refresh)
     under torch.profiler: device time summed over CUDA kernels against the
     host wall clock of the step (the profiler's own host cost included, so
-    the share is a lower bound)."""
+    the share is a lower bound); and the share of that device time spent
+    in the bf16 kernels of #2 and #3 (``train_kernel_of``)."""
     acts = [torch.profiler.ProfilerActivity.CPU,
             torch.profiler.ProfilerActivity.CUDA]
     torch.cuda.synchronize()
@@ -1015,6 +1076,15 @@ def profile_train_step(state, step, batch, card: str):
     print(f"[profile] one training step: wall {wall_us / 1e3:.3f} ms, "
           f"device busy {dev_us / 1e3:.3f} ms, busy share "
           f"{dev_us / wall_us:.3f} | {card}")
+    shares = {}
+    for name in ("lowrank_fwd_sketch", "lowrank_bwd"):
+        mine = [e for e in events if train_kernel_of(e.key) == name]
+        us = sum(e.self_device_time_total for e in mine)
+        shares[name] = us / dev_us
+        if mine:
+            print(f"[profile]   {name} (bf16): {us / 1e3:.3f} ms in "
+                  f"{sum(e.count for e in mine)} kernel launches, "
+                  f"{us / dev_us:.3f} of the device time")
     top = sorted(events, key=lambda e: -e.self_device_time_total)[:10]
     for e in top:
         print(f"[profile]   {e.self_device_time_total / 1e3:8.3f} ms "
@@ -1022,6 +1092,7 @@ def profile_train_step(state, step, batch, card: str):
     return state, {"train_busy_share": dev_us / wall_us,
                    "train_step_wall_ms_profiled": wall_us / 1e3,
                    "train_step_device_ms": dev_us / 1e3,
+                   "train_device_share": shares,
                    "train_top": [(e.key[:70], e.self_device_time_total / 1e3,
                                   e.count) for e in top]}
 
@@ -2918,7 +2989,7 @@ def main() -> None:
         "ms": head["ms"], "plain_ms": head["plain_ms"],
         "bound_ms": head["bound_ms"], "bound_by": head["bound_by"],
         "library_ms": head["library_ms"]}]
-    sources = {"lowrank_fwd_sketch": ("lowrank_fwd.cu", "lowrank.py:70"),
+    sources = {"lowrank_fwd_sketch": ("lowrank_sketch.cu", "lowrank.py:70"),
                "lowrank_bwd": ("lowrank_bwd.cu", "lowrank.py:144"),
                "gram": ("gram.cu", "gram.py:18"),
                "choleskyqr": ("choleskyqr.cu", "qr.py:87")}

@@ -13,29 +13,43 @@
 // revisited f32 VMEM tiles. On this card blocks run in parallel and in no
 // order, and one block has 227 KB of shared memory: dL of mlp/gate|up and
 // dR of mlp/down at qwen2-0.5b widths are 4864 x 256 f32 = 4.98 MB each.
+// So each product is its own launch, every output tile owned by one block
+// that loops over its share of the reduction in a fixed order; where an
+// output has few tiles, the wrapper splits the reduction into contiguous
+// ranges whose f32 partials a second pass sums in split order. No float
+// atomics, so two runs give the same gradients bit for bit.
 //
-// Design. Four launches of one tiled f32 product (gemm_f32.cuh) on the
-// caller's stream, in this order: dh, dx, dL, dR. Every output tile is
-// owned by one block, which loops over the whole reduction (O for dh, K for
-// dx, M for dL and dR) in a fixed order; where an output has few tiles (the
-// rank-K dR of attn/wq at 4 x 14 tiles, dL of attn/wk|wv at 2 x 2), the
-// wrapper asks for the M reduction to be split into contiguous ranges whose
-// f32 partials a second pass sums in split order. No float atomics, so two
-// runs give the same gradients bit for bit.
-//   * dh is written to device memory once (M x K f32, 2.1 MB at M = 2048,
-//     K = 256) and read back by dx and dR. This trades the TPU kernel's
-//     on-chip dh for one write and two reads of it, about 6 MB per site,
-//     against some 35 MB the function must move at an mlp site in bf16.
-//   * What bounds it: operations. Every product has an f32 operand (h, dh)
-//     or, for dh = dy L, runs with the others on the same FMA path, at the
-//     card's f32 rate (67 TFLOP/s on an H100 SXM): 4 M K (O + I) flops,
-//     12 GFLOP for one mlp/gate site at M = 2048 (180 us at that rate),
-//     against 35 MB of bytes (10 us at 3.35 TB/s). Tensor cores (mma.sync
-//     for the bf16 dh = dy L; TF32x3 or wgmma for the f32 products) are the
-//     next step, for a later change.
-// The kernel allocates nothing: dh and the split workspace come from the
-// wrapper. The C entry point returns cudaGetLastError() of the launches.
+// Two routes, chosen by the wrapper (kernels/lowrank.py):
+//
+// lowrank_bwd_bf16, bf16 inputs (the training path): the tensor-core
+// product of gemm_bf16.cuh (mma.sync m16n8k16 fed by ldmatrix from a
+// cp.async ring of 3-4 stages), five launches and their split reduces:
+//   1. dh = dy L, one bf16 piece; the epilogue writes dh's first 3 bf16
+//      pieces (no f32 dh: nothing reads it);
+//   2. the split pass: the saved f32 h into its first 3 bf16 pieces;
+//   3. dx = sum_p dh_p R over 2 pieces (a bf16 output: 2^-17 of each term
+//      is far below its one rounding);
+//   4. dL = sum_p dy^T h_p and 5. dR = sum_p dh_p^T x over 3 pieces (f32
+//      outputs: three pieces give h and dh exactly, so every product is
+//      exact and only the order of the f32 sums differs from the plain
+//      version).
+//   What bounds it: operations. One qwen2-0.5b training layer (7 sites, M
+//   = 2048) is 45.9 GFLOP of products and 101.6 GFLOP of bf16 mma with
+//   these pieces (0.10 ms at 989 TFLOP/s), against ~180 MB of bytes
+//   (0.054 ms). The pieces (3 MB each at M = 2048, K = 256) are scratch
+//   from the wrapper, written once and read by two products.
+//
+// lowrank_bwd, f32 inputs and bf16 shapes the 16-byte copies cannot read
+// (the f32 route): four launches of the tiled f32 FMA product of
+// gemm_f32.cuh, in this order: dh, dx, dL, dR. dh is written to device
+// memory once and read back by dx and dR. Bound by operations at the f32
+// rate (67 TFLOP/s): 4 M K (O + I) flops.
+//
+// The kernels allocate nothing: dh, the pieces and the split workspace come
+// from the wrapper. The C entry points return cudaGetLastError() of the
+// launches.
 
+#include "gemm_bf16.cuh"
 #include "gemm_f32.cuh"
 
 namespace {
@@ -88,6 +102,93 @@ int lowrank_bwd(const void* dy, const void* x, const float* h, const void* l,
                     static_cast<const float*>(l),
                     static_cast<const float*>(r), static_cast<float*>(dx), dl,
                     dr, dh, ws, M, I, K, O, s_dh, s_dx, s_dl, s_dr, st);
+}
+
+// The tensor-core route, bf16 dy, x, L, R, dx. dhp (3, M, K) and hp
+// (p_dl, M, K) bf16 scratch for the pieces of dh and h; ws f32 scratch
+// for split partials. tile_*: 64 or 128; s_*: reduction ranges; p_*:
+// pieces of the f32 operand in dx, dL and dR (p_dx, p_dr <= 3 = the
+// pieces dh's epilogue writes).
+int lowrank_bwd_bf16(const void* dy, const void* x, const float* h,
+                     const void* l, const void* r, void* dx, float* dl,
+                     float* dr, void* dhp, void* hp, float* ws, int M, int I,
+                     int K, int O, int tile_dh, int s_dh, int tile_dx,
+                     int s_dx, int p_dx, int tile_dl, int s_dl, int p_dl,
+                     int tile_dr, int s_dr, int p_dr, void* stream) {
+  cudaStream_t st = static_cast<cudaStream_t>(stream);
+  const long long mk = static_cast<long long>(M) * K;
+  const uint16_t* dy16 = static_cast<const uint16_t*>(dy);
+  const uint16_t* dh16 = static_cast<const uint16_t*>(dhp);
+  // dh (M, K) = dy (M, O) . L (O, K): A k-major, B (O, K) n-major
+  gemm16::Args a{};
+  a.a = dy16;
+  a.b = static_cast<const uint16_t*>(l);
+  a.M = M;
+  a.N = K;
+  a.K = O;
+  a.lda = O;
+  a.ldb = K;
+  a.pieces = 1;
+  a.mode = gemm16::PIECES;
+  a.cp = static_cast<uint16_t*>(dhp);
+  a.out_pieces = 3;
+  a.cp_ps = mk;
+  a.ws = ws;
+  a.splits = s_dh;
+  int err = gemm16::matmul<true, false>(a, tile_dh, st);
+  if (err) return err;
+  err = gemm16::split(h, static_cast<uint16_t*>(hp), mk, p_dl, st);
+  if (err) return err;
+  // dx (M, I) = sum_p dh_p (M, K) . R (K, I)
+  gemm16::Args b{};
+  b.a = dh16;
+  b.b = static_cast<const uint16_t*>(r);
+  b.M = M;
+  b.N = I;
+  b.K = K;
+  b.lda = K;
+  b.ldb = I;
+  b.a_ps = mk;
+  b.pieces = p_dx;
+  b.mode = gemm16::BF16;
+  b.c16 = static_cast<uint16_t*>(dx);
+  b.ws = ws;
+  b.splits = s_dx;
+  err = gemm16::matmul<true, false>(b, tile_dx, st);
+  if (err) return err;
+  // dL (O, K) = sum_p dy^T (O, M) . h_p (M, K); dy^T(o, m) = dy[m * O + o]
+  gemm16::Args c{};
+  c.a = dy16;
+  c.b = static_cast<const uint16_t*>(hp);
+  c.M = O;
+  c.N = K;
+  c.K = M;
+  c.lda = O;
+  c.ldb = K;
+  c.b_ps = mk;
+  c.pieces = p_dl;
+  c.mode = gemm16::F32;
+  c.c32 = dl;
+  c.ws = ws;
+  c.splits = s_dl;
+  err = gemm16::matmul<false, false>(c, tile_dl, st);
+  if (err) return err;
+  // dR (K, I) = sum_p dh_p^T (K, M) . x (M, I); dh_p^T(k, m) = dh_p[m * K + k]
+  gemm16::Args d{};
+  d.a = dh16;
+  d.b = static_cast<const uint16_t*>(x);
+  d.M = K;
+  d.N = I;
+  d.K = M;
+  d.lda = K;
+  d.ldb = I;
+  d.a_ps = mk;
+  d.pieces = p_dr;
+  d.mode = gemm16::F32;
+  d.c32 = dr;
+  d.ws = ws;
+  d.splits = s_dr;
+  return gemm16::matmul<false, false>(d, tile_dr, st);
 }
 
 }  // extern "C"

@@ -4,12 +4,19 @@
   launch, the rank-K ``h`` kept in f32 in shared memory. It replaces
   ``repro/kernels/lowrank.py::_lowrank_kernel``; with ``save_sketch`` it
   also writes ``h`` (M, K) f32 once and replaces ``_lowrank_sketch_kernel``.
+  On bf16 inputs that ``tensor_core_route`` admits, the sketch forward is
+  ``csrc/lowrank_sketch.cu`` instead: two tensor-core products (h, then y
+  over bf16 pieces of h).
 * ``lowrank_bwd`` -> ``csrc/lowrank_bwd.cu``: (dx, dL, dR) from the saved
-  sketch, replacing ``_lowrank_bwd_kernel``.
+  sketch, replacing ``_lowrank_bwd_kernel``; tensor-core products over bf16
+  pieces (``lowrank_bwd_bf16``) where ``tensor_core_route`` admits the
+  inputs, the f32 FMA products (``lowrank_bwd``) otherwise.
 
-Both take 2-D CUDA tensors only and launch the kernel or raise; they never
-fall back. Grid shapes and reduction splits are chosen here, in Python,
-where the CPU tests can check them (``launch_config``, ``splits``).
+Both take 2-D CUDA tensors only and launch a kernel or raise; they never
+fall back. Which kernel takes a call is a rule on dtype, widths and
+addresses (``tensor_core_route``), never a retry. Grid shapes and reduction
+splits are chosen here, in Python, where the CPU tests can check them
+(``launch_config``, ``splits``, ``gemm_plan``).
 """
 from __future__ import annotations
 
@@ -35,7 +42,8 @@ TRAIN_LAUNCHES: dict[str, int] = {"lowrank_fwd_sketch": 0, "lowrank_bwd": 0,
                                   "gram": 0, "choleskyqr": 0}
 
 CLUSTER = 8           # CTAs per thread-block cluster (csrc: CL)
-TARGET_CTAS = 264     # about two CTAs per SM of an H100 (132 SMs)
+SMS = 132             # streaming multiprocessors of an H100 SXM
+TARGET_CTAS = 2 * SMS  # about two CTAs per SM
 MIN_COLS_PER_CTA = 16
 SMEM_LIMIT = 232448   # bytes of shared memory one block can use on sm_90
 
@@ -145,7 +153,10 @@ def lowrank_fused(x: torch.Tensor, r_factor: torch.Tensor,
     """y (M, O) = x (M, I) R^T (I, K) L^T (K, O), one launch of the CUDA
     kernel on the current stream. bf16 or f32; all three of one dtype.
     With ``save_sketch`` returns ``(y, h)``, h (M, K) = x R^T in f32
-    written by the same launch (the training forward)."""
+    written by the same launch (the training forward); where
+    ``tensor_core_route`` admits bf16 inputs, by the two tensor-core
+    launches of ``lowrank_sketch.cu`` instead. Either way one call counts
+    one launch of ``lowrank_fwd_sketch``."""
     _check(x, r_factor, l_factor)
     m, i = x.shape
     k, o = r_factor.shape[0], l_factor.shape[0]
@@ -157,6 +168,11 @@ def lowrank_fused(x: torch.Tensor, r_factor: torch.Tensor,
                          "written by the CTAs that compute y)")
     if m == 0 or o == 0:
         return (y, h) if save_sketch else y
+    if save_sketch and tensor_core_route(x.dtype, (i, k, o),
+                                         (x, r_factor, l_factor)):
+        _sketch_bf16(x, r_factor, l_factor, y, h)
+        TRAIN_LAUNCHES["lowrank_fwd_sketch"] += 1
+        return y, h
     cfg = launch_config(m, k, o)
     lib = _lib()
     args = (m, i, k, o, _DTYPES[x.dtype], cfg.bm, cfg.ks, cfg.oc, cfg.groups)
@@ -224,6 +240,9 @@ def _bwd_lib() -> ctypes.CDLL:
         lib.lowrank_bwd.restype = ctypes.c_int
         lib.lowrank_bwd.argtypes = [ctypes.c_void_p] * 10 \
             + [ctypes.c_int] * 9 + [ctypes.c_void_p]
+        lib.lowrank_bwd_bf16.restype = ctypes.c_int
+        lib.lowrank_bwd_bf16.argtypes = [ctypes.c_void_p] * 11 \
+            + [ctypes.c_int] * 15 + [ctypes.c_void_p]
     return lib
 
 
@@ -262,6 +281,10 @@ def lowrank_bwd(dy: torch.Tensor, x: torch.Tensor, h: torch.Tensor,
     dr = torch.empty((k, i), dtype=torch.float32, device=dev)
     if min(m, i, k, o) == 0:
         return dx.zero_(), dl.zero_(), dr.zero_()
+    if tensor_core_route(x.dtype, (i, k, o), (dy, x, h, l_factor, r_factor)):
+        _bwd_bf16(dy, x, h, l_factor, r_factor, dx, dl, dr)
+        TRAIN_LAUNCHES[op] += 1
+        return dx, dl, dr
     cfg = bwd_config(m, i, k, o)
     dh = torch.empty((m, k), dtype=torch.float32, device=dev)
     ws = torch.empty((max(cfg.ws, 1),), dtype=torch.float32, device=dev)
@@ -278,3 +301,147 @@ def lowrank_bwd(dy: torch.Tensor, x: torch.Tensor, h: torch.Tensor,
                            f"(M={m} I={i} K={k} O={o} {cfg})")
     TRAIN_LAUNCHES[op] += 1
     return dx, dl, dr
+
+
+# ---------------------------------------------------------------------------
+# The bf16 route of #2 and #3: tensor-core products over bf16 pieces
+# (csrc/gemm_bf16.cuh, csrc/lowrank_sketch.cu, csrc/lowrank_bwd.cu)
+# ---------------------------------------------------------------------------
+
+STEP = 64             # reduction depth of one step (csrc: gemm16::BK)
+MIN_SPLIT_STEPS = 4   # a split range keeps >= 4 steps (256 terms)
+#: bf16 pieces of an f32 operand (h, dh): two where the output is bf16 (y,
+#: dx; their error, 2^-17 of each term, is far below the output's one
+#: rounding), three where it is f32 (dL, dR; exact, so the products are the
+#: plain version's and only the order of the f32 sums differs)
+PIECES_BF16_OUT = 2
+PIECES_F32_OUT = 3
+
+
+def tensor_core_route(dtype: torch.dtype, widths, tensors) -> bool:
+    """Whether the bf16 tensor-core kernels take a call whose operands are
+    of ``dtype``: bf16, every width (I, K, O) a multiple of 8 and every
+    base address 16-byte aligned, since the kernels copy rows 16 bytes at
+    a time. Other calls go to the f32 FMA kernels (lowrank_fwd.cu,
+    lowrank_bwd.cu on gemm_f32.cuh)."""
+    return (dtype == torch.bfloat16 and all(w % 8 == 0 for w in widths)
+            and all(t.data_ptr() % 16 == 0 for t in tensors))
+
+
+class GemmPlan(NamedTuple):
+    tile: int     # output tile edge: 128 (8 warps) or 64 (4 warps)
+    splits: int   # contiguous ranges of the reduction's steps
+
+
+def gemm_plan(rows: int, cols: int, red: int, pieces: int = 1) -> GemmPlan:
+    """Tile and split of one product C (rows, cols) over ``pieces`` x
+    ceil(red / 64) steps. 128 x 128 tiles (two blocks an SM) unsplit
+    where there are >= 96 of them; else 128 x 128 tiles split up to ~2
+    blocks an SM where that gives >= 128 blocks; else 64 x 64 tiles split
+    up to ~1 block an SM. Each range keeps >= MIN_SPLIT_STEPS steps. The
+    thresholds reproduce the fastest choice of a sweep of tile shapes,
+    depths and splits over the main path's products on an H100 (a split
+    costs a pass over splits x rows x cols partials, and a grid past a
+    whole wave of blocks costs a second wave). Range s covers steps [s T /
+    splits, (s + 1) T / splits) of T (the kernel's rule)."""
+    steps = pieces * _cdiv(red, STEP)
+    most = max(1, steps // MIN_SPLIT_STEPS)
+    tiles = _cdiv(rows, 128) * _cdiv(cols, 128)
+    if tiles >= 96:
+        return GemmPlan(128, 1)
+    splits = max(1, min(TARGET_CTAS // tiles, most))
+    if tiles * splits >= 128:
+        return GemmPlan(128, splits)
+    tiles = _cdiv(rows, 64) * _cdiv(cols, 64)
+    return GemmPlan(64, max(1, min(SMS // tiles, most)))
+
+
+def _workspace(*products) -> int:
+    """f32 values the split partials of (plan, rows, cols) products need;
+    the products run in order on one stream and share it."""
+    return max((p.splits * r * c for p, r, c in products if p.splits > 1),
+               default=0)
+
+
+class SketchPlan(NamedTuple):
+    h: GemmPlan   # h (M, K) = x R^T over I
+    y: GemmPlan   # y (M, O) = sum_p h_p L^T over PIECES_BF16_OUT x K
+    ws: int       # f32 workspace
+
+
+@functools.lru_cache(maxsize=256)
+def sketch_plan(m: int, i: int, k: int, o: int) -> SketchPlan:
+    h, y = gemm_plan(m, k, i), gemm_plan(m, o, k, PIECES_BF16_OUT)
+    return SketchPlan(h, y, _workspace((h, m, k), (y, m, o)))
+
+
+class BwdPlan(NamedTuple):
+    dh: GemmPlan  # dh (M, K) = dy L over O, one piece
+    dx: GemmPlan  # dx (M, I) = sum_p dh_p R, PIECES_BF16_OUT pieces
+    dl: GemmPlan  # dL (O, K) = sum_p dy^T h_p over M, PIECES_F32_OUT
+    dr: GemmPlan  # dR (K, I) = sum_p dh_p^T x over M, PIECES_F32_OUT
+    ws: int       # f32 workspace
+
+
+@functools.lru_cache(maxsize=256)
+def bwd_plan(m: int, i: int, k: int, o: int) -> BwdPlan:
+    p = {"dh": (gemm_plan(m, k, o), m, k),
+         "dx": (gemm_plan(m, i, k, PIECES_BF16_OUT), m, i),
+         "dl": (gemm_plan(o, k, m, PIECES_F32_OUT), o, k),
+         "dr": (gemm_plan(k, i, m, PIECES_F32_OUT), k, i)}
+    return BwdPlan(ws=_workspace(*p.values()),
+                   **{n: v[0] for n, v in p.items()})
+
+
+def _sketch_lib() -> ctypes.CDLL:
+    lib = _build.library("lowrank_sketch.cu")
+    if lib.lowrank_sketch_bf16.argtypes is None:
+        lib.lowrank_sketch_bf16.restype = ctypes.c_int
+        lib.lowrank_sketch_bf16.argtypes = [ctypes.c_void_p] * 7 \
+            + [ctypes.c_int] * 9 + [ctypes.c_void_p]
+    return lib
+
+
+def _sketch_bf16(x, r_factor, l_factor, y, h) -> None:
+    """Launch #2's bf16 route into y and h; the pieces of h and the split
+    workspace are scratch of this call."""
+    m, i = x.shape
+    k, o = r_factor.shape[0], l_factor.shape[0]
+    plan = sketch_plan(m, i, k, o)
+    hp = torch.empty((PIECES_BF16_OUT, m, k), dtype=torch.bfloat16,
+                     device=x.device)
+    ws = torch.empty((max(plan.ws, 1),), dtype=torch.float32, device=x.device)
+    with torch.cuda.device(x.device):
+        stream = torch.cuda.current_stream(x.device).cuda_stream
+        err = _sketch_lib().lowrank_sketch_bf16(
+            x.data_ptr(), r_factor.data_ptr(), l_factor.data_ptr(),
+            y.data_ptr(), h.data_ptr(), hp.data_ptr(), ws.data_ptr(), m, i,
+            k, o, PIECES_BF16_OUT, *plan.h, *plan.y, stream)
+    if err != 0:
+        raise RuntimeError(f"lowrank_sketch_bf16 launch failed: CUDA error "
+                           f"{err} (M={m} I={i} K={k} O={o} {plan})")
+
+
+def _bwd_bf16(dy, x, h, l_factor, r_factor, dx, dl, dr) -> None:
+    """Launch #3's bf16 route into dx, dL and dR; the pieces of dh and h
+    and the split workspace are scratch of this call."""
+    m, o = dy.shape
+    i, k = x.shape[1], h.shape[1]
+    plan = bwd_plan(m, i, k, o)
+    dev = x.device
+    dhp = torch.empty((PIECES_F32_OUT, m, k), dtype=torch.bfloat16,
+                      device=dev)
+    hp = torch.empty((PIECES_F32_OUT, m, k), dtype=torch.bfloat16,
+                     device=dev)
+    ws = torch.empty((max(plan.ws, 1),), dtype=torch.float32, device=dev)
+    with torch.cuda.device(dev):
+        stream = torch.cuda.current_stream(dev).cuda_stream
+        err = _bwd_lib().lowrank_bwd_bf16(
+            dy.data_ptr(), x.data_ptr(), h.data_ptr(), l_factor.data_ptr(),
+            r_factor.data_ptr(), dx.data_ptr(), dl.data_ptr(), dr.data_ptr(),
+            dhp.data_ptr(), hp.data_ptr(), ws.data_ptr(), m, i, k, o,
+            *plan.dh, *plan.dx, PIECES_BF16_OUT, *plan.dl, PIECES_F32_OUT,
+            *plan.dr, PIECES_F32_OUT, stream)
+    if err != 0:
+        raise RuntimeError(f"lowrank_bwd_bf16 launch failed: CUDA error "
+                           f"{err} (M={m} I={i} K={k} O={o} {plan})")

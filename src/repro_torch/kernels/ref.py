@@ -64,6 +64,20 @@ def lowrank_bwd_ref(dy: torch.Tensor, x: torch.Tensor, h: torch.Tensor,
     return dx, dl, dr
 
 
+def split_pieces(v: torch.Tensor, n: int) -> torch.Tensor:
+    """The first n bf16 pieces of v, stacked (n, ...): piece q = bf16(v -
+    pieces 0..q-1) with round-to-nearest-even, every remainder exact in
+    f32. Three pieces sum to an f32 v exactly, two within 2^-17 |v|. The
+    plain version of the split that the bf16 kernels of #2 and #3 make of
+    h and dh (csrc/gemm_bf16.cuh, ``split_bf16``)."""
+    rest = v.float()
+    pieces = []
+    for _ in range(n):
+        pieces.append(rest.to(torch.bfloat16))
+        rest = rest - pieces[-1].float()
+    return torch.stack(pieces)
+
+
 def gram_ref(y: torch.Tensor) -> torch.Tensor:
     """G = Y^T Y in f32; y (..., M, K) -> (..., K, K)."""
     yf = y.float()

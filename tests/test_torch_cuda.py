@@ -123,15 +123,19 @@ def _bwd_inputs(m, i, k, o, device, dtype, seed=0):
     return dy, x, h, l_, r
 
 
-def _close(got, want, n, dtype=torch.float32):
+def _tol(want, n, dtype=torch.float32):
     """f32 sums of n terms in another order: n eps |result scale|; a bf16
     output adds one rounding (2^-7 relative)."""
-    want = want.float()
-    scale = want.abs().max().item()
+    scale = want.float().abs().max().item()
     tol = 2 * n * EPS32 * max(scale, 1.0)
     if dtype == torch.bfloat16:
         tol += 2.0 ** -7 * scale
-    err = (got.float() - want).abs().max().item()
+    return tol
+
+
+def _close(got, want, n, dtype=torch.float32):
+    tol = _tol(want, n, dtype)
+    err = (got.float() - want.float()).abs().max().item()
     assert err <= tol, (err, tol)
 
 
@@ -150,8 +154,16 @@ def test_sketch_kernel_matches_plain_version(cuda, m, i, k, o, dtype):
     want_y, want_h = ref.lowrank_sketch_ref(x, r, l_)
     _close(h, want_h, i)
     _close(y, want_y, i + k, dtype)
-    # the sketch store changes nothing of y
-    assert torch.equal(y, lowrank.lowrank_fused(x, r, l_))
+    y1 = lowrank.lowrank_fused(x, r, l_)
+    if dtype == torch.float32:
+        # one kernel computes both: the sketch store changes nothing of y
+        assert torch.equal(y, y1)
+    else:
+        # bf16: #2 takes the tensor-core route (y over bf16 pieces of h)
+        # where it admits the shape, #1 never does; each is held to the
+        # plain version, so to each other at the sum of the two tolerances
+        err = (y.float() - y1.float()).abs().max().item()
+        assert err <= 2 * _tol(want_y, i + k, dtype), err
 
 
 @pytest.mark.cuda
@@ -171,6 +183,66 @@ def test_bwd_kernel_matches_plain_version(cuda, m, i, k, o, dtype):
     _close(dr, want[2], o + m)
     again = lowrank.lowrank_bwd(dy, x, h, l_, r)
     assert all(torch.equal(a, b) for a, b in zip((dx, dl, dr), again))
+
+
+# (M, I, K, O): the four training sites at one row and at the training
+# path's 2048 rows
+TC_SHAPES = [(m, i, k, o) for m in (1, 2048)
+             for i, k, o in ((896, 256, 896), (896, 128, 128),
+                             (896, 256, 4864), (4864, 256, 896))]
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("m,i,k,o", BWD_SHAPES + TC_SHAPES)
+def test_bf16_kernels_route_match_and_repeat(cuda, m, i, k, o):
+    """bf16 #2 and #3: widths that are multiples of 8 take the tensor-core
+    route (bf16 pieces of h and dh), the others the f32 FMA kernels; either
+    way each output is held to the plain version, two calls give the same
+    bits, and each wrapper call counts one launch."""
+    dy, x, h, l_, r = _bwd_inputs(m, i, k, o, cuda, torch.bfloat16)
+    tc = all(w % 8 == 0 for w in (i, k, o))
+    assert lowrank.tensor_core_route(torch.bfloat16, (i, k, o),
+                                     (dy, x, h, l_, r)) == tc
+    before = dict(ops.launch_counts())
+    fwd = [lowrank.lowrank_fused(x, r, l_, save_sketch=True)
+           for _ in range(2)]
+    bwd = [lowrank.lowrank_bwd(dy, x, h, l_, r) for _ in range(2)]
+    torch.cuda.synchronize()
+    after = ops.launch_counts()
+    assert after["lowrank_fwd_sketch"] == before["lowrank_fwd_sketch"] + 2
+    assert after["lowrank_bwd"] == before["lowrank_bwd"] + 2
+    assert after["lowrank_fwd"] == before["lowrank_fwd"]
+    assert all(torch.equal(a, b) for a, b in zip(*fwd))
+    assert all(torch.equal(a, b) for a, b in zip(*bwd))
+    want_y, want_h = ref.lowrank_sketch_ref(x, r, l_)
+    _close(fwd[0][1], want_h, i)
+    _close(fwd[0][0], want_y, i + k, torch.bfloat16)
+    want = ref.lowrank_bwd_ref(dy, x, h, l_, r)
+    _close(bwd[0][0], want[0], o + k, torch.bfloat16)
+    _close(bwd[0][1], want[1], m)
+    _close(bwd[0][2], want[2], o + m)
+
+
+@pytest.mark.cuda
+def test_bf16_kernels_take_misaligned_views_to_the_fma_kernels(cuda):
+    """A bf16 operand whose base is not 16-byte aligned goes to the f32
+    FMA kernels by the route rule, and the result is still right."""
+    m, i, k, o = 64, 896, 256, 896
+    dy, x, h, l_, r = _bwd_inputs(m, i, k, o, cuda, torch.bfloat16)
+    flat = torch.empty(m * i + 1, dtype=torch.bfloat16, device=cuda)
+    xs = flat[1:].view(m, i)
+    xs.copy_(x)
+    assert not lowrank.tensor_core_route(torch.bfloat16, (i, k, o), (xs,))
+    y, hh = lowrank.lowrank_fused(xs, r, l_, save_sketch=True)
+    dx, dl, dr = lowrank.lowrank_bwd(dy, xs, h, l_, r)
+    torch.cuda.synchronize()
+    want_y, want_h = ref.lowrank_sketch_ref(x, r, l_)
+    _close(hh, want_h, i)
+    _close(y, want_y, i + k, torch.bfloat16)
+    want = ref.lowrank_bwd_ref(dy, x, h, l_, r)
+    _close(dx, want[0], o + k, torch.bfloat16)
+    _close(dl, want[1], m)
+    _close(dr, want[2], o + m)
 
 
 GRAM_SHAPES = [(1, 2048, 256), (3, 100, 40), (24, 4864, 256),
