@@ -9,9 +9,16 @@ Phases, in order; any failure raises and the script exits non-zero:
    off for f32 matmuls and convolutions;
 2. build: compile every CUDA kernel of the port from the sources in this
    checkout (one nvcc per source, all started together);
-3. kernels: hold each kernel against its plain PyTorch version at the
-   serving shapes of qwen2-0.5b, and time kernel, plain version, one
-   library call computing the same function, and the card's bound;
+3. kernel #1: hold each route of ``lowrank_fused`` (decode,
+   tensor-core, fused; ``lowrank.forward_route``) against its plain
+   PyTorch version at the serving shapes of qwen2-0.5b (M from 4 to
+   1,024, both sides of the decode threshold, bf16 and f32, and a ragged
+   shape the tensor cores refuse) and of zamba2-7b (M = 4 and 1,024),
+   two calls on the same inputs bit-equal; time kernel, plain version,
+   one library call computing the same function, and the card's bound;
+   headlines for a qwen2 decode layer and a zamba2 prefill layer; a sweep
+   of the decode and tensor-core routes over M = 1-32 (where the decode
+   threshold comes from);
 4. smoke parity: qwen2 smoke in f32, the same seeded weights on the card
    and on the CPU, prefill then teacher-forced decode, logits compared at
    every step; the card's engine against its own lockstep generate;
@@ -51,8 +58,9 @@ Phases, in order; any failure raises and the script exits non-zero:
    factors, and qwen2 smoke int8 served on the card and the CPU with
    equal greedy tokens;
 11. tiled matmul: hold ``matmul_tiled`` (``ops.matmul``) against its plain
-   version at ragged shapes, B row-major and a transposed view, bf16 and
-   f32, and the two-launch ``ops.lowrank_matmul_unfused`` at the seven
+   version at ragged shapes and at decode rows, B row-major and a
+   transposed view, bf16 and f32 (each row prints its route,
+   ``matmul_tiled.matmul_route``; two calls bit-equal), and the two-launch ``ops.lowrank_matmul_unfused`` at the seven
    sites' shapes, M in (4, 1024, 2048), beside the fused kernel #1 at the
    same shapes; time kernel, plain version, ``torch.matmul`` and bound;
 12. the paper's Table 2 at full width: qwen2-0.5b (24 layers, bf16,
@@ -109,8 +117,8 @@ Phases, in order; any failure raises and the script exits non-zero:
    weight and cache bytes (KV, SSM, conv), the allocator's peak, the
    busy share of a decode tick and of a prefill under the profiler,
    exact launches (81 of #8 and 13 of #7 per prefill call, none per
-   decode step, 334 of #1 per forward or decode step); kernel #1 timed
-   at zamba2's site shapes; one prompt's logits at full width and
+   decode step, 334 of #1 per forward or decode step); one prompt's
+   logits at full width and
    reduced depth (5 ``mamba2`` + 1 ``mamba2_attn``), bf16 on the card
    against the same weights in f32 on the CPU.
 
@@ -164,6 +172,7 @@ from repro_torch.core.orthogonal import (  # noqa: E402
 )
 from repro_torch.data.synthetic import SyntheticLM  # noqa: E402
 from repro_torch.kernels import lowrank as klowrank  # noqa: E402
+from repro_torch.kernels import matmul_tiled as kmm  # noqa: E402
 from repro_torch.kernels import qr as kqr  # noqa: E402
 from repro_torch.launch import train as launch_train  # noqa: E402
 from repro_torch.launch.serve import generate  # noqa: E402
@@ -299,24 +308,43 @@ def library_lowrank(x, r, l_):
     return torch.matmul(torch.matmul(x, r.T), l_.T)
 
 
-def lowrank_row(tag, name, m, i, k, o, dtype, gen, card: str) -> dict:
-    """Kernel #1 at one shape: held to its plain version, then timed
-    beside the plain version, the library's two matmuls and the bound."""
-    (x, r, l_), = inputs(m, i, k, o, dtype, gen)
-    got = ops.lowrank_matmul(x, r, l_)
-    torch.cuda.synchronize()
-    want = ref.lowrank_matmul_ref(x, r, l_)
-    err = (got.float() - want.float()).abs().max().item()
+def lowrank_tol(want, i, k, dtype) -> float:
+    """f32: sums of I then K terms in another order, bounded by 2 (I + K)
+    eps |y|; bf16 adds one rounding of the output. (The tensor-core
+    route's two bf16 pieces of h add at most 2^-17 of each term of h L^T,
+    0.018-0.081 of the f32 part at qwen2's shapes, tests/test_torch_split.py.)"""
     scale = want.float().abs().max().item()
-    # f32: sums of I then K terms in another order, bounded by 2 (I + K)
-    # eps |y|; bf16 adds one rounding of the output
     tol = 2 * (i + k) * EPS32 * max(scale, 1.0)
     if dtype == torch.bfloat16:
         tol += 2.0 ** -7 * scale
+    return tol
+
+
+def held_twice(label, fn, args, want, tol):
+    """``fn(*args)`` twice on the same inputs: the two results bit-equal,
+    the first within ``tol`` of ``want``; returns its max abs error."""
+    got, again = fn(*args), fn(*args)
+    torch.cuda.synchronize()
+    if not torch.equal(got, again):
+        raise AssertionError(f"{label}: two calls on the same inputs differ")
+    err = (got.float() - want.float()).abs().max().item()
     if not err <= tol:
-        raise AssertionError(f"lowrank_fwd {name} M={m} {dtype}: max abs "
-                             f"err {err:.3e} > tol {tol:.3e}")
-    del x, r, l_, got, want
+        raise AssertionError(f"{label}: max abs err {err:.3e} > tol "
+                             f"{tol:.3e}")
+    return err
+
+
+def lowrank_row(tag, name, m, i, k, o, dtype, gen, card: str) -> dict:
+    """Kernel #1 at one shape: its route (``forward_route``) held to the
+    plain version with two bit-equal calls, then timed beside the plain
+    version, the library's two matmuls and the bound."""
+    (x, r, l_), = inputs(m, i, k, o, dtype, gen)
+    route = klowrank.forward_route(m, i, k, o, dtype, (x, r, l_))
+    want = ref.lowrank_matmul_ref(x, r, l_)
+    tol = lowrank_tol(want, i, k, dtype)
+    err = held_twice(f"lowrank_fwd {name} M={m} {dtype} ({route})",
+                     ops.lowrank_matmul, (x, r, l_), want, tol)
+    del x, r, l_, want
     nbytes, _ = work(m, i, k, o, dtype)
     n_sets = max(1, min(48, int(120e6 // nbytes) + 1))
     sets = inputs(m, i, k, o, dtype, gen, n_sets)
@@ -325,30 +353,119 @@ def lowrank_row(tag, name, m, i, k, o, dtype, gen, card: str) -> dict:
     l_ms = time_ms(library_lowrank, sets)
     kc_ms = call_ms(ops.lowrank_matmul, sets)
     b_ms, b_by = bound(m, i, k, o, dtype)
-    bm = klowrank.launch_config(m, k, o).bm
+    how = route
+    if route == "fused":
+        how += f" ({klowrank.launch_config(m, k, o).bm}-row tiles)"
     print(f"{tag} lowrank_fwd {name:11s} I={i} K={k} O={o} M={m:4d} "
-          f"{str(dtype)[6:]:8s} {bm}-row tiles err={err:.2e} (tol "
+          f"{str(dtype)[6:]:8s} route={how} err={err:.2e} (tol "
           f"{tol:.2e}) kernel_ms={k_ms:.4f} plain_ms={p_ms:.4f} "
           f"library_ms={l_ms:.4f} bound_ms={b_ms:.5f} ({b_by}) "
           f"eager_call_ms={kc_ms:.4f} | {card}", flush=True)
     return dict(site=name, M=m, I=i, K=k, O=o, dtype=str(dtype)[6:],
-                tile_rows=bm, kernel_ms=k_ms, plain_ms=p_ms, library_ms=l_ms,
+                route=route, kernel_ms=k_ms, plain_ms=p_ms, library_ms=l_ms,
                 bound_ms=b_ms, bound_by=b_by, kernel_call_ms=kc_ms,
                 max_abs_err=err, tol=tol)
 
 
-def phase_kernels(card: str) -> dict:
-    print("== phase 3: lowrank_fwd against its plain version", flush=True)
-    gen = torch.Generator(device="cuda").manual_seed(0)
-    worst = 0.0
+def layer_headline(label, rows, counts, dtype, card: str) -> dict:
+    """Sum of ``rows``' times over one layer's sites (``counts``: sites
+    per row key), beside the bound of the layer's bytes and flops."""
+    tot = dict.fromkeys(("ms", "plain_ms", "library_ms", "eager_call_ms"),
+                        0.0)
+    nbytes = flops = 0
+    for row in rows:
+        c = counts[row["site"]]
+        for key, src in (("ms", "kernel_ms"), ("plain_ms", "plain_ms"),
+                         ("library_ms", "library_ms"),
+                         ("eager_call_ms", "kernel_call_ms")):
+            tot[key] += c * row[src]
+        b, f = work(row["M"], row["I"], row["K"], row["O"], dtype)
+        nbytes, flops = nbytes + c * b, flops + c * f
+    tot["bound_ms"], tot["bound_by"] = bound_of(nbytes, flops, dtype)
+    print(f"[kernel] lowrank_fwd {label}: kernel_ms={tot['ms']:.4f} "
+          f"plain_ms={tot['plain_ms']:.4f} library_ms="
+          f"{tot['library_ms']:.4f} bound_ms={tot['bound_ms']:.5f} "
+          f"({tot['bound_by']}) eager_call_ms={tot['eager_call_ms']:.4f} | "
+          f"{card}", flush=True)
+    return tot
+
+
+# M rows of the route sweep: the decode route covers at most 32 (4 n8
+# tiles of mma)
+SWEEP_MS = (1, 4, 8, 12, 16, 24, 32)
+
+
+def route_sweep(card: str) -> list:
+    """The decode route (``lowrank._decode``) against the tensor-core route
+    (``lowrank._sketch_bf16`` without h) at M = 1-32, bf16, at qwen2-0.5b's
+    and zamba2-7b's site shapes; each held to the plain version with two
+    bit-equal calls, then both timed. ``lowrank.DECODE_MAX_M`` is the
+    largest M at which the decode route is the faster at every shape."""
+    gen = torch.Generator(device="cuda").manual_seed(33)
+    shapes = dict(SHAPES, **{f"z:{n}": ZAMBA_SHAPES[n] for n in (
+        "ssm/in_proj", "ssm/bcdt_proj", "ssm/out_proj", "mlp/down")})
     rows = []
-    for name, (i, k, o) in SHAPES.items():
-        for m in MS:
+    for name, (i, k, o) in shapes.items():
+        for m in SWEEP_MS:
+            dtype = torch.bfloat16
+            (x, r, l_), = inputs(m, i, k, o, dtype, gen)
+            want = ref.lowrank_matmul_ref(x, r, l_)
+            tol = lowrank_tol(want, i, k, dtype)
+            fns = {"decode": lambda x, r, l_: routed(klowrank._decode, x, r,
+                                                     l_),
+                   "tensor_core": lambda x, r, l_: routed(
+                       klowrank._sketch_bf16, x, r, l_, None)}
+            errs = {n: held_twice(f"route sweep {name} M={m} {n}", f,
+                                  (x, r, l_), want, tol)
+                    for n, f in fns.items()}
+            del x, r, l_, want
+            nbytes, _ = work(m, i, k, o, dtype)
+            sets = inputs(m, i, k, o, dtype, gen,
+                          max(1, min(48, int(120e6 // nbytes) + 1)))
+            ms = {n: time_ms(f, sets) for n, f in fns.items()}
+            del sets
+            best = min(ms, key=ms.get)
+            print(f"[sweep] {name:15s} M={m:3d} decode_ms={ms['decode']:.4f} "
+                  f"tensor_core_ms={ms['tensor_core']:.4f} faster={best} "
+                  f"errs decode {errs['decode']:.2e} tensor_core "
+                  f"{errs['tensor_core']:.2e} (tol {tol:.2e}) | {card}",
+                  flush=True)
+            rows.append(dict(site=name, M=m, decode_ms=ms["decode"],
+                             tensor_core_ms=ms["tensor_core"], faster=best))
+    return rows
+
+
+def routed(launch, x, r, l_, *extra):
+    """y of one route's launcher, called directly (no count)."""
+    y = torch.empty((x.shape[0], l_.shape[0]), dtype=x.dtype,
+                    device=x.device)
+    launch(x, r, l_, y, *extra)
+    return y
+
+
+# a bf16 shape whose widths ``tensor_core_route`` refuses (not multiples
+# of 8): the fused kernel at every M
+RAGGED_SHAPE = {"ragged": (70, 5, 33)}
+
+
+def phase_kernels(card: str) -> dict:
+    print("== phase 3: lowrank_fwd (each route) against its plain version",
+          flush=True)
+    gen = torch.Generator(device="cuda").manual_seed(0)
+    d = klowrank.DECODE_MAX_M
+    ms = sorted(set(MS) | {d, d + 1})
+    rows = []
+    for name, (i, k, o) in dict(SHAPES, **RAGGED_SHAPE).items():
+        for m in ms:
             for dtype in (torch.bfloat16, torch.float32):
-                row = lowrank_row("[kernel]", name, m, i, k, o, dtype, gen,
-                                  card)
-                worst = max(worst, row["max_abs_err"])
-                rows.append(row)
+                rows.append(lowrank_row("[kernel]", name, m, i, k, o, dtype,
+                                        gen, card))
+    routes = {(r["route"], r["M"] <= d) for r in rows}
+    if not {("decode", True), ("tensor_core", False), ("fused", False),
+            ("fused", True)} <= routes:
+        raise AssertionError(f"phase 3 missed a route: {sorted(routes)}")
+    zrows = zamba2_lowrank_rows(card)
+    worst = max(r["max_abs_err"] for r in rows + zrows)
     # headline: one decode step's seven site launches of one layer (M = 4
     # serve slots, bf16), each at its own shape
     tot = {"ms": 0.0, "plain_ms": 0.0, "library_ms": 0.0,
@@ -371,9 +488,17 @@ def phase_kernels(card: str) -> dict:
           f"library_ms={tot['library_ms']:.4f} "
           f"bound_ms={max(tb, tf) * 1e3:.5f} "
           f"eager_call_ms={tot['eager_call_ms']:.4f} | {card}", flush=True)
-    return dict(rows=rows, worst=worst, headline=dict(
-        tot, bound_ms=max(tb, tf) * 1e3,
-        bound_by="bytes" if tb >= tf else "operations"))
+    # zamba2-7b: a mamba2_attn layer's 10 sites (the mixer's 3, the shared
+    # block's 7) at a prefill bucket's 1,024 rows
+    zamba = layer_headline(
+        "one zamba2 mamba2_attn layer's 10 sites at prefill (M=1024, bf16)",
+        [r for r in zrows if r["M"] == 1024], ZAMBA_LAYER_SITES,
+        torch.bfloat16, card)
+    sweep = route_sweep(card)
+    return dict(rows=rows, zamba2_rows=zrows, worst=worst, sweep=sweep,
+                zamba2_headline=zamba, headline=dict(
+                    tot, bound_ms=max(tb, tf) * 1e3,
+                    bound_by="bytes" if tb >= tf else "operations"))
 
 
 def phase_smoke_parity(card: str) -> None:
@@ -1619,7 +1744,8 @@ UNFUSED_M = (4, 1024, 2048)
 # d_model and mlp/down's first product, mlp/gate|up's second) and of
 # mlp/down's first at decode (M = 4)
 MM_RAGGED = ((33, 257, 129), (1000, 896, 4864), (2048, 896, 256),
-             (2048, 4864, 256), (2048, 256, 4864), (4, 4864, 256))
+             (2048, 4864, 256), (2048, 256, 4864), (4, 4864, 256),
+             (4, 896, 256), (4, 256, 4864))
 METHODS = ("none", "asi", "wsi", "wasi")
 
 
@@ -1690,15 +1816,11 @@ def phase_matmul_kernels(card: str) -> dict:
                          torch.randn(n, k, device="cuda", generator=gen).T)
                     return a.to(dtype), b.to(dtype)
                 a, b = draw()
-                got = ops.matmul(a, b)
-                torch.cuda.synchronize()
-                err = (got.float() - ref.matmul_ref(a, b).float()).abs() \
-                    .max().item()
+                route = kmm.matmul_route(a, b)
                 tol = mm_tol(a, b, dtype)
-                if not err <= tol:
-                    raise AssertionError(
-                        f"matmul_tiled {m}x{k}x{n} {dtype} B {layout}: max "
-                        f"abs err {err:.3e} > tol {tol:.3e}")
+                err = held_twice(f"matmul_tiled {m}x{k}x{n} {dtype} B "
+                                 f"{layout} ({route})", ops.matmul, (a, b),
+                                 ref.matmul_ref(a, b), tol)
                 worst = max(worst, err)
                 nbytes, flops = mm_work(m, k, n, dtype)
                 sets = [draw() for _ in range(max(1, min(
@@ -1708,12 +1830,14 @@ def phase_matmul_kernels(card: str) -> dict:
                 l_ms = time_ms(torch.matmul, sets)
                 b_ms, b_by = bound_of(nbytes, flops, dtype)
                 rows.append(dict(shape=f"{m}x{k}x{n}", B=layout,
-                                 dtype=str(dtype)[6:], kernel_ms=k_ms,
+                                 dtype=str(dtype)[6:], route=route,
+                                 kernel_ms=k_ms,
                                  plain_ms=p_ms, library_ms=l_ms,
                                  bound_ms=b_ms, bound_by=b_by,
                                  max_abs_err=err, tol=tol))
                 print(f"[kernel] matmul_tiled M={m} K={k} N={n} B {layout} "
-                      f"{str(dtype)[6:]:8s} err={err:.2e} (tol {tol:.2e}) "
+                      f"{str(dtype)[6:]:8s} route={route} err={err:.2e} "
+                      f"(tol {tol:.2e}) "
                       f"kernel_ms={k_ms:.4f} plain_ms={p_ms:.4f} "
                       f"library_ms={l_ms:.4f} bound_ms={b_ms:.5f} ({b_by})"
                       f" | {card}", flush=True)
@@ -2631,13 +2755,20 @@ def phase_ssd_kernel(card: str) -> dict:
 
 
 # zamba2-7b's factored site shapes (I, K, O): rank 896 (bcdt_proj 128),
-# where #1's launch_config drops to 16-row tiles
+# where #1's fused kernel (launch_config) would drop to 16-row tiles
 ZAMBA_SHAPES = {"ssm/in_proj": (3584, 896, 14336),
                 "ssm/bcdt_proj": (3584, 128, 240),
                 "ssm/out_proj": (7168, 896, 3584),
                 "attn/wq|wk|wv|wo": (3584, 896, 3584),
                 "mlp/gate|up": (3584, 896, 14336),
                 "mlp/down": (14336, 896, 3584)}
+
+
+# sites of each shape in one mamba2_attn layer: the mixer's in_proj,
+# bcdt_proj, out_proj; the shared block's wq, wk, wv, wo, gate, up, down
+ZAMBA_LAYER_SITES = {"ssm/in_proj": 1, "ssm/bcdt_proj": 1,
+                     "ssm/out_proj": 1, "attn/wq|wk|wv|wo": 4,
+                     "mlp/gate|up": 2, "mlp/down": 1}
 
 
 def zamba2_lowrank_rows(card: str) -> list:
@@ -2930,7 +3061,6 @@ def phase_zamba2_full(card: str) -> dict:
     res.update(profile_decode(eng, cfg, rng, card))
     res.update(profile_prefill(eng, cfg, rng, card))
     del eng, model
-    res["lowrank_rows"] = zamba2_lowrank_rows(card)
     gc.collect()
     torch.cuda.empty_cache()
     res["reduced_depth_logit_err"] = zamba2_reduced_logits(cfg, card)
@@ -2983,7 +3113,7 @@ def main() -> None:
     head = k["headline"]
     kernels = [{
         "name": "lowrank_fwd", "route": "cuda",
-        "source": "src/repro_torch/kernels/csrc/lowrank_fwd.cu",
+        "source": "src/repro_torch/kernels/csrc/lowrank_decode.cu",
         "replaces": "src/repro/kernels/lowrank.py:58",
         "launches": full["launches"], "max_abs_err": k["worst"],
         "ms": head["ms"], "plain_ms": head["plain_ms"],
@@ -3043,7 +3173,11 @@ def main() -> None:
         os.makedirs(os.path.dirname(os.path.abspath(args.json)),
                     exist_ok=True)
         with open(args.json, "w") as f:
-            json.dump({"card": card, "kernel_rows": k["rows"], "full": full,
+            json.dump({"card": card, "kernel_rows": k["rows"],
+                       "zamba2_kernel_rows": k["zamba2_rows"],
+                       "zamba2_headline": k["zamba2_headline"],
+                       "kernel_headline": k["headline"],
+                       "route_sweep": k["sweep"], "full": full,
                        "train_kernel_rows": tk["rows"],
                        "train_kernel_headline": tk["headline"],
                        "smoke_training": smoke_train, "full_training": train,

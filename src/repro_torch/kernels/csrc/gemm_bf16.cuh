@@ -62,7 +62,14 @@
 #include <cuda_runtime.h>
 #include <stdint.h>
 
+// Everything below has internal linkage (an unnamed namespace): several
+// kernel libraries include this header and are loaded into one process,
+// and a template's static local (launch's attr_set) would otherwise be one
+// object for all of them (the linker unifies such symbols process-wide),
+// so the first library to launch a configuration would leave the others
+// without their shared-memory attribute.
 namespace gemm16 {
+namespace {
 
 constexpr int BK = 64;       // reduction depth of one step (lowrank.py: STEP)
 constexpr int PAD = 8;       // bf16 of padding per shared-memory row
@@ -432,4 +439,5 @@ inline int split(const float* v, uint16_t* out, long long count, int n,
   return static_cast<int>(cudaGetLastError());
 }
 
+}  // namespace
 }  // namespace gemm16

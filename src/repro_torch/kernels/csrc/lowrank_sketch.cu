@@ -18,6 +18,12 @@
 // route for f32 inputs and for bf16 shapes whose rows the 16-byte copies
 // cannot read (kernels/lowrank.py::tensor_core_route).
 //
+// The same entry point with h = null is kernel #1's tensor-core route
+// (serving, M above the decode route's rows; kernels/lowrank.py::
+// forward_route, replacing repro/kernels/lowrank.py::_lowrank_kernel there):
+// product A then stores only the pieces of h, and no rank has to fit on
+// chip, so zamba2-7b's rank 896 runs the same tiles as qwen2-0.5b's 256.
+//
 // What bounds it on an H100: as computed here, operations. One qwen2-0.5b
 // training layer (7 sites, M = 2048) is 23.0 GFLOP of the function and
 // 36.1 GFLOP of bf16 mma with two pieces of h for y: 0.037 ms at 989
@@ -33,7 +39,8 @@
 
 extern "C" {
 
-// x (M, I), r (K, I), l (O, K) bf16; y (M, O) bf16; h (M, K) f32; hp
+// x (M, I), r (K, I), l (O, K) bf16; y (M, O) bf16; h (M, K) f32 or null
+// (not stored); hp
 // (pieces, M, K) bf16 scratch; ws f32 scratch for split partials (the
 // wrapper sizes it). tile_*: 64 or 128; split_*: ranges of the reduction.
 int lowrank_sketch_bf16(const void* x, const void* r, const void* l, void* y,

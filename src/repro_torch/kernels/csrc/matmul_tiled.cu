@@ -35,13 +35,27 @@
 // f32: plain FMAs on 64 x 64 tiles, 4 x 4 outputs a thread (no TF32: the
 // f32 parity tier), the design of gemm_f32.cuh with B's two strides.
 //
-// Not yet done (later PRs): TMA, a multi-stage cp.async ring, wgmma, and a
-// split of K for the few-tile shapes of decode (M = 4 gives ceil(N / 64)
-// blocks, each walking all of K).
+// The tensor-core route (entry point matmul_bf16_tc; kernels/
+// matmul_tiled.py::matmul_route): bf16 operands whose rows the 16-byte
+// copies can read (K and N multiples of 8, 16-byte bases, A with unit
+// stride along K, B row-major or a K-major view such as R^T with row
+// strides in multiples of 8) take the product of gemm_bf16.cuh with one
+// piece: mma.sync from a cp.async ring, ldmatrix.trans for a row-major B,
+// 128- or 64-wide tiles and a split of K into fixed-order ranges chosen by
+// kernels/lowrank.py::gemm_plan, so a few-tile shape (M = 4, or h L^T at
+// K = 128-256) still fills the card. bf16 products are exact in the f32
+// accumulators, so the sums differ from the plain version only in order;
+// the epilogue writes the output dtype. A qwen2-0.5b training layer's 7
+// two-launch pairs (M = 2048) take 0.21 ms on an H100 this way, 2.2x the
+// library, against 0.44 ms on the tiled bf16 kernel below (chip_smoke.py
+// phase 11). Everything else (f32, other strides) takes the kernels below,
+// unchanged.
 
 #include <cuda_bf16.h>
 #include <cuda_runtime.h>
 #include <stdint.h>
+
+#include "gemm_bf16.cuh"
 
 namespace {
 
@@ -379,6 +393,33 @@ int matmul_tiled(const void* a, const void* b, void* c, int M, int N, int K,
                           sbk, sbn, ldc, st)
              : launch_f32(aa, bb, static_cast<float*>(c), M, N, K, lda, sbk,
                           sbn, ldc, st);
+}
+
+// The tensor-core route: bf16 A (M, K) with row stride lda and B (K, N),
+// B(k, n) = b[k * ldb + n] (b_kmajor = 0) or b[n * ldb + k] (b_kmajor =
+// 1); C (M, N) contiguous in bf16 (out_bf16 = 1) or f32. tile: 128 or 64;
+// splits: ranges of K's 64-deep steps, their f32 partials in ws (splits * M
+// * N floats when splits > 1). Returns the cudaError_t of the launches.
+int matmul_bf16_tc(const void* a, const void* b, void* c, int M, int N, int K,
+                   int lda, int ldb, int b_kmajor, int out_bf16, int tile,
+                   int splits, float* ws, void* stream) {
+  gemm16::Args g{};
+  g.a = static_cast<const uint16_t*>(a);
+  g.b = static_cast<const uint16_t*>(b);
+  g.M = M;
+  g.N = N;
+  g.K = K;
+  g.lda = lda;
+  g.ldb = ldb;
+  g.pieces = 1;
+  g.mode = out_bf16 ? gemm16::BF16 : gemm16::F32;
+  g.c32 = out_bf16 ? nullptr : static_cast<float*>(c);
+  g.c16 = out_bf16 ? static_cast<uint16_t*>(c) : nullptr;
+  g.ws = ws;
+  g.splits = splits;
+  cudaStream_t st = static_cast<cudaStream_t>(stream);
+  return b_kmajor ? gemm16::matmul<true, true>(g, tile, st)
+                  : gemm16::matmul<true, false>(g, tile, st);
 }
 
 }  // extern "C"

@@ -1,12 +1,15 @@
 """Wrappers of the fused low-rank kernels:
 
-* ``lowrank_fused`` -> ``csrc/lowrank_fwd.cu``: y = (x R^T) L^T in one
-  launch, the rank-K ``h`` kept in f32 in shared memory. It replaces
-  ``repro/kernels/lowrank.py::_lowrank_kernel``; with ``save_sketch`` it
-  also writes ``h`` (M, K) f32 once and replaces ``_lowrank_sketch_kernel``.
-  On bf16 inputs that ``tensor_core_route`` admits, the sketch forward is
-  ``csrc/lowrank_sketch.cu`` instead: two tensor-core products (h, then y
-  over bf16 pieces of h).
+* ``lowrank_fused`` -> y = (x R^T) L^T with h = x R^T in f32, replacing
+  ``repro/kernels/lowrank.py::_lowrank_kernel``. The serving forward takes
+  one of three routes (``forward_route``): ``csrc/lowrank_decode.cu`` for a
+  decode step's few rows (two byte-bound products on the tensor cores,
+  f32 operands in exact bf16 pieces); for larger bf16 M the two
+  tensor-core products of ``csrc/lowrank_sketch.cu`` (h, then y over bf16
+  pieces of h); otherwise ``csrc/lowrank_fwd.cu``, one launch that keeps h
+  in shared memory. With ``save_sketch`` it also writes ``h`` (M, K) f32
+  once and replaces ``_lowrank_sketch_kernel``: ``lowrank_sketch.cu`` on
+  bf16 inputs that ``tensor_core_route`` admits, else ``lowrank_fwd.cu``.
 * ``lowrank_bwd`` -> ``csrc/lowrank_bwd.cu``: (dx, dL, dR) from the saved
   sketch, replacing ``_lowrank_bwd_kernel``; tensor-core products over bf16
   pieces (``lowrank_bwd_bf16``) where ``tensor_core_route`` admits the
@@ -14,9 +17,10 @@
 
 Both take 2-D CUDA tensors only and launch a kernel or raise; they never
 fall back. Which kernel takes a call is a rule on dtype, widths and
-addresses (``tensor_core_route``), never a retry. Grid shapes and reduction
-splits are chosen here, in Python, where the CPU tests can check them
-(``launch_config``, ``splits``, ``gemm_plan``).
+addresses (``forward_route``, ``tensor_core_route``), never a retry. Grid
+shapes and reduction splits are chosen here, in Python, where the CPU
+tests can check them (``launch_config``, ``decode_plan``, ``splits``,
+``gemm_plan``).
 """
 from __future__ import annotations
 
@@ -150,13 +154,16 @@ def _check(x: torch.Tensor, r: torch.Tensor, l: torch.Tensor) -> None:
 
 def lowrank_fused(x: torch.Tensor, r_factor: torch.Tensor,
                   l_factor: torch.Tensor, *, save_sketch: bool = False):
-    """y (M, O) = x (M, I) R^T (I, K) L^T (K, O), one launch of the CUDA
-    kernel on the current stream. bf16 or f32; all three of one dtype.
-    With ``save_sketch`` returns ``(y, h)``, h (M, K) = x R^T in f32
-    written by the same launch (the training forward); where
-    ``tensor_core_route`` admits bf16 inputs, by the two tensor-core
-    launches of ``lowrank_sketch.cu`` instead. Either way one call counts
-    one launch of ``lowrank_fwd_sketch``."""
+    """y (M, O) = x (M, I) R^T (I, K) L^T (K, O) on the current stream.
+    bf16 or f32; all three of one dtype. Without ``save_sketch`` the route
+    is ``forward_route``'s: the two launches of ``lowrank_decode.cu``, the
+    two tensor-core launches of ``lowrank_sketch.cu`` (no h stored), or
+    one launch of ``lowrank_fwd.cu``; a call counts one launch of
+    ``lowrank_fwd`` whatever its route. With ``save_sketch`` returns ``(y,
+    h)``, h (M, K) = x R^T in f32 (the training forward): where
+    ``tensor_core_route`` admits bf16 inputs by ``lowrank_sketch.cu``, else
+    by ``lowrank_fwd.cu``'s one launch; one call counts one launch of
+    ``lowrank_fwd_sketch``."""
     _check(x, r_factor, l_factor)
     m, i = x.shape
     k, o = r_factor.shape[0], l_factor.shape[0]
@@ -173,6 +180,15 @@ def lowrank_fused(x: torch.Tensor, r_factor: torch.Tensor,
         _sketch_bf16(x, r_factor, l_factor, y, h)
         TRAIN_LAUNCHES["lowrank_fwd_sketch"] += 1
         return y, h
+    if not save_sketch:
+        route = forward_route(m, i, k, o, x.dtype, (x, r_factor, l_factor))
+        if route != "fused":
+            if route == "decode":
+                _decode(x, r_factor, l_factor, y)
+            else:
+                _sketch_bf16(x, r_factor, l_factor, y, None)
+            LAUNCHES["lowrank_fwd"] += 1
+            return y
     cfg = launch_config(m, k, o)
     lib = _lib()
     args = (m, i, k, o, _DTYPES[x.dtype], cfg.bm, cfg.ks, cfg.oc, cfg.groups)
@@ -318,14 +334,19 @@ PIECES_BF16_OUT = 2
 PIECES_F32_OUT = 3
 
 
+def aligned(widths, tensors) -> bool:
+    """Every width a multiple of 8 and every base 16-byte aligned: what
+    the 16-byte copies of the tensor-core and decode kernels need."""
+    return (all(w % 8 == 0 for w in widths)
+            and all(t.data_ptr() % 16 == 0 for t in tensors))
+
+
 def tensor_core_route(dtype: torch.dtype, widths, tensors) -> bool:
     """Whether the bf16 tensor-core kernels take a call whose operands are
-    of ``dtype``: bf16, every width (I, K, O) a multiple of 8 and every
-    base address 16-byte aligned, since the kernels copy rows 16 bytes at
-    a time. Other calls go to the f32 FMA kernels (lowrank_fwd.cu,
-    lowrank_bwd.cu on gemm_f32.cuh)."""
-    return (dtype == torch.bfloat16 and all(w % 8 == 0 for w in widths)
-            and all(t.data_ptr() % 16 == 0 for t in tensors))
+    of ``dtype``: bf16, and the widths (I, K, O) and bases ``aligned``,
+    since the kernels copy rows 16 bytes at a time. Other calls go to the
+    f32 FMA kernels (lowrank_fwd.cu, lowrank_bwd.cu on gemm_f32.cuh)."""
+    return dtype == torch.bfloat16 and aligned(widths, tensors)
 
 
 class GemmPlan(NamedTuple):
@@ -403,8 +424,9 @@ def _sketch_lib() -> ctypes.CDLL:
 
 
 def _sketch_bf16(x, r_factor, l_factor, y, h) -> None:
-    """Launch #2's bf16 route into y and h; the pieces of h and the split
-    workspace are scratch of this call."""
+    """Launch #2's bf16 route into y and h (None: h is not stored, as in
+    #1's tensor-core route); the pieces of h and the split workspace are
+    scratch of this call."""
     m, i = x.shape
     k, o = r_factor.shape[0], l_factor.shape[0]
     plan = sketch_plan(m, i, k, o)
@@ -415,7 +437,8 @@ def _sketch_bf16(x, r_factor, l_factor, y, h) -> None:
         stream = torch.cuda.current_stream(x.device).cuda_stream
         err = _sketch_lib().lowrank_sketch_bf16(
             x.data_ptr(), r_factor.data_ptr(), l_factor.data_ptr(),
-            y.data_ptr(), h.data_ptr(), hp.data_ptr(), ws.data_ptr(), m, i,
+            y.data_ptr(), None if h is None else h.data_ptr(),
+            hp.data_ptr(), ws.data_ptr(), m, i,
             k, o, PIECES_BF16_OUT, *plan.h, *plan.y, stream)
     if err != 0:
         raise RuntimeError(f"lowrank_sketch_bf16 launch failed: CUDA error "
@@ -445,3 +468,113 @@ def _bwd_bf16(dy, x, h, l_factor, r_factor, dx, dl, dr) -> None:
     if err != 0:
         raise RuntimeError(f"lowrank_bwd_bf16 launch failed: CUDA error "
                            f"{err} (M={m} I={i} K={k} O={o} {plan})")
+
+
+# ---------------------------------------------------------------------------
+# Routes of the serving forward (#1 without the sketch): csrc/lowrank_decode.cu
+# for a decode step's few rows, the tensor-core products of
+# csrc/lowrank_sketch.cu for larger bf16 M, csrc/lowrank_fwd.cu otherwise
+# ---------------------------------------------------------------------------
+
+#: the decode route takes M up to this many rows: the largest M of a sweep
+#: (M = 1, 4, 8, 12, 16, 24, 32) at which it beat the tensor-core route at
+#: every site shape of qwen2-0.5b and zamba2-7b on an H100 (``chip_smoke.py``
+#: phase 3, "route sweep"; at 12 and 16 zamba2's mlp/down, whose x R^T
+#: reads 25.7 MB of R, went to the tensor cores by 5%)
+DECODE_MAX_M = 8
+DECODE_SLICE = 32     # reduction depth of one lane load (csrc: SLICE)
+DECODE_WARPS = 8      # warps of a block (csrc: WARPS)
+DECODE_MAX_CLUSTER = 8
+#: static shared memory of a decode launch per n8 tile (csrc: STATIC_SMEM)
+DECODE_STATIC_SMEM = 8192
+
+
+def n8_tiles(m: int) -> int:
+    """mma n8 tiles the decode route covers M rows with (1, 2 or 4)."""
+    return 1 if m <= 8 else 2 if m <= 16 else 4
+
+
+def decode_smem_bytes(nt: int, k: int) -> int:
+    """Mirror of ``lowrank_decode_smem_bytes``: three bf16 pieces of h, 8
+    nt rows of ``staged_stride(K)``."""
+    return 3 * 8 * nt * (_cdiv(k, 64) * 64 + 32) * 2
+
+
+def forward_route(m: int, i: int, k: int, o: int, dtype: torch.dtype,
+                  tensors) -> str:
+    """The kernel a serving call of #1 (no sketch) takes: ``"decode"``
+    (``lowrank_decode.cu``) for M <= DECODE_MAX_M rows of either dtype
+    whose widths and bases ``aligned`` admits (and whose staged h fits in
+    shared memory); else ``"tensor_core"`` (``lowrank_sketch.cu`` without
+    h) where ``tensor_core_route`` admits bf16 inputs; else ``"fused"``
+    (``lowrank_fwd.cu`` through ``launch_config``)."""
+    nt = n8_tiles(m)
+    if m <= DECODE_MAX_M and aligned((i, k, o), tensors) and \
+            decode_smem_bytes(nt, k) + DECODE_STATIC_SMEM * nt <= SMEM_LIMIT:
+        return "decode"
+    if tensor_core_route(dtype, (i, k, o), tensors):
+        return "tensor_core"
+    return "fused"
+
+
+class DecodePlan(NamedTuple):
+    nt: int        # mma n8 tiles covering M (8 nt >= M)
+    wk_h: int      # warps along I in a block of h = x R^T
+    cluster: int   # blocks of a cluster along I, summed in rank order
+    wk_y: int      # warps along K in a block of y = h L^T
+
+
+def _warps_along(rows: int) -> int:
+    """Warps a block puts along the reduction (the rest take 16-row tiles
+    of the weight): the fewest that still give >= SMS blocks, so that
+    blocks share their staged operand among as many rows as they can; 8
+    (one row tile a block) where none does."""
+    tiles = _cdiv(rows, 16)
+    for wk in (1, 2, 4):
+        if _cdiv(tiles, DECODE_WARPS // wk) >= SMS:
+            return wk
+    return DECODE_WARPS
+
+
+@functools.lru_cache(maxsize=256)
+def decode_plan(m: int, i: int, k: int, o: int) -> DecodePlan:
+    """The decode route's grid. h = x R^T: where K's row tiles give fewer
+    than SMS blocks, I is also cut over a cluster of up to 8 blocks, as
+    many as bring the grid to one block an SM, each warp keeping >= 2
+    slices of 32. y = h L^T: O's row tiles alone."""
+    wk_h = _warps_along(k)
+    blocks = _cdiv(_cdiv(k, 16), DECODE_WARPS // wk_h)
+    cluster = 1
+    if blocks < SMS:
+        cluster = max(1, min(DECODE_MAX_CLUSTER, _cdiv(SMS, blocks),
+                             _cdiv(i, DECODE_SLICE) // (2 * wk_h)))
+    return DecodePlan(n8_tiles(m), wk_h, cluster, _warps_along(o))
+
+
+def _decode_lib() -> ctypes.CDLL:
+    lib = _build.library("lowrank_decode.cu")
+    if lib.lowrank_decode.argtypes is None:
+        lib.lowrank_decode.restype = ctypes.c_int
+        lib.lowrank_decode.argtypes = [ctypes.c_void_p] * 5 \
+            + [ctypes.c_int] * 9 + [ctypes.c_void_p]
+        lib.lowrank_decode_smem_bytes.restype = ctypes.c_int
+        lib.lowrank_decode_smem_bytes.argtypes = [ctypes.c_int] * 2
+    return lib
+
+
+def _decode(x, r_factor, l_factor, y) -> None:
+    """Launch the decode route into y; h (M, K) f32 is scratch of this
+    call."""
+    m, i = x.shape
+    k, o = r_factor.shape[0], l_factor.shape[0]
+    plan = decode_plan(m, i, k, o)
+    h = torch.empty((m, k), dtype=torch.float32, device=x.device)
+    with torch.cuda.device(x.device):
+        stream = torch.cuda.current_stream(x.device).cuda_stream
+        err = _decode_lib().lowrank_decode(
+            x.data_ptr(), r_factor.data_ptr(), l_factor.data_ptr(),
+            y.data_ptr(), h.data_ptr(), m, i, k, o, _DTYPES[x.dtype], *plan,
+            stream)
+    if err != 0:
+        raise RuntimeError(f"lowrank_decode launch failed: CUDA error {err} "
+                           f"(M={m} I={i} K={k} O={o} {plan})")

@@ -775,3 +775,130 @@ def test_ssd_scan_smem_formula_matches_the_source(cuda):
     lib = kssd._lib()
     for q in (8, 37, 256, 1024):
         assert lib.ssd_scan_smem_bytes(q) == kssd.smem_bytes(q)
+
+
+# ---------------------------------------------------------------------------
+# the routes of kernel #1's serving forward and of kernel #9
+# ---------------------------------------------------------------------------
+
+BF, F32 = torch.bfloat16, torch.float32
+D = lowrank.DECODE_MAX_M
+# (M, I, K, O, dtype, route): the decode route at one row, at 4 (qwen2-0.5b
+# and zamba2-7b sites, the cluster split of I at mlp/down and bcdt_proj)
+# and at the threshold, in both dtypes; the tensor-core route just above
+# the threshold, at a ragged M and at zamba2's in_proj prefill; the fused
+# kernel for f32 above the threshold and for widths that are not
+# multiples of 8 at any M
+ROUTE_CASES = [(1, 896, 256, 896, BF, "decode"),
+               (4, 896, 128, 128, BF, "decode"),
+               (4, 4864, 256, 896, BF, "decode"),
+               (D, 896, 256, 4864, BF, "decode"),
+               (4, 3584, 896, 14336, BF, "decode"),
+               (4, 3584, 128, 240, BF, "decode"),
+               (D - 3, 72, 40, 56, BF, "decode"),
+               (3, 96, 24, 48, F32, "decode"),
+               (D, 4864, 256, 896, F32, "decode"),
+               (D + 1, 896, 256, 896, BF, "tensor_core"),
+               (37, 96, 24, 48, BF, "tensor_core"),
+               (1024, 3584, 896, 14336, BF, "tensor_core"),
+               (37, 896, 256, 896, F32, "fused"),
+               (4, 70, 5, 33, BF, "fused"),
+               (300, 70, 5, 33, BF, "fused")]
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("m,i,k,o,dtype,route", ROUTE_CASES)
+def test_forward_routes_match_plain_version_and_repeat(cuda, m, i, k, o,
+                                                       dtype, route):
+    """Each route of ``lowrank_fused`` (no sketch): the rule picks it,
+    each call counts one launch of ``lowrank_fwd`` whatever the route
+    launches, two calls give the same bits, and y is held to the plain
+    version: f32 sums of I then K terms in another order, 2 (I + K) eps
+    |y|, plus one bf16 rounding (the tensor-core route's two pieces of h
+    add at most 2^-17 of each term, far inside that)."""
+    x, r, l_ = _inputs((m,), i, k, o, cuda, dtype, seed=m + i + o)
+    assert lowrank.forward_route(m, i, k, o, dtype, (x, r, l_)) == route
+    before = dict(ops.launch_counts())
+    got = [lowrank.lowrank_fused(x, r, l_) for _ in range(2)]
+    torch.cuda.synchronize()
+    after = ops.launch_counts()
+    assert after["lowrank_fwd"] == before["lowrank_fwd"] + 2
+    assert all(after[n] == before[n] for n in after if n != "lowrank_fwd")
+    assert torch.equal(got[0], got[1])
+    assert got[0].shape == (m, o) and got[0].dtype == dtype
+    _close(got[0], ref.lowrank_matmul_ref(x, r, l_), i + k, dtype)
+
+
+@pytest.mark.cuda
+def test_forward_routes_refuse_cpu_tensors_before_any_build(cuda,
+                                                            monkeypatch):
+    """A CPU operand at any route's shape raises in the wrapper's checks,
+    before a library is built or loaded, and counts nothing."""
+    from repro_torch.kernels import _build
+
+    def no_build(source):
+        raise AssertionError(f"built {source}")
+
+    monkeypatch.setattr(_build, "library", no_build)
+    before = dict(ops.launch_counts())
+    for m, i, k, o, dtype, _ in ROUTE_CASES:
+        x, r, l_ = _inputs((m,), i, k, o, cuda, dtype)
+        with pytest.raises(ValueError, match="CUDA tensors only"):
+            lowrank.lowrank_fused(x, r.cpu(), l_)
+    a = torch.randn(4, 896, device=cuda).bfloat16()
+    with pytest.raises(ValueError, match="CUDA tensors only"):
+        kmm.matmul_tiled(a, torch.randn(256, 896).bfloat16().T)
+    assert ops.launch_counts() == before
+
+
+# (M, K, N): the two products of the two-launch pair at decode rows
+# (mlp/gate|up's first, mlp/down's first and second), a training row's
+# pair, a ragged M with K and N multiples of 8, and one row
+MM_TC_SHAPES = [(4, 896, 256), (4, 256, 4864), (4, 4864, 256),
+                (2048, 896, 256), (2048, 256, 4864), (33, 264, 136),
+                (1, 8, 8)]
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("m,k,n", MM_TC_SHAPES)
+@pytest.mark.parametrize("b_layout", ["n_major", "k_major"])
+@pytest.mark.parametrize("out_dtype", [BF, F32])
+def test_matmul_tensor_core_route_matches_plain_and_repeats(
+        cuda, m, k, n, b_layout, out_dtype):
+    """#9's tensor-core route: the rule picks it for bf16 operands in
+    either B layout; one count per call; bit-equal repeats; held to the
+    plain version at ``_mm_tol`` (every product exact, K f32 sums in
+    another order, one rounding of a bf16 output)."""
+    g = torch.Generator().manual_seed(m + k + n)
+    a = torch.randn(m, k, generator=g).to(cuda, BF)
+    b = (torch.randn(k, n, generator=g).to(cuda, BF) if b_layout == "n_major"
+         else torch.randn(n, k, generator=g).to(cuda, BF).T)
+    assert kmm.matmul_route(a, b) == "tensor_core"
+    assert kmm.b_layout(b) == b_layout
+    before = ops.launch_counts()["matmul_tiled"]
+    got = [kmm.matmul_tiled(a, b, out_dtype) for _ in range(2)]
+    torch.cuda.synchronize()
+    assert ops.launch_counts()["matmul_tiled"] == before + 2
+    assert torch.equal(got[0], got[1])
+    assert got[0].dtype == out_dtype and got[0].shape == (m, n)
+    want = ref.matmul_ref(a, b, out_dtype)
+    assert (got[0].float() - want.float()).abs().max().item() <= \
+        _mm_tol(a, b, out_dtype)
+
+
+@pytest.mark.cuda
+def test_matmul_route_keeps_f32_and_other_strides_on_the_tiled_kernel(cuda):
+    """f32, a K that is not a multiple of 8 and a B whose strides the
+    copies cannot read take the tiled kernel, still right."""
+    g = torch.Generator().manual_seed(2)
+    a = torch.randn(4, 896, generator=g).to(cuda)
+    b = torch.randn(896, 256, generator=g).to(cuda)
+    cases = [(a, b), (a[:, :893].bfloat16(), b[:893].bfloat16()),
+             (a.bfloat16(), b.bfloat16()[:, ::2])]
+    for aa, bb in cases:
+        assert kmm.matmul_route(aa, bb) == "tiled"
+        got = ops.matmul(aa, bb)
+        torch.cuda.synchronize()
+        want = ref.matmul_ref(aa, bb)
+        assert (got.float() - want.float()).abs().max().item() <= \
+            _mm_tol(aa, bb, aa.dtype)

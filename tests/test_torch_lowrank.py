@@ -118,3 +118,130 @@ def test_launch_config_covers_the_output(m, k, o):
 def test_launch_config_refuses_a_rank_that_cannot_stay_on_chip():
     with pytest.raises(ValueError, match="shared memory"):
         tlowrank.launch_config(4, 8192, 64)
+
+
+# ---------------------------------------------------------------------------
+# the route rule of the serving forward (forward_route) and its plans
+# ---------------------------------------------------------------------------
+
+BF = torch.bfloat16
+D = tlowrank.DECODE_MAX_M
+# (I, K, O) of every serving site: qwen2-0.5b's and zamba2-7b's
+SITE_WIDTHS = [(896, 256, 896), (896, 128, 128), (896, 256, 4864),
+               (4864, 256, 896), (3584, 896, 14336), (3584, 128, 240),
+               (7168, 896, 3584), (3584, 896, 3584), (14336, 896, 3584)]
+
+
+def _aligned():
+    return (torch.zeros(8, 896, dtype=BF),)
+
+
+@pytest.mark.parametrize("m", [1, 4, D])
+@pytest.mark.parametrize("dtype", [BF, torch.float32])
+def test_forward_route_takes_decode_up_to_the_threshold(m, dtype):
+    for i, k, o in SITE_WIDTHS:
+        assert tlowrank.forward_route(m, i, k, o, dtype, _aligned()) == \
+            "decode"
+
+
+@pytest.mark.parametrize("m", [D + 1, 37, 256, 1024])
+def test_forward_route_takes_the_tensor_cores_above_the_threshold(m):
+    for i, k, o in SITE_WIDTHS:
+        assert tlowrank.forward_route(m, i, k, o, BF, _aligned()) == \
+            "tensor_core"
+
+
+def test_zamba2_prefill_takes_the_tensor_core_route():
+    """zamba2-7b's in_proj at a prefill bucket's 1,024 rows: no rank has to
+    fit on chip there, so the 16-row tiles of the fused kernel are gone."""
+    assert tlowrank.forward_route(1024, 3584, 896, 14336, BF,
+                                  _aligned()) == "tensor_core"
+    plan = tlowrank.sketch_plan(1024, 3584, 896, 14336)
+    assert plan.h.tile == plan.y.tile == 128
+
+
+# (M, K, O) -> the fused kernel's launch_config, as it stands
+FUSED_CONFIGS = {(37, 5, 33): (64, 8, 5, 1, 76288),
+                 (300, 5, 33): (64, 8, 5, 1, 76288),
+                 (4, 5, 33): (16, 8, 5, 1, 25600),
+                 (37, 256, 896): (64, 32, 16, 7, 86528),
+                 (1024, 256, 4864): (64, 32, 203, 3, 86528),
+                 (4, 100, 7): (16, 16, 1, 1, 26112)}
+
+
+def test_f32_and_unaligned_bf16_keep_the_fused_kernel():
+    """f32 above the threshold, bf16 widths that are not multiples of 8
+    and misaligned bases at any M take lowrank_fwd.cu, through
+    launch_config unchanged."""
+    x = _aligned()
+    for m in (D + 1, 37, 1024):
+        assert tlowrank.forward_route(m, 896, 256, 896, torch.float32,
+                                      x) == "fused"
+    for m in (1, 4, 37, 300):
+        for dtype in (BF, torch.float32):
+            assert tlowrank.forward_route(m, 70, 5, 33, dtype, x) == "fused"
+            assert tlowrank.forward_route(m, 96, 24, 44, dtype, x) == "fused"
+    flat = torch.zeros(8 * 896 + 8, dtype=BF)
+    shifted = flat[1:1 + 8 * 896].view(8, 896)
+    for m in (4, 300):
+        assert tlowrank.forward_route(m, 896, 256, 896, BF,
+                                      (shifted,)) == "fused"
+    for (m, k, o), want in FUSED_CONFIGS.items():
+        assert tuple(tlowrank.launch_config(m, k, o)) == want
+
+
+def test_decode_route_needs_its_staged_h_to_fit():
+    """h (8 nt rows, three bf16 pieces) is staged in shared memory by the
+    second launch: a rank whose pieces do not fit leaves the decode
+    route."""
+    assert tlowrank.decode_smem_bytes(1, 896) == 3 * 8 * (896 + 32) * 2
+    assert tlowrank.decode_smem_bytes(2, 100) == 3 * 16 * (128 + 32) * 2
+    assert tlowrank.forward_route(4, 896, 8192, 896, BF, _aligned()) == \
+        "tensor_core"
+    assert tlowrank.forward_route(4, 896, 8192, 896, torch.float32,
+                                  _aligned()) == "fused"
+
+
+@pytest.mark.parametrize("m", [1, 4, D])
+@pytest.mark.parametrize("i,k,o", SITE_WIDTHS + [(72, 40, 56), (8, 8, 8)])
+def test_decode_plan_covers_the_output_and_fills_the_card(m, i, k, o):
+    """n8 tiles cover M; h's grid has >= SMS blocks or one row tile a
+    block, a cluster of 1-8 along I only then, each warp keeping >= 2
+    slices of 32; y's grid likewise along O."""
+    plan = tlowrank.decode_plan(m, i, k, o)
+    assert 8 * plan.nt >= m and plan.nt == tlowrank.n8_tiles(m)
+    warps = tlowrank.DECODE_WARPS
+    for wk, rows in ((plan.wk_h, k), (plan.wk_y, o)):
+        assert wk in (1, 2, 4, 8)
+        blocks = -(-(-(-rows // 16)) // (warps // wk))
+        assert blocks >= tlowrank.SMS or wk == warps
+        if wk > 1:     # one warp fewer along the reduction would not fill
+            assert -(-(-(-rows // 16)) // (warps // (wk // 2))) < \
+                tlowrank.SMS
+    assert 1 <= plan.cluster <= tlowrank.DECODE_MAX_CLUSTER
+    if plan.cluster > 1:
+        blocks = -(-(-(-k // 16)) // (warps // plan.wk_h))
+        assert blocks * (plan.cluster - 1) < tlowrank.SMS
+        slices = -(-i // tlowrank.DECODE_SLICE)
+        assert slices // (plan.cluster * plan.wk_h) >= 2
+
+
+def test_forward_wrapper_raises_on_cpu_tensors_before_any_build(monkeypatch):
+    """Whatever the route of the shape, a CPU tensor raises in the
+    wrapper's checks: no library is built or loaded, nothing counts."""
+    from repro_torch.kernels import _build
+
+    def no_build(source):
+        raise AssertionError(f"built {source}")
+
+    monkeypatch.setattr(_build, "library", no_build)
+    before = dict(tops.LAUNCHES)
+    for m, (i, k, o), dtype in ((4, (896, 256, 896), BF),
+                                (4, (896, 256, 896), torch.float32),
+                                (300, (896, 256, 896), BF),
+                                (37, (70, 5, 33), BF)):
+        x, r, l_ = (torch.from_numpy(a).to(dtype)
+                    for a in _inputs((m,), i, k, o))
+        with pytest.raises(ValueError, match="CUDA tensors only"):
+            tlowrank.lowrank_fused(x, r, l_)
+    assert tops.LAUNCHES == before

@@ -135,3 +135,54 @@ def test_kernel_wrapper_takes_cuda_tensors_only():
     assert ops.launch_counts()["matmul_tiled"] == before
     with pytest.raises(ValueError, match="CUDA tensors only"):
         kmm.matmul_tiled(a, b)
+
+
+# ---------------------------------------------------------------------------
+# the route rule of kernel #9 (matmul_route)
+# ---------------------------------------------------------------------------
+
+def test_matmul_route_rule():
+    """bf16 operands whose rows the 16-byte copies can read take the
+    tensor-core route, B row-major or as a K-major view; f32, a K or N
+    that is not a multiple of 8, B strides the copies cannot read, a row
+    stride of A that is not a multiple of 8 and misaligned bases take the
+    tiled kernel."""
+    bf = torch.bfloat16
+    a = torch.zeros(4, 896, dtype=bf)
+    r = torch.zeros(256, 896, dtype=bf)
+    w = torch.zeros(896, 256, dtype=bf)
+    assert kmm.matmul_route(a, r.T) == "tensor_core"
+    assert kmm.b_layout(r.T) == "k_major"
+    assert kmm.matmul_route(a, w) == "tensor_core"
+    assert kmm.b_layout(w) == "n_major"
+    assert kmm.matmul_route(torch.zeros(2048, 256, dtype=bf),
+                            torch.zeros(4864, 256, dtype=bf).T) == \
+        "tensor_core"
+    assert kmm.matmul_route(a.float(), r.T.float()) == "tiled"
+    assert kmm.matmul_route(a[:, :893], w[:893]) == "tiled"
+    assert kmm.matmul_route(a, w[:, :250]) == "tiled"
+    assert kmm.matmul_route(a, w[:, ::2]) == "tiled"
+    assert kmm.b_layout(w[:, ::2]) is None
+    wide = torch.zeros(4, 900, dtype=bf)
+    assert kmm.matmul_route(wide[:, :896], w) == "tiled"     # lda 900
+    flat = torch.zeros(4 * 896 + 8, dtype=bf)
+    assert kmm.matmul_route(flat[1:1 + 4 * 896].view(4, 896), w) == "tiled"
+    assert kmm.matmul_route(flat[8:].view(4, 896), w) == "tensor_core"
+
+
+def test_matmul_wrapper_raises_on_cpu_tensors_before_any_build(monkeypatch):
+    """At either route's shapes the wrapper raises on a CPU tensor before a
+    library is built or loaded, and counts nothing."""
+    from repro_torch.kernels import _build
+
+    def no_build(source):
+        raise AssertionError(f"built {source}")
+
+    monkeypatch.setattr(_build, "library", no_build)
+    before = ops.launch_counts()["matmul_tiled"]
+    for a, b in ((torch.zeros(4, 896).bfloat16(),
+                  torch.zeros(256, 896).bfloat16().T),
+                 (torch.zeros(33, 257), torch.zeros(257, 129))):
+        with pytest.raises(ValueError, match="CUDA tensors only"):
+            kmm.matmul_tiled(a, b)
+    assert ops.launch_counts()["matmul_tiled"] == before
