@@ -45,9 +45,13 @@ Phases, in order; any failure raises and the script exits non-zero:
    step's device time), exact launch counts, the
    checkpoint read back equal, and one step at batch 1 x seq 32 against
    the same weights in f32 on the CPU;
-9. int8 kernel: hold ``lowrank_q8`` against its plain version at the
-   seven sites' shapes, M in (4, 37, 256, 1024), bf16 and f32, and time
-   kernel, plain version, library yardstick and bound;
+9. int8 kernel: hold each route of ``lowrank_q8`` (decode, tensor-core,
+   fused; ``quant.q8_route``) against its plain version at the seven
+   sites' shapes and a ragged one, M from 4 to 1,024 (both sides of the
+   decode threshold), bf16 and f32, two calls bit-equal; time kernel,
+   plain version, library yardstick and bound; headlines for a decode
+   layer (M = 4) and a prefill layer (M = 1,024); a sweep of the decode
+   and tensor-core routes over M = 1-32 (where the threshold comes from);
 10. int8 deployment at full width: phase 8's checkpoint ->
    ``load_checkpoint`` -> ``plan.quantized("int8")`` -> ``convert.quantize``
    -> ``save_checkpoint`` -> ``ServeEngine.from_checkpoint`` on the card
@@ -174,6 +178,7 @@ from repro_torch.data.synthetic import SyntheticLM  # noqa: E402
 from repro_torch.kernels import lowrank as klowrank  # noqa: E402
 from repro_torch.kernels import matmul_tiled as kmm  # noqa: E402
 from repro_torch.kernels import qr as kqr  # noqa: E402
+from repro_torch.kernels import quant as kquant  # noqa: E402
 from repro_torch.launch import train as launch_train  # noqa: E402
 from repro_torch.launch.serve import generate  # noqa: E402
 from repro_torch.optim import global_norm  # noqa: E402
@@ -679,6 +684,16 @@ def device_events(prof) -> list:
             and getattr(e, "self_device_time_total", 0) > 0]
 
 
+def q8_kernel(key: str) -> bool:
+    """Whether a profiled kernel is one of #6's: the fused kernel of
+    lowrank_q8.cu, the decode route's products with int8 weights
+    (lowrank_decode.cuh's templates on signed char), or a tensor-core
+    product with an int8 B (gemm_bf16.cuh, Config<..., true, true, true,
+    false>: A_K, B_K, int8 B, no batch)."""
+    return ("lowrank_q8" in key or "signed char" in key
+            or ("gemm16::" in key and "true, true, true, false>" in key))
+
+
 def profile_decode(eng, cfg, rng, card: str) -> dict:
     """Device busy share of steady decode: 4 requests decoding, 5 engine
     ticks under torch.profiler; device time summed over CUDA kernels
@@ -711,9 +726,13 @@ def profile_decode(eng, cfg, rng, card: str) -> dict:
     for e in top:
         print(f"[profile]   {e.self_device_time_total / 5e3:8.3f} ms/tick "
               f"{e.count // 5:5d} calls/tick  {e.key[:70]}")
+    q8_us = sum(e.self_device_time_total for e in events if q8_kernel(e.key))
+    if q8_us:
+        print(f"[profile]   #6's kernels: {q8_us / 5e3:.3f} ms/tick | {card}")
     return {"decode_busy_share": dev_us / wall_us,
             "decode_tick_wall_ms": wall_us / 5e3,
             "decode_tick_device_ms": dev_us / 5e3,
+            "decode_q8_ms": q8_us / 5e3,
             "decode_top": [(e.key[:70], e.self_device_time_total / 5e3,
                             e.count // 5) for e in top]}
 
@@ -789,6 +808,62 @@ def library_choleskyqr(y):
     return q.to(y.dtype), torch.linalg.solve_triangular(c, g, upper=False)
 
 
+def library_after_gram(y, g):
+    """library_choleskyqr from a given Gram: cholesky_ex and two solves."""
+    k = g.shape[-1]
+    scale = torch.clamp(torch.diagonal(g, dim1=-2, dim2=-1).sum(-1) / k,
+                        min=1e-30)
+    eye = torch.eye(k, device=y.device)
+    c, _ = torch.linalg.cholesky_ex(g + (1e-6 * scale)[..., None, None]
+                                    * eye)
+    q = torch.linalg.solve_triangular(c, y.float().mT, upper=False).mT
+    return q.to(y.dtype), torch.linalg.solve_triangular(c, g, upper=False)
+
+
+def qr_after_gram(y, g):
+    """#4 from a given Gram: its route's factor and apply launches alone
+    (``qr._blocked`` or ``qr._global``, what ``qr.choleskyqr`` launches
+    after the Gram), no count."""
+    lead, (m, k) = y.shape[:-2], y.shape[-2:]
+    b = math.prod(lead)
+    q = torch.empty_like(y)
+    mix = torch.empty((*lead, k, k), dtype=torch.float32, device=y.device)
+    retried = torch.empty(lead, dtype=torch.int32, device=y.device)
+    factor, apply = kqr.qr_route(k, y.dtype, (y, q))
+    code = klowrank.dtype_code("choleskyqr", y)
+    err = (kqr._blocked(y, g, q, mix, retried, b, m, k, code, 1e-6,
+                        apply == "tensor_core") if factor == "blocked"
+           else kqr._global(y, g, q, mix, retried, b, m, k, code, 1e-6))
+    if err != 0:
+        raise AssertionError(f"choleskyqr after the Gram: CUDA error {err}")
+    return q, mix
+
+
+def profile_choleskyqr(b, o, k, card: str) -> dict:
+    """One #4 call (Gram included) on a (b, o, k) bf16 stack under
+    torch.profiler: device ms per call by kernel (the factor, the Gram,
+    the apply and mix products)."""
+    gen = torch.Generator(device="cuda").manual_seed(61)
+    y = well_conditioned(b, o, k, torch.bfloat16, gen)
+    for _ in range(3):
+        kqr.choleskyqr(y)
+    torch.cuda.synchronize()
+    acts = [torch.profiler.ProfilerActivity.CPU,
+            torch.profiler.ProfilerActivity.CUDA]
+    with torch.profiler.profile(activities=acts) as prof:
+        for _ in range(5):
+            kqr.choleskyqr(y)
+        torch.cuda.synchronize()
+    rows = sorted(((e.self_device_time_total / 5e3, e.key[:60])
+                   for e in device_events(prof)), reverse=True)
+    total = sum(ms for ms, _ in rows)
+    print(f"[profile] choleskyqr ({b},{o},{k}) bf16, one call: device "
+          f"{total:.4f} ms | {card}")
+    for ms, key in rows:
+        print(f"[profile]   {ms:.4f} ms  {key}")
+    return {"device_ms": total, "kernels": rows}
+
+
 def held_tol(want, n, out_dtype) -> float:
     """Tolerance against the plain version: f32 sums of n terms in another
     order, 2 n eps |result scale|; a bf16 output adds one rounding (2^-7 of
@@ -798,6 +873,16 @@ def held_tol(want, n, out_dtype) -> float:
     if out_dtype == torch.bfloat16:
         tol += 2.0 ** -7 * scale
     return tol
+
+
+def held_twice_all(label, fn, args):
+    """``fn(*args)`` twice: every output of the two calls bit-equal; the
+    first call's outputs."""
+    got, again = fn(*args), fn(*args)
+    torch.cuda.synchronize()
+    if not all(torch.equal(a, b) for a, b in zip(got, again)):
+        raise AssertionError(f"{label}: two calls on the same inputs differ")
+    return got
 
 
 def held(label, got, want, n, out_dtype) -> float:
@@ -917,6 +1002,8 @@ def phase_train_kernels(card: str) -> dict:
     head = {n: {"ms": 0.0, "plain_ms": 0.0, "library_ms": 0.0,
                 "eager_call_ms": 0.0, "bytes": 0, "flops": 0}
             for n in TRAIN_KERNELS}
+    # the refresh's #4 without its Gram launch, and the library's
+    after_gram = {"ms": 0.0, "library_ms": 0.0}
 
     def add(name, mult, row, nbytes, flops):
         h = head[name]
@@ -1005,8 +1092,9 @@ def phase_train_kernels(card: str) -> dict:
                 f"gram {tag}", g, ref.gram_ref(y), o, torch.float32))
             if not torch.equal(g, g.mT):
                 raise AssertionError(f"gram {tag}: G is not symmetric")
-            q, mix = kqr.choleskyqr(y)
-            torch.cuda.synchronize()
+            route = "/".join(kqr.qr_route(k, dtype, (y, y)))
+            q, mix = held_twice_all(f"choleskyqr {tag} ({route})",
+                                    kqr.choleskyqr, (y,))
             wq, wmix = ref.choleskyqr_ref(y)
             # Q: a Cholesky of a cond <= 16 Gram amplifies the Gram's
             # rounding ~16x: 1e-3 of Q's scale in f32; a bf16 Q adds one
@@ -1031,8 +1119,9 @@ def phase_train_kernels(card: str) -> dict:
                     f"{1e-3 * ms:.3e}), |Q^T Q - I| {ortho:.3e} (tol "
                     f"{tol_o:.3e})")
             worst["choleskyqr"] = max(worst["choleskyqr"], eq, em)
-            print(f"[kernel] choleskyqr {tag}: Q err {eq:.2e} mix err "
-                  f"{em:.2e} |Q^T Q - I|_F {ortho:.2e}", flush=True)
+            print(f"[kernel] choleskyqr {tag} route={route}: Q err "
+                  f"{eq:.2e} mix err {em:.2e} |Q^T Q - I|_F {ortho:.2e}",
+                  flush=True)
             del g, q, mix, wq, wmix, lq, lmix
 
             n_sets = max(1, min(16, int(120e6 // (b * o * k *
@@ -1052,11 +1141,22 @@ def phase_train_kernels(card: str) -> dict:
             row = timed(f"choleskyqr {name:11s} ({b},{o},{k})",
                         (kqr.choleskyqr, ref.choleskyqr_ref,
                          library_choleskyqr), sets, nb, fl, dtype, card)
+            gsets = [(ys, ops.gram(ys)) for ys, in sets]
+            ag = {"ms": time_ms(qr_after_gram, gsets),
+                  "library_ms": time_ms(library_after_gram, gsets)}
+            print(f"[kernel] choleskyqr {name:11s} ({b},{o},{k}) "
+                  f"{str(dtype)[6:]:8s} route={route} without the Gram: "
+                  f"kernel_ms={ag['ms']:.4f} library_ms="
+                  f"{ag['library_ms']:.4f} | {card}", flush=True)
             rows.append(dict(row, kernel="choleskyqr", site=name, M=o,
-                             dtype=str(dtype)[6:]))
+                             dtype=str(dtype)[6:], route=route,
+                             kernel_ms_after_gram=ag["ms"],
+                             library_ms_after_gram=ag["library_ms"]))
             if dtype == torch.bfloat16:
                 add("choleskyqr", mult, row, nb, fl)
-            del sets
+                for key in after_gram:
+                    after_gram[key] += mult * ag[key]
+            del sets, gsets
     worst["choleskyqr"] = max(worst["choleskyqr"], ladder_case(card))
     for n, h in head.items():
         h["bound_ms"], h["bound_by"] = bound_of(h.pop("bytes"),
@@ -1071,6 +1171,12 @@ def phase_train_kernels(card: str) -> dict:
               f"library_ms={h['library_ms']:.4f} "
               f"bound_ms={h['bound_ms']:.5f} ({h['bound_by']}){eager} | "
               f"{card}", flush=True)
+    print(f"[kernel] choleskyqr one refresh without its Gram launches, "
+          f"bf16: kernel_ms={after_gram['ms']:.4f} library_ms="
+          f"{after_gram['library_ms']:.4f} | {card}", flush=True)
+    head["choleskyqr"]["after_gram"] = after_gram
+    head["choleskyqr"]["profile"] = profile_choleskyqr(
+        *STACKS["attn/wq|wo"], card)
     return dict(rows=rows, worst=worst, headline=head)
 
 
@@ -1168,11 +1274,14 @@ def phase_smoke_training(card: str) -> dict:
 def train_kernel_of(key: str):
     """Which of #2 and #3 launched a kernel, by its name: every kernel of
     gemm_bf16.cuh (namespace gemm16) in a training step is one of theirs;
-    #2's products read both operands k-major (Config<..., true, true>),
-    #3's never do, and the split pass is #3's alone."""
-    if "gemm16::" not in key:
+    #2's products read both operands k-major as bf16, one product a
+    launch (Config<..., true, true, false, false>: A_K, B_K, no int8 B, no
+    batch), #3's never do, and the split pass is #3's alone. A batched
+    product (Config<..., false, true>) is #4's apply at a refresh."""
+    if "gemm16::" not in key or "false, true>" in key:
         return None
-    return "lowrank_fwd_sketch" if "true, true>" in key else "lowrank_bwd"
+    return ("lowrank_fwd_sketch" if "true, true, false, false>" in key
+            else "lowrank_bwd")
 
 
 def profile_train_step(state, step, batch, card: str):
@@ -1425,31 +1534,101 @@ def _library_sets(sets):
              ls.to(x.dtype)) for x, rq, rs, lq, ls in sets]
 
 
-def phase_q8_kernels(card: str) -> dict:
-    print("== phase 9: lowrank_q8 against its plain version", flush=True)
-    gen = torch.Generator(device="cuda").manual_seed(9)
-    worst = 0.0
+def q8_layer(m, card: str, gen) -> dict:
+    """One layer's seven int8 site launches at M rows (bf16), each at its
+    own shape: kernel, plain, library and eager times summed, beside the
+    bound of the layer's bytes and flops."""
+    tot = {"ms": 0.0, "plain_ms": 0.0, "library_ms": 0.0,
+           "eager_call_ms": 0.0}
+    nbytes = flops = 0
+    for name, (i, k, o) in SITES.items():
+        b, f = q8_work(m, i, k, o, torch.bfloat16)
+        sets = q8_inputs(m, i, k, o, torch.bfloat16, gen,
+                         max(1, min(48, int(120e6 // b) + 1)))
+        tot["ms"] += time_ms(ops.lowrank_matmul_q8, sets)
+        tot["plain_ms"] += time_ms(ref.lowrank_q8_ref, sets)
+        tot["library_ms"] += time_ms(library_q8, _library_sets(sets))
+        tot["eager_call_ms"] += call_ms(ops.lowrank_matmul_q8, sets)
+        nbytes, flops = nbytes + b, flops + f
+        del sets
+    b_ms, b_by = bound_of(nbytes, flops, torch.bfloat16)
+    route = kquant.q8_route(m, 896, 256, 896, torch.bfloat16, ())
+    print(f"[kernel] lowrank_q8 one layer's 7 sites at M={m} (bf16, route "
+          f"{route}): kernel_ms={tot['ms']:.4f} plain_ms="
+          f"{tot['plain_ms']:.4f} library_ms={tot['library_ms']:.4f} "
+          f"bound_ms={b_ms:.5f} ({b_by}) eager_call_ms="
+          f"{tot['eager_call_ms']:.4f}, {nbytes} bytes | {card}", flush=True)
+    return dict(tot, bound_ms=b_ms, bound_by=b_by, route=route)
+
+
+def q8_route_sweep(card: str) -> list:
+    """#6's decode route against its tensor-core route at M = 1-32, bf16,
+    at qwen2-0.5b's four site shapes; each held to the plain version with
+    two bit-equal calls, then both timed. ``quant.Q8_DECODE_MAX_M`` is the
+    largest M at which the decode route is the faster at every shape."""
+    gen = torch.Generator(device="cuda").manual_seed(39)
+    fns = {"decode": kquant._decode, "tensor_core": kquant._tensor_core}
+
+    def routed_q8(launch):
+        def run(x, rq, rs, lq, ls):
+            y = torch.empty((x.shape[0], lq.shape[0]), dtype=x.dtype,
+                            device=x.device)
+            if launch(x, rq, rs, lq, ls, y) != 0:
+                raise AssertionError("q8 route sweep: launch failed")
+            return y
+        return run
+
     rows = []
     for name, (i, k, o) in SHAPES.items():
-        for m in MS:
+        for m in SWEEP_MS:
+            dtype = torch.bfloat16
+            args, = q8_inputs(m, i, k, o, dtype, gen)
+            want = ref.lowrank_q8_ref(*args)
+            tol = lowrank_tol(want, i, k, dtype)
+            errs = {n: held_twice(f"q8 route sweep {name} M={m} {n}",
+                                  routed_q8(f), args, want, tol)
+                    for n, f in fns.items()}
+            del args, want
+            nbytes, _ = q8_work(m, i, k, o, dtype)
+            sets = q8_inputs(m, i, k, o, dtype, gen,
+                             max(1, min(48, int(120e6 // nbytes) + 1)))
+            ms = {n: time_ms(routed_q8(f), sets) for n, f in fns.items()}
+            del sets
+            best = min(ms, key=ms.get)
+            print(f"[q8-sweep] {name:11s} M={m:3d} decode_ms="
+                  f"{ms['decode']:.4f} tensor_core_ms="
+                  f"{ms['tensor_core']:.4f} faster={best} errs decode "
+                  f"{errs['decode']:.2e} tensor_core "
+                  f"{errs['tensor_core']:.2e} (tol {tol:.2e}) | {card}",
+                  flush=True)
+            rows.append(dict(site=name, M=m, decode_ms=ms["decode"],
+                             tensor_core_ms=ms["tensor_core"], faster=best))
+    return rows
+
+
+def phase_q8_kernels(card: str) -> dict:
+    print("== phase 9: lowrank_q8 (each route) against its plain version",
+          flush=True)
+    gen = torch.Generator(device="cuda").manual_seed(9)
+    d = kquant.Q8_DECODE_MAX_M
+    worst = 0.0
+    rows = []
+    for name, (i, k, o) in dict(SHAPES, **RAGGED_SHAPE).items():
+        for m in sorted(set(MS) | {d, d + 1}):
             for dtype in (torch.bfloat16, torch.float32):
-                (x, rq, rs, lq, ls), = q8_inputs(m, i, k, o, dtype, gen)
-                got = ops.lowrank_matmul_q8(x, rq, rs, lq, ls)
-                torch.cuda.synchronize()
-                want = ref.lowrank_q8_ref(x, rq, rs, lq, ls)
-                err = (got.float() - want.float()).abs().max().item()
-                scale = want.float().abs().max().item()
-                # as kernel #1 (phase 3): f32 sums of I then K terms in
-                # another order, 2 (I + K) eps |y|; bf16 adds one rounding
-                # of the output. The int8 factors convert exactly.
-                tol = 2 * (i + k) * EPS32 * max(scale, 1.0)
-                if dtype == torch.bfloat16:
-                    tol += 2.0 ** -7 * scale
-                if not err <= tol:
-                    raise AssertionError(
-                        f"lowrank_q8 {name} M={m} {dtype}: max abs err "
-                        f"{err:.3e} > tol {tol:.3e}")
+                args, = q8_inputs(m, i, k, o, dtype, gen)
+                route = kquant.q8_route(m, i, k, o, dtype,
+                                        (args[0], args[1], args[3]))
+                want = ref.lowrank_q8_ref(*args)
+                # as kernel #1 (phase 3): the int8 factors convert exactly,
+                # and the tensor-core route's two bf16 pieces of h sR add at
+                # most 2^-17 of each term of h Lq^T
+                tol = lowrank_tol(want, i, k, dtype)
+                err = held_twice(f"lowrank_q8 {name} M={m} {dtype} "
+                                 f"({route})", ops.lowrank_matmul_q8, args,
+                                 want, tol)
                 worst = max(worst, err)
+                del args, want
                 nbytes, flops = q8_work(m, i, k, o, dtype)
                 sets = q8_inputs(m, i, k, o, dtype, gen,
                                  max(1, min(48, int(120e6 // nbytes) + 1)))
@@ -1458,38 +1637,26 @@ def phase_q8_kernels(card: str) -> dict:
                 l_ms = time_ms(library_q8, _library_sets(sets))
                 b_ms, b_by = bound_of(nbytes, flops, dtype)
                 rows.append(dict(site=name, M=m, dtype=str(dtype)[6:],
-                                 kernel_ms=k_ms, plain_ms=p_ms,
+                                 route=route, kernel_ms=k_ms, plain_ms=p_ms,
                                  library_ms=l_ms, bound_ms=b_ms,
                                  bound_by=b_by, max_abs_err=err, tol=tol))
                 print(f"[kernel] lowrank_q8 {name:11s} I={i} K={k} O={o} "
-                      f"M={m:4d} {str(dtype)[6:]:8s} err={err:.2e} "
-                      f"(tol {tol:.2e}) kernel_ms={k_ms:.4f} "
+                      f"M={m:4d} {str(dtype)[6:]:8s} route={route} "
+                      f"err={err:.2e} (tol {tol:.2e}) kernel_ms={k_ms:.4f} "
                       f"plain_ms={p_ms:.4f} library_ms={l_ms:.4f} "
                       f"bound_ms={b_ms:.5f} ({b_by}) | {card}", flush=True)
                 del sets
-    # headline: one decode step's seven site launches of one layer (M = 4
-    # serve slots, bf16), each at its own shape
-    tot = {"ms": 0.0, "plain_ms": 0.0, "library_ms": 0.0,
-           "eager_call_ms": 0.0}
-    nbytes = flops = 0
-    for name, (i, k, o) in SITES.items():
-        b, f = q8_work(4, i, k, o, torch.bfloat16)
-        sets = q8_inputs(4, i, k, o, torch.bfloat16, gen,
-                         max(1, int(120e6 // b) + 1))
-        tot["ms"] += time_ms(ops.lowrank_matmul_q8, sets)
-        tot["plain_ms"] += time_ms(ref.lowrank_q8_ref, sets)
-        tot["library_ms"] += time_ms(library_q8, _library_sets(sets))
-        tot["eager_call_ms"] += call_ms(ops.lowrank_matmul_q8, sets)
-        nbytes, flops = nbytes + b, flops + f
-        del sets
-    b_ms, b_by = bound_of(nbytes, flops, torch.bfloat16)
-    print(f"[kernel] lowrank_q8 one layer's 7 sites at decode (M=4, bf16): "
-          f"kernel_ms={tot['ms']:.4f} plain_ms={tot['plain_ms']:.4f} "
-          f"library_ms={tot['library_ms']:.4f} bound_ms={b_ms:.5f} "
-          f"({b_by}) eager_call_ms={tot['eager_call_ms']:.4f}, {nbytes} "
-          f"bytes | {card}", flush=True)
-    return dict(rows=rows, worst=worst,
-                headline=dict(tot, bound_ms=b_ms, bound_by=b_by))
+    routes = {(r["route"], r["M"] <= d) for r in rows}
+    if not {("decode", True), ("tensor_core", False), ("fused", False),
+            ("fused", True)} <= routes:
+        raise AssertionError(f"phase 9 missed a route: {sorted(routes)}")
+    # headlines: one decode step's seven site launches of one layer (M = 4
+    # serve slots), and one prefill bucket's (M = 1,024), bf16
+    head = q8_layer(4, card, gen)
+    prefill = q8_layer(1024, card, gen)
+    sweep = q8_route_sweep(card)
+    return dict(rows=rows, worst=worst, headline=head,
+                prefill_headline=prefill, sweep=sweep)
 
 
 def _count_calls(obj, name: str, counter: dict) -> None:
@@ -3122,7 +3289,7 @@ def main() -> None:
     sources = {"lowrank_fwd_sketch": ("lowrank_sketch.cu", "lowrank.py:70"),
                "lowrank_bwd": ("lowrank_bwd.cu", "lowrank.py:144"),
                "gram": ("gram.cu", "gram.py:18"),
-               "choleskyqr": ("choleskyqr.cu", "qr.py:87")}
+               "choleskyqr": ("choleskyqr_blocked.cu", "qr.py:87")}
     for name, (src, tpu) in sources.items():
         h = tk["headline"][name]
         kernels.append({
@@ -3136,7 +3303,7 @@ def main() -> None:
     h = q8["headline"]
     kernels.append({
         "name": "lowrank_q8", "route": "cuda",
-        "source": "src/repro_torch/kernels/csrc/lowrank_q8.cu",
+        "source": "src/repro_torch/kernels/csrc/lowrank_q8_routes.cu",
         "replaces": "src/repro/kernels/quant.py:38",
         "launches": deploy["launches"], "max_abs_err": q8["worst"],
         "ms": h["ms"], "plain_ms": h["plain_ms"], "bound_ms": h["bound_ms"],
@@ -3182,7 +3349,9 @@ def main() -> None:
                        "train_kernel_headline": tk["headline"],
                        "smoke_training": smoke_train, "full_training": train,
                        "q8_kernel_rows": q8["rows"],
-                       "q8_headline": q8["headline"], "int8_deploy": deploy,
+                       "q8_headline": q8["headline"],
+                       "q8_prefill_headline": q8["prefill_headline"],
+                       "q8_route_sweep": q8["sweep"], "int8_deploy": deploy,
                        "matmul_rows": mm["rows"], "unfused_rows": mm["pairs"],
                        "matmul_headline": mm["headline"], "table2": table2,
                        "flash_rows": fk["rows"],

@@ -8,14 +8,16 @@
 //
 // Replaces repro/kernels/qr.py::_choleskyqr_kernel (reached through
 // choleskyqr_tiled) with its in-kernel _masked_cholesky (qr.py:47) and
-// _tril_inverse (qr.py:66). The TPU kernel is one launch with a two-phase
-// sequential grid: phase 0 accumulates G in VMEM and factors it at its last
-// step, phase 1 applies C^-T per row block. CUDA blocks are not ordered, so
-// the phases become launches on one stream: the Gram launch (gram.cu), then
-// here a factor launch (one block per stack index) and two product launches
-// (gemm_f32.cuh): mix = X G and Q = Y X^T. The reference's refresh sends a
-// stacked (24, O, K) operand to its jnp fallback; this kernel takes the stack
-// as a grid axis, so one call refreshes all 24 layers of a site.
+// _tril_inverse (qr.py:66) at ranks above 288 (kernels/qr.py::qr_route's
+// "global" factor; lower ranks take choleskyqr_blocked.cu). The TPU kernel is
+// one launch with a two-phase sequential grid: phase 0 accumulates G in VMEM
+// and factors it at its last step, phase 1 applies C^-T per row block. CUDA
+// blocks are not ordered, so the phases become launches on one stream: the Gram
+// launch (gram.cu), then here a factor launch (one block per stack index) and
+// two product launches (gemm_f32.cuh): mix = X G and Q = Y X^T. The reference's
+// refresh sends a stacked (24, O, K) operand to its jnp fallback; this kernel
+// takes the stack as a grid axis, so one call refreshes all 24 layers of a
+// site.
 //
 // The factor launch follows the Pallas body step for step: the K-step
 // column loop of _masked_cholesky with its sqrt(max(v, 1e-30)) guard, then

@@ -50,6 +50,25 @@
 // f32 (when c32 is not null) and its first out_pieces bf16 pieces at
 // cp + q * cp_ps. Outputs are contiguous (row stride N).
 //
+// Two options, for the products that need them and only for those (the
+// others are compiled from exactly the code and kernel parameters they had
+// before the options: a larger parameter struct alone changed their
+// register allocation and cost them 5% on an H100):
+//   * B_I8 (kernel #6's tensor-core route, lowrank_q8_routes.cu): B is
+//     stored k-contiguous as int8, and a 16-byte cp.async carries 16 of its
+//     values, so the ring holds B's steps in half the bytes. ldmatrix on an
+//     int8 tile would give a lane four consecutive k, not the k pairs
+//     m16n8k16 wants; so once a step has landed, the block converts its
+//     int8 B tile to a bf16 tile in shared memory (every int8 is exact in
+//     bf16), one more barrier, and the ldmatrix path reads that tile as it
+//     reads a bf16 one. col_scale multiplies column n of the f32 sum before
+//     the epilogue (after the split partials are summed): the per-row scale
+//     of the int8 factor.
+//   * BATCH (kernel #4's apply, Q = Y X^T over a stack): grid.z is batch x
+//     splits; operand and output pointers step by a_bs, b_bs and c_bs
+//     elements per batch index.
+// Their fields ride in ArgsX after the Args every product reads.
+//
 // Requirements (checked by the wrappers, kernels/lowrank.py): every extent
 // along a contiguous axis (K of a K-major operand, M of an M-major A, N of
 // an N-major B, and N of C) and every leading dimension a multiple of 8,
@@ -61,6 +80,8 @@
 #include <cuda_bf16.h>
 #include <cuda_runtime.h>
 #include <stdint.h>
+
+#include <type_traits>
 
 // Everything below has internal linkage (an unnamed namespace): several
 // kernel libraries include this header and are loaded into one process,
@@ -89,9 +110,26 @@ struct Args {
   uint16_t* cp;            // PIECES: out_pieces bf16 pieces of C
   int out_pieces;
   long long cp_ps;
-  float* ws;               // splits * M * N floats when splits > 1
+  float* ws;               // (batch x) splits * M * N floats if splits > 1
   int splits;
 };
+
+// The kernel parameters of a product with an option: Args, then the
+// options' fields.
+struct ArgsX {
+  Args g;
+  const int8_t* b8;        // B_I8: B as int8 (g.b unused)
+  const float* col_scale;  // B_I8: (N,) scales of B's columns
+  int batch;               // BATCH: products in the launch
+  long long a_bs, b_bs, c_bs;  // BATCH: element offsets between them
+};
+
+__host__ __device__ __forceinline__ const Args& base(const Args& a) {
+  return a;
+}
+__host__ __device__ __forceinline__ const Args& base(const ArgsX& a) {
+  return a.g;
+}
 
 __device__ __forceinline__ uint16_t bf16_bits(float v) {
   return __bfloat16_as_ushort(__float2bfloat16_rn(v));
@@ -190,30 +228,86 @@ struct Tile {
   }
 };
 
+// An int8 B tile, ROWS x BK k-contiguous, unpadded (the 16-byte reads of
+// the conversion pass fall in distinct banks as they are).
+template <int ROWS, int BK>
+struct Tile8 {
+  static constexpr int BYTES = ROWS * BK;
+  static constexpr int CHUNKS = ROWS * BK / 16;
+
+  template <int THREADS>
+  __device__ __forceinline__ static void load(int8_t* s, const int8_t* p,
+                                              int ld, int rows, int K, int r0,
+                                              int k0, int tid) {
+#pragma unroll
+    for (int j = 0; j < CHUNKS / THREADS; ++j) {
+      const int c = tid + j * THREADS;
+      const int row = c / (BK / 16), k = (c % (BK / 16)) * 16;
+      const int gr = r0 + row, gk = k0 + k;
+      const bool valid = gr < rows && gk < K;
+      cp_async16(s + row * BK + k,
+                 valid ? p + static_cast<size_t>(gr) * ld + gk : p, valid);
+    }
+  }
+};
+
+// bf16 bits of four int8 packed in a word, two words out (elements 0, 1 in
+// lo, 2, 3 in hi): each byte, made unsigned by flipping its sign bit, sits
+// in the low byte of the f32 2^23 + u, from which 2^23 + 128 is subtracted
+// exactly; the f32 result is the int8's value, and its high half its bf16.
+__device__ __forceinline__ void i8x4_bf16(uint32_t v, uint32_t& lo,
+                                          uint32_t& hi) {
+  const uint32_t u = v ^ 0x80808080u;
+  float f[4];
+#pragma unroll
+  for (int b = 0; b < 4; ++b)
+    f[b] = __uint_as_float(__byte_perm(u, 0x4b000000u, 0x7650 + b)) -
+           8388736.f;
+  lo = __byte_perm(__float_as_uint(f[0]), __float_as_uint(f[1]), 0x7632);
+  hi = __byte_perm(__float_as_uint(f[2]), __float_as_uint(f[3]), 0x7632);
+}
+
 // BM x BN output tiles, WARPS_M x WARPS_N warps, at least MIN_BLOCKS
 // blocks an SM (so at most 65536 / (32 * warps * MIN_BLOCKS) registers a
 // thread), steps of depth BK, a ring of STAGES steps.
 template <int BM_, int BN_, int WARPS_M, int WARPS_N, int MIN_BLOCKS_,
-          int BK_, int STAGES_, bool A_K_, bool B_K_>
+          int BK_, int STAGES_, bool A_K_, bool B_K_, bool B_I8_ = false,
+          bool BATCH_ = false>
 struct Config {
   static constexpr int BM = BM_, BN = BN_, WN = WARPS_N;
   static constexpr int MIN_BLOCKS = MIN_BLOCKS_;
   static constexpr int BK = BK_, STAGES = STAGES_;
   static constexpr bool A_K = A_K_, B_K = B_K_;
+  static constexpr bool B_I8 = B_I8_, BATCH = BATCH_;
+  static_assert(!B_I8 || B_K, "an int8 B is k-contiguous");
+  // the kernel's parameters
+  using A = std::conditional_t<B_I8 || BATCH, ArgsX, Args>;
   static constexpr int THREADS = 32 * WARPS_M * WARPS_N;
   static constexpr int TM = BM / WARPS_M, TN = BN / WARPS_N;  // warp tile
   static constexpr int MI = TM / 16, NI = TN / 8;
   using TA = Tile<BM, A_K, BK>;
   using TB = Tile<BN, B_K, BK>;
-  static constexpr int STAGE = TA::ELEMS + TB::ELEMS;
-  static constexpr int SMEM = STAGES * STAGE * 2;  // bytes
+  using TB8 = Tile8<BN, BK>;
+  // a ring stage (bf16 elements): A's tile and B's, int8 B in half the
+  // room; with int8 B one bf16 B tile after the ring
+  static constexpr int STAGE = TA::ELEMS + (B_I8 ? TB8::BYTES / 2 : TB::ELEMS);
+  static constexpr int SMEM = (STAGES * STAGE + (B_I8 ? TB::ELEMS : 0)) * 2;
 };
 
 // Store C(row, col) and C(row, col + 1) by the epilogue; col is even and
-// col + 1 < N (N is a multiple of 8).
-__device__ __forceinline__ void store_pair(const Args& g, int row, int col,
-                                           float v0, float v1) {
-  const size_t at = static_cast<size_t>(row) * g.N + col;
+// col + 1 < N (N is a multiple of 8). bi: the batch index (BATCH); with an
+// int8 B, the columns' scales first.
+template <class C>
+__device__ __forceinline__ void store_pair(const typename C::A& ax, int bi,
+                                           int row, int col, float v0,
+                                           float v1) {
+  const Args& g = base(ax);
+  if constexpr (C::B_I8) {
+    v0 *= ax.col_scale[col];
+    v1 *= ax.col_scale[col + 1];
+  }
+  size_t at = static_cast<size_t>(row) * g.N + col;
+  if constexpr (C::BATCH) at += static_cast<size_t>(bi) * ax.c_bs;
   if (g.mode == BF16) {
     *reinterpret_cast<uint32_t*>(g.c16 + at) =
         bf16_bits(v0) | (static_cast<uint32_t>(bf16_bits(v1)) << 16);
@@ -233,17 +327,22 @@ __device__ __forceinline__ void store_pair(const Args& g, int row, int col,
   }
 }
 
-// grid (ceil(N / BN), ceil(M / BM), splits)
+// grid (ceil(N / BN), ceil(M / BM), (batch x) splits)
 template <class C>
 __global__ void __launch_bounds__(C::THREADS, C::MIN_BLOCKS)
-    gemm_kernel(const Args g) {
+    gemm_kernel(const typename C::A ax) {
+  const Args& g = base(ax);
   extern __shared__ __align__(16) uint16_t smem[];
   const int tid = threadIdx.x, lane = tid % 32, warp = tid / 32;
   const int wm = warp / C::WN, wn = warp % C::WN;
   const int m0 = blockIdx.y * C::BM, n0 = blockIdx.x * C::BN;
   const int ksteps = (g.K + C::BK - 1) / C::BK;
   const int total = g.pieces * ksteps;
-  const int s = blockIdx.z;
+  int s = blockIdx.z, bi = 0;
+  if constexpr (C::BATCH) {
+    s = blockIdx.z % g.splits;
+    bi = blockIdx.z / g.splits;
+  }
   const int t0 = static_cast<int>(static_cast<long long>(s) * total / g.splits);
   const int t1 =
       static_cast<int>(static_cast<long long>(s + 1) * total / g.splits);
@@ -253,10 +352,25 @@ __global__ void __launch_bounds__(C::THREADS, C::MIN_BLOCKS)
     const int p = t / ksteps, k0 = (t % ksteps) * C::BK;
     uint16_t* sa = smem + stage * C::STAGE;
     uint16_t* sb = sa + C::TA::ELEMS;
-    C::TA::template load<C::THREADS>(sa, g.a + p * g.a_ps, g.lda, g.M, g.K,
-                                     m0, k0, tid);
-    C::TB::template load<C::THREADS>(sb, g.b + p * g.b_ps, g.ldb, g.N, g.K,
-                                     n0, k0, tid);
+    if constexpr (C::BATCH) {
+      C::TA::template load<C::THREADS>(sa, g.a + bi * ax.a_bs + p * g.a_ps,
+                                       g.lda, g.M, g.K, m0, k0, tid);
+    } else {
+      C::TA::template load<C::THREADS>(sa, g.a + p * g.a_ps, g.lda, g.M,
+                                       g.K, m0, k0, tid);
+    }
+    if constexpr (C::B_I8) {
+      const long long bb = C::BATCH ? bi * ax.b_bs : 0;
+      C::TB8::template load<C::THREADS>(reinterpret_cast<int8_t*>(sb),
+                                        ax.b8 + bb + p * g.b_ps, g.ldb, g.N,
+                                        g.K, n0, k0, tid);
+    } else if constexpr (C::BATCH) {
+      C::TB::template load<C::THREADS>(sb, g.b + bi * ax.b_bs + p * g.b_ps,
+                                       g.ldb, g.N, g.K, n0, k0, tid);
+    } else {
+      C::TB::template load<C::THREADS>(sb, g.b + p * g.b_ps, g.ldb, g.N,
+                                       g.K, n0, k0, tid);
+    }
   };
 
   float acc[C::MI][C::NI][4];
@@ -283,6 +397,26 @@ __global__ void __launch_bounds__(C::THREADS, C::MIN_BLOCKS)
 
     const uint16_t* sa = smem + (it % C::STAGES) * C::STAGE;
     const uint16_t* sb = sa + C::TA::ELEMS;
+    if constexpr (C::B_I8) {
+      // the landed int8 B step -> the bf16 tile after the ring; the barrier
+      // at the top of the next step keeps it until every warp has read it
+      const int8_t* s8 = reinterpret_cast<const int8_t*>(sb);
+      uint16_t* sbf = smem + C::STAGES * C::STAGE;
+      for (int c = tid; c < C::TB8::CHUNKS; c += C::THREADS) {
+        const int row = c / (C::BK / 16), k = (c % (C::BK / 16)) * 16;
+        const uint4 v = *reinterpret_cast<const uint4*>(s8 + row * C::BK + k);
+        uint4 o0, o1;
+        i8x4_bf16(v.x, o0.x, o0.y);
+        i8x4_bf16(v.y, o0.z, o0.w);
+        i8x4_bf16(v.z, o1.x, o1.y);
+        i8x4_bf16(v.w, o1.z, o1.w);
+        uint16_t* d = sbf + row * C::TB::STRIDE + k;
+        *reinterpret_cast<uint4*>(d) = o0;
+        *reinterpret_cast<uint4*>(d + 8) = o1;
+      }
+      __syncthreads();
+      sb = sbf;
+    }
     // fragments of the 16-deep slice kk: A (MI m16 tiles), B (NI n8 tiles)
     auto load_frags = [&](uint32_t (&af)[C::MI][4], uint32_t (&bf)[C::NI][2],
                           int kk) {
@@ -344,11 +478,12 @@ __global__ void __launch_bounds__(C::THREADS, C::MIN_BLOCKS)
         if (col >= g.N) continue;
         const float v0 = acc[i][j][2 * h], v1 = acc[i][j][2 * h + 1];
         if (g.splits > 1)
+          // partial blockIdx.z: split s of batch index bi
           *reinterpret_cast<float2*>(
-              g.ws + (static_cast<size_t>(s) * g.M + row) * g.N + col) =
-              make_float2(v0, v1);
+              g.ws + (static_cast<size_t>(C::BATCH ? int(blockIdx.z) : s) *
+                          g.M + row) * g.N + col) = make_float2(v0, v1);
         else
-          store_pair(g, row, col, v0, v1);
+          store_pair<C>(ax, bi, row, col, v0, v1);
       }
     }
   }
@@ -358,19 +493,24 @@ __global__ void __launch_bounds__(C::THREADS, C::MIN_BLOCKS)
 // Templated on the product's Config only so that its name, as a profiler
 // shows it, carries the product's layout.
 template <class C>
-__global__ void reduce_splits(const Args g) {
+__global__ void reduce_splits(const typename C::A ax) {
+  const Args& g = base(ax);
   const size_t mn = static_cast<size_t>(g.M) * g.N;
+  size_t all = mn;
+  if constexpr (C::BATCH) all *= ax.batch > 1 ? ax.batch : 1;
   for (size_t e = 2 * (blockIdx.x * static_cast<size_t>(blockDim.x) +
                        threadIdx.x);
-       e < mn; e += 2 * static_cast<size_t>(gridDim.x) * blockDim.x) {
+       e < all; e += 2 * static_cast<size_t>(gridDim.x) * blockDim.x) {
+    const size_t bi = C::BATCH ? e / mn : 0, r = C::BATCH ? e % mn : e;
     float v0 = 0.f, v1 = 0.f;
     for (int s = 0; s < g.splits; ++s) {
-      const float2 p = *reinterpret_cast<const float2*>(g.ws + s * mn + e);
+      const float2 p = *reinterpret_cast<const float2*>(
+          g.ws + (bi * g.splits + s) * mn + r);
       v0 += p.x;
       v1 += p.y;
     }
-    store_pair(g, static_cast<int>(e / g.N), static_cast<int>(e % g.N), v0,
-               v1);
+    store_pair<C>(ax, static_cast<int>(bi), static_cast<int>(r / g.N),
+                  static_cast<int>(r % g.N), v0, v1);
   }
 }
 
@@ -402,7 +542,8 @@ inline int grid_for(size_t work, int threads) {
 }
 
 template <class C>
-int launch(const Args& g, cudaStream_t st) {
+int launch(const typename C::A& ax, cudaStream_t st) {
+  const Args& g = base(ax);
   static bool attr_set = false;
   if (!attr_set) {
     const cudaError_t err = cudaFuncSetAttribute(
@@ -410,24 +551,29 @@ int launch(const Args& g, cudaStream_t st) {
     if (err != cudaSuccess) return static_cast<int>(err);
     attr_set = true;
   }
+  int batch = 1;
+  if constexpr (C::BATCH) batch = ax.batch > 1 ? ax.batch : 1;
   const dim3 grid((g.N + C::BN - 1) / C::BN, (g.M + C::BM - 1) / C::BM,
-                  g.splits);
-  gemm_kernel<C><<<grid, C::THREADS, C::SMEM, st>>>(g);
+                  batch * g.splits);
+  gemm_kernel<C><<<grid, C::THREADS, C::SMEM, st>>>(ax);
   cudaError_t err = cudaGetLastError();
   if (err != cudaSuccess || g.splits == 1) return static_cast<int>(err);
-  reduce_splits<C><<<grid_for(static_cast<size_t>(g.M) * g.N / 2, 256), 256,
-                     0, st>>>(g);
+  reduce_splits<C><<<grid_for(static_cast<size_t>(g.M) * g.N * batch / 2,
+                              256),
+                     256, 0, st>>>(ax);
   return static_cast<int>(cudaGetLastError());
 }
 
-// C = sum_p A_p B_p on `st` with output tiles of `tile` (128 or 64).
-// Returns the cudaError_t of the launches (0 = launched).
-template <bool A_K, bool B_K>
-int matmul(const Args& g, int tile, cudaStream_t st) {
-  if (g.M <= 0 || g.N <= 0) return 0;
-  if (tile == 128)
-    return launch<Config<128, 128, 2, 4, 2, BK, 3, A_K, B_K>>(g, st);
-  return launch<Config<64, 64, 2, 2, 3, BK, 4, A_K, B_K>>(g, st);
+// C = sum_p A_p B_p on `st` with output tiles of `tile` (128 or 64);
+// B_I8: B is int8 with column scales, BATCH: ax.batch products (both take
+// ArgsX). Returns the cudaError_t of the launches (0 = launched).
+template <bool A_K, bool B_K, bool B_I8 = false, bool BATCH = false>
+int matmul(const std::conditional_t<B_I8 || BATCH, ArgsX, Args>& ax,
+           int tile, cudaStream_t st) {
+  if (base(ax).M <= 0 || base(ax).N <= 0) return 0;
+  using C128 = Config<128, 128, 2, 4, 2, BK, 3, A_K, B_K, B_I8, BATCH>;
+  using C64 = Config<64, 64, 2, 2, 3, BK, 4, A_K, B_K, B_I8, BATCH>;
+  return tile == 128 ? launch<C128>(ax, st) : launch<C64>(ax, st);
 }
 
 // The first n pieces of v (count values) into out, on `st`.

@@ -6,7 +6,10 @@
 // Lq int8 (O, K) with per-row scales sL f32 (O,); all row-major.
 //
 // Replaces repro/kernels/quant.py::_lowrank_q8_kernel (reached through
-// lowrank_q8_tiled). Same contract as the plain version
+// lowrank_q8_tiled) where kernels/quant.py::q8_route sends a call here:
+// f32 x above the decode threshold and widths the 16-byte loads of the
+// decode and tensor-core routes (lowrank_q8_routes.cu) cannot read. Same
+// contract as the plain version
 // repro_torch/kernels/ref.py::lowrank_q8_ref: the factors are converted,
 // never the activation; both products accumulate in f32; sR scales the
 // rank-K intermediate and sL the output. No dequantized (K, I) or (O, K)

@@ -354,9 +354,11 @@ class GemmPlan(NamedTuple):
     splits: int   # contiguous ranges of the reduction's steps
 
 
-def gemm_plan(rows: int, cols: int, red: int, pieces: int = 1) -> GemmPlan:
+def gemm_plan(rows: int, cols: int, red: int, pieces: int = 1,
+              batch: int = 1) -> GemmPlan:
     """Tile and split of one product C (rows, cols) over ``pieces`` x
-    ceil(red / 64) steps. 128 x 128 tiles (two blocks an SM) unsplit
+    ceil(red / 64) steps (``batch`` such products in one launch: their
+    tiles count together). 128 x 128 tiles (two blocks an SM) unsplit
     where there are >= 96 of them; else 128 x 128 tiles split up to ~2
     blocks an SM where that gives >= 128 blocks; else 64 x 64 tiles split
     up to ~1 block an SM. Each range keeps >= MIN_SPLIT_STEPS steps. The
@@ -367,13 +369,13 @@ def gemm_plan(rows: int, cols: int, red: int, pieces: int = 1) -> GemmPlan:
     splits, (s + 1) T / splits) of T (the kernel's rule)."""
     steps = pieces * _cdiv(red, STEP)
     most = max(1, steps // MIN_SPLIT_STEPS)
-    tiles = _cdiv(rows, 128) * _cdiv(cols, 128)
+    tiles = batch * _cdiv(rows, 128) * _cdiv(cols, 128)
     if tiles >= 96:
         return GemmPlan(128, 1)
     splits = max(1, min(TARGET_CTAS // tiles, most))
     if tiles * splits >= 128:
         return GemmPlan(128, splits)
-    tiles = _cdiv(rows, 64) * _cdiv(cols, 64)
+    tiles = batch * _cdiv(rows, 64) * _cdiv(cols, 64)
     return GemmPlan(64, max(1, min(SMS // tiles, most)))
 
 
@@ -482,7 +484,8 @@ def _bwd_bf16(dy, x, h, l_factor, r_factor, dx, dl, dr) -> None:
 #: phase 3, "route sweep"; at 12 and 16 zamba2's mlp/down, whose x R^T
 #: reads 25.7 MB of R, went to the tensor cores by 5%)
 DECODE_MAX_M = 8
-DECODE_SLICE = 32     # reduction depth of one lane load (csrc: SLICE)
+DECODE_SLICE = 32     # reduction depth of a warp's lane loads: 4 lanes x 8
+                      # bf16 or f32 values (csrc: 4 lane_values<W>())
 DECODE_WARPS = 8      # warps of a block (csrc: WARPS)
 DECODE_MAX_CLUSTER = 8
 #: static shared memory of a decode launch per n8 tile (csrc: STATIC_SMEM)
@@ -494,10 +497,12 @@ def n8_tiles(m: int) -> int:
     return 1 if m <= 8 else 2 if m <= 16 else 4
 
 
-def decode_smem_bytes(nt: int, k: int) -> int:
-    """Mirror of ``lowrank_decode_smem_bytes``: three bf16 pieces of h, 8
-    nt rows of ``staged_stride(K)``."""
-    return 3 * 8 * nt * (_cdiv(k, 64) * 64 + 32) * 2
+def decode_smem_bytes(nt: int, k: int, slice_: int = DECODE_SLICE) -> int:
+    """Mirror of ``lowrank_decode_smem_bytes`` (and, with ``slice_`` 64, of
+    ``lowrank_q8_decode_smem_bytes``): three bf16 pieces of h, 8 nt rows of
+    ``staged_stride(K)``, whose pad is 32 for 32-deep slices and 8 for the
+    64-deep slices of int8 weights."""
+    return 3 * 8 * nt * (_cdiv(k, 64) * 64 + (32 if slice_ == 32 else 8)) * 2
 
 
 def forward_route(m: int, i: int, k: int, o: int, dtype: torch.dtype,
@@ -537,17 +542,19 @@ def _warps_along(rows: int) -> int:
 
 
 @functools.lru_cache(maxsize=256)
-def decode_plan(m: int, i: int, k: int, o: int) -> DecodePlan:
+def decode_plan(m: int, i: int, k: int, o: int,
+                slice_: int = DECODE_SLICE) -> DecodePlan:
     """The decode route's grid. h = x R^T: where K's row tiles give fewer
     than SMS blocks, I is also cut over a cluster of up to 8 blocks, as
     many as bring the grid to one block an SM, each warp keeping >= 2
-    slices of 32. y = h L^T: O's row tiles alone."""
+    slices (``slice_`` deep: 32 for bf16 and f32 weights, 64 for int8).
+    y = h L^T: O's row tiles alone."""
     wk_h = _warps_along(k)
     blocks = _cdiv(_cdiv(k, 16), DECODE_WARPS // wk_h)
     cluster = 1
     if blocks < SMS:
         cluster = max(1, min(DECODE_MAX_CLUSTER, _cdiv(SMS, blocks),
-                             _cdiv(i, DECODE_SLICE) // (2 * wk_h)))
+                             _cdiv(i, slice_) // (2 * wk_h)))
     return DecodePlan(n8_tiles(m), wk_h, cluster, _warps_along(o))
 
 

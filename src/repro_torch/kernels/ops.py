@@ -134,8 +134,9 @@ def lowrank_matmul_q8(x: torch.Tensor, r_q: torch.Tensor,
     """Quantized factored linear, y = ((x Rq^T) * sR) Lq^T * sL, the entry
     every int8-deployed factored site routes through (``api.bind``). x
     (..., I); Rq int8 (K, I) + sR f32 (K,); Lq int8 (O, K) + sL f32 (O,)
-    -> (..., O) in x's dtype, leading dims flattened. CUDA: one launch of
-    the int8 kernel (``kernels/quant.py``); CPU: the plain version
+    -> (..., O) in x's dtype, leading dims flattened. CUDA: kernel #6 by
+    ``quant.q8_route``'s route, one counted launch (``kernels/quant.py``);
+    CPU: the plain version
     (``ref.lowrank_q8_ref``). Serve-only: no gradient."""
     if _on_cpu(x):
         return ref.lowrank_q8_ref(x, r_q, r_s, l_q, l_s)

@@ -902,3 +902,141 @@ def test_matmul_route_keeps_f32_and_other_strides_on_the_tiled_kernel(cuda):
         want = ref.matmul_ref(aa, bb)
         assert (got.float() - want.float()).abs().max().item() <= \
             _mm_tol(aa, bb, aa.dtype)
+
+
+# ---------------------------------------------------------------------------
+# the routes of kernel #6 (int8) and of kernel #4 (CholeskyQR)
+# ---------------------------------------------------------------------------
+
+QD = kquant.Q8_DECODE_MAX_M
+# (M, I, K, O, dtype, route): the decode route at one row, at 4 (every
+# qwen2-0.5b site; the cluster split of I at mlp/down), at the threshold
+# and at a ragged O, in both dtypes; the tensor-core route just above the
+# threshold, at a prefill's 1,024 rows and at a ragged M; the fused kernel
+# for f32 above the threshold, for widths that are not multiples of 16
+# (Q8_SHAPES' I = 33, 257, K = 5, 40) and for a ragged O above it
+Q8_ROUTE_CASES = [(1, 896, 256, 896, BF, "decode"),
+                  (4, 896, 256, 896, BF, "decode"),
+                  (4, 896, 128, 128, BF, "decode"),
+                  (4, 896, 256, 4864, BF, "decode"),
+                  (4, 4864, 256, 896, BF, "decode"),
+                  (QD, 896, 256, 4864, BF, "decode"),
+                  (3, 64, 32, 17, BF, "decode"),
+                  (3, 96, 16, 48, F32, "decode"),
+                  (QD, 4864, 256, 896, F32, "decode"),
+                  (QD + 1, 896, 256, 896, BF, "tensor_core"),
+                  (37, 96, 32, 48, BF, "tensor_core"),
+                  (1024, 896, 256, 896, BF, "tensor_core"),
+                  (1024, 896, 128, 128, BF, "tensor_core"),
+                  (1024, 896, 256, 4864, BF, "tensor_core"),
+                  (1024, 4864, 256, 896, BF, "tensor_core"),
+                  (37, 896, 256, 896, F32, "fused"),
+                  (4, 33, 5, 17, BF, "fused"),
+                  (130, 257, 40, 129, BF, "fused"),
+                  (64, 96, 32, 20, BF, "fused")]
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("m,i,k,o,dtype,route", Q8_ROUTE_CASES)
+def test_q8_routes_match_plain_version_and_repeat(cuda, m, i, k, o, dtype,
+                                                  route):
+    """Each route of ``lowrank_q8``: the rule picks it, a call counts one
+    ``lowrank_q8`` whatever it launches, two calls give the same bits, and
+    y is held to the plain version as ``test_q8_kernel_matches_plain_
+    version`` holds it (the tensor-core route's two bf16 pieces of h sR add
+    at most 2^-17 of each term, far inside that)."""
+    x, rq, rs, lq, ls = _q8_inputs((m,), i, k, o, cuda, dtype, seed=m + i)
+    assert kquant.q8_route(m, i, k, o, dtype, (x, rq, lq)) == route
+    before = dict(ops.launch_counts())
+    got = [kquant.lowrank_q8(x, rq, rs, lq, ls) for _ in range(2)]
+    torch.cuda.synchronize()
+    after = ops.launch_counts()
+    assert after["lowrank_q8"] == before["lowrank_q8"] + 2
+    assert all(after[n] == before[n] for n in after if n != "lowrank_q8")
+    assert torch.equal(got[0], got[1])
+    assert got[0].shape == (m, o) and got[0].dtype == dtype
+    _close(got[0], ref.lowrank_q8_ref(x, rq, rs, lq, ls), i + k, dtype)
+
+
+@pytest.mark.cuda
+def test_q8_routes_refuse_cpu_tensors_before_any_build(cuda, monkeypatch):
+    """A CPU operand at any route's shape raises in the wrapper's checks,
+    before a library is built or loaded, and counts nothing."""
+    from repro_torch.kernels import _build
+
+    def no_build(source):
+        raise AssertionError(f"built {source}")
+
+    monkeypatch.setattr(_build, "library", no_build)
+    before = dict(ops.launch_counts())
+    for m, i, k, o, dtype, _ in Q8_ROUTE_CASES:
+        x, rq, rs, lq, ls = _q8_inputs((m,), i, k, o, cuda, dtype)
+        with pytest.raises(ValueError, match="CUDA tensors only"):
+            kquant.lowrank_q8(x, rq, rs.cpu(), lq, ls)
+    y = torch.randn(2, 64, 32, device=cuda)
+    with pytest.raises(ValueError, match="CUDA tensors only"):
+        kqr.choleskyqr(y.cpu())
+    assert ops.launch_counts() == before
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("nt", [1, 2, 4])
+@pytest.mark.parametrize("k", [16, 128, 256, 896])
+def test_q8_decode_smem_formula_matches_the_source(cuda, nt, k):
+    assert kquant._routes_lib().lowrank_q8_decode_smem_bytes(nt, k) == \
+        lowrank.decode_smem_bytes(nt, k, kquant.Q8_SLICE)
+
+
+# (B, M, K, dtype, (factor, apply)): the stacked sites of qwen2-0.5b (bf16:
+# the blocked factor and the tensor-core apply; f32: the FMA apply), the
+# ragged stacks of GRAM_SHAPES, the largest blocked rank, and two ranks
+# above it on the global factor
+QR_ROUTE_CASES = [(24, 896, 256, BF, ("blocked", "tensor_core")),
+                  (24, 128, 128, BF, ("blocked", "tensor_core")),
+                  (24, 4864, 256, BF, ("blocked", "tensor_core")),
+                  (24, 896, 256, F32, ("blocked", "fma")),
+                  (3, 100, 40, BF, ("blocked", "tensor_core")),
+                  (3, 100, 40, F32, ("blocked", "fma")),
+                  (2, 37, 5, BF, ("blocked", "fma")),
+                  (2, 1000, 288, F32, ("blocked", "fma")),
+                  (2, 1000, 296, F32, ("global", "fma")),
+                  (1, 1000, 320, BF, ("global", "fma"))]
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("b,m,k,dtype,route", QR_ROUTE_CASES)
+def test_choleskyqr_routes_match_plain_version_and_repeat(cuda, b, m, k,
+                                                          dtype, route):
+    """Each route of ``choleskyqr``: the rule picks it, a call counts one
+    ``choleskyqr`` and one ``gram``, two calls give the same bits, and Q,
+    mix and Q^T Q are held as ``test_choleskyqr_kernel_matches_plain_
+    version`` holds them."""
+    y = torch.randn(b, m, k, generator=torch.Generator().manual_seed(k))
+    y = y.to(cuda, dtype)
+    q0 = torch.empty_like(y)
+    assert kqr.qr_route(k, dtype, (y, q0)) == route
+    before = ops.launch_counts()
+    got = [kqr.choleskyqr(y, with_retry=True) for _ in range(2)]
+    torch.cuda.synchronize()
+    after = ops.launch_counts()
+    assert after["choleskyqr"] == before["choleskyqr"] + 2
+    assert after["gram"] == before["gram"] + 2
+    for a, c in zip(got[0], got[1]):
+        assert torch.equal(a, c)
+    q, mix, retried = got[0]
+    assert not retried.any()
+    want_q, want_mix = ref.choleskyqr_ref(y)
+    qs = want_q.float().abs().max().item()
+    tol_q = 1e-3 * qs if dtype == torch.float32 else 2 * 2.0 ** -7 * qs
+    assert (q.float() - want_q.float()).abs().max().item() <= tol_q
+    ms = want_mix.abs().max().item()
+    assert (mix - want_mix).abs().max().item() <= 1e-3 * ms
+    ortho = orthonormality_error(q).max().item()
+    assert ortho <= (1e-3 if dtype == torch.float32 else 2.0 ** -7 * k)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("k", [5, 32, 128, 256, 288])
+def test_choleskyqr_blocked_smem_formula_matches_the_source(cuda, k):
+    assert kqr._blocked_lib().choleskyqr_blocked_smem_bytes(k) == \
+        kqr.blocked_smem_bytes(k)
