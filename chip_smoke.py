@@ -33,7 +33,9 @@ Phases, in order; any failure raises and the script exits non-zero:
    f32, and time kernel, plain version, library yardstick and bound;
    bf16 sketch and backward take the tensor-core route (bf16 pieces of
    h and dh), f32 the FMA kernels; each shape prints its route and the
-   error margin (tolerance over error);
+   error margin (tolerance over error); the Gram's route and plan per
+   stack (bf16: the upper-triangle tiles on the tensor cores), G exactly
+   symmetric and the same bits in two calls;
 7. smoke training parity: qwen2 smoke, ``wsi``, AdamW, refresh every 2,
    4 steps from one seed and one batch stream on the card and on the CPU
    (f32); losses and final factors compared, launch counts exact;
@@ -87,8 +89,14 @@ Phases, in order; any failure raises and the script exits non-zero:
    its plain version on the reference's sweep (ragged 100, GQA, windows,
    dh 16-128, causal and not; f32 and bf16) and the main paths' shapes
    (ViT-B/16 at batch 64, f32, bidirectional; qwen2-0.5b's training rows
-   and one prefill bucket, bf16, causal); time kernel, plain version,
-   ``scaled_dot_product_attention`` and bound; one backward through
+   and one prefill bucket, and zamba2-7b's 4 x 256 prefill bucket, bf16,
+   causal); each row's route (bf16, or f32 in exact bf16 pieces) and
+   plan (``flash_attention.flash_plan``); time kernel, plain version,
+   ``scaled_dot_product_attention`` and bound, and a headline per path;
+   a sweep of every plan at the paths' shapes and at shapes on the other
+   side of each of ``flash_plan``'s thresholds (where they come from),
+   each plan held on fresh inputs with its output's memory NaN first;
+   one backward through
    ``_FlashAttention`` against autograd of the plain version; the tiled
    backward (above 2,048 tokens) at qwen2-0.5b's heads, bf16, causal: at
    4,096 tokens against autograd of the plain version, at 32,768 tokens
@@ -175,6 +183,8 @@ from repro_torch.core.orthogonal import (  # noqa: E402
     orthonormality_error,
 )
 from repro_torch.data.synthetic import SyntheticLM  # noqa: E402
+from repro_torch.kernels import flash_attention as kflash  # noqa: E402
+from repro_torch.kernels import gram as kgram  # noqa: E402
 from repro_torch.kernels import lowrank as klowrank  # noqa: E402
 from repro_torch.kernels import matmul_tiled as kmm  # noqa: E402
 from repro_torch.kernels import qr as kqr  # noqa: E402
@@ -1086,12 +1096,18 @@ def phase_train_kernels(card: str) -> dict:
         for dtype in (torch.bfloat16, torch.float32):
             y = well_conditioned(b, o, k, dtype, gen)
             tag = f"{name} ({b},{o},{k}) {str(dtype)[6:]}"
-            g = ops.gram(y)
-            torch.cuda.synchronize()
-            worst["gram"] = max(worst["gram"], held(
-                f"gram {tag}", g, ref.gram_ref(y), o, torch.float32))
+            g_route = kgram.gram_route(dtype, k, (y,))
+            g_plan = (tuple(kgram.gram_plan(b, o, k))
+                      if g_route == "tensor_core" else None)
+            g, = held_twice_all(f"gram {tag}", lambda t: (ops.gram(t),),
+                                (y,))
+            e = held(f"gram {tag}", g, ref.gram_ref(y), o, torch.float32)
+            worst["gram"] = max(worst["gram"], e)
             if not torch.equal(g, g.mT):
                 raise AssertionError(f"gram {tag}: G is not symmetric")
+            print(f"[kernel] gram {tag} route={g_route} plan (tile, splits)"
+                  f"={g_plan}: err {e:.2e}, G == G^T exactly, two calls "
+                  "bit-equal", flush=True)
             route = "/".join(kqr.qr_route(k, dtype, (y, y)))
             q, mix = held_twice_all(f"choleskyqr {tag} ({route})",
                                     kqr.choleskyqr, (y,))
@@ -1131,9 +1147,10 @@ def phase_train_kernels(card: str) -> dict:
             nb, fl = gram_work(b, o, k, dtype)
             row = timed(f"gram       {name:11s} ({b},{o},{k})",
                         (ops.gram, ref.gram_ref, library_gram), sets, nb,
-                        fl, dtype, card)
+                        fl, dtype, card, extra=f" route={g_route}")
             rows.append(dict(row, kernel="gram", site=name, M=o,
-                             dtype=str(dtype)[6:]))
+                             dtype=str(dtype)[6:], route=g_route,
+                             plan=g_plan))
             mult = SITE_COUNT[name]
             if dtype == torch.bfloat16:
                 add("gram", mult, row, nb, fl)
@@ -2360,10 +2377,14 @@ FLASH_SWEEP = ((2, 128, 4, 2, 32, True, 0), (1, 256, 4, 4, 64, True, 64),
                (1, 64, 8, 2, 96, True, 0))
 # the main paths' shapes, each in its own dtype: ViT-B/16 training at
 # batch 64 (phase 15), qwen2-0.5b training rows (phases 8, 12), one
-# prefill bucket of phase 5 (2 prompts in the 256 bucket)
+# prefill bucket of phase 5 (2 prompts in the 256 bucket), zamba2-7b's
+# shared attention at the 4 x 256 prefill bucket where #8 is timed (phase
+# 18: 32 heads of dh 112)
 FLASH_PATH = {"vit": (64, 197, 12, 12, 64, False, 0, torch.float32),
               "qwen2_train": (4, 512, 14, 2, 64, True, 0, torch.bfloat16),
-              "qwen2_prefill": (2, 256, 14, 2, 64, True, 0, torch.bfloat16)}
+              "qwen2_prefill": (2, 256, 14, 2, 64, True, 0, torch.bfloat16),
+              "zamba2_prefill": (4, 256, 32, 32, 112, True, 0,
+                                 torch.bfloat16)}
 VIT_BATCH, VIT_PATCHES, VIT_PATCH_DIM, VIT_CLASSES = 64, 196, 768, 10
 VIT_STEPS = 10
 # Fig. 5's rows (scope "mlp", the paper's PAPER_WASI) and Tab. 1's
@@ -2391,6 +2412,24 @@ def flash_work(b, s, h, kvh, dh, causal, window, dtype):
     item = itemsize(dtype)
     nbytes = (2 * b * s * h * dh + 2 * b * s * kvh * dh) * item
     return nbytes, 4 * b * h * visible_pairs(s, s, causal, window) * dh
+
+
+def flash_route(dtype) -> str:
+    """The kernel's route for a dtype: bf16 operands as they are, or f32
+    operands as exact bf16 pieces (``flash_attention.PIECES``)."""
+    return "bf16" if dtype == torch.bfloat16 else "f32_pieces"
+
+
+def flash_bound(nbytes, flops, dtype):
+    """The bound of a row: bytes at the HBM rate against the operations
+    the kernel runs at their peak: bf16 flops on the tensor cores, or, for
+    f32, the P (P + 1) / 2 products of pieces on the bf16 tensor cores
+    (the f32 function's CUDA-core bound, ``bound_of(..., torch.float32)``,
+    is printed beside it)."""
+    if dtype == torch.float32:
+        p = kflash.PIECES
+        flops = flops * p * (p + 1) // 2
+    return bound_of(nbytes, flops, torch.bfloat16)
 
 
 def flash_tol(want, dtype) -> float:
@@ -2443,6 +2482,7 @@ def phase_flash_kernel(card: str) -> dict:
     rows, worst = [], 0.0
     for name, b, s, h, kvh, dh, causal, window, dtype in cases:
         (q, k, v), = flash_inputs(b, s, h, kvh, dh, dtype, gen)
+        nan_before(q.shape, dtype)
         got = ops.flash_attention(q, k, v, causal=causal, window=window)
         torch.cuda.synchronize()
         want = ref.flash_attention_ref(q, k, v, causal=causal, window=window)
@@ -2467,18 +2507,28 @@ def phase_flash_kernel(card: str) -> dict:
 
         k_ms, p_ms = time_ms(kern, sets), time_ms(plain, sets)
         l_ms = time_ms(library_flash(causal, window, s), sets)
-        b_ms, b_by = bound_of(nbytes, flops, dtype)
-        rows.append(dict(case=name, B=b, S=s, H=h, KVH=kvh, dh=dh,
-                         causal=causal, window=window, dtype=str(dtype)[6:],
-                         kernel_ms=k_ms, plain_ms=p_ms, library_ms=l_ms,
-                         bound_ms=b_ms, bound_by=b_by, max_abs_err=err,
-                         tol=tol))
-        print(f"[kernel] flash_attention {name:13s} B={b} S={s} H={h}/{kvh} "
+        b_ms, b_by = flash_bound(nbytes, flops, dtype)
+        plan = kflash.flash_plan(b, s, s, h, dh, dtype)
+        route = flash_route(dtype)
+        row = dict(case=name, B=b, S=s, H=h, KVH=kvh, dh=dh, causal=causal,
+                   window=window, dtype=str(dtype)[6:], route=route,
+                   plan=plan._asdict(), kernel_ms=k_ms, plain_ms=p_ms,
+                   library_ms=l_ms, bound_ms=b_ms, bound_by=b_by,
+                   max_abs_err=err, tol=tol)
+        extra = ""
+        if dtype == torch.float32:
+            row["f32_cuda_core_bound_ms"] = bound_of(nbytes, flops,
+                                                     dtype)[0]
+            extra = (" f32_cuda_core_bound_ms="
+                     f"{row['f32_cuda_core_bound_ms']:.5f}")
+        rows.append(row)
+        print(f"[kernel] flash_attention {name:14s} B={b} S={s} H={h}/{kvh} "
               f"dh={dh} causal={int(causal)} window={window} "
-              f"{str(dtype)[6:]:8s} err={err:.2e} (tol {tol:.2e}) "
-              f"kernel_ms={k_ms:.4f} plain_ms={p_ms:.4f} library_ms="
-              f"{l_ms:.4f} bound_ms={b_ms:.5f} ({b_by}) | {card}",
-              flush=True)
+              f"{str(dtype)[6:]:8s} route={route} plan=(bq {plan.bq}, ks "
+              f"{plan.ks}, stages {plan.stages}, bk {plan.bk}) err={err:.2e} (tol "
+              f"{tol:.2e}) kernel_ms={k_ms:.4f} plain_ms={p_ms:.4f} "
+              f"library_ms={l_ms:.4f} bound_ms={b_ms:.5f} ({b_by}){extra} | "
+              f"{card}", flush=True)
         del sets
     # one backward through _FlashAttention (kernel forward, plain f32
     # recompute) against autograd of the plain version, ViT's heads at
@@ -2503,14 +2553,99 @@ def phase_flash_kernel(card: str) -> dict:
           f"scale (tol 1e-5); 1 forward launch, none in the backward | "
           f"{card}", flush=True)
     tiled = tiled_backward(gen, card)
-    head = next(r for r in rows if r["case"] == "vit")
+    heads = {}
+    for path in FLASH_PATH:
+        r = next(r for r in rows if r["case"] == path)
+        heads[path] = dict(ms=r["kernel_ms"], plain_ms=r["plain_ms"],
+                           library_ms=r["library_ms"],
+                           bound_ms=r["bound_ms"], bound_by=r["bound_by"])
+        print(f"[kernel] flash_attention headline {path}: kernel_ms="
+              f"{r['kernel_ms']:.4f} plain_ms={r['plain_ms']:.4f} "
+              f"library_ms={r['library_ms']:.4f} (kernel / library "
+              f"{r['kernel_ms'] / r['library_ms']:.2f}x) bound_ms="
+              f"{r['bound_ms']:.5f} ({r['bound_by']}) route={r['route']} | "
+              f"{card}", flush=True)
     return dict(rows=rows, worst=worst, backward_rel_err=bwd_err,
-                tiled_backward=tiled,
-                headline=dict(ms=head["kernel_ms"],
-                              plain_ms=head["plain_ms"],
-                              library_ms=head["library_ms"],
-                              bound_ms=head["bound_ms"],
-                              bound_by=head["bound_by"]))
+                tiled_backward=tiled, sweep=flash_sweep(gen, card),
+                path_headlines=heads, headline=heads["vit"])
+
+
+# sweep-only shapes on the other side of flash_plan's thresholds (blocks
+# counted in 64-row query tiles, f32 in 128-row ones): bf16, qwen2-0.5b
+# prompts of 4,096 tokens (the tiled backward's forward below) and
+# prefill buckets of 3, 4 and 5 x 256 (168, 224 and 280 blocks, between
+# the paths' 112 and 448); f32, ViT-B/16 at batch 4, 8 and 16 (96, 192 and
+# 384 blocks) and phase 14's vit-smoke attention (32 blocks)
+FLASH_SWEEP_EXTRA = {
+    "qwen2_4096": (1, 4096, 14, 2, 64, True, 0, torch.bfloat16),
+    "qwen2_3x256": (3, 256, 14, 2, 64, True, 0, torch.bfloat16),
+    "qwen2_4x256": (4, 256, 14, 2, 64, True, 0, torch.bfloat16),
+    "qwen2_5x256": (5, 256, 14, 2, 64, True, 0, torch.bfloat16),
+    "vit_b4": (4, 197, 12, 12, 64, False, 0, torch.float32),
+    "vit_b8": (8, 197, 12, 12, 64, False, 0, torch.float32),
+    "vit_b16": (16, 197, 12, 12, 64, False, 0, torch.float32),
+    "vit_smoke": (8, 17, 4, 4, 16, False, 0, torch.float32)}
+
+
+def nan_before(shape, dtype) -> None:
+    """Leave NaN where the next tensor of ``shape`` is allocated: the
+    allocator's free segments go back to the driver, and a NaN tensor of
+    that size is made and freed, so the next allocation of the size takes
+    its block. An output a kernel leaves unwritten then reads as NaN, not
+    as the values an earlier call left there."""
+    torch.cuda.synchronize()
+    torch.cuda.empty_cache()
+    torch.full(shape, float("nan"), dtype=dtype, device="cuda")
+
+
+def plan_error(shape, plan, gen) -> tuple[float, float]:
+    """#7 under one plan on fresh inputs, its output's memory NaN first:
+    (max abs error against the plain version, tolerance). New inputs and
+    the NaN keep a plan that writes nothing from passing on an earlier
+    call's output."""
+    b, s, h, kvh, dh, causal, window, dtype = shape
+    (q, k, v), = flash_inputs(b, s, h, kvh, dh, dtype, gen)
+    want = ref.flash_attention_ref(q, k, v, causal=causal, window=window)
+    nan_before(q.shape, dtype)
+    got = kflash.flash_attention_cuda(q, k, v, causal=causal, window=window,
+                                      plan=plan)
+    err = (got.float() - want.float()).abs().max().item()
+    return err, flash_tol(want, dtype)
+
+
+def flash_sweep(gen, card: str) -> list:
+    """Every instantiated plan (``flash_attention.plans``: query tile 64,
+    or 128 in f32; one or two key groups and ring depth 2 or 3 in bf16) at
+    each path shape and ``FLASH_SWEEP_EXTRA``, each held to the plain
+    version (``plan_error``) and timed (CUDA graphs): where
+    ``flash_plan``'s thresholds come from."""
+    out = []
+    for path, shape in {**FLASH_PATH, **FLASH_SWEEP_EXTRA}.items():
+        b, s, h, kvh, dh, causal, window, dtype = shape
+        nbytes, _ = flash_work(b, s, h, kvh, dh, causal, window, dtype)
+        sets = flash_inputs(b, s, h, kvh, dh, dtype, gen,
+                            max(1, min(24, int(120e6 // nbytes) + 1)))
+        chosen = kflash.flash_plan(b, s, s, h, dh, dtype)
+        times = {}
+        for plan in kflash.plans(dh, dtype):
+            def kern(q_, k_, v_, plan=plan):
+                return kflash.flash_attention_cuda(q_, k_, v_, causal=causal,
+                                                   window=window, plan=plan)
+            err, tol = plan_error(shape, plan, gen)
+            if not err <= tol:
+                raise AssertionError(f"flash_attention {path} {plan}: err "
+                                     f"{err:.3e} > tol {tol:.3e}")
+            times[(plan.bq, plan.ks, plan.stages)] = time_ms(kern, sets)
+        best = min(times, key=times.get)
+        pick = (chosen.bq, chosen.ks, chosen.stages)
+        print(f"[sweep] flash_attention {path} ms by (bq, ks, stages): "
+              + ", ".join(f"{p}={t:.4f}" for p, t in times.items())
+              + f"; flash_plan {pick} {times[pick]:.4f}, fastest {best} | "
+              f"{card}", flush=True)
+        out.append(dict(path=path, chosen=list(pick), fastest=list(best),
+                        ms={str(p): t for p, t in times.items()}))
+        del sets
+    return out
 
 
 def tiled_backward(gen, card: str) -> dict:
@@ -3356,6 +3491,8 @@ def main() -> None:
                        "matmul_headline": mm["headline"], "table2": table2,
                        "flash_rows": fk["rows"],
                        "flash_headline": fk["headline"],
+                       "flash_path_headlines": fk["path_headlines"],
+                       "flash_sweep": fk["sweep"],
                        "flash_backward_rel_err": fk["backward_rel_err"],
                        "flash_tiled_backward": fk["tiled_backward"],
                        "vit_smoke": vit_smoke, "vit_fig5": vit,

@@ -67,6 +67,13 @@
 //   * BATCH (kernel #4's apply, Q = Y X^T over a stack): grid.z is batch x
 //     splits; operand and output pointers step by a_bs, b_bs and c_bs
 //     elements per batch index.
+//   * TRI (kernel #5, the Gram G = Y^T Y over a stack, with BATCH): C is
+//     symmetric, so only the T (T + 1) / 2 tiles (i, j), i <= j, of its
+//     T x T grid of square tiles run (grid.x enumerates them row by row),
+//     and the F32 epilogue stores each value at (row, col) and at (col,
+//     row) from the same register; a diagonal tile stores its upper half
+//     so. C is exactly symmetric by construction, at half the flops. It
+//     adds no field: the tile map needs only N.
 // Their fields ride in ArgsX after the Args every product reads.
 //
 // Requirements (checked by the wrappers, kernels/lowrank.py): every extent
@@ -272,14 +279,15 @@ __device__ __forceinline__ void i8x4_bf16(uint32_t v, uint32_t& lo,
 // thread), steps of depth BK, a ring of STAGES steps.
 template <int BM_, int BN_, int WARPS_M, int WARPS_N, int MIN_BLOCKS_,
           int BK_, int STAGES_, bool A_K_, bool B_K_, bool B_I8_ = false,
-          bool BATCH_ = false>
+          bool BATCH_ = false, bool TRI_ = false>
 struct Config {
   static constexpr int BM = BM_, BN = BN_, WN = WARPS_N;
   static constexpr int MIN_BLOCKS = MIN_BLOCKS_;
   static constexpr int BK = BK_, STAGES = STAGES_;
   static constexpr bool A_K = A_K_, B_K = B_K_;
-  static constexpr bool B_I8 = B_I8_, BATCH = BATCH_;
+  static constexpr bool B_I8 = B_I8_, BATCH = BATCH_, TRI = TRI_;
   static_assert(!B_I8 || B_K, "an int8 B is k-contiguous");
+  static_assert(!TRI || (BATCH && BM == BN), "a symmetric C: square tiles");
   // the kernel's parameters
   using A = std::conditional_t<B_I8 || BATCH, ArgsX, Args>;
   static constexpr int THREADS = 32 * WARPS_M * WARPS_N;
@@ -306,6 +314,19 @@ __device__ __forceinline__ void store_pair(const typename C::A& ax, int bi,
     v0 *= ax.col_scale[col];
     v1 *= ax.col_scale[col + 1];
   }
+  if constexpr (C::TRI) {
+    // (row, col) of the upper triangle, and its mirror (col, row)
+    float* c = g.c32 + static_cast<size_t>(bi) * ax.c_bs;
+    if (row <= col) {
+      c[static_cast<size_t>(row) * g.N + col] = v0;
+      c[static_cast<size_t>(col) * g.N + row] = v0;
+    }
+    if (row <= col + 1) {
+      c[static_cast<size_t>(row) * g.N + col + 1] = v1;
+      c[static_cast<size_t>(col + 1) * g.N + row] = v1;
+    }
+    return;
+  }
   size_t at = static_cast<size_t>(row) * g.N + col;
   if constexpr (C::BATCH) at += static_cast<size_t>(bi) * ax.c_bs;
   if (g.mode == BF16) {
@@ -327,7 +348,22 @@ __device__ __forceinline__ void store_pair(const typename C::A& ax, int bi,
   }
 }
 
-// grid (ceil(N / BN), ceil(M / BM), (batch x) splits)
+// TRI: the origin of upper-triangle tile t of a T x T grid (T = ceil(N /
+// BN)), tiles (i, j >= i) numbered row by row.
+template <class C>
+__device__ __forceinline__ void tri_tile(int N, int t, int& m0, int& n0) {
+  const int tiles = (N + C::BN - 1) / C::BN;
+  int i = 0;
+  while (t >= tiles - i) {
+    t -= tiles - i;
+    ++i;
+  }
+  m0 = i * C::BM;
+  n0 = (i + t) * C::BN;
+}
+
+// grid (ceil(N / BN), ceil(M / BM), (batch x) splits); TRI: (T (T + 1) /
+// 2, 1, batch x splits)
 template <class C>
 __global__ void __launch_bounds__(C::THREADS, C::MIN_BLOCKS)
     gemm_kernel(const typename C::A ax) {
@@ -335,7 +371,8 @@ __global__ void __launch_bounds__(C::THREADS, C::MIN_BLOCKS)
   extern __shared__ __align__(16) uint16_t smem[];
   const int tid = threadIdx.x, lane = tid % 32, warp = tid / 32;
   const int wm = warp / C::WN, wn = warp % C::WN;
-  const int m0 = blockIdx.y * C::BM, n0 = blockIdx.x * C::BN;
+  int m0 = blockIdx.y * C::BM, n0 = blockIdx.x * C::BN;
+  if constexpr (C::TRI) tri_tile<C>(g.N, blockIdx.x, m0, n0);
   const int ksteps = (g.K + C::BK - 1) / C::BK;
   const int total = g.pieces * ksteps;
   int s = blockIdx.z, bi = 0;
@@ -502,6 +539,9 @@ __global__ void reduce_splits(const typename C::A ax) {
                        threadIdx.x);
        e < all; e += 2 * static_cast<size_t>(gridDim.x) * blockDim.x) {
     const size_t bi = C::BATCH ? e / mn : 0, r = C::BATCH ? e % mn : e;
+    // TRI: only the upper triangle's partials were written
+    if constexpr (C::TRI)
+      if (r / g.N > r % g.N + 1) continue;
     float v0 = 0.f, v1 = 0.f;
     for (int s = 0; s < g.splits; ++s) {
       const float2 p = *reinterpret_cast<const float2*>(
@@ -553,8 +593,12 @@ int launch(const typename C::A& ax, cudaStream_t st) {
   }
   int batch = 1;
   if constexpr (C::BATCH) batch = ax.batch > 1 ? ax.batch : 1;
-  const dim3 grid((g.N + C::BN - 1) / C::BN, (g.M + C::BM - 1) / C::BM,
-                  batch * g.splits);
+  dim3 grid((g.N + C::BN - 1) / C::BN, (g.M + C::BM - 1) / C::BM,
+            batch * g.splits);
+  if constexpr (C::TRI) {
+    grid.x = grid.x * (grid.x + 1) / 2;
+    grid.y = 1;
+  }
   gemm_kernel<C><<<grid, C::THREADS, C::SMEM, st>>>(ax);
   cudaError_t err = cudaGetLastError();
   if (err != cudaSuccess || g.splits == 1) return static_cast<int>(err);

@@ -257,12 +257,68 @@ def test_gram_kernel_matches_plain_version(cuda, b, m, k, dtype):
     y = y.to(cuda, dtype)
     if b == 1:
         y = y[0]
+    print(f"gram ({b}, {m}, {k}) {dtype}: route "
+          f"{kgram.gram_route(dtype, k, (y,))}")
     before = ops.launch_counts()["gram"]
     g = ops.gram(y)
     torch.cuda.synchronize()
     assert ops.launch_counts()["gram"] == before + 1
     _close(g, ref.gram_ref(y), m)
     assert torch.equal(g, g.mT)          # exactly symmetric
+
+
+@pytest.mark.cuda
+def test_gram_shapes_cover_both_routes(cuda):
+    """GRAM_SHAPES in both dtypes reach both routes of ``gram_route``:
+    the tensor cores (bf16, K a multiple of 8) and the f32 FMAs."""
+    routes = {}
+    for b, m, k in GRAM_SHAPES:
+        for dtype in (torch.float32, torch.bfloat16):
+            y = torch.zeros(b, m, k, device=cuda, dtype=dtype)
+            routes[(b, m, k, str(dtype))] = kgram.gram_route(dtype, k, (y,))
+    print(routes)
+    assert set(routes.values()) == {"tensor_core", "fma"}
+    assert routes[(2, 37, 5, "torch.bfloat16")] == "fma"
+    assert routes[(24, 4864, 256, "torch.bfloat16")] == "tensor_core"
+
+
+# the four stacked sites of a qwen2-0.5b refresh (repeat, O, K)
+GRAM_STACKS = [(24, 896, 256), (24, 128, 128), (24, 4864, 256),
+               (24, 896, 256)]
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("b,m,k", GRAM_STACKS)
+def test_gram_main_path_stacks_repeat_and_are_symmetric(cuda, b, m, k):
+    """At the refresh's stacks (bf16: the tensor-core route's upper-triangle
+    tiles): two calls give the same bits, G is exactly symmetric, and it
+    is held to the plain version as ``test_gram_kernel_matches_plain_
+    version`` holds it."""
+    y = torch.randn(b, m, k, generator=torch.Generator().manual_seed(m))
+    y = y.to(cuda, torch.bfloat16)
+    assert kgram.gram_route(torch.bfloat16, k, (y,)) == "tensor_core"
+    g, again = ops.gram(y), ops.gram(y)
+    torch.cuda.synchronize()
+    assert torch.equal(g, again)
+    assert torch.equal(g, g.mT)
+    _close(g, ref.gram_ref(y), m)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("b,m,k,plan", [
+    (2, 700, 136, (64, 2)), (1, 2048, 256, (64, 8)), (3, 100, 40, (64, 1)),
+    (2, 896, 256, (64, 3))])
+def test_gram_tensor_core_plans(cuda, b, m, k, plan):
+    """The tensor-core route unsplit and split (``gram_plan``'s choice at
+    these stacks): G held to the plain version, exactly symmetric (a
+    ragged K of 136 and 40 leaves partial tiles on the diagonal)."""
+    assert tuple(kgram.gram_plan(b, m, k)) == plan
+    y = torch.randn(b, m, k, generator=torch.Generator().manual_seed(k))
+    y = y.to(cuda, torch.bfloat16)
+    g = kgram.gram(y)
+    torch.cuda.synchronize()
+    assert torch.equal(g, g.mT)
+    _close(g, ref.gram_ref(y), m)
 
 
 @pytest.mark.cuda
@@ -585,7 +641,7 @@ FLASH_CASES = [(2, 128, 4, 2, 32, True, 0), (1, 256, 4, 4, 64, True, 64),
                (1, 64, 8, 2, 96, True, 0), (4, 197, 12, 12, 64, False, 0),
                (4, 512, 14, 2, 64, True, 0), (2, 70, 4, 2, 8, True, 0),
                (1, 130, 3, 1, 24, False, 0), (1, 80, 2, 2, 256, True, 0),
-               (2, 150, 4, 2, 40, False, 33)]
+               (2, 150, 4, 2, 40, False, 33), (1, 256, 32, 32, 112, True, 0)]
 
 
 def flash_tol(want: torch.Tensor, dtype) -> float:
@@ -605,6 +661,16 @@ def _qkv(b, s, h, kvh, dh, device, dtype, seed=0):
                  for n in (h, kvh, kvh))
 
 
+def _nan_before(shape, dtype):
+    """NaN where the next tensor of ``shape`` is allocated (free segments
+    back to the driver, a NaN tensor of the size made and freed): an
+    output a kernel leaves unwritten reads as NaN, not as an earlier
+    call's values."""
+    torch.cuda.synchronize()
+    torch.cuda.empty_cache()
+    torch.full(shape, float("nan"), dtype=dtype, device="cuda")
+
+
 @pytest.mark.cuda
 @pytest.mark.parametrize("b,s,h,kvh,dh,causal,window", FLASH_CASES)
 @pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
@@ -621,6 +687,18 @@ def test_flash_kernel_matches_plain_version(cuda, b, s, h, kvh, dh, causal,
     assert err <= flash_tol(want, dtype), err
     assert torch.equal(got, ops.flash_attention(q, k, v, causal=causal,
                                                 window=window))
+    # every plan instantiated at this dh, not only flash_plan's choice,
+    # each on fresh inputs with its output's memory NaN first
+    for i, plan in enumerate(kflash.plans(dh, dtype)):
+        q, k, v = _qkv(b, s, h, kvh, dh, cuda, dtype, seed=s + dh + 1 + i)
+        want = ref.flash_attention_ref(q, k, v, causal=causal, window=window)
+        _nan_before(q.shape, dtype)
+        o = kflash.flash_attention_cuda(q, k, v, causal=causal,
+                                        window=window, plan=plan)
+        err = (o.float() - want.float()).abs().max().item()
+        assert err <= flash_tol(want, dtype), (plan, err)
+        assert torch.equal(o, kflash.flash_attention_cuda(
+            q, k, v, causal=causal, window=window, plan=plan))
 
 
 @pytest.mark.cuda
@@ -630,13 +708,7 @@ def test_flash_kernel_reads_strided_views(cuda, dtype):
     S, dh) tensor permuted to (B, S, H, dh), and a storage offset of one
     element (no 16-byte loads): the same results as on contiguous
     copies."""
-    g = torch.Generator().manual_seed(3)
-    qkv = torch.randn(2, 90, 4 + 2 + 2, 32, generator=g).to(cuda, dtype)
-    q, k, v = qkv[:, :, :4], qkv[:, :, 4:6], qkv[:, :, 6:]
-    kt = torch.randn(2, 2, 90, 32, generator=g).to(cuda, dtype)
-    off = torch.randn(2 * 90 * 2 * 32 + 1, generator=g).to(cuda, dtype)
-    vo = off[1:].view(2, 90, 2, 32)
-    for kk, vv in ((k, v), (kt.permute(0, 2, 1, 3), vo)):
+    for q, kk, vv in _strided_views(cuda, dtype, 3):
         got = ops.flash_attention(q, kk, vv, causal=True)
         want = ops.flash_attention(q.contiguous(), kk.contiguous(),
                                    vv.contiguous(), causal=True)
@@ -645,6 +717,43 @@ def test_flash_kernel_reads_strided_views(cuda, dtype):
             flash_tol(ref_o, dtype)
         assert (got.float() - ref_o.float()).abs().max().item() <= \
             flash_tol(ref_o, dtype)
+    # every plan reads the views (the ring's plain loads where rows are
+    # not 16-byte aligned), each on fresh inputs with its output's memory
+    # NaN first
+    for i, plan in enumerate(kflash.plans(32, dtype)):
+        for q, kk, vv in _strided_views(cuda, dtype, 4 + i):
+            ref_o = ref.flash_attention_ref(q, kk, vv, causal=True)
+            _nan_before(q.shape, dtype)
+            o = kflash.flash_attention_cuda(q, kk, vv, causal=True,
+                                            plan=plan)
+            assert (o.float() - ref_o.float()).abs().max().item() <= \
+                flash_tol(ref_o, dtype), plan
+
+
+def _strided_views(cuda, dtype, seed):
+    """(q, k, v) as views: q, k and v sliced out of one wider tensor; q
+    beside k permuted from (B, H, S, dh) and v at a storage offset of one
+    element (no 16-byte loads)."""
+    g = torch.Generator().manual_seed(seed)
+    qkv = torch.randn(2, 90, 4 + 2 + 2, 32, generator=g).to(cuda, dtype)
+    q, k, v = qkv[:, :, :4], qkv[:, :, 4:6], qkv[:, :, 6:]
+    kt = torch.randn(2, 2, 90, 32, generator=g).to(cuda, dtype)
+    off = torch.randn(2 * 90 * 2 * 32 + 1, generator=g).to(cuda, dtype)
+    vo = off[1:].view(2, 90, 2, 32)
+    return [(q, k, v), (q, kt.permute(0, 2, 1, 3), vo)]
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+@pytest.mark.parametrize("dh", [16, 64, 112, 256])
+def test_flash_smem_formula_matches_the_source(cuda, dh, dtype):
+    lib = kflash._lib()
+    code = 1 if dtype == torch.bfloat16 else 0
+    for plan in kflash.plans(dh, dtype):
+        assert lib.flash_attn_smem_bytes(plan.dp, code, plan.bq,
+                                         plan.stages, plan.ks) == \
+            kflash.flash_smem_bytes(plan.dp, dtype, plan.bq, plan.stages,
+                                    plan.ks)
 
 
 @pytest.mark.cuda
