@@ -115,9 +115,14 @@ Phases, in order; any failure raises and the script exits non-zero:
    counts (12 of #7 per forward, none in the backward);
 16. SSD scan: hold ``ssd_scan`` (kernel #8) against its plain version,
    y and the final state, on the reference's sweep, ragged S and the
-   path's shapes (zamba2-7b's 4 x 256 prefill bucket, one 4,096-token
-   prompt); time kernel, plain version and bound (no library call
-   computes this function);
+   path's shapes (zamba2-7b's 4 x 256 prefill bucket, the 700-token
+   prompt's 768 bucket, one 4,096-token prompt), in f32 and, at the
+   path's shapes, with bf16 u, B and C (B and C as row views, as the
+   mixer hands them over; the plain version reads the same values in
+   f32); each row's route (``ssd_route``), two calls bit-equal; time
+   kernel, plain version, the f32 CUDA-core bound and the route's own
+   (no library call computes this function); the headline is the bf16
+   prefill bucket, what the main path runs;
 17. zamba2 smoke, card against CPU (f32): the same seeded weights,
    prefill with ragged ``valid_len`` then teacher-forced decode, logits
    and caches compared at every step, exact launches; the card's engine
@@ -127,7 +132,8 @@ Phases, in order; any failure raises and the script exits non-zero:
    seed) serves phase 5's 8 requests and one of 700 tokens through 4
    slots at ``max_cache`` 1024: decode and prefill tok/s, TTFT, TPOT,
    weight and cache bytes (KV, SSM, conv), the allocator's peak, the
-   busy share of a decode tick and of a prefill under the profiler,
+   busy share of a decode tick and of a prefill under the profiler
+   (and #8's device ms in that prefill tick),
    exact launches (81 of #8 and 13 of #7 per prefill call, none per
    decode step, 334 of #1 per forward or decode step); one prompt's
    logits at full width and
@@ -189,6 +195,7 @@ from repro_torch.kernels import lowrank as klowrank  # noqa: E402
 from repro_torch.kernels import matmul_tiled as kmm  # noqa: E402
 from repro_torch.kernels import qr as kqr  # noqa: E402
 from repro_torch.kernels import quant as kquant  # noqa: E402
+from repro_torch.kernels import ssd_scan as kssd  # noqa: E402
 from repro_torch.launch import train as launch_train  # noqa: E402
 from repro_torch.launch.serve import generate  # noqa: E402
 from repro_torch.optim import global_norm  # noqa: E402
@@ -2952,32 +2959,52 @@ def phase_vit_fig5(card: str) -> dict:
 # (Bz, S, H, dh, N, chunk): the reference's sweep
 # (tests/test_kernels.py:186-188), ragged S (100 with chunk 32, one chunk
 # of 37), then the path's shapes: zamba2-7b's prefill bucket (4 prompts of
-# 256, one chunk) and one 4,096-token prompt (16 chunks: the carried
-# state counts)
+# 256, one chunk), the 700-token prompt's bucket (768: 3 chunks) and one
+# 4,096-token prompt (16 chunks: the carried state counts)
 SSD_SWEEP = ((2, 32, 4, 8, 4, 8), (1, 64, 2, 16, 8, 16),
              (1, 128, 8, 32, 16, 32), (2, 100, 4, 16, 8, 32),
              (1, 37, 2, 8, 4, 37))
 SSD_PATH = {"zamba2_prefill": (4, 256, 112, 64, 64, 256),
+            "zamba2_768": (1, 768, 112, 64, 64, 256),
             "zamba2_4096": (1, 4096, 112, 64, 64, 256)}
 # zamba2-7b's factored sites per layer: 3 in each Mamba-2 mixer, 7 in the
 # shared attention + MLP block
 ZAMBA_MIXER_SITES, ZAMBA_SHARED_SITES = 3, 7
 
 
-def ssd_work(bz, s, h, dh, n, chunk):
-    """(bytes, flops): u, dt, A, B, C read once, y and the final state
-    written once (f32). Per batch row and chunk of ql steps: C B^T once
-    (shared by every head), 2 N flops per (query, key) pair on or below
-    the diagonal; per head on top, 2 dh per such pair (G u) and 4 ql N dh
-    (the carried state's term and the state update)."""
-    nbytes = 4 * (2 * bz * s * h * dh + bz * s * h + h + 2 * bz * s * n
-                  + bz * h * dh * n)
+def ssd_work(bz, s, h, dh, n, chunk, dtype=torch.float32):
+    """(bytes, flops): u, dt, A, B, C read once (u, B and C in ``dtype``,
+    dt and A in f32), y and the final state written once (f32). Per batch
+    row and chunk of ql steps: C B^T once (shared by every head), 2 N
+    flops per (query, key) pair on or below the diagonal; per head on
+    top, 2 dh per such pair (G u) and 4 ql N dh (the carried state's term
+    and the state update)."""
+    item = itemsize(dtype)
+    nbytes = (item * (bz * s * h * dh + 2 * bz * s * n)
+              + 4 * (bz * s * h * dh + bz * s * h + h + bz * h * dh * n))
     flops = 0
     for c0 in range(0, s, chunk):
         ql = min(chunk, s - c0)
         pairs = ql * (ql + 1) // 2
         flops += 2 * pairs * n + h * (2 * pairs * dh + 4 * ql * n * dh)
     return nbytes, bz * flops
+
+
+def ssd_tc_flops(bz, s, h, dh, n, chunk):
+    """Flops of the tensor-core route's products (csrc/ssd_scan_tc.cu),
+    counted as ``ssd_work`` counts pairs: C B^T once (bf16, one piece),
+    and per head PIECES pieces of G (G u), of the weighted u (the state
+    update) and, after the first chunk, of S_prev (the carried state's
+    term)."""
+    p = kssd.PIECES
+    flops = 0
+    for c0 in range(0, s, chunk):
+        ql = min(chunk, s - c0)
+        pairs = ql * (ql + 1) // 2
+        carried = 2 * ql * n * dh if c0 > 0 else 0
+        flops += 2 * pairs * n + h * p * (2 * pairs * dh + 2 * ql * n * dh
+                                          + carried)
+    return bz * flops
 
 
 def ssd_tol(want) -> float:
@@ -2988,7 +3015,10 @@ def ssd_tol(want) -> float:
     return 1e-4 * max(1.0, want.abs().max().item())
 
 
-def ssd_inputs(bz, s, h, dh, n, gen, n_sets=1):
+def ssd_inputs(bz, s, h, dh, n, gen, n_sets=1, dtype=torch.float32):
+    """Sets of (u, dt, A, B, C) drawn in f32. bf16: u rounded, and B and
+    C rounded into one (Bz, S, 2 N) tensor and split into row views, as
+    the Mamba-2 mixer hands them to the scan."""
     sets = []
     for _ in range(n_sets):
         u = torch.randn(bz, s, h, dh, device="cuda", generator=gen)
@@ -2997,63 +3027,89 @@ def ssd_inputs(bz, s, h, dh, n, gen, n_sets=1):
         a = -torch.exp(torch.randn(h, device="cuda", generator=gen))
         b = torch.randn(bz, s, n, device="cuda", generator=gen)
         c = torch.randn(bz, s, n, device="cuda", generator=gen)
+        if dtype != torch.float32:
+            u = u.to(dtype)
+            b, c = torch.split(torch.cat([b, c], -1).to(dtype), n, dim=-1)
         sets.append((u, dt, a, b, c))
     return sets
 
 
-def phase_ssd_kernel(card: str) -> dict:
-    from repro_torch.kernels.ssd_scan import ssd_scan_cuda
+def ssd_row(name, bz, s, h, dh, n, chunk, dtype, gen, card: str) -> dict:
+    """One phase 16 row: the route ``ssd_route`` picks, y and the final
+    state against the plain version (on the same values in f32), two
+    calls bit-equal, kernel and plain times, and both bounds: the f32
+    CUDA-core one (f32 bytes or f32 flops at 67 TFLOP/s) and the route's
+    own (bf16: bytes with u, B and C in bf16, or the piece products at
+    989 TFLOP/s; fma: the f32 one). The row's bound is the route's."""
+    (args,) = ssd_inputs(bz, s, h, dh, n, gen, dtype=dtype)
+    route = kssd.ssd_route(args[0], args[3], args[4])
+    y, final = kssd.ssd_scan_cuda(*args, chunk)
+    torch.cuda.synchronize()
+    want_y, want_s = ref.ssd_scan_ref(*args, chunk)
+    err_y = (y - want_y).abs().max().item()
+    err_s = (final - want_s).abs().max().item()
+    tol_y, tol_s = ssd_tol(want_y), ssd_tol(want_s)
+    if not (err_y <= tol_y and err_s <= tol_s):
+        raise AssertionError(f"ssd_scan {name} {dtype} ({route}): y err "
+                             f"{err_y:.3e} (tol {tol_y:.3e}), state err "
+                             f"{err_s:.3e} (tol {tol_s:.3e})")
+    y2, final2 = kssd.ssd_scan_cuda(*args, chunk)
+    if not (torch.equal(y, y2) and torch.equal(final, final2)):
+        raise AssertionError(f"ssd_scan {name} {dtype}: two calls differ")
+    del y, final, y2, final2, want_y, want_s, args
+    nbytes, flops = ssd_work(bz, s, h, dh, n, chunk, dtype)
+    n_sets = max(1, min(24, int(120e6 // nbytes) + 1))
+    sets = ssd_inputs(bz, s, h, dh, n, gen, n_sets, dtype=dtype)
 
+    def kern(*a, chunk=chunk):
+        return kssd.ssd_scan_cuda(*a, chunk)
+
+    def plain(*a, chunk=chunk):
+        return ref.ssd_scan_ref(*a, chunk)
+
+    k_ms, p_ms = time_ms(kern, sets), time_ms(plain, sets)
+    del sets
+    f32_ms, f32_by = bound_of(*ssd_work(bz, s, h, dh, n, chunk), torch.float32)
+    if route == "tensor_core":
+        tb = nbytes / HBM_BYTES_S * 1e3
+        tf = ssd_tc_flops(bz, s, h, dh, n, chunk) / PEAK_FLOPS[
+            torch.bfloat16] * 1e3
+        b_ms, b_by = max(tb, tf), ("bytes" if tb >= tf else "operations")
+    else:
+        b_ms, b_by = f32_ms, f32_by
+    dname = "bf16" if dtype == torch.bfloat16 else "f32"
+    print(f"[kernel] ssd_scan {name:14s} {dname:4s} {route:11s} Bz={bz} "
+          f"S={s} H={h} dh={dh} N={n} chunk={chunk} err y={err_y:.2e} (tol "
+          f"{tol_y:.2e}) state={err_s:.2e} (tol {tol_s:.2e}) "
+          f"kernel_ms={k_ms:.4f} plain_ms={p_ms:.4f} library_ms=none "
+          f"bound_ms={b_ms:.5f} ({b_by}; f32 CUDA-core bound {f32_ms:.5f} "
+          f"{f32_by}) | {card}", flush=True)
+    return dict(case=name, dtype=dname, route=route, Bz=bz, S=s, H=h, dh=dh,
+                N=n, chunk=chunk, kernel_ms=k_ms, plain_ms=p_ms,
+                library_ms=None, bound_ms=b_ms, bound_by=b_by,
+                f32_bound_ms=f32_ms, f32_bound_by=f32_by,
+                max_abs_err_y=err_y, max_abs_err_state=err_s, tol_y=tol_y,
+                tol_state=tol_s, gflop=flops / 1e9)
+
+
+def phase_ssd_kernel(card: str) -> dict:
     print("== phase 16: ssd_scan (kernel #8) against its plain version",
           flush=True)
     gen = torch.Generator(device="cuda").manual_seed(16)
-    cases = [(f"sweep {c}", *c) for c in SSD_SWEEP]
-    cases += [(name, *c) for name, c in SSD_PATH.items()]
-    rows, worst = [], 0.0
-    for name, bz, s, h, dh, n, chunk in cases:
-        (args,) = ssd_inputs(bz, s, h, dh, n, gen)
-        y, final = ssd_scan_cuda(*args, chunk)
-        torch.cuda.synchronize()
-        want_y, want_s = ref.ssd_scan_ref(*args, chunk)
-        err_y = (y - want_y).abs().max().item()
-        err_s = (final - want_s).abs().max().item()
-        tol_y, tol_s = ssd_tol(want_y), ssd_tol(want_s)
-        if not (err_y <= tol_y and err_s <= tol_s):
-            raise AssertionError(f"ssd_scan {name}: y err {err_y:.3e} (tol "
-                                 f"{tol_y:.3e}), state err {err_s:.3e} (tol "
-                                 f"{tol_s:.3e})")
-        worst = max(worst, err_y, err_s)
-        del y, final, want_y, want_s, args
-        nbytes, flops = ssd_work(bz, s, h, dh, n, chunk)
-        n_sets = max(1, min(24, int(120e6 // nbytes) + 1))
-        sets = ssd_inputs(bz, s, h, dh, n, gen, n_sets)
-
-        def kern(*a, chunk=chunk):
-            return ssd_scan_cuda(*a, chunk)
-
-        def plain(*a, chunk=chunk):
-            return ref.ssd_scan_ref(*a, chunk)
-
-        k_ms, p_ms = time_ms(kern, sets), time_ms(plain, sets)
-        b_ms, b_by = bound_of(nbytes, flops, torch.float32)
-        rows.append(dict(case=name, Bz=bz, S=s, H=h, dh=dh, N=n,
-                         chunk=chunk, kernel_ms=k_ms, plain_ms=p_ms,
-                         library_ms=None, bound_ms=b_ms, bound_by=b_by,
-                         max_abs_err_y=err_y, max_abs_err_state=err_s,
-                         tol_y=tol_y, tol_state=tol_s, gflop=flops / 1e9))
-        print(f"[kernel] ssd_scan {name:14s} Bz={bz} S={s} H={h} dh={dh} "
-              f"N={n} chunk={chunk} err y={err_y:.2e} (tol {tol_y:.2e}) "
-              f"state={err_s:.2e} (tol {tol_s:.2e}) kernel_ms={k_ms:.4f} "
-              f"plain_ms={p_ms:.4f} library_ms=none bound_ms={b_ms:.5f} "
-              f"({b_by}) | {card}", flush=True)
-        del sets
+    cases = [(f"sweep {c}", *c, torch.float32) for c in SSD_SWEEP]
+    cases += [(name, *c, dt) for dt in (torch.float32, torch.bfloat16)
+              for name, c in SSD_PATH.items()]
+    rows = [ssd_row(*c, gen, card) for c in cases]
     gc.collect()
     torch.cuda.empty_cache()
-    head = next(r for r in rows if r["case"] == "zamba2_prefill")
+    worst = max(max(r["max_abs_err_y"], r["max_abs_err_state"])
+                for r in rows)
+    head = next(r for r in rows
+                if r["case"] == "zamba2_prefill" and r["dtype"] == "bf16")
     return dict(rows=rows, worst=worst,
                 headline=dict(ms=head["kernel_ms"], plain_ms=head["plain_ms"],
                               library_ms=None, bound_ms=head["bound_ms"],
-                              bound_by=head["bound_by"]))
+                              bound_by=head["bound_by"], route=head["route"]))
 
 
 # zamba2-7b's factored site shapes (I, K, O): rank 896 (bcdt_proj 128),
@@ -3214,9 +3270,17 @@ def profile_prefill(eng, cfg, rng, card: str) -> dict:
     for e in top:
         print(f"[profile]   {e.self_device_time_total / 1e3:8.3f} ms "
               f"{e.count:5d} calls  {e.key[:70]}")
+    # kernel #8's launches: ssd_chunk, ssd_pass and ssd_out of the
+    # tensor-core route, ssd_scan_f32 of the fma route
+    ssd = [e for e in events if "ssd_" in e.key]
+    ssd_ms = sum(e.self_device_time_total for e in ssd) / 1e3
+    print(f"[profile]   #8 (ssd_scan) in the tick: {ssd_ms:.3f} ms of "
+          f"{dev_us / 1e3:.3f} ms device time, "
+          f"{sum(e.count for e in ssd)} launches | {card}")
     return {"prefill_busy_share": dev_us / wall_us,
             "prefill_tick_wall_ms": wall_us / 1e3,
             "prefill_tick_device_ms": dev_us / 1e3,
+            "prefill_ssd_device_ms": ssd_ms,
             "prefill_top": [(e.key[:70], e.self_device_time_total / 1e3,
                              e.count) for e in top]}
 
@@ -3464,7 +3528,7 @@ def main() -> None:
     h = ssd["headline"]
     kernels.append({
         "name": "ssd_scan", "route": "cuda",
-        "source": "src/repro_torch/kernels/csrc/ssd_scan.cu",
+        "source": "src/repro_torch/kernels/csrc/ssd_scan_tc.cu",
         "replaces": "src/repro/kernels/ssd_scan.py:27",
         "launches": zamba["launches"]["ssd_scan"],
         "max_abs_err": ssd["worst"], "ms": h["ms"], "plain_ms": h["plain_ms"],

@@ -27,7 +27,8 @@ BUILD_DIR = Path(__file__).resolve().parents[3] / "build" / "repro_torch_kernels
 SOURCES = ("lowrank_fwd.cu", "lowrank_decode.cu", "lowrank_sketch.cu",
            "lowrank_q8_routes.cu", "choleskyqr_blocked.cu",
            "lowrank_bwd.cu", "gram.cu", "choleskyqr.cu", "lowrank_q8.cu",
-           "matmul_tiled.cu", "flash_attn.cu", "ssd_scan.cu")
+           "matmul_tiled.cu", "flash_attn.cu", "ssd_scan.cu",
+           "ssd_scan_tc.cu")
 NVCC_FLAGS = ("-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17",
               "-O3", "-shared", "-Xcompiler", "-fPIC", "-lineinfo")
 

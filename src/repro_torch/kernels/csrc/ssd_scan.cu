@@ -43,9 +43,10 @@
 // all of it in f32 FMAs (no TF32: the f32 parity tier), each of the 256
 // threads owning a 4 x 4 block of every 64 x 64 product, operands read
 // as float4 from shared memory. C B^T is recomputed per head (the TPU
-// kernel does the same). Not yet done (later PRs): mma.sync/wgmma (TF32
-// or bf16 tiers), computing C B^T once per (batch, chunk), splitting a
-// (batch, head) over several CTAs when Bz * H is below the SM count.
+// kernel does the same). This is the `fma` route of kernels/ssd_scan.py:
+// f32 inputs and dims the tensor cores' tiles do not take; bf16 u, B and
+// C take ssd_scan_tc.cu (chunk-parallel, C B^T once per (batch, chunk),
+// products on the bf16 tensor cores).
 
 #include <cuda_runtime.h>
 

@@ -356,12 +356,15 @@ def ssd_scan(u: torch.Tensor, dt: torch.Tensor, A: torch.Tensor,
     (Bz, S, H, dh) f32 = scan + D.u, and with ``return_final`` also the
     (Bz, H, dh, N) f32 state after the last step; a ragged S behaves as
     zero-padded steps with dt = 0 (``ref.ssd_scan_ref``). The counterpart
-    of the reference's ``repro.nn.mamba._ssd_chunked``. CUDA: one launch of
-    the scan kernel (``kernels/ssd_scan.py``), which masks the ragged
-    chunk itself, so no padding needs slicing off; the kernel has no
+    of the reference's ``repro.nn.mamba._ssd_chunked``. u, B and C may be
+    bf16 (B and C row views). CUDA: one call of the scan's wrapper
+    (``kernels/ssd_scan.py``: the route ``ssd_route`` picks, counted as
+    one launch), which masks the ragged chunk itself, so no padding needs
+    slicing off; the kernel has no
     gradient, as the reference's Pallas kernel has none, so a CUDA input
     that requires grad raises. CPU: the plain version, differentiable."""
     if _on_cpu(u):
+        u = u.float()  # one cast, shared by the scan and D.u (and its grad)
         y, final = ref.ssd_scan_ref(u, dt, A, B, C, chunk)
     else:
         if torch.is_grad_enabled() and any(

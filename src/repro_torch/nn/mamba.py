@@ -5,8 +5,9 @@ Modes, as the reference's: train (no state), token-parallel prefill
 state and both conv buffers, so decode continues exactly where a scanned
 prefill would) and decode (state given, S == 1: the one-token recurrence,
 plain PyTorch). The chunked scan of train and prefill goes through
-``kernels.ops.ssd_scan``: kernel #8 (``kernels/csrc/ssd_scan.cu``) on the
-card, its plain version on the CPU. The reference's block runs the plain
+``kernels.ops.ssd_scan``: kernel #8 on the card (``kernels/ssd_scan.py``;
+a bf16 model's u, B and C go in as stored, to the tensor-core route), its
+plain version on the CPU. The reference's block runs the plain
 ``_ssd_chunked`` there; the kernel computes the same function.
 
 Decode keeps O(1) recurrent state per layer: the (B, H, dh, N) f32 SSD
@@ -182,9 +183,11 @@ def apply_mamba2(p, x: torch.Tensor, cfg: ModelConfig, *,
             live = (torch.arange(s, device=x.device)[None, :]
                     < valid_len.to(x.device)[:, None])
             dt = torch.where(live[..., None], dt, 0.0)      # identity steps
-        scanned = ops.ssd_scan(u.reshape(bsz, s, nh, dh).float(), dt, A,
-                               Bv.float(), Cv.float(), p["D"],
-                               min(ssm.chunk, s), return_final=prefill)
+        # u, B and C in the model's dtype: the card's bf16 route reads them
+        # as stored (B and C as views of bc), the CPU's plain version casts
+        scanned = ops.ssd_scan(u.reshape(bsz, s, nh, dh), dt, A, Bv, Cv,
+                               p["D"], min(ssm.chunk, s),
+                               return_final=prefill)
         if prefill:
             y, s_final = scanned
             cnt = s if valid_len is None else valid_len

@@ -820,34 +820,98 @@ def ssd_tol(want: torch.Tensor) -> float:
     return 1e-4 * max(1.0, want.abs().max().item())
 
 
-def _ssd_inputs(bz, s, h, dh, n, device, seed=0):
+def _ssd_inputs(bz, s, h, dh, n, device, seed=0, dtype=torch.float32,
+                views=False):
+    """u, dt, A, B, C drawn in f32; u, B and C then rounded to ``dtype``
+    (the plain version reads the same values in f32). ``views``: B and C
+    as row views of one (Bz, S, 2 N) tensor, as the Mamba-2 mixer hands
+    them over."""
     g = torch.Generator().manual_seed(seed)
     u = torch.randn(bz, s, h, dh, generator=g)
     dt = torch.nn.functional.softplus(torch.randn(bz, s, h, generator=g))
     a = -torch.exp(torch.randn(h, generator=g))
     b = torch.randn(bz, s, n, generator=g)
     c = torch.randn(bz, s, n, generator=g)
+    u, b, c = (t.to(dtype) for t in (u, b, c))
+    if views:
+        b, c = torch.split(torch.cat([b, c], -1).to(device), n, dim=-1)
     return tuple(t.to(device) for t in (u, dt, a, b, c))
+
+
+def _ssd_routes(bz, s, h, dh, n):
+    """(dtype, views, route) of every way the cases go in: f32 takes the
+    FMA kernel; bf16 the tensor cores where dh and N are multiples of 16,
+    contiguous or as row views alike."""
+    tc = "tensor_core" if dh % 16 == 0 and n % 16 == 0 else "fma"
+    return [(torch.float32, False, "fma"), (torch.float32, True, "fma"),
+            (torch.bfloat16, False, tc), (torch.bfloat16, True, tc)]
 
 
 @pytest.mark.cuda
 @pytest.mark.parametrize("bz,s,h,dh,n,chunk", SSD_CASES)
 def test_ssd_scan_kernel_matches_plain_version(cuda, bz, s, h, dh, n, chunk):
-    """y (without D.u) and the final state against ``ref.ssd_scan_ref``;
-    ``ops.ssd_scan`` launches the kernel once and adds D.u."""
-    args = _ssd_inputs(bz, s, h, dh, n, cuda, seed=s + dh)
-    y, final = kssd.ssd_scan_cuda(*args, chunk)
-    torch.cuda.synchronize()
-    want_y, want_s = ref.ssd_scan_ref(*args, chunk)
-    assert y.shape == want_y.shape and final.shape == want_s.shape
+    """y (without D.u) and the final state against ``ref.ssd_scan_ref``,
+    on every route: f32 and bf16 u, B and C, B and C contiguous or row
+    views; two calls give the same bits; ``ops.ssd_scan`` launches the
+    kernel once and adds D.u."""
+    for dtype, views, route in _ssd_routes(bz, s, h, dh, n):
+        args = _ssd_inputs(bz, s, h, dh, n, cuda, seed=s + dh, dtype=dtype,
+                           views=views)
+        assert kssd.ssd_route(args[0], args[3], args[4]) == route
+        y, final = kssd.ssd_scan_cuda(*args, chunk)
+        torch.cuda.synchronize()
+        want_y, want_s = ref.ssd_scan_ref(*args, chunk)
+        assert y.shape == want_y.shape and final.shape == want_s.shape
+        assert y.dtype == final.dtype == torch.float32
+        assert (y - want_y).abs().max().item() <= ssd_tol(want_y)
+        assert (final - want_s).abs().max().item() <= ssd_tol(want_s)
+        again = kssd.ssd_scan_cuda(*args, chunk)
+        assert torch.equal(again[0], y) and torch.equal(again[1], final)
+        d = torch.randn(h, device=cuda)
+        before = ops.launch_counts()["ssd_scan"]
+        y2, final2 = ops.ssd_scan(*args, d, chunk, return_final=True)
+        assert ops.launch_counts()["ssd_scan"] == before + 1
+        assert torch.equal(final2, final)
+        assert torch.equal(y2, y + d[None, None, :, None] * args[0].float())
+
+
+@pytest.mark.cuda
+def test_ssd_scan_bf16_identity_steps_past_valid_length(cuda):
+    """Bucketed prefill on the tensor-core route: dt = 0 past each row's
+    valid length (identity steps) at zamba2's widths and chunk, over two
+    chunks; y and the final state against the plain version."""
+    u, dt, a, b, c = _ssd_inputs(3, 300, 4, 64, 64, cuda, seed=3,
+                                 dtype=torch.bfloat16, views=True)
+    live = (torch.arange(300, device=cuda)[None, :]
+            < torch.tensor([300, 41, 257], device=cuda)[:, None])
+    dt = torch.where(live[..., None], dt, 0.0)
+    assert kssd.ssd_route(u, b, c) == "tensor_core"
+    y, final = kssd.ssd_scan_cuda(u, dt, a, b, c, 256)
+    want_y, want_s = ref.ssd_scan_ref(u, dt, a, b, c, 256)
     assert (y - want_y).abs().max().item() <= ssd_tol(want_y)
     assert (final - want_s).abs().max().item() <= ssd_tol(want_s)
-    d = torch.randn(h, device=cuda)
-    before = ops.launch_counts()["ssd_scan"]
-    y2, final2 = ops.ssd_scan(*args, d, chunk, return_final=True)
-    assert ops.launch_counts()["ssd_scan"] == before + 1
-    assert torch.equal(final2, final)
-    assert torch.equal(y2, y + d[None, None, :, None] * args[0])
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("s", [1, 5, 64, 65, 300])
+def test_ssd_scan_bf16_short_and_strided(cuda, s):
+    """The tensor-core route at zamba2's widths and chunk (256) on
+    sequences of one step, shorter than a tile, one tile, a tile and a
+    step, and two chunks; u as a view of a wider tensor (its head stride
+    72), B and C as row views. y and the final state against the plain
+    version, two calls bit-equal."""
+    u, dt, a, b, c = _ssd_inputs(2, s, 3, 64, 64, cuda, seed=s,
+                                 dtype=torch.bfloat16, views=True)
+    wide = torch.zeros(2, s, 3, 72, dtype=torch.bfloat16, device=cuda)
+    wide[..., :64] = u
+    u = wide[..., :64]
+    assert kssd.ssd_route(u, b, c) == "tensor_core"
+    y, final = kssd.ssd_scan_cuda(u, dt, a, b, c, 256)
+    want_y, want_s = ref.ssd_scan_ref(u, dt, a, b, c, 256)
+    assert (y - want_y).abs().max().item() <= ssd_tol(want_y)
+    assert (final - want_s).abs().max().item() <= ssd_tol(want_s)
+    again = kssd.ssd_scan_cuda(u, dt, a, b, c, 256)
+    assert torch.equal(again[0], y) and torch.equal(again[1], final)
 
 
 @pytest.mark.cuda
@@ -881,9 +945,13 @@ def test_ssd_scan_wrapper_refuses_what_the_kernel_does_not_take(cuda):
 
 @pytest.mark.cuda
 def test_ssd_scan_smem_formula_matches_the_source(cuda):
-    lib = kssd._lib()
+    lib, tc = kssd._lib(), kssd._tc_lib()
     for q in (8, 37, 256, 1024):
         assert lib.ssd_scan_smem_bytes(q) == kssd.smem_bytes(q)
+        for code, kernel in ((0, "chunk"), (2, "out")):
+            assert tc.ssd_scan_tc_smem_bytes(code, q) == \
+                kssd.tc_smem_bytes(kernel, q)
+    assert tc.ssd_scan_tc_pieces() == kssd.PIECES
 
 
 # ---------------------------------------------------------------------------
