@@ -16,16 +16,24 @@ Phases, in order; any failure raises and the script exits non-zero:
    shape the tensor cores refuse) and of zamba2-7b (M = 4 and 1,024),
    two calls on the same inputs bit-equal; time kernel, plain version,
    one library call computing the same function, and the card's bound;
-   headlines for a qwen2 decode layer and a zamba2 prefill layer; a sweep
+   headlines for a qwen2 decode layer and a zamba2 prefill layer; rows at
+   tinyllama-1.1b's and internvl2-26b's site shapes (M = 4 on the decode
+   route, and 1,024) and a tinyllama decode layer's headline; a sweep
    of the decode and tensor-core routes over M = 1-32 (where the decode
    threshold comes from);
 4. smoke parity: qwen2 smoke in f32, the same seeded weights on the card
    and on the CPU, prefill then teacher-forced decode, logits compared at
    every step; the card's engine against its own lockstep generate;
 5. full width: qwen2-0.5b (24 layers, d_model 896, bf16, random weights
-   from a seed) serves 8 requests through 4 slots; the kernel launch count
-   shows every factored linear went through the kernel; one prompt's
-   logits are held against the same weights in f32 on the CPU;
+   from a seed) serves 8 requests through 4 slots (``serve_dense``, which
+   phases 19 and 20 share); the exact launch counts show every factored
+   linear went through the kernel; the device time ``device_events`` sums
+   from the profiler's raw events is printed beside ``key_averages``'
+   for one decode trace; one prompt's logits, prefill and 3 teacher-forced
+   decode steps, are held against the same weights in f32 on the CPU
+   (``logits_vs_cpu``, the one logits check of phases 5, 18, 19 and 20:
+   RMS error within 0.015 sqrt(L) and largest error within 0.07 sqrt(L)
+   of the RMS logit, L the depth);
 6. training kernels: hold the sketch forward, the backward, the Gram and
    the CholeskyQR kernels against their plain versions at the training
    shapes of qwen2-0.5b (M = 2048 and a ragged 1000 rows; the stacked
@@ -35,16 +43,20 @@ Phases, in order; any failure raises and the script exits non-zero:
    h and dh), f32 the FMA kernels; each shape prints its route and the
    error margin (tolerance over error); the Gram's route and plan per
    stack (bf16: the upper-triangle tiles on the tensor cores), G exactly
-   symmetric and the same bits in two calls;
+   symmetric and the same bits in two calls; then one tinyllama-1.1b
+   refresh in bf16, its stacks (22, 2,048, 512), (22, 256, 128) and (22,
+   5,632, 512): K = 512 takes #4's global factor (``choleskyqr.cu``);
 7. smoke training parity: qwen2 smoke, ``wsi``, AdamW, refresh every 2,
    4 steps from one seed and one batch stream on the card and on the CPU
    (f32); losses and final factors compared, launch counts exact;
-8. full-width training: qwen2-0.5b (24 layers, bf16, ``wsi``), AdamW,
+8. full-width training: qwen2-0.5b (24 layers, bf16, ``wsi``, the
+   config's ``remat="block"``), AdamW,
    batch 4 x seq 512, refresh every 4, 8 steps through
    ``launch/train.py``'s build and ``train/loop.py``, which saves the
    final state with the port's ``CheckpointManager``; step time,
-   tokens/s, peak memory, busy share (and #2's and #3's share of the
-   step's device time), exact launch counts, the
+   tokens/s, peak memory, busy share (the device sums of the step's trace
+   also printed beside ``key_averages``'), exact launch counts (the
+   recompute's included: ``train_want``), the
    checkpoint read back equal, and one step at batch 1 x seq 32 against
    the same weights in f32 on the CPU;
 9. int8 kernel: hold each route of ``lowrank_q8`` (decode, tensor-core,
@@ -73,11 +85,14 @@ Phases, in order; any failure raises and the script exits non-zero:
    batch 4 x seq 512, AdamW, refresh every 4) trained 5 steps under each
    method, ``none``, ``asi``, ``wsi`` and ``wasi``, through
    ``launch/train.py``'s build and ``train_loop(memprof=True)``: step
-   time, tokens/s, the allocator's peak, the saved-for-backward bytes of
-   one ``lm_loss`` forward (every layer's: ``remat`` is not ported) and
-   the time of one ``lm_forward`` without states; exact launch counts
-   (``wasi``: only Gram and CholeskyQR at the refresh, 168 ``lowrank_fwd``
-   per inference forward); the Table 2 two-launch row (the trained
+   time, tokens/s, the allocator's peak (all under the config's
+   ``remat="block"``), the saved-for-backward bytes of one ``lm_loss``
+   and the allocator's peak of one forward and backward under ``block``
+   and under ``none`` (the paper's memory comparison is the ``none``
+   column), and the time of one ``lm_forward`` without states; exact
+   launch counts, the recompute's included (``wasi``: #7 and, at the
+   refresh, Gram and CholeskyQR; 168 ``lowrank_fwd`` per inference
+   forward); the Table 2 two-launch row (the trained
    factors of layer 0 through ``lowrank_matmul_unfused``: 14
    ``matmul_tiled`` launches) against the fused kernel; one full-width
    ``wasi_matmul`` per site shape saves exactly its Tucker factors, h~'s
@@ -90,9 +105,13 @@ Phases, in order; any failure raises and the script exits non-zero:
    dh 16-128, causal and not; f32 and bf16) and the main paths' shapes
    (ViT-B/16 at batch 64, f32, bidirectional; qwen2-0.5b's training rows
    and one prefill bucket, and zamba2-7b's 4 x 256 prefill bucket, bf16,
-   causal); each row's route (bf16, or f32 in exact bf16 pieces) and
-   plan (``flash_attention.flash_plan``); time kernel, plain version,
-   ``scaled_dot_product_attention`` and bound, and a headline per path;
+   causal; the dense configs' shapes: tinyllama-1.1b's training rows and
+   prefill bucket, the prefill buckets of stablelm-3b (dh 80),
+   granite-3-8b and internvl2-26b (dh 128), gemma3-4b's 1,536 bucket
+   under its 1,024-key window at dh 256); each row's route (bf16, or
+   f32 in exact bf16 pieces) and plan (``flash_attention.flash_plan``);
+   time kernel, plain version, ``scaled_dot_product_attention`` and
+   bound, and a headline per path;
    a sweep of every plan at the paths' shapes and at shapes on the other
    side of each of ``flash_plan``'s thresholds (where they come from),
    each plan held on fresh inputs with its output's memory NaN first;
@@ -138,12 +157,43 @@ Phases, in order; any failure raises and the script exits non-zero:
    decode step, 334 of #1 per forward or decode step); one prompt's
    logits at full width and
    reduced depth (5 ``mamba2`` + 1 ``mamba2_attn``), bf16 on the card
-   against the same weights in f32 on the CPU.
+   against the same weights in f32 on the CPU (``logits_vs_cpu``);
+19. tinyllama-1.1b, the paper's Fig. 7 model, at full width and depth (22
+   layers, d 2,048, bf16, random weights from a seed): trained under
+   ``wasi``, ``wsi`` and ``none`` through ``launch/train.py``'s build and
+   ``train_loop(memprof=True)``, batch 4 x seq 512 of seeded uniform
+   tokens, SGD+momentum 0.9 at a constant 0.05, refresh every 8: 8 steps
+   under the config's ``remat="block"``, then 4 under ``"none"``, each
+   row with step time, tokens/s, the allocator's peak, the busy share of
+   one profiled step and exact launch counts (the recompute's included;
+   ``train_run``, which phase 12 shares); the saved bytes of one
+   ``lm_loss`` and the peak of one forward and backward under each
+   setting from one state (``remat_memory``); one step's gradients and
+   ASI states under ``block`` against ``none`` from the same state
+   (largest difference, bit-equal or not); Fig. 7's analytic weight and
+   activation ratios for the last 1 and 2 layers from the full config;
+   then phase 5's 8 requests served through 4 slots (154 launches of #1
+   per forward, 22 of #7 per prefill call) and one prompt's logits,
+   prefill and 3 teacher-forced decode steps, against the same weights in
+   f32 on the CPU;
+20. the other dense configs at full width, weights drawn on the card:
+   gemma3-4b at full depth (34 layers: 5 x (5 ``local`` + 1 ``dense``) +
+   4 ``local``, window 1,024, dh 256, tied vocab 262,144, softcap 30)
+   serves phase 5's requests and one of 1,500 tokens at ``max_cache``
+   2,048 (#7 windowed, the local layers' rolling caches wrap);
+   stablelm-3b, granite-3-8b and internvl2-26b, depth cut to 2 layers,
+   serve phase 5's requests (internvl2 also a forward of precomputed
+   embeddings); exact launches; each config's logits against the f32
+   CPU at reduced depth (gemma3: one pattern of 6 layers, a 1,100-token
+   prompt, then decode reading wrapped rolling caches).
 
 Every full-sequence attention (training, a forward without caches, the
-prefill at offset 0) goes through kernel #7, so phases 5, 7, 8, 10 and 12
-count its launches too: 24 per qwen2-0.5b forward or prefill call, none
-per decode step. Every Mamba-2 scan of a train or prefill pass goes
+prefill at offset 0) goes through kernel #7, so phases 5, 7, 8, 10, 12,
+19 and 20 count its launches too: 24 per qwen2-0.5b forward or prefill
+call, none per decode step. Under ``remat="block"`` (every full LM
+config) a training step runs each forward kernel twice, the forward and
+the backward's recompute, so phases 8, 12 and 19 count #2 and #7 twice a
+step and #3 once. Every Mamba-2 scan of a train or prefill pass goes
 through kernel #8 (phases 17, 18).
 
 Phase 6 also holds the CholeskyQR kernel's shift ladder against the plain
@@ -167,6 +217,7 @@ import statistics
 import subprocess
 import sys
 import time
+from typing import NamedTuple
 
 ROOT = os.path.dirname(os.path.abspath(__file__))
 sys.path.insert(0, os.path.join(ROOT, "src"))
@@ -210,6 +261,7 @@ from repro_torch.models.lm import (  # noqa: E402
     init_lm,
     init_lm_cache,
     lm_decode_step,
+    lm_forward,
     lm_loss,
     lm_prefill,
 )
@@ -470,6 +522,40 @@ def routed(launch, x, r, l_, *extra):
 RAGGED_SHAPE = {"ragged": (70, 5, 33)}
 
 
+def plan_shapes(cfg) -> dict:
+    """{"wq|wo": (I, K, O), ...}: a config's factored sites grouped by
+    shape, in the plan's order."""
+    shapes: dict = {}
+    for sp in api.resolve(cfg).specs:
+        shapes.setdefault((sp.in_dim, sp.rank, sp.out_dim), []).append(
+            sp.name.split("/")[1])
+    return {"|".join(names): sh for sh, names in shapes.items()}
+
+
+def dense_lowrank_rows(card: str) -> tuple[list, dict]:
+    """Kernel #1 at tinyllama-1.1b's and internvl2-26b's site shapes, bf16,
+    a decode step's rows (M = 4, the decode route) and a prefill bucket's
+    (M = 1,024); the headline of a tinyllama decode layer's 7 sites."""
+    gen = torch.Generator(device="cuda").manual_seed(19)
+    rows, counts = [], {}
+    for arch in ("tinyllama-1.1b", "internvl2-26b"):
+        tag = arch.split("-")[0]
+        for name, (i, k, o) in plan_shapes(configs.get(arch)).items():
+            counts[f"{tag}:{name}"] = name.count("|") + 1
+            for m in (4, 1024):
+                row = lowrank_row(f"[{tag}]", f"{tag}:{name}", m, i, k, o,
+                                  torch.bfloat16, gen, card)
+                if m == 4 and row["route"] != "decode":
+                    raise AssertionError(f"{arch} {name} M=4 took "
+                                         f"{row['route']}")
+                rows.append(row)
+    head = layer_headline(
+        "one tinyllama-1.1b layer's 7 sites at decode (M=4, bf16)",
+        [r for r in rows if r["site"].startswith("tinyllama")
+         and r["M"] == 4], counts, torch.bfloat16, card)
+    return rows, head
+
+
 def phase_kernels(card: str) -> dict:
     print("== phase 3: lowrank_fwd (each route) against its plain version",
           flush=True)
@@ -487,7 +573,8 @@ def phase_kernels(card: str) -> dict:
             ("fused", True)} <= routes:
         raise AssertionError(f"phase 3 missed a route: {sorted(routes)}")
     zrows = zamba2_lowrank_rows(card)
-    worst = max(r["max_abs_err"] for r in rows + zrows)
+    drows, dense_head = dense_lowrank_rows(card)
+    worst = max(r["max_abs_err"] for r in rows + zrows + drows)
     # headline: one decode step's seven site launches of one layer (M = 4
     # serve slots, bf16), each at its own shape
     tot = {"ms": 0.0, "plain_ms": 0.0, "library_ms": 0.0,
@@ -518,7 +605,8 @@ def phase_kernels(card: str) -> dict:
         torch.bfloat16, card)
     sweep = route_sweep(card)
     return dict(rows=rows, zamba2_rows=zrows, worst=worst, sweep=sweep,
-                zamba2_headline=zamba, headline=dict(
+                zamba2_headline=zamba, dense_rows=drows,
+                tinyllama_decode_headline=dense_head, headline=dict(
                     tot, bound_ms=max(tb, tf) * 1e3,
                     bound_by="bytes" if tb >= tf else "operations"))
 
@@ -577,6 +665,171 @@ def phase_smoke_parity(card: str) -> None:
           f"on the card | {card}", flush=True)
 
 
+SERVE_LENGTHS = (5, 17, 33, 64, 9, 120, 48, 200)   # phase 5's requests
+# logits_vs_cpu's limits, per square root of the depth, against the RMS
+# logit: the RMS error and the largest error
+LOGIT_RMS_TOL, LOGIT_MAX_TOL = 0.015, 0.07
+
+
+def serve_dense(tag: str, cfg, model, plan, card: str, *, extra=(),
+                max_cache: int = 512, check_sums: bool = False) -> dict:
+    """Phase 5's 8 requests (2 sampled) and prompts of ``extra`` lengths
+    through 4 slots, 16 new tokens each: decode and prefill tok/s, TTFT,
+    TPOT, weight and KV MiB, the allocator's peak, exact launches (7 L of
+    #1 per forward or decode step, L of #7 per prefill call, none per
+    decode step) and the busy share of a decode tick (``profile_decode``,
+    which ``check_sums`` is handed to)."""
+    eng = ServeEngine(model, plan=plan, max_slots=4, max_cache=max_cache,
+                      device="cuda")
+    rng = np.random.default_rng(1)
+    eng.submit(list(map(int, rng.integers(0, cfg.vocab_size, 9))), max_new=4)
+    eng.run()
+    eng.reset_stats()
+    torch.cuda.synchronize()
+    torch.cuda.reset_peak_memory_stats()
+    lengths = SERVE_LENGTHS + tuple(extra)
+    prompts = [list(map(int, rng.integers(0, cfg.vocab_size, n)))
+               for n in lengths]
+    sampled = SamplingParams(temperature=0.8, top_k=50, seed=99)
+    ops.reset_launches()
+    hs = [eng.submit(p, max_new=16,
+                     sampling=sampled if i in (2, 5) else None)
+          for i, p in enumerate(prompts)]
+    eng.run()
+    torch.cuda.synchronize()
+    counts = ops.launch_counts()
+    s = eng.summary()
+    for h in hs:
+        if not (h.finished and len(h.generated) == 16):
+            raise AssertionError(f"{tag} request {h.rid} ended {h.status} "
+                                 f"with {len(h.generated)} tokens")
+        if not all(0 <= t < cfg.padded_vocab for t in h.generated):
+            raise AssertionError(f"{tag} request {h.rid}: token out of "
+                                 "range")
+    per_fwd = len(plan.specs) * cfg.n_layers
+    lr = counts["lowrank_fwd"]
+    if lr % per_fwd or lr < per_fwd * s["decode_steps"]:
+        raise AssertionError(f"{tag} lowrank_fwd launches {lr} is not a "
+                             f"multiple of {per_fwd} covering "
+                             f"{s['decode_steps']} decode steps")
+    prefills = lr // per_fwd - s["decode_steps"]
+    want = dict.fromkeys(counts, 0)
+    want.update(lowrank_fwd=lr, flash_attention=cfg.n_layers * prefills)
+    if counts != want:
+        raise AssertionError(f"{tag} serving launches {counts} != {want}")
+    print(f"[{tag}] launches: lowrank_fwd {lr} = {lr // per_fwd} forwards x"
+          f" {per_fwd} ({len(plan.specs)} sites x {cfg.n_layers} layers; "
+          f"{s['decode_steps']} decode steps + {prefills} prefill calls); "
+          f"flash_attention {counts['flash_attention']} = {prefills} prefill"
+          f" calls x {cfg.n_layers}, 0 per decode step", flush=True)
+    ttft = [h.ttft_s for h in hs]
+    tpot = [h.tpot_s for h in hs]
+    res = dict(prefill_tok_s=s["prefill_tok_s"],
+               decode_tok_s=s["decode_tok_s"],
+               ttft_ms_median=statistics.median(ttft) * 1e3,
+               ttft_ms_max=max(ttft) * 1e3,
+               tpot_ms_median=statistics.median(tpot) * 1e3,
+               weight_mib=s["weight_mib"], kv_mib=s["cache_bytes"] / 2**20,
+               max_memory_allocated_mib=torch.cuda.max_memory_allocated()
+               / 2**20, decode_steps=s["decode_steps"],
+               prefill_calls=prefills, launches=counts,
+               launches_per_forward=per_fwd, prefill_tokens=s[
+                   "prefill_tokens"], decode_tokens=s["decode_tokens"],
+               wall_s=s["wall_s"])
+    if extra:
+        res["ttft_ms_extra"] = [t * 1e3 for t in ttft[len(SERVE_LENGTHS):]]
+    for key in ("prefill_tok_s", "decode_tok_s", "ttft_ms_median",
+                "ttft_ms_max", "tpot_ms_median", "weight_mib", "kv_mib",
+                "max_memory_allocated_mib"):
+        print(f"[{tag}] {key}={res[key]:.3f} | {card}")
+    if extra:
+        print(f"[{tag}] TTFT of the {list(extra)}-token prompt(s): "
+              f"{[round(t, 1) for t in res['ttft_ms_extra']]} ms | {card}")
+    print(f"[{tag}] greedy sample rid=0: {hs[0].generated}")
+    res.update(profile_decode(eng, cfg, rng, card, check_sums))
+    del eng
+    return res
+
+
+def logits_vs_cpu(tag: str, cfg, model, card: str, *, prompt_len: int = 16,
+                  decode: int = 4) -> dict:
+    """One prompt prefilled, then ``decode`` - 1 teacher-forced decode
+    steps, bf16 on the card against the same weights in f32 on the CPU:
+    the one logits check of phases 5, 18, 19 and 20. bf16 rounds every
+    activation to 8 significant bits, and the logits' error grows about
+    as the square root of the depth L: on an H100 the attention models
+    read RMS errors of 0.0083-0.0102 sqrt(L) and largest errors of
+    0.038-0.047 sqrt(L) of the RMS logit at L = 2 (stablelm, granite,
+    internvl2), 6 (gemma3), 22 (tinyllama) and 24 (qwen2), zamba2's 6
+    Mamba-2 layers 0.0130 and 0.055 sqrt(L). Each step's RMS error is
+    held within ``LOGIT_RMS_TOL`` sqrt(L) of the RMS of the CPU's logits
+    (a typical logit) and its largest error within ``LOGIT_MAX_TOL``
+    sqrt(L): 1.5x the attention models' largest readings, 1.15x and 1.27x
+    zamba2's (the readings repeat to the digit from call to call). A
+    wrong kernel, layout or cache gives an RMS error near the logits'
+    own."""
+    rng = np.random.default_rng(20)
+    toks = torch.from_numpy(rng.integers(0, cfg.vocab_size,
+                                         (1, prompt_len + decode)))
+    cache_len = prompt_len + decode
+    cfg32 = cfg.replace(dtype="float32")
+    api.install(api.resolve(cfg32))
+
+    def run(m, c, dev, dtype):
+        caches = init_lm_cache(c, 1, cache_len, dtype=dtype, device=dev)
+        t = toks.to(dev)
+        out = []
+        with torch.inference_mode():
+            lg, caches = lm_prefill(m, t[:, :prompt_len], c, caches=caches,
+                                    last_only=True)
+            out.append(lg[0, 0].float().cpu())
+            for i in range(prompt_len, prompt_len + decode - 1):
+                lg, caches = lm_decode_step(m, t[:, i:i + 1], caches, i, c)
+                out.append(lg[0].float().cpu())
+        return out
+
+    gpu = run(model, cfg, "cuda", _dtype(cfg.dtype))
+    tree = to_reference(model)
+    cpu32 = from_reference(tree, cfg32, "cpu").float()
+    del tree
+    cpu = run(cpu32, cfg32, "cpu", torch.float32)
+    del cpu32
+    gc.collect()
+    errs = []
+    rms_tol = LOGIT_RMS_TOL * math.sqrt(cfg.n_layers)
+    max_tol = LOGIT_MAX_TOL * math.sqrt(cfg.n_layers)
+    for i, (a, b) in enumerate(zip(gpu, cpu)):
+        err = (a - b).abs().max().item()
+        scale = b.abs().max().item()
+        rms = b.square().mean().sqrt().item()
+        rms_err = (a - b).square().mean().sqrt().item()
+        errs.append(dict(max_abs_err=err, scale=scale, rms=rms,
+                         rms_err=rms_err, argmax_card=int(a.argmax()),
+                         argmax_cpu=int(b.argmax())))
+        if not (rms_err <= rms_tol * rms and err <= max_tol * rms):
+            raise AssertionError(f"{tag} step {i}: bf16 card vs f32 CPU "
+                                 f"logits: RMS err {rms_err:.3e} (limit "
+                                 f"{rms_tol:.4f} x {rms:.3e}), max abs err "
+                                 f"{err:.3e} (limit {max_tol:.4f} x "
+                                 f"{rms:.3e})")
+    worst = max(e["rms_err"] / e["rms"] for e in errs)
+    worst_max = max(e["max_abs_err"] / e["rms"] for e in errs)
+    print(f"[{tag}] {cfg.n_layers} layers, a {prompt_len}-token prompt and "
+          f"{decode - 1} decode steps, bf16 card vs f32 CPU logits: largest "
+          f"RMS error {worst:.3e} of the RMS logit (limit {rms_tol:.4f}), "
+          f"largest error {worst_max:.3e} of it (limit {max_tol:.4f}); per "
+          f"step max"
+          f" abs err {[round(e['max_abs_err'], 4) for e in errs]}, RMS err "
+          f"{[round(e['rms_err'], 4) for e in errs]}, RMS logit "
+          f"{[round(e['rms'], 4) for e in errs]}, argmax card/cpu "
+          f"{[(e['argmax_card'], e['argmax_cpu']) for e in errs]} | {card}",
+          flush=True)
+    api.install(api.resolve(cfg))
+    return dict(steps=errs, worst_rel=worst, worst_max_rel=worst_max,
+                rms_tol=rms_tol, max_tol=max_tol, prompt_len=prompt_len,
+                n_layers=cfg.n_layers)
+
+
 def phase_full_width(card: str) -> dict:
     print("== phase 5: qwen2-0.5b full width, bf16, 8 requests, 4 slots",
           flush=True)
@@ -587,118 +840,76 @@ def phase_full_width(card: str) -> dict:
     t0 = time.perf_counter()
     model = init_lm(cfg, device="cuda", seed=0)
     print(f"[full] init {time.perf_counter() - t0:.1f}s", flush=True)
-    eng = ServeEngine(model, plan=plan, max_slots=4, max_cache=512,
-                      device="cuda")
-    rng = np.random.default_rng(1)
-    # warm-up (CUDA context, cuBLAS handles, allocator), then measure
-    eng.submit(list(map(int, rng.integers(0, cfg.vocab_size, 9))), max_new=4)
-    eng.run()
-    eng.reset_stats()
-    torch.cuda.synchronize()
-    torch.cuda.reset_peak_memory_stats()
-
-    lengths = (5, 17, 33, 64, 9, 120, 48, 200)
-    prompts = [list(map(int, rng.integers(0, cfg.vocab_size, n)))
-               for n in lengths]
-    sampled = SamplingParams(temperature=0.8, top_k=50, seed=99)
-    ops.reset_launches()
-    hs = [eng.submit(p, max_new=16,
-                     sampling=sampled if i in (2, 5) else None)
-          for i, p in enumerate(prompts)]
-    eng.run()
-    torch.cuda.synchronize()
-    launches = ops.LAUNCHES["lowrank_fwd"]
-    s = eng.summary()
-    per_forward = len(SITES) * cfg.n_layers
-    for h in hs:
-        if not (h.finished and len(h.generated) == 16):
-            raise AssertionError(f"request {h.rid} ended {h.status} with "
-                                 f"{len(h.generated)} tokens")
-        if not all(0 <= t < cfg.padded_vocab for t in h.generated):
-            raise AssertionError(f"request {h.rid}: token out of range")
-    if launches % per_forward or launches < per_forward * s["decode_steps"]:
-        raise AssertionError(f"lowrank_fwd launches {launches} is not a "
-                             f"multiple of {per_forward} covering "
-                             f"{s['decode_steps']} decode steps")
-    forwards = launches // per_forward
-    prefills = forwards - s["decode_steps"]
-    flash = ops.LAUNCHES["flash_attention"]
-    if flash != cfg.n_layers * prefills:
-        raise AssertionError(f"flash_attention launches {flash} != "
-                             f"{cfg.n_layers} x {prefills} prefill calls "
-                             "(0 per decode step)")
-    print(f"[full] lowrank_fwd launches={launches} = {forwards} forwards x "
-          f"{per_forward} ({s['decode_steps']} decode steps + "
-          f"{prefills} prefill groups); flash_attention launches={flash} = "
-          f"{prefills} prefill calls x {cfg.n_layers}, 0 per decode step")
-    # no NaN logits: one more prefill over every prompt's first 5 tokens
+    res = serve_dense("full", cfg, model, plan, card, check_sums=True)
+    # no NaN logits: one more prefill over 8 prompts of 5 tokens
+    toks = torch.from_numpy(np.random.default_rng(5).integers(
+        0, cfg.vocab_size, (8, 5))).cuda()
     with torch.inference_mode():
         c = init_lm_cache(cfg, 8, 16, device="cuda")
-        lg, _ = lm_prefill(model, torch.tensor([p[:5] for p in prompts],
-                                               device="cuda"), cfg, caches=c)
+        lg, _ = lm_prefill(model, toks, cfg, caches=c)
         if torch.isnan(lg).any():
             raise AssertionError("NaN logits at full width")
-    ttft = [h.ttft_s for h in hs]
-    tpot = [h.tpot_s for h in hs]
-    peak = torch.cuda.max_memory_allocated()
-    res = dict(prefill_tok_s=s["prefill_tok_s"], decode_tok_s=s["decode_tok_s"],
-               ttft_ms_median=statistics.median(ttft) * 1e3,
-               ttft_ms_max=max(ttft) * 1e3,
-               tpot_ms_median=statistics.median(tpot) * 1e3,
-               weight_mib=s["weight_mib"], kv_mib=s["cache_bytes"] / 2**20,
-               max_memory_allocated_mib=peak / 2**20,
-               decode_steps=s["decode_steps"], launches=launches,
-               flash_launches=flash, prefill_tokens=s["prefill_tokens"],
-               decode_tokens=s["decode_tokens"], wall_s=s["wall_s"])
-    for key in ("prefill_tok_s", "decode_tok_s", "ttft_ms_median",
-                "ttft_ms_max", "tpot_ms_median", "weight_mib", "kv_mib",
-                "max_memory_allocated_mib"):
-        print(f"[full] {key}={res[key]:.3f} | {card}")
-    print(f"[full] greedy sample rid=0: {hs[0].generated}")
-
-    res.update(profile_decode(eng, cfg, rng, card))
-
-    # one 16-token prompt: bf16 on the card against the same weights in f32
-    # on the CPU. bf16 rounds every activation to 8 significant bits, 24
-    # layers deep; 5% of the logits' scale bounds what that can add up to
-    # on this random init, and a wrong kernel or layout misses it by far.
-    prompt = torch.tensor([prompts[3][:16]])
-    tree = to_reference(model)
-    del eng
-    cpu = from_reference(tree, cfg, "cpu")
-    del tree
-    cpu32 = cpu.float()
-    cfg32 = cfg.replace(dtype="float32")
-    api.install(api.resolve(cfg32))
-    with torch.inference_mode():
-        lg_gpu, _ = lm_prefill(model, prompt.cuda(), cfg,
-                               caches=init_lm_cache(cfg, 1, 16,
-                                                    device="cuda"),
-                               last_only=True)
-        lg_cpu, _ = lm_prefill(cpu32, prompt, cfg32,
-                               caches=init_lm_cache(cfg32, 1, 16,
-                                                    dtype=torch.float32,
-                                                    device="cpu"),
-                               last_only=True)
-    a, b = lg_gpu.float().cpu()[0, 0], lg_cpu[0, 0]
-    err = (a - b).abs().max().item()
-    scale = b.abs().max().item()
-    if not err <= 0.05 * scale:
-        raise AssertionError(f"full-width bf16 card vs f32 CPU logits differ "
-                             f"by {err:.3e} > 0.05 x {scale:.3e}")
-    print(f"[full] 16-token prompt, bf16 card vs f32 CPU last logits: max "
-          f"abs err {err:.3e}, scale {scale:.3e}, argmax card "
-          f"{int(a.argmax())} cpu {int(b.argmax())} | {card}", flush=True)
-    res["cpu_logit_err"] = err
+    del lg, c
+    res["cpu_logits"] = logits_vs_cpu("full", cfg, model, card)
+    del model
+    gc.collect()
+    torch.cuda.empty_cache()
     return res
 
 
+class DeviceRow(NamedTuple):
+    """One kernel (or copy) name's device time in a trace."""
+    key: str
+    self_device_time_total: float   # µs
+    count: int
+
+
 def device_events(prof) -> list:
-    """The profile's device-side kernel rows (an aten op's row repeats the
-    device time of the kernels it launched, so those are left out)."""
-    return [e for e in prof.key_averages()
-            if str(getattr(e, "device_type", "")).endswith("CUDA")
-            and getattr(e, "self_device_time_total", 0) > 0]
+    """The profile's device-side rows, summed by name from the profiler's
+    raw events: what ``key_averages`` gives for the device's kernels and
+    copies (an aten op's row, which repeats the device time of the
+    kernels it launched, is left out), without building every host
+    event's record first (``key_averages`` took 11-24 s on a trace of
+    80,000 launches on an H100; this takes well under one)."""
+    us: dict = {}
+    count: dict = {}
+    for e in prof.profiler.kineto_results.events():
+        if not str(e.device_type()).endswith("CUDA"):
+            continue
+        name = e.name()
+        us[name] = us.get(name, 0.0) + e.duration_ns() / 1e3
+        count[name] = count.get(name, 0) + 1
+    return [DeviceRow(k, v, count[k]) for k, v in us.items() if v > 0]
+
+
+def check_device_sums(prof, events, label: str, card: str) -> dict:
+    """``device_events``' sums beside ``key_averages``' device-side rows
+    (the rule it replaced) on the same trace: totals, the largest
+    per-name difference and the names whose counts differ. Run once on a
+    decode trace and once on a training step's."""
+    t0 = time.perf_counter()
+    old = {e.key: (e.self_device_time_total, e.count)
+           for e in prof.key_averages()
+           if str(getattr(e, "device_type", "")).endswith("CUDA")
+           and getattr(e, "self_device_time_total", 0) > 0}
+    took = time.perf_counter() - t0
+    new = {e.key: (e.self_device_time_total, e.count) for e in events}
+    names = set(old) | set(new)
+    tot_old = sum(v[0] for v in old.values())
+    tot_new = sum(v[0] for v in new.values())
+    worst = max((abs(old.get(n, (0, 0))[0] - new.get(n, (0, 0))[0])
+                 for n in names), default=0.0)
+    counts_differ = sum(old.get(n, (0, 0))[1] != new.get(n, (0, 0))[1]
+                        for n in names)
+    print(f"[profile] {label}: device time from the raw events "
+          f"{tot_new / 1e3:.4f} ms in {len(new)} names, from key_averages "
+          f"{tot_old / 1e3:.4f} ms in {len(old)} names (key_averages took "
+          f"{took:.1f} s); largest per-name difference {worst:.3f} us, "
+          f"names whose counts differ {counts_differ} | {card}", flush=True)
+    return dict(raw_ms=tot_new / 1e3, key_averages_ms=tot_old / 1e3,
+                raw_names=len(new), key_averages_names=len(old),
+                max_name_diff_us=worst, names_counts_differ=counts_differ,
+                key_averages_s=took)
 
 
 def q8_kernel(key: str) -> bool:
@@ -711,11 +922,13 @@ def q8_kernel(key: str) -> bool:
             or ("gemm16::" in key and "true, true, true, false>" in key))
 
 
-def profile_decode(eng, cfg, rng, card: str) -> dict:
+def profile_decode(eng, cfg, rng, card: str, check_sums: bool = False
+                   ) -> dict:
     """Device busy share of steady decode: 4 requests decoding, 5 engine
     ticks under torch.profiler; device time summed over CUDA kernels
     against the host wall clock of the ticks (the profiler's own host
-    cost included, so the share is a lower bound)."""
+    cost included, so the share is a lower bound). ``check_sums``: also
+    ``check_device_sums`` on the trace."""
     for n in (16, 16, 16, 16):
         eng.submit(list(map(int, rng.integers(0, cfg.vocab_size, n))),
                    max_new=12)
@@ -736,6 +949,8 @@ def profile_decode(eng, cfg, rng, card: str) -> dict:
         print(f"[profile] no device time in the trace: busy share not "
               f"measured | {card}")
         return {"decode_busy_share": None}
+    sums = (check_device_sums(prof, events, "5 decode ticks", card)
+            if check_sums else None)
     print(f"[profile] 5 decode ticks (4 slots): wall {wall_us / 5e3:.3f} ms "
           f"per tick, device busy {dev_us / 5e3:.3f} ms per tick, busy "
           f"share {dev_us / wall_us:.3f} | {card}")
@@ -746,7 +961,7 @@ def profile_decode(eng, cfg, rng, card: str) -> dict:
     q8_us = sum(e.self_device_time_total for e in events if q8_kernel(e.key))
     if q8_us:
         print(f"[profile]   #6's kernels: {q8_us / 5e3:.3f} ms/tick | {card}")
-    return {"decode_busy_share": dev_us / wall_us,
+    return {"decode_busy_share": dev_us / wall_us, "decode_sums": sums,
             "decode_tick_wall_ms": wall_us / 5e3,
             "decode_tick_device_ms": dev_us / 5e3,
             "decode_q8_ms": q8_us / 5e3,
@@ -766,6 +981,13 @@ SITE_COUNT = {"attn/wq|wo": 2, "attn/wk|wv": 2, "mlp/gate|up": 2,
 STACKS = {"attn/wq|wo": (24, 896, 256), "attn/wk|wv": (24, 128, 128),
           "mlp/gate|up": (24, 4864, 256), "mlp/down": (24, 896, 256)}
 TRAIN_KERNELS = ("lowrank_fwd_sketch", "lowrank_bwd", "gram", "choleskyqr")
+# tinyllama-1.1b's refresh (phase 19): the stacked L (22, O, K) of its 7
+# sites in 3 shapes, and how many sites share each; K = 512 is above the
+# blocked factor's 288, so those stacks take #4's global factor
+TINY_STACKS = {"attn/wq|wo|mlp/down": (22, 2048, 512),
+               "attn/wk|wv": (22, 256, 128), "mlp/gate|up": (22, 5632, 512)}
+TINY_STACK_COUNT = {"attn/wq|wo|mlp/down": 3, "attn/wk|wv": 2,
+                    "mlp/gate|up": 2}
 
 
 def itemsize(dtype) -> int:
@@ -1010,6 +1232,128 @@ def timed(label, fns, sets, nbytes, flops, dtype, card, extra="",
     return row
 
 
+def refresh_stack(name, b, o, k, dtype, gen, worst, card: str):
+    """One stacked site of a WSI refresh, (b, O, K): the Gram (#5) and
+    CholeskyQR (#4) held to their plain versions (two calls bit-equal, G
+    exactly symmetric; Q, mix and Q^T Q within the tolerances below), then
+    timed beside the plain version, the library and the bound, and #4
+    without its Gram. Returns (Gram row, its (bytes, flops), CholeskyQR
+    row, its (bytes, flops), #4's times without the Gram); ``worst`` takes
+    the largest errors."""
+    y = well_conditioned(b, o, k, dtype, gen)
+    tag = f"{name} ({b},{o},{k}) {str(dtype)[6:]}"
+    g_route = kgram.gram_route(dtype, k, (y,))
+    g_plan = (tuple(kgram.gram_plan(b, o, k))
+              if g_route == "tensor_core" else None)
+    g, = held_twice_all(f"gram {tag}", lambda t: (ops.gram(t),),
+                        (y,))
+    e = held(f"gram {tag}", g, ref.gram_ref(y), o, torch.float32)
+    worst["gram"] = max(worst["gram"], e)
+    if not torch.equal(g, g.mT):
+        raise AssertionError(f"gram {tag}: G is not symmetric")
+    print(f"[kernel] gram {tag} route={g_route} plan (tile, splits)"
+          f"={g_plan}: err {e:.2e}, G == G^T exactly, two calls "
+          "bit-equal", flush=True)
+    route = "/".join(kqr.qr_route(k, dtype, (y, y)))
+    q, mix = held_twice_all(f"choleskyqr {tag} ({route})",
+                            kqr.choleskyqr, (y,))
+    wq, wmix = ref.choleskyqr_ref(y)
+    # Q: a Cholesky of a cond <= 16 Gram amplifies the Gram's
+    # rounding ~16x: 1e-3 of Q's scale in f32; a bf16 Q adds one
+    # rounding (2^-7 of the scale). mix: 1e-3 of its scale.
+    # Q^T Q = I: 1e-3 (f32); a bf16 rounding of each entry of Q
+    # moves each entry of Q^T Q by <= 2^-8, K of them in a row.
+    qs, ms = wq.float().abs().max().item(), wmix.abs().max().item()
+    eq = (q.float() - wq.float()).abs().max().item()
+    em = (mix - wmix).abs().max().item()
+    tol_q = 1e-3 * qs + (2.0 ** -7 * qs if dtype == torch.bfloat16
+                         else 0.0)
+    ortho = orthonormality_error(q).max().item()
+    tol_o = 1e-3 + (k * 2.0 ** -8 if dtype == torch.bfloat16
+                    else 0.0)
+    lq, lmix = cholesky_qr_mix_ref(y)
+    el = (mix - lmix).abs().max().item()
+    if not (eq <= tol_q and em <= 1e-3 * ms and ortho <= tol_o
+            and el <= 1e-3 * ms):
+        raise AssertionError(
+            f"choleskyqr {tag}: Q err {eq:.3e} (tol {tol_q:.3e}), "
+            f"mix err {em:.3e} / ladder ref {el:.3e} (tol "
+            f"{1e-3 * ms:.3e}), |Q^T Q - I| {ortho:.3e} (tol "
+            f"{tol_o:.3e})")
+    worst["choleskyqr"] = max(worst["choleskyqr"], eq, em)
+    print(f"[kernel] choleskyqr {tag} route={route}: Q err "
+          f"{eq:.2e} mix err {em:.2e} |Q^T Q - I|_F {ortho:.2e}",
+          flush=True)
+    del g, q, mix, wq, wmix, lq, lmix
+
+    n_sets = max(1, min(16, int(120e6 // (b * o * k *
+                                          itemsize(dtype))) + 1))
+    sets = [(well_conditioned(b, o, k, dtype, gen),)
+            for _ in range(n_sets)]
+    nb, fl = gram_work(b, o, k, dtype)
+    row = timed(f"gram       {name:11s} ({b},{o},{k})",
+                (ops.gram, ref.gram_ref, library_gram), sets, nb,
+                fl, dtype, card, extra=f" route={g_route}")
+    g_row = dict(row, kernel="gram", site=name, M=o, dtype=str(dtype)[6:],
+                 route=g_route, plan=g_plan)
+    g_work = (nb, fl)
+    nb, fl = choleskyqr_work(b, o, k, dtype)
+    row = timed(f"choleskyqr {name:11s} ({b},{o},{k})",
+                (kqr.choleskyqr, ref.choleskyqr_ref,
+                 library_choleskyqr), sets, nb, fl, dtype, card)
+    gsets = [(ys, ops.gram(ys)) for ys, in sets]
+    ag = {"ms": time_ms(qr_after_gram, gsets),
+          "library_ms": time_ms(library_after_gram, gsets)}
+    print(f"[kernel] choleskyqr {name:11s} ({b},{o},{k}) "
+          f"{str(dtype)[6:]:8s} route={route} without the Gram: "
+          f"kernel_ms={ag['ms']:.4f} library_ms="
+          f"{ag['library_ms']:.4f} | {card}", flush=True)
+    c_row = dict(row, kernel="choleskyqr", site=name, M=o,
+                 dtype=str(dtype)[6:], route=route,
+                 kernel_ms_after_gram=ag["ms"],
+                 library_ms_after_gram=ag["library_ms"])
+    del sets, gsets
+    return g_row, g_work, c_row, (nb, fl), ag
+
+
+def tinyllama_refresh(gen, worst, card: str) -> dict:
+    """One tinyllama-1.1b refresh in bf16, its 7 stacked sites in 3 shapes
+    (``refresh_stack`` each): the Gram's and #4's sums over the refresh
+    beside the bound, and #4 without its Gram."""
+    tot = {n: dict(ms=0.0, plain_ms=0.0, library_ms=0.0, bytes=0, flops=0)
+           for n in ("gram", "choleskyqr")}
+    after_gram = {"ms": 0.0, "library_ms": 0.0}
+    rows = []
+    for name, (b, o, k) in TINY_STACKS.items():
+        g_row, g_work, c_row, c_work, ag = refresh_stack(
+            f"tiny:{name}", b, o, k, torch.bfloat16, gen, worst, card)
+        rows += [g_row, c_row]
+        mult = TINY_STACK_COUNT[name]
+        for n, row, (nb, fl) in (("gram", g_row, g_work),
+                                 ("choleskyqr", c_row, c_work)):
+            t = tot[n]
+            for key, src in (("ms", "kernel_ms"), ("plain_ms", "plain_ms"),
+                             ("library_ms", "library_ms")):
+                t[key] += mult * row[src]
+            t["bytes"] += mult * nb
+            t["flops"] += mult * fl
+        for key in after_gram:
+            after_gram[key] += mult * ag[key]
+    for n, t in tot.items():
+        t["bound_ms"], t["bound_by"] = bound_of(t.pop("bytes"),
+                                                t.pop("flops"),
+                                                torch.bfloat16)
+        print(f"[kernel] {n} one tinyllama-1.1b refresh, 7 stacked sites (22"
+              f" layers), bf16: kernel_ms={t['ms']:.4f} plain_ms="
+              f"{t['plain_ms']:.4f} library_ms={t['library_ms']:.4f} "
+              f"bound_ms={t['bound_ms']:.5f} ({t['bound_by']}) | {card}",
+              flush=True)
+    print(f"[kernel] choleskyqr one tinyllama-1.1b refresh without its Gram "
+          f"launches, bf16: kernel_ms={after_gram['ms']:.4f} library_ms="
+          f"{after_gram['library_ms']:.4f} | {card}", flush=True)
+    return dict(rows=rows, headline=tot, after_gram=after_gram)
+
+
 def phase_train_kernels(card: str) -> dict:
     print("== phase 6: training kernels against their plain versions",
           flush=True)
@@ -1101,86 +1445,15 @@ def phase_train_kernels(card: str) -> dict:
 
     for name, (b, o, k) in STACKS.items():
         for dtype in (torch.bfloat16, torch.float32):
-            y = well_conditioned(b, o, k, dtype, gen)
-            tag = f"{name} ({b},{o},{k}) {str(dtype)[6:]}"
-            g_route = kgram.gram_route(dtype, k, (y,))
-            g_plan = (tuple(kgram.gram_plan(b, o, k))
-                      if g_route == "tensor_core" else None)
-            g, = held_twice_all(f"gram {tag}", lambda t: (ops.gram(t),),
-                                (y,))
-            e = held(f"gram {tag}", g, ref.gram_ref(y), o, torch.float32)
-            worst["gram"] = max(worst["gram"], e)
-            if not torch.equal(g, g.mT):
-                raise AssertionError(f"gram {tag}: G is not symmetric")
-            print(f"[kernel] gram {tag} route={g_route} plan (tile, splits)"
-                  f"={g_plan}: err {e:.2e}, G == G^T exactly, two calls "
-                  "bit-equal", flush=True)
-            route = "/".join(kqr.qr_route(k, dtype, (y, y)))
-            q, mix = held_twice_all(f"choleskyqr {tag} ({route})",
-                                    kqr.choleskyqr, (y,))
-            wq, wmix = ref.choleskyqr_ref(y)
-            # Q: a Cholesky of a cond <= 16 Gram amplifies the Gram's
-            # rounding ~16x: 1e-3 of Q's scale in f32; a bf16 Q adds one
-            # rounding (2^-7 of the scale). mix: 1e-3 of its scale.
-            # Q^T Q = I: 1e-3 (f32); a bf16 rounding of each entry of Q
-            # moves each entry of Q^T Q by <= 2^-8, K of them in a row.
-            qs, ms = wq.float().abs().max().item(), wmix.abs().max().item()
-            eq = (q.float() - wq.float()).abs().max().item()
-            em = (mix - wmix).abs().max().item()
-            tol_q = 1e-3 * qs + (2.0 ** -7 * qs if dtype == torch.bfloat16
-                                 else 0.0)
-            ortho = orthonormality_error(q).max().item()
-            tol_o = 1e-3 + (k * 2.0 ** -8 if dtype == torch.bfloat16
-                            else 0.0)
-            lq, lmix = cholesky_qr_mix_ref(y)
-            el = (mix - lmix).abs().max().item()
-            if not (eq <= tol_q and em <= 1e-3 * ms and ortho <= tol_o
-                    and el <= 1e-3 * ms):
-                raise AssertionError(
-                    f"choleskyqr {tag}: Q err {eq:.3e} (tol {tol_q:.3e}), "
-                    f"mix err {em:.3e} / ladder ref {el:.3e} (tol "
-                    f"{1e-3 * ms:.3e}), |Q^T Q - I| {ortho:.3e} (tol "
-                    f"{tol_o:.3e})")
-            worst["choleskyqr"] = max(worst["choleskyqr"], eq, em)
-            print(f"[kernel] choleskyqr {tag} route={route}: Q err "
-                  f"{eq:.2e} mix err {em:.2e} |Q^T Q - I|_F {ortho:.2e}",
-                  flush=True)
-            del g, q, mix, wq, wmix, lq, lmix
-
-            n_sets = max(1, min(16, int(120e6 // (b * o * k *
-                                                  itemsize(dtype))) + 1))
-            sets = [(well_conditioned(b, o, k, dtype, gen),)
-                    for _ in range(n_sets)]
-            nb, fl = gram_work(b, o, k, dtype)
-            row = timed(f"gram       {name:11s} ({b},{o},{k})",
-                        (ops.gram, ref.gram_ref, library_gram), sets, nb,
-                        fl, dtype, card, extra=f" route={g_route}")
-            rows.append(dict(row, kernel="gram", site=name, M=o,
-                             dtype=str(dtype)[6:], route=g_route,
-                             plan=g_plan))
-            mult = SITE_COUNT[name]
+            g_row, g_work, c_row, c_work, ag = refresh_stack(
+                name, b, o, k, dtype, gen, worst, card)
+            rows += [g_row, c_row]
             if dtype == torch.bfloat16:
-                add("gram", mult, row, nb, fl)
-            nb, fl = choleskyqr_work(b, o, k, dtype)
-            row = timed(f"choleskyqr {name:11s} ({b},{o},{k})",
-                        (kqr.choleskyqr, ref.choleskyqr_ref,
-                         library_choleskyqr), sets, nb, fl, dtype, card)
-            gsets = [(ys, ops.gram(ys)) for ys, in sets]
-            ag = {"ms": time_ms(qr_after_gram, gsets),
-                  "library_ms": time_ms(library_after_gram, gsets)}
-            print(f"[kernel] choleskyqr {name:11s} ({b},{o},{k}) "
-                  f"{str(dtype)[6:]:8s} route={route} without the Gram: "
-                  f"kernel_ms={ag['ms']:.4f} library_ms="
-                  f"{ag['library_ms']:.4f} | {card}", flush=True)
-            rows.append(dict(row, kernel="choleskyqr", site=name, M=o,
-                             dtype=str(dtype)[6:], route=route,
-                             kernel_ms_after_gram=ag["ms"],
-                             library_ms_after_gram=ag["library_ms"]))
-            if dtype == torch.bfloat16:
-                add("choleskyqr", mult, row, nb, fl)
+                mult = SITE_COUNT[name]
+                add("gram", mult, g_row, *g_work)
+                add("choleskyqr", mult, c_row, *c_work)
                 for key in after_gram:
                     after_gram[key] += mult * ag[key]
-            del sets, gsets
     worst["choleskyqr"] = max(worst["choleskyqr"], ladder_case(card))
     for n, h in head.items():
         h["bound_ms"], h["bound_by"] = bound_of(h.pop("bytes"),
@@ -1201,7 +1474,9 @@ def phase_train_kernels(card: str) -> dict:
     head["choleskyqr"]["after_gram"] = after_gram
     head["choleskyqr"]["profile"] = profile_choleskyqr(
         *STACKS["attn/wq|wo"], card)
-    return dict(rows=rows, worst=worst, headline=head)
+    tiny = tinyllama_refresh(gen, worst, card)
+    return dict(rows=rows, worst=worst, headline=head,
+                tinyllama_refresh=tiny)
 
 
 def smoke_card_vs_cpu(method: str, tcfg: TrainConfig) -> dict:
@@ -1295,25 +1570,13 @@ def phase_smoke_training(card: str) -> dict:
                 factor_abs_err=par_err, launches=cuda["launches"])
 
 
-def train_kernel_of(key: str):
-    """Which of #2 and #3 launched a kernel, by its name: every kernel of
-    gemm_bf16.cuh (namespace gemm16) in a training step is one of theirs;
-    #2's products read both operands k-major as bf16, one product a
-    launch (Config<..., true, true, false, false>: A_K, B_K, no int8 B, no
-    batch), #3's never do, and the split pass is #3's alone. A batched
-    product (Config<..., false, true>) is #4's apply at a refresh."""
-    if "gemm16::" not in key or "false, true>" in key:
-        return None
-    return ("lowrank_fwd_sketch" if "true, true, false, false>" in key
-            else "lowrank_bwd")
-
-
-def profile_train_step(state, step, batch, card: str):
+def profile_train_step(state, step, batch, card: str,
+                       check_sums: bool = False):
     """Device busy share of one full-width training step (no refresh)
     under torch.profiler: device time summed over CUDA kernels against the
     host wall clock of the step (the profiler's own host cost included, so
-    the share is a lower bound); and the share of that device time spent
-    in the bf16 kernels of #2 and #3 (``train_kernel_of``)."""
+    the share is a lower bound), and the top kernels by device time.
+    ``check_sums``: also ``check_device_sums`` on the trace."""
     acts = [torch.profiler.ProfilerActivity.CPU,
             torch.profiler.ProfilerActivity.CUDA]
     torch.cuda.synchronize()
@@ -1323,9 +1586,7 @@ def profile_train_step(state, step, batch, card: str):
         float(m["loss"])
         torch.cuda.synchronize()
         wall_us = (time.perf_counter() - t0) * 1e6
-    events = [e for e in prof.key_averages()
-              if str(getattr(e, "device_type", "")).endswith("CUDA")
-              and getattr(e, "self_device_time_total", 0) > 0]
+    events = device_events(prof)
     dev_us = sum(e.self_device_time_total for e in events)
     if dev_us <= 0:
         print(f"[profile] no device time in the trace: busy share not "
@@ -1334,15 +1595,8 @@ def profile_train_step(state, step, batch, card: str):
     print(f"[profile] one training step: wall {wall_us / 1e3:.3f} ms, "
           f"device busy {dev_us / 1e3:.3f} ms, busy share "
           f"{dev_us / wall_us:.3f} | {card}")
-    shares = {}
-    for name in ("lowrank_fwd_sketch", "lowrank_bwd"):
-        mine = [e for e in events if train_kernel_of(e.key) == name]
-        us = sum(e.self_device_time_total for e in mine)
-        shares[name] = us / dev_us
-        if mine:
-            print(f"[profile]   {name} (bf16): {us / 1e3:.3f} ms in "
-                  f"{sum(e.count for e in mine)} kernel launches, "
-                  f"{us / dev_us:.3f} of the device time")
+    sums = (check_device_sums(prof, events, "one training step", card)
+            if check_sums else None)
     top = sorted(events, key=lambda e: -e.self_device_time_total)[:10]
     for e in top:
         print(f"[profile]   {e.self_device_time_total / 1e3:8.3f} ms "
@@ -1350,7 +1604,7 @@ def profile_train_step(state, step, batch, card: str):
     return state, {"train_busy_share": dev_us / wall_us,
                    "train_step_wall_ms_profiled": wall_us / 1e3,
                    "train_step_device_ms": dev_us / 1e3,
-                   "train_device_share": shares,
+                   "train_sums": sums,
                    "train_top": [(e.key[:70], e.self_device_time_total / 1e3,
                                   e.count) for e in top]}
 
@@ -1426,11 +1680,7 @@ def phase_full_training(card: str) -> dict:
 
     # seeded uniform tokens: SyntheticLM's dense (vocab, vocab) bigram table
     # would be ~92 GB at this vocab (ROADMAP.md queue 3)
-    def batch_fn(i):
-        g = torch.Generator(device="cuda").manual_seed(1000 + i)
-        t = torch.randint(0, cfg.vocab_size, (b, s + 1), device="cuda",
-                          generator=g)
-        return {"tokens": t[:, :-1], "labels": t[:, 1:]}
+    batch_fn = uniform_batches(cfg, b, s, 1000)
 
     shutil.rmtree(CKPT_DIR, ignore_errors=True)
     mgr = CheckpointManager(os.path.join(CKPT_DIR, "train"), keep=1,
@@ -1450,13 +1700,10 @@ def phase_full_training(card: str) -> dict:
     torch.cuda.synchronize()
     counts = ops.launch_counts()
     peak = torch.cuda.max_memory_allocated()
-    per_step = len(SITES) * cfg.n_layers
-    refreshes = n_steps // 4
-    want = {"lowrank_fwd": 0, "lowrank_q8": 0, "matmul_tiled": 0,
-            "ssd_scan": 0, "flash_attention": n_steps * cfg.n_layers,
-            "lowrank_fwd_sketch": n_steps * per_step,
-            "lowrank_bwd": n_steps * per_step, "gram": refreshes * len(SITES),
-            "choleskyqr": refreshes * len(SITES)}
+    if cfg.remat != "block":
+        raise AssertionError(f"qwen2-0.5b's config sets remat {cfg.remat}")
+    refreshes = refreshes_in(cfg, 0, n_steps)
+    want = train_want(cfg, "wsi", n_steps, refreshes)
     if counts != want:
         raise AssertionError(f"full training launches {counts} != {want}")
     losses = [h["loss"] for h in hist]
@@ -1471,12 +1718,12 @@ def phase_full_training(card: str) -> dict:
     print(f"[train-full] step_ms_median (steps 2-8)={step_s * 1e3:.3f} "
           f"tok_s={b * s / step_s:.1f} peak_allocated_mib="
           f"{peak / 2 ** 20:.1f} | {card}")
-    print(f"[train-full] launches {counts} = {n_steps} steps x {per_step} "
-          f"sketch and backward, {refreshes} refreshes x {len(SITES)} Gram "
-          f"and CholeskyQR, {n_steps} x {cfg.n_layers} flash_attention "
-          "(forward only), 0 lowrank_fwd", flush=True)
+    print(f"[train-full] launches {counts} = "
+          f"{want_text(cfg, 'wsi', n_steps, refreshes)}; 0 lowrank_fwd",
+          flush=True)
     res.update(check_train_checkpoint(state, plan, n_steps, save_s, card))
-    state, prof = profile_train_step(state, step, batch_fn(n_steps), card)
+    state, prof = profile_train_step(state, step, batch_fn(n_steps), card,
+                                     check_sums=True)
     res.update(prof)
 
     # one step at batch 1 x seq 32 from the same weights: card f32 and
@@ -2204,12 +2451,9 @@ def smoke_wasi_parity(card: str) -> dict:
 
 def table2_method(method: str, card: str) -> dict:
     """One method of the Table 2 comparison at full width: build through
-    ``launch/train.py``, train through ``train_loop(memprof=True)``, exact
-    launch counts, the saved-for-backward bytes of one ``lm_loss`` forward
-    and the time of one ``lm_forward`` without states."""
-    from repro_torch.models.lm import lm_forward
-    from repro_torch.utils.memprof import measured_residual_bytes
-
+    ``launch/train.py``, train through ``train_run``, the saved-for-backward
+    bytes and peak under ``block`` and ``none`` (``remat_memory``) and the
+    time of one ``lm_forward`` without states."""
     b, s, n_steps = 4, 512, 5
     tcfg = TrainConfig(optimizer="adamw", lr=3e-4, steps=n_steps,
                        checkpoint_every=0)
@@ -2224,49 +2468,14 @@ def table2_method(method: str, card: str) -> dict:
         raise AssertionError(f"{method}: built {cfg.wasi.method}, ASI "
                              f"states {state.asi is not None}")
 
-    def batch_fn(i):
-        g = torch.Generator(device="cuda").manual_seed(1000 + i)
-        t = torch.randint(0, cfg.vocab_size, (b, s + 1), device="cuda",
-                          generator=g)
-        return {"tokens": t[:, :-1], "labels": t[:, 1:]}
-
-    ops.reset_launches()
-    state, hist = train_loop(state, step, batch_fn, tcfg, log_every=1,
-                             memprof=True,
-                             log_fn=lambda line: print(line, flush=True))
-    torch.cuda.synchronize()
-    counts = ops.launch_counts()
+    batch_fn = uniform_batches(cfg, b, s, 1000)
+    state, res = train_run("table2", state, step, batch_fn, tcfg, cfg,
+                           method, 0, n_steps, b * s)
+    res.update(method=method, build_s=build_s)
     per_step = len(SITES) * cfg.n_layers
-    refreshes = n_steps // 4 if cfg.wasi.factored else 0
-    want = dict.fromkeys(counts, 0)
-    if method == "wsi":
-        want.update(lowrank_fwd_sketch=n_steps * per_step,
-                    lowrank_bwd=n_steps * per_step)
-    want.update(gram=refreshes * len(SITES),
-                choleskyqr=refreshes * len(SITES),
-                flash_attention=n_steps * cfg.n_layers)
-    if counts != want:
-        raise AssertionError(f"{method} training launches {counts} != "
-                             f"{want}")
-    losses = [h["loss"] for h in hist]
-    if len(hist) != n_steps or not all(np.isfinite(x) for x in losses):
-        raise AssertionError(f"{method} losses {losses}")
-    step_s = statistics.median(h["sec"] for h in hist[1:])
-    res = dict(method=method, build_s=build_s, losses=losses,
-               step_ms=[h["sec"] * 1e3 for h in hist],
-               step_ms_median=step_s * 1e3, tok_s=b * s / step_s,
-               dev_peak_mib=max(h["mem_dev_peak_mib"] for h in hist),
-               live_mib=hist[-1]["mem_live_mib"],
-               live_peak_mib=hist[-1]["mem_live_peak_mib"],
-               train_launches=counts)
-
     batch = batch_fn(n_steps)
-    rep = measured_residual_bytes(
-        lambda: lm_loss(state.params, batch, cfg, states=state.asi))
-    res["residual_bytes"] = rep.total_bytes
-    res["residual_arrays"] = rep.n_arrays
-    del rep
-    torch.cuda.empty_cache()
+    res.update(remat_memory(state, batch, cfg,
+                            with_remat(cfg, "none", b, s)))
 
     model = state.params
     with torch.no_grad():
@@ -2303,10 +2512,13 @@ def table2_method(method: str, card: str) -> dict:
     print(f"[table2] {method}: step_ms_median (steps 2-{n_steps})="
           f"{res['step_ms_median']:.3f} tok_s={res['tok_s']:.1f} "
           f"infer_ms_median={res['infer_ms_median']:.3f} dev_peak_mib="
-          f"{res['dev_peak_mib']:.1f} residual_bytes={res['residual_bytes']}"
-          f" (one lm_loss forward, every layer's saved tensors: remat none)"
-          f" train launches {counts} inference launches {inf_counts} | "
-          f"{card}", flush=True)
+          f"{res['dev_peak_mib']:.1f} saved bytes of one lm_loss: block "
+          f"{res['residual_bytes_block']}, none {res['residual_bytes_none']};"
+          f" peak MiB of one forward and backward: block "
+          f"{res['grad_peak_mib_block']:.1f}, none "
+          f"{res['grad_peak_mib_none']:.1f}; train launches "
+          f"{res['launches']} inference launches {inf_counts} | {card}",
+          flush=True)
     return res
 
 
@@ -2363,12 +2575,16 @@ def phase_table2(card: str) -> dict:
     api.uninstall(cfg)
     api.install(api.resolve(cfg))
     print("[table2] method  step_ms  tok_s  infer_ms  dev_peak_mib  "
-          "residual_MiB (remat none)")
+          "saved_MiB block / none  fwd+bwd_peak_MiB block / none "
+          "(training runs remat block, the config's)")
     for m in METHODS:
         r = out[m]
         print(f"[table2] {m:5s} {r['step_ms_median']:8.3f} {r['tok_s']:8.1f}"
               f" {r['infer_ms_median']:8.3f} {r['dev_peak_mib']:9.1f} "
-              f"{r['residual_bytes'] / 2 ** 20:10.2f} | {card}", flush=True)
+              f"{r['residual_bytes_block'] / 2 ** 20:10.2f} / "
+              f"{r['residual_bytes_none'] / 2 ** 20:10.2f} "
+              f"{r['grad_peak_mib_block']:10.1f} / "
+              f"{r['grad_peak_mib_none']:10.1f} | {card}", flush=True)
     return out
 
 
@@ -2392,6 +2608,19 @@ FLASH_PATH = {"vit": (64, 197, 12, 12, 64, False, 0, torch.float32),
               "qwen2_prefill": (2, 256, 14, 2, 64, True, 0, torch.bfloat16),
               "zamba2_prefill": (4, 256, 32, 32, 112, True, 0,
                                  torch.bfloat16)}
+# the dense decoder configs' shapes (phases 19, 20), bf16, causal:
+# tinyllama-1.1b's training rows and a prefill bucket (GQA 32/4, dh 64),
+# stablelm-3b's (MHA, dh 80, padded to 128), granite-3-8b's (32/8, dh
+# 128), internvl2-26b's (48/8, dh 128) prefill buckets, and gemma3-4b's
+# 1,500-token prompt in its 1,536 bucket under the 1,024-key window (8/4,
+# dh 256)
+DENSE_FLASH = {
+    "tinyllama_train": (4, 512, 32, 4, 64, True, 0, torch.bfloat16),
+    "tinyllama_prefill": (2, 256, 32, 4, 64, True, 0, torch.bfloat16),
+    "stablelm_prefill": (2, 256, 32, 32, 80, True, 0, torch.bfloat16),
+    "granite_prefill": (2, 256, 32, 8, 128, True, 0, torch.bfloat16),
+    "internvl2_prefill": (2, 256, 48, 8, 128, True, 0, torch.bfloat16),
+    "gemma3_1536": (1, 1536, 8, 4, 256, True, 1024, torch.bfloat16)}
 VIT_BATCH, VIT_PATCHES, VIT_PATCH_DIM, VIT_CLASSES = 64, 196, 768, 10
 VIT_STEPS = 10
 # Fig. 5's rows (scope "mlp", the paper's PAPER_WASI) and Tab. 1's
@@ -2485,7 +2714,8 @@ def phase_flash_kernel(card: str) -> dict:
     gen = torch.Generator(device="cuda").manual_seed(13)
     cases = [(f"sweep {c}", *c, dt) for c in FLASH_SWEEP
              for dt in (torch.float32, torch.bfloat16)]
-    cases += [(name, *c) for name, c in FLASH_PATH.items()]
+    cases += [(name, *c) for name, c in {**FLASH_PATH,
+                                         **DENSE_FLASH}.items()]
     rows, worst = [], 0.0
     for name, b, s, h, kvh, dh, causal, window, dtype in cases:
         (q, k, v), = flash_inputs(b, s, h, kvh, dh, dtype, gen)
@@ -2561,7 +2791,7 @@ def phase_flash_kernel(card: str) -> dict:
           f"{card}", flush=True)
     tiled = tiled_backward(gen, card)
     heads = {}
-    for path in FLASH_PATH:
+    for path in {**FLASH_PATH, **DENSE_FLASH}:
         r = next(r for r in rows if r["case"] == path)
         heads[path] = dict(ms=r["kernel_ms"], plain_ms=r["plain_ms"],
                            library_ms=r["library_ms"],
@@ -3285,16 +3515,9 @@ def profile_prefill(eng, cfg, rng, card: str) -> dict:
                              e.count) for e in top]}
 
 
-def zamba2_reduced_logits(cfg, card: str) -> float:
-    """One 16-token prompt at full width and reduced depth (the first
-    pattern once: 5 mamba2 + 1 mamba2_attn), bf16 on the card against the
-    same weights in f32 on the CPU. bf16 rounds every activation to 8
-    significant bits. The limits are stated against the RMS of the CPU's
-    logits (a typical logit) and set from this check's readings on the
-    H100 (max abs err 0.1098, RMS err 0.0273, RMS logit 1.005, max |logit|
-    4.032): the RMS error within 4% of it, the largest error within 15%,
-    about 1.4x the readings. A wrong kernel or layout gives an RMS error
-    near the logits' own."""
+def zamba2_reduced_logits(cfg, card: str) -> dict:
+    """``logits_vs_cpu`` at full width and reduced depth: the first
+    pattern once (5 mamba2 + 1 mamba2_attn)."""
     from repro_torch.config import LayerGroup
 
     red = cfg.replace(n_layers=len(cfg.groups[0].pattern), groups=(
@@ -3302,41 +3525,11 @@ def zamba2_reduced_logits(cfg, card: str) -> float:
     api.install(api.resolve(red))
     gen = torch.Generator(device="cuda").manual_seed(18)
     model = init_lm(red, device="cuda", generator=gen)
-    prompt = torch.from_numpy(np.random.default_rng(18).integers(
-        0, red.vocab_size, (1, 16)))
-    with torch.inference_mode():
-        lg_gpu, _ = lm_prefill(model, prompt.cuda(), red,
-                               caches=init_lm_cache(red, 1, 16,
-                                                    device="cuda"),
-                               last_only=True)
-    tree = to_reference(model)
+    out = logits_vs_cpu("zamba2", red, model, card)
     del model
-    red32 = red.replace(dtype="float32")
-    api.install(api.resolve(red32))
-    cpu32 = from_reference(tree, red32, "cpu").float()
-    del tree
-    with torch.inference_mode():
-        lg_cpu, _ = lm_prefill(cpu32, prompt, red32,
-                               caches=init_lm_cache(red32, 1, 16,
-                                                    dtype=torch.float32,
-                                                    device="cpu"),
-                               last_only=True)
-    a, b = lg_gpu.float().cpu()[0, 0], lg_cpu[0, 0]
-    err = (a - b).abs().max().item()
-    scale = b.abs().max().item()
-    rms = b.square().mean().sqrt().item()
-    rms_err = (a - b).square().mean().sqrt().item()
-    if not (rms_err <= 0.04 * rms and err <= 0.15 * rms):
-        raise AssertionError(f"zamba2 reduced depth: bf16 card vs f32 CPU "
-                             f"logits: RMS err {rms_err:.3e} (limit 0.04 x "
-                             f"{rms:.3e}), max abs err {err:.3e} (limit 0.15 "
-                             f"x {rms:.3e})")
-    print(f"[zamba2] full width, 6 layers (5 mamba2 + 1 mamba2_attn), 16-"
-          f"token prompt, bf16 card vs f32 CPU last logits: max abs err "
-          f"{err:.4e}, RMS err {rms_err:.4e}, RMS logit {rms:.4e}, max "
-          f"|logit| {scale:.4e}, argmax card {int(a.argmax())} cpu "
-          f"{int(b.argmax())} | {card}", flush=True)
-    return err
+    gc.collect()
+    torch.cuda.empty_cache()
+    return out
 
 
 def phase_zamba2_full(card: str) -> dict:
@@ -3429,8 +3622,408 @@ def phase_zamba2_full(card: str) -> dict:
     del eng, model
     gc.collect()
     torch.cuda.empty_cache()
-    res["reduced_depth_logit_err"] = zamba2_reduced_logits(cfg, card)
+    res["cpu_logits"] = zamba2_reduced_logits(cfg, card)
     return res
+
+
+# ---------------------------------------------------------------------------
+# the dense decoder configs: tinyllama-1.1b (the paper's Fig. 7 model),
+# stablelm-3b, granite-3-8b, internvl2-26b and gemma3-4b
+# ---------------------------------------------------------------------------
+
+def remat_runs(cfg) -> int:
+    """How often a training step runs each forward kernel: twice under
+    ``remat="block"`` (the forward, then the recompute the backward asks
+    for), once under ``"none"``."""
+    return 2 if cfg.remat == "block" else 1
+
+
+def with_remat(cfg, remat: str, b: int, s: int):
+    """``cfg`` under another ``remat`` setting, with its plan (which the
+    setting does not change) installed for the run's activation shape."""
+    c = cfg.replace(remat=remat)
+    api.install(api.resolve(c, batch=b, seq=s))
+    return c
+
+
+def train_want(cfg, method: str, n_steps: int, refreshes: int) -> dict:
+    """Exact launches of ``n_steps`` training steps: per step L attentions
+    (#7) and, under ``wsi``, 7 L sketch forwards (#2), each run
+    ``remat_runs(cfg)`` times; 7 L backwards (#3) once; 7 Gram (#5) and 7
+    CholeskyQR (#4) calls a refresh; nothing else."""
+    sites = len(api.plan_of(cfg).specs)
+    runs = remat_runs(cfg)
+    want = dict.fromkeys(ops.launch_counts(), 0)
+    want["flash_attention"] = n_steps * cfg.n_layers * runs
+    if method == "wsi":
+        want["lowrank_fwd_sketch"] = n_steps * sites * cfg.n_layers * runs
+        want["lowrank_bwd"] = n_steps * sites * cfg.n_layers
+    want["gram"] = want["choleskyqr"] = refreshes * sites
+    return want
+
+
+def want_text(cfg, method: str, n_steps: int, refreshes: int) -> str:
+    """``train_want``'s formula, for the log."""
+    runs, sites, n = remat_runs(cfg), len(api.plan_of(cfg).specs), \
+        cfg.n_layers
+    out = [f"flash_attention = {n_steps} steps x {n} layers x {runs}"]
+    if method == "wsi":
+        out += [f"lowrank_fwd_sketch = {n_steps} x {sites} sites x {n} x "
+                f"{runs}", f"lowrank_bwd = {n_steps} x {sites} x {n}"]
+    out.append(f"gram = choleskyqr = {refreshes} refreshes x {sites}")
+    return "; ".join(out) + (f" (x {runs}: the forward and the recompute)"
+                             if runs == 2 else "")
+
+
+def refreshes_in(cfg, start: int, end: int) -> int:
+    """WSI refreshes steps ``start`` .. ``end`` - 1 run."""
+    every = cfg.wasi.refresh_every
+    if not (cfg.wasi.factored and every > 0):
+        return 0
+    return sum((s + 1) % every == 0 for s in range(start, end))
+
+
+def uniform_batches(cfg, b: int, s: int, seed: int):
+    """Batch ``i``: seeded uniform tokens on the card, drawn from ``seed`` +
+    i (``SyntheticLM``'s dense (vocab, vocab) bigram table would take 92
+    GB of host memory at qwen2's vocab, 4 GB at tinyllama's)."""
+    def batch_fn(i):
+        g = torch.Generator(device="cuda").manual_seed(seed + i)
+        t = torch.randint(0, cfg.vocab_size, (b, s + 1), device="cuda",
+                          generator=g)
+        return {"tokens": t[:, :-1], "labels": t[:, 1:]}
+    return batch_fn
+
+
+def grad_peak(model, batch, cfg, states) -> float:
+    """The allocator's peak MiB of one forward and backward
+    (``value_and_grad``) under ``cfg``, from what is live before it."""
+    gc.collect()
+    torch.cuda.synchronize()
+    torch.cuda.reset_peak_memory_stats()
+    out = value_and_grad(lm_loss, model, batch, cfg, states)
+    torch.cuda.synchronize()
+    peak = torch.cuda.max_memory_allocated() / 2 ** 20
+    del out
+    return peak
+
+
+def remat_memory(state, batch, cfg, cfg_none) -> dict:
+    """The config's ``remat="block"`` beside ``"none"`` (the paper's memory
+    comparison) from one state and batch: the saved-for-backward bytes and
+    arrays of one ``lm_loss`` (``utils.memprof``) and the allocator's peak
+    of one forward and backward (``grad_peak``)."""
+    from repro_torch.utils.memprof import measured_residual_bytes
+
+    out = {}
+    for remat, c in (("block", cfg), ("none", cfg_none)):
+        rep = measured_residual_bytes(
+            lambda: lm_loss(state.params, batch, c, states=state.asi))
+        out[f"residual_bytes_{remat}"] = rep.total_bytes
+        out[f"residual_arrays_{remat}"] = rep.n_arrays
+        del rep
+        torch.cuda.empty_cache()
+        out[f"grad_peak_mib_{remat}"] = grad_peak(state.params, batch, c,
+                                                  state.asi)
+    torch.cuda.empty_cache()
+    return out
+
+
+def train_run(tag: str, state, step, batch_fn, tcfg, cfg, method: str,
+              start: int, end: int, tokens: int):
+    """Steps ``start`` .. ``end`` - 1 through ``train_loop(memprof=True)``
+    under ``cfg``: exact launches (``train_want``, printed with its
+    formula), finite losses, and the row: losses, step ms (the median
+    leaves out the first step), tokens/s at ``tokens`` a step and the
+    allocator's figures. Returns (state, row)."""
+    ops.reset_launches()
+    state, hist = train_loop(state, step, batch_fn, tcfg, log_every=1,
+                             memprof=True, max_steps=end,
+                             log_fn=lambda line: print(line, flush=True))
+    torch.cuda.synchronize()
+    counts = ops.launch_counts()
+    refreshes = refreshes_in(cfg, start, end)
+    want = train_want(cfg, method, end - start, refreshes)
+    if counts != want:
+        raise AssertionError(f"{tag} {method} remat={cfg.remat} launches "
+                             f"{counts} != {want}")
+    print(f"[{tag}] {method} remat={cfg.remat} launches = "
+          f"{want_text(cfg, method, end - start, refreshes)}", flush=True)
+    losses = [h["loss"] for h in hist]
+    if len(hist) != end - start or not all(np.isfinite(x) for x in losses):
+        raise AssertionError(f"{tag} {method} remat={cfg.remat} losses "
+                             f"{losses}")
+    step_s = statistics.median(h["sec"] for h in hist[1:])
+    return state, dict(remat=cfg.remat, losses=losses,
+                       step_ms=[h["sec"] * 1e3 for h in hist],
+                       step_ms_median=step_s * 1e3, tok_s=tokens / step_s,
+                       dev_peak_mib=max(h["mem_dev_peak_mib"] for h in hist),
+                       live_mib=hist[-1]["mem_live_mib"],
+                       live_peak_mib=hist[-1]["mem_live_peak_mib"],
+                       launches=counts, refreshes=refreshes)
+
+
+def remat_grads(state, cfg, cfg_none, method: str, batch, card: str) -> dict:
+    """One step's loss, gradients and refreshed ASI states under ``block``
+    and under ``none`` from the same state and batch, and their launches.
+    Both run the same kernels on the same inputs (the recompute takes the
+    forward's routes), so they should agree to the bit; held to one bf16
+    ulp of each leaf's scale, with the largest difference printed."""
+    out = {}
+    for remat, c in (("block", cfg), ("none", cfg_none)):
+        ops.reset_launches()
+        loss, _, grads, ns = value_and_grad(lm_loss, state.params, batch, c,
+                                            state.asi)
+        torch.cuda.synchronize()
+        out[remat] = (loss, grads, ns, ops.launch_counts())
+    (lb, gb, sb, cb), (ln, gn, sn, cn) = out["block"], out["none"]
+    for c, counts in ((cfg, cb), (cfg_none, cn)):
+        want = train_want(c, method, 1, 0)
+        if counts != want:
+            raise AssertionError(f"{method} {c.remat} one step launches "
+                                 f"{counts} != {want}")
+    worst, bits = 0.0, bool(torch.equal(lb, ln))
+    for k in gn:
+        scale = gn[k].float().abs().max().item()
+        diff = (gb[k].float() - gn[k].float()).abs().max().item()
+        worst = max(worst, diff / max(scale, 1e-30))
+        bits = bits and bool(torch.equal(gb[k], gn[k]))
+    st_bits, st_worst = True, 0.0
+    if sn is not None:
+        from repro_torch.models.lm import map_states
+        pairs = []
+        map_states(lambda a, b_: pairs.append((a, b_)), sb, sn)
+        for a, b_ in pairs:
+            st_bits = st_bits and bool(torch.equal(a, b_))
+            st_worst = max(st_worst, ((a.float() - b_.float()).abs().max()
+                                      / b_.float().abs().max()).item())
+    if not (worst <= 2.0 ** -8 and st_worst <= 2.0 ** -8):
+        raise AssertionError(f"{method}: block and none gradients differ by "
+                             f"{worst:.3e} of a leaf's scale, ASI states by "
+                             f"{st_worst:.3e} (tol 2^-8)")
+    print(f"[tinyllama] {method}: one step from the same state, block "
+          f"against none: loss {float(lb):.6f} / {float(ln):.6f}, "
+          f"gradients {'bit-equal' if bits else 'NOT bit-equal'} (largest "
+          f"difference {worst:.3e} of a leaf's scale, tol 2^-8), ASI states "
+          f"{'bit-equal' if st_bits else 'NOT bit-equal'} ({st_worst:.3e});"
+          f" launches block {dict((k, v) for k, v in cb.items() if v)} none "
+          f"{dict((k, v) for k, v in cn.items() if v)} | {card}", flush=True)
+    del out, gb, gn, sb, sn
+    torch.cuda.empty_cache()
+    return dict(grad_bit_equal=bits, grad_max_rel_diff=worst,
+                states_bit_equal=st_bits, states_max_rel_diff=st_worst,
+                loss_block=float(lb), loss_none=float(ln))
+
+
+# phase 19: batch 4 x seq 512, SGD+momentum 0.9 at a constant rate of 0.05
+# (the launcher's default rate; the reference's Fig. 7 protocol without its
+# cosine decay, so both rows of a method train at one rate), refresh every
+# 8: 8 steps under remat "block" (the config's), a profiled step, 4 steps
+# under "none", a profiled step
+TINY_B, TINY_S, TINY_LR = 4, 512, 0.05
+TINY_BLOCK_STEPS, TINY_NONE_STEPS, TINY_REFRESH = 8, 4, 8
+TINY_METHODS = ("wasi", "wsi", "none")
+
+
+def tinyllama_method(method: str, card: str) -> dict:
+    """One method of Fig. 7 at full width, under ``block`` and ``none``."""
+    b, s = TINY_B, TINY_S
+    n1 = TINY_BLOCK_STEPS
+    n2 = n1 + 1 + TINY_NONE_STEPS
+    tcfg = TrainConfig(optimizer="sgd", lr=TINY_LR, momentum=0.9,
+                       schedule="constant", steps=n2 + 1, checkpoint_every=0)
+    t0 = time.perf_counter()
+    cfg, plan, state, step, _ = launch_train.build(
+        "tinyllama-1.1b", smoke=False, batch=b, seq=s, wasi=method,
+        tcfg=tcfg, device="cuda", refresh_every=TINY_REFRESH)
+    build_s = time.perf_counter() - t0
+    if cfg.remat != "block" or cfg.n_layers != 22 or \
+            cfg.wasi.method != method:
+        raise AssertionError(f"tinyllama-1.1b built {cfg.remat} "
+                             f"{cfg.n_layers} {cfg.wasi.method}")
+    cfg_none = with_remat(cfg, "none", b, s)
+    batch_fn = uniform_batches(cfg, b, s, 1900)
+    res = dict(method=method, build_s=build_s)
+    res.update(remat_grads(state, cfg, cfg_none, method, batch_fn(100),
+                           card))
+    res.update(remat_memory(state, batch_fn(200), cfg, cfg_none))
+    step_none = make_train_step(lm_loss, cfg_none, tcfg)
+    for c, st_fn, start, end in ((cfg, step, 0, n1),
+                                 (cfg_none, step_none, n1 + 1, n2)):
+        state, row = train_run("tinyllama", state, st_fn, batch_fn, tcfg, c,
+                               method, start, end, b * s)
+        state, prof = profile_train_step(state, st_fn, batch_fn(300 + end),
+                                         card)
+        row.update(prof)
+        print(f"[tinyllama] {method} remat={c.remat}: step_ms_median="
+              f"{row['step_ms_median']:.3f} tok_s={row['tok_s']:.1f} "
+              f"dev_peak_mib={row['dev_peak_mib']:.1f} busy_share="
+              f"{row['train_busy_share']} losses "
+              f"{[round(x, 4) for x in row['losses']]} | {card}", flush=True)
+        res[c.remat] = row
+        gc.collect()
+        torch.cuda.empty_cache()
+    res["params"] = sum(p.numel() for p in state.params.parameters())
+    del state, step, step_none
+    gc.collect()
+    torch.cuda.empty_cache()
+    return res
+
+
+def fig7_ratios(cfg, b: int, s: int, card: str) -> list:
+    """Fig. 7's analytic resource ratios of fine-tuning the last 1 and 2
+    layers, computed from the full config as
+    ``benchmarks/fig7_tinyllama.py`` computes them from the smoke config:
+    weights of a layer's 7 linears dense against factored at the static
+    rank (align 1), activations B x S x d dense against their Tucker form at
+    mode fractions (1, 0.5, 0.5), 7 per layer."""
+    from repro_torch.core.asi import tucker_storage
+    from repro_torch.core.rank_policy import asi_mode_ranks, static_rank
+
+    d, f = cfg.d_model, cfg.d_ff
+    k = static_rank(d, f, cfg.wasi.rank_frac, align=1, min_rank=4)
+    w_vanilla = 3 * d * f + 4 * d * d
+    w_wasi = 3 * k * (d + f) + 4 * k * 2 * d
+    a = (b, s, d)
+    r = asi_mode_ranks(a, (1.0, 0.5, 0.5), skip_batch=True, align=1)
+    a_vanilla = b * s * d * 7
+    a_wasi = tucker_storage(a, r) * 7
+    rows = []
+    for n_ft in (1, 2):
+        row = dict(layers=n_ft, rank=k, act_ranks=r,
+                   w_elems_vanilla=n_ft * w_vanilla,
+                   w_elems_wasi=n_ft * w_wasi,
+                   w_mem_ratio=w_vanilla / w_wasi,
+                   act_elems_vanilla=n_ft * a_vanilla,
+                   act_elems_wasi=n_ft * a_wasi,
+                   act_mem_ratio=a_vanilla / a_wasi)
+        rows.append(row)
+        print(f"[fig7] last {n_ft} layer(s) of tinyllama-1.1b (d {d}, d_ff "
+              f"{f}, rank {k}, activations {a} at ranks {r}): weights "
+              f"{row['w_elems_vanilla']:,} -> {row['w_elems_wasi']:,} "
+              f"elements, w_mem_ratio={row['w_mem_ratio']:.2f}; "
+              f"activations {row['act_elems_vanilla']:,} -> "
+              f"{row['act_elems_wasi']:,}, act_mem_ratio="
+              f"{row['act_mem_ratio']:.2f} (analytic)", flush=True)
+    return rows
+
+
+def phase_tinyllama(card: str) -> dict:
+    print("== phase 19: tinyllama-1.1b full width and depth (22 layers, d "
+          "2048, bf16): Fig. 7 training under wasi, wsi and none, each "
+          "under remat block and none; serving", flush=True)
+    out = {}
+    for method in TINY_METHODS:
+        out[method] = tinyllama_method(method, card)
+    cfg = configs.get("tinyllama-1.1b")
+    out["fig7"] = fig7_ratios(cfg, TINY_B, TINY_S, card)
+    print("[tinyllama] method remat  step_ms  tok_s  dev_peak_mib  "
+          "busy_share  saved_MiB  fwd+bwd_peak_MiB (the last two of one "
+          "lm_loss from the method's first state)")
+    for m in TINY_METHODS:
+        for remat in ("block", "none"):
+            r = out[m][remat]
+            busy = r["train_busy_share"]
+            print(f"[tinyllama] {m:5s} {remat:5s} {r['step_ms_median']:8.3f}"
+                  f" {r['tok_s']:8.1f} {r['dev_peak_mib']:9.1f} "
+                  f"{'n/a' if busy is None else f'{busy:.3f}'} "
+                  f"{out[m][f'residual_bytes_{remat}'] / 2 ** 20:9.1f} "
+                  f"{out[m][f'grad_peak_mib_{remat}']:9.1f} | {card}",
+                  flush=True)
+    plan = api.install(api.resolve(cfg))
+    if [(s.name, s.rank) for s in plan.specs] != [
+            ("attn/wq", 512), ("attn/wk", 128), ("attn/wv", 128),
+            ("attn/wo", 512), ("mlp/gate", 512), ("mlp/up", 512),
+            ("mlp/down", 512)]:
+        raise AssertionError(f"tinyllama plan {plan.specs}")
+    gen = torch.Generator(device="cuda").manual_seed(19)
+    model = init_lm(cfg, device="cuda", generator=gen)
+    out["serve"] = serve_dense("tinyllama", cfg, model, plan, card)
+    if out["serve"]["launches_per_forward"] != 154:
+        raise AssertionError("tinyllama: 154 launches of #1 per forward")
+    out["serve"]["cpu_logits"] = logits_vs_cpu("tinyllama", cfg, model, card)
+    del model
+    gc.collect()
+    torch.cuda.empty_cache()
+    return out
+
+
+def reduced(cfg, groups) -> object:
+    """``cfg`` cut to ``groups`` (full width)."""
+    return cfg.replace(groups=groups, n_layers=sum(
+        len(g.pattern) * g.repeat for g in groups))
+
+
+def phase_dense_configs(card: str) -> dict:
+    from repro_torch.config import LayerGroup
+
+    print("== phase 20: gemma3-4b (34 layers), stablelm-3b, granite-3-8b "
+          "and internvl2-26b (2 layers each) at full width, bf16, served",
+          flush=True)
+    out = {}
+    for arch in ("gemma3-4b", "stablelm-3b", "granite-3-8b",
+                 "internvl2-26b"):
+        full = configs.get(arch)
+        tag = arch.split("-")[0]
+        if arch == "gemma3-4b":
+            # full depth; a 1,500-token prompt (the 1,536 bucket) runs
+            # #7 windowed and wraps the local layers' rolling caches
+            cfg, extra, max_cache = full, (1500,), 2048
+            # the logits check at one pattern (5 local + 1 dense) with a
+            # 1,100-token prompt: the window masks, and decode reads
+            # wrapped rolling caches
+            small = reduced(full, (LayerGroup(pattern=full.groups[0].pattern,
+                                              repeat=1),))
+            prompt_len = 1100
+        else:
+            cfg = reduced(full, (LayerGroup(pattern=("dense",), repeat=2),))
+            extra, max_cache, small, prompt_len = (), 512, None, 16
+        plan = api.install(api.resolve(cfg))
+        t0 = time.perf_counter()
+        gen = torch.Generator(device="cuda").manual_seed(20)
+        model = init_lm(cfg, device="cuda", generator=gen)
+        torch.cuda.synchronize()
+        param_mib = sum(p.numel() * p.element_size()
+                        for p in model.parameters()) / 2**20
+        ranks = {s.name: s.rank for s in plan.specs}
+        print(f"[{tag}] {cfg.n_layers} of {full.n_layers} layers, d "
+              f"{cfg.d_model}, heads {cfg.n_heads}/{cfg.n_kv_heads} of dh "
+              f"{cfg.resolved_head_dim}, vocab {cfg.vocab_size}, ranks "
+              f"{ranks}; init {time.perf_counter() - t0:.1f}s, parameters "
+              f"{param_mib:.1f} MiB", flush=True)
+        res = serve_dense(tag, cfg, model, plan, card, extra=extra,
+                          max_cache=max_cache)
+        res.update(layers=cfg.n_layers, full_layers=full.n_layers,
+                   param_mib=param_mib)
+        if arch == "internvl2-26b":
+            # the ViT frontend is a stub: precomputed (B, S, d) embeddings
+            emb = torch.randn(2, 64, cfg.d_model, device="cuda",
+                              generator=gen).bfloat16()
+            ops.reset_launches()
+            with torch.inference_mode():
+                lg, *_ = lm_forward(model, emb, cfg)
+            torch.cuda.synchronize()
+            if not torch.isfinite(lg).all() or ops.launch_counts()[
+                    "flash_attention"] != cfg.n_layers:
+                raise AssertionError("internvl2: embeddings forward")
+            print(f"[{tag}] a forward of precomputed (2, 64, {cfg.d_model}) "
+                  f"embeddings: logits {tuple(lg.shape)} finite, "
+                  f"{cfg.n_layers} flash_attention launches", flush=True)
+            del lg
+        if small is not None:
+            del model
+            gc.collect()
+            torch.cuda.empty_cache()
+            api.install(api.resolve(small))
+            model = init_lm(small, device="cuda", generator=gen)
+            cfg = small
+        res["cpu_logits"] = logits_vs_cpu(tag, cfg, model, card,
+                                          prompt_len=prompt_len)
+        out[arch] = res
+        del model
+        gc.collect()
+        torch.cuda.empty_cache()
+    return out
 
 
 def main() -> None:
@@ -3458,30 +4051,43 @@ def main() -> None:
     print(f"[build] {', '.join(built)} in {time.perf_counter() - t0:.1f}s "
           f"(nvcc per source: {_build.BUILD_SECONDS})", flush=True)
 
-    k = phase_kernels(card)
-    phase_smoke_parity(card)
-    full = phase_full_width(card)
-    tk = phase_train_kernels(card)
-    smoke_train = phase_smoke_training(card)
-    train = phase_full_training(card)
-    q8 = phase_q8_kernels(card)
-    deploy = phase_int8_deploy(card, full)
+    seconds = {}
+
+    def run(n: int, fn, *a):
+        """Phase ``n`` with its wall seconds printed and kept."""
+        t = time.perf_counter()
+        out = fn(*a)
+        seconds[n] = time.perf_counter() - t
+        print(f"[time] phase {n}: {seconds[n]:.1f}s", flush=True)
+        return out
+
+    k = run(3, phase_kernels, card)
+    run(4, phase_smoke_parity, card)
+    full = run(5, phase_full_width, card)
+    tk = run(6, phase_train_kernels, card)
+    smoke_train = run(7, phase_smoke_training, card)
+    train = run(8, phase_full_training, card)
+    q8 = run(9, phase_q8_kernels, card)
+    deploy = run(10, phase_int8_deploy, card, full)
     shutil.rmtree(CKPT_DIR, ignore_errors=True)
-    mm = phase_matmul_kernels(card)
-    table2 = phase_table2(card)
-    fk = phase_flash_kernel(card)
-    vit_smoke = phase_vit_smoke(card)
-    vit = phase_vit_fig5(card)
-    ssd = phase_ssd_kernel(card)
-    z_smoke = phase_zamba2_smoke(card)
-    zamba = phase_zamba2_full(card)
+    mm = run(11, phase_matmul_kernels, card)
+    table2 = run(12, phase_table2, card)
+    fk = run(13, phase_flash_kernel, card)
+    vit_smoke = run(14, phase_vit_smoke, card)
+    vit = run(15, phase_vit_fig5, card)
+    ssd = run(16, phase_ssd_kernel, card)
+    z_smoke = run(17, phase_zamba2_smoke, card)
+    zamba = run(18, phase_zamba2_full, card)
+    tiny = run(19, phase_tinyllama, card)
+    dense = run(20, phase_dense_configs, card)
 
     head = k["headline"]
     kernels = [{
         "name": "lowrank_fwd", "route": "cuda",
         "source": "src/repro_torch/kernels/csrc/lowrank_decode.cu",
         "replaces": "src/repro/kernels/lowrank.py:58",
-        "launches": full["launches"], "max_abs_err": k["worst"],
+        "launches": full["launches"]["lowrank_fwd"],
+        "max_abs_err": k["worst"],
         "ms": head["ms"], "plain_ms": head["plain_ms"],
         "bound_ms": head["bound_ms"], "bound_by": head["bound_by"],
         "library_ms": head["library_ms"]}]
@@ -3542,10 +4148,14 @@ def main() -> None:
             json.dump({"card": card, "kernel_rows": k["rows"],
                        "zamba2_kernel_rows": k["zamba2_rows"],
                        "zamba2_headline": k["zamba2_headline"],
+                       "dense_kernel_rows": k["dense_rows"],
+                       "tinyllama_decode_headline":
+                           k["tinyllama_decode_headline"],
                        "kernel_headline": k["headline"],
                        "route_sweep": k["sweep"], "full": full,
                        "train_kernel_rows": tk["rows"],
                        "train_kernel_headline": tk["headline"],
+                       "tinyllama_refresh": tk["tinyllama_refresh"],
                        "smoke_training": smoke_train, "full_training": train,
                        "q8_kernel_rows": q8["rows"],
                        "q8_headline": q8["headline"],
@@ -3563,7 +4173,9 @@ def main() -> None:
                        "ssd_rows": ssd["rows"],
                        "ssd_headline": ssd["headline"],
                        "zamba2_smoke": z_smoke, "zamba2_full": zamba,
+                       "tinyllama": tiny, "dense_configs": dense,
                        "kernels": line["kernels"],
+                       "phase_seconds": seconds,
                        "seconds": time.perf_counter() - t_start}, f,
                       indent=1)
     print(f"[done] {time.perf_counter() - t_start:.1f}s | {card}")

@@ -280,16 +280,17 @@ def _site_dims(cfg: ModelConfig) -> list[tuple[str, str, int, int, bool, int]]:
     has them, the Mamba sites, deduplicated by name. Families and kinds
     the port cannot run yet raise."""
     kinds = {k for g in cfg.groups for k in g.pattern}
-    unported = kinds - {"dense", "mamba2", "mamba2_attn"}
+    unported = kinds - {"dense", "local", "mamba2", "mamba2_attn"}
     if cfg.family not in ("lm", "vit") or unported:
         raise NotImplementedError(
             f"config {cfg.name!r} ({cfg.family}, blocks {sorted(kinds)}) "
-            "is not ported yet; only dense and Mamba-2 decoder LMs and "
-            "ViTs are (ROADMAP.md)")
+            "is not ported yet; only dense (with local) and Mamba-2 "
+            "decoder LMs and ViTs are (ROADMAP.md)")
     d, f = cfg.d_model, cfg.d_ff
     h, kvh, dh = cfg.n_heads, cfg.n_kv_heads, cfg.resolved_head_dim
     sites: list[tuple[str, str, int, int, bool, int]] = []
-    has_attn = cfg.family == "vit" or bool(kinds & {"dense", "mamba2_attn"})
+    has_attn = cfg.family == "vit" or bool(
+        kinds & {"dense", "local", "mamba2_attn"})
     has_mlp = has_attn
     if has_attn:
         sites += [("attn/wq", "attn", d, h * dh, cfg.qkv_bias, d),

@@ -1,7 +1,8 @@
 """Architecture config registry. ``get(name)`` resolves ``--arch <id>``.
 
-Only the architectures the port can run are listed; the others of the JAX
-package (``repro.configs.ARCHS``) arrive with their model families, in the
+Only the architectures the port can run are listed, in the JAX package's
+order (``repro.configs.ARCHS``); the others (whisper-tiny, falcon-mamba-7b,
+deepseek-moe-16b, mixtral-8x7b) arrive with their model families, in the
 order ROADMAP.md gives."""
 from __future__ import annotations
 
@@ -10,11 +11,15 @@ import importlib
 from repro_torch.config import ModelConfig
 
 ARCHS = (
-    "qwen2-0.5b",
-    # the paper's own model
-    "vit-base",
-    # hybrid: Mamba-2 blocks with a shared attention block
     "zamba2-7b",
+    "gemma3-4b",
+    "qwen2-0.5b",
+    "granite-3-8b",
+    "stablelm-3b",
+    "internvl2-26b",
+    # the paper's own models
+    "tinyllama-1.1b",
+    "vit-base",
 )
 
 

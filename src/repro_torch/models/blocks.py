@@ -1,5 +1,7 @@
 """Per-kind transformer block init/apply. Port of ``repro.models.blocks``
-for the ``dense`` kind (attention + MLP, pre-norm residuals) and the
+for the ``dense`` kind (attention + MLP, pre-norm residuals), ``local``
+(the same block with sliding-window attention over ``cfg.window`` keys and
+a rolling KV cache of ``cfg.window`` slots; gemma3's local layers) and the
 Mamba-2 kinds: ``mamba2`` (pre-norm Mamba-2 mixer) and zamba2's
 ``mamba2_attn`` (the mixer, then the SHARED attention + MLP block, whose
 weights are passed in as ``shared``: one copy for the whole net, while
@@ -32,7 +34,7 @@ from repro_torch.nn.mamba import (
 from repro_torch.nn.mlp import apply_mlp, init_mlp, init_mlp_state
 from repro_torch.nn.norms import apply_norm, init_norm
 
-PORTED_KINDS = ("dense", "mamba2", "mamba2_attn")
+PORTED_KINDS = ("dense", "local", "mamba2", "mamba2_attn")
 MAMBA_KINDS = ("mamba2", "mamba2_attn")
 
 

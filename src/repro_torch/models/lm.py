@@ -27,15 +27,28 @@ Entry points: init_lm / init_lm_states / init_lm_cache, lm_forward
 (logits), lm_loss (training), lm_prefill (token-parallel prompt pass that
 fills the caches), lm_decode_step.
 
-``remat`` (the full config's ``"block"``) is not ported: the backward keeps
-every layer's saved activations, so the saved-for-backward bytes at full
-width are those of ``remat="none"`` (``utils.memprof`` measures them);
-the computed values do not depend on it.
+``remat="block"`` (every full config's setting) is the reference's
+``jax.checkpoint`` of its scan body: with grad enabled and no caches, one
+repeat of a group's pattern (all its pattern positions at one index ``j``)
+runs under a non-reentrant ``torch.utils.checkpoint``. The backward keeps
+only each body's inputs, the hidden state, the layer's parameter views,
+the ASI state slices and the shared block's leaves, all handed to the
+checkpoint as flat tensor arguments (so ``utils.memprof`` sees what it
+keeps), and reruns the body's forward from them: every kernel of the
+forward launches again, and each ASI step runs again from the same input
+states. Nothing in a body writes a state in place. The recompute takes the
+same kernel routes as the forward: the routes read shapes, dtypes and
+16-byte alignment, and the body's inputs are the same tensors while its
+intermediates are new allocations of the same shapes (the allocator
+aligns every block to 512 bytes). ``remat="none"`` keeps every layer's
+saved tensors. Serving (no grad, or caches) never checkpoints. The
+computed values do not depend on the setting.
 """
 from __future__ import annotations
 
 import torch
 from torch import nn
+from torch.utils.checkpoint import checkpoint
 
 from repro_torch.config import ModelConfig
 from repro_torch.models.blocks import (
@@ -232,29 +245,95 @@ def _write_back(layer_cache: dict, new_cache: dict) -> None:
                    new_cache["ssm"])
 
 
+def _flatten(tree) -> tuple[list, object]:
+    """(leaves, skeleton) of a tree ``map_states`` walks: the skeleton
+    holds each leaf's index in ``leaves``."""
+    leaves: list = []
+
+    def take(t):
+        leaves.append(t)
+        return len(leaves) - 1
+
+    return leaves, map_states(take, tree)
+
+
+def _unflatten(skeleton, leaves):
+    return map_states(lambda i: leaves[i], skeleton)
+
+
+def _as_tree(node):
+    """A module of parameters as nested dicts of its tensors."""
+    if isinstance(node, (nn.ModuleDict, nn.ParameterDict)):
+        return {k: _as_tree(v) for k, v in node.items()}
+    return node
+
+
+def _apply_pattern(pattern, cfg: ModelConfig, x, params: list, states,
+                   shared, caches=None, pos=None, valid_len=None):
+    """One repeat of a group's pattern, the reference's scan body: each
+    pattern position's block in turn on its layer's ``params``, ``states``
+    and ``caches`` slices. Returns (x, new states per position)."""
+    new = []
+    for pi, kind in enumerate(pattern):
+        cache = None if caches is None else caches[pi]
+        x, nc, ns, _ = apply_block(
+            kind, params[pi], x, cfg, shared=shared, cache=cache, pos=pos,
+            states=None if states is None else states[pi],
+            valid_len=valid_len)
+        if cache is not None:
+            _write_back(cache, nc)
+        new.append(ns)
+    return x, new
+
+
+def _checkpointed_pattern(pattern, cfg: ModelConfig, x, params: list,
+                          states, shared, pos=None, valid_len=None):
+    """``_apply_pattern`` under a non-reentrant checkpoint, every tensor it
+    reads (``pos`` and ``valid_len`` too, as the reference's body reads
+    them) passed as a flat argument. The body draws no random numbers, so
+    no RNG state is stashed."""
+    leaves, skeleton = _flatten((params, states, shared, pos, valid_len))
+
+    def body(h, *flat):
+        p, s, sh, ps, vl = _unflatten(skeleton, flat)
+        return _apply_pattern(pattern, cfg, h, p, s, sh, pos=ps,
+                              valid_len=vl)
+
+    return checkpoint(body, x, *leaves, use_reentrant=False,
+                      preserve_rng_state=False)
+
+
 def lm_backbone(model: LanguageModel, x, cfg: ModelConfig, *, states=None,
                 caches=None, pos=None, valid_len=None):
     """Run embedded hidden states through all layer groups, a loop over
-    each group's stacked layers. Returns (x, new_states, caches, aux);
-    new_states is None without ``states``."""
+    each group's repeats, each repeat one pass of the group's pattern
+    (checkpointed under ``remat="block"`` with grad enabled and no
+    caches). Returns (x, new_states, caches, aux); new_states is None
+    without ``states``."""
     views = model.layer_views()
     shared = getattr(model, "shared_attn", None)
+    remat = (cfg.remat == "block" and caches is None
+             and torch.is_grad_enabled())
+    if remat and shared is not None:
+        shared = _as_tree(shared)
     new_states = []
     for gi, g in enumerate(cfg.groups):
         out = [[] for _ in g.pattern]
         for j in range(g.repeat):
-            for pi, kind in enumerate(g.pattern):
-                cache = (None if caches is None
-                         else _layer_cache(caches[gi][pi], j))
-                st = (None if states is None
-                      else _layer_states(states[gi][pi], j))
-                x, nc, ns, _ = apply_block(
-                    kind, views[gi][pi][j], x, cfg, shared=shared,
-                    cache=cache, pos=pos, states=st, valid_len=valid_len)
-                if cache is not None:
-                    _write_back(cache, nc)
-                if states is not None:
-                    out[pi].append(ns)
+            params = [views[gi][pi][j] for pi in range(len(g.pattern))]
+            st = (None if states is None else
+                  [_layer_states(s, j) for s in states[gi]])
+            if remat:
+                x, ns = _checkpointed_pattern(g.pattern, cfg, x, params, st,
+                                              shared, pos, valid_len)
+            else:
+                cache = (None if caches is None else
+                         [_layer_cache(c, j) for c in caches[gi]])
+                x, ns = _apply_pattern(g.pattern, cfg, x, params, st, shared,
+                                       cache, pos, valid_len)
+            if states is not None:
+                for o, s in zip(out, ns):
+                    o.append(s)
         if states is not None:
             new_states.append([_stack_states(o) for o in out])
     x = apply_norm(cfg.norm, model.final_norm, x)

@@ -641,7 +641,13 @@ FLASH_CASES = [(2, 128, 4, 2, 32, True, 0), (1, 256, 4, 4, 64, True, 64),
                (1, 64, 8, 2, 96, True, 0), (4, 197, 12, 12, 64, False, 0),
                (4, 512, 14, 2, 64, True, 0), (2, 70, 4, 2, 8, True, 0),
                (1, 130, 3, 1, 24, False, 0), (1, 80, 2, 2, 256, True, 0),
-               (2, 150, 4, 2, 40, False, 33), (1, 256, 32, 32, 112, True, 0)]
+               (2, 150, 4, 2, 40, False, 33), (1, 256, 32, 32, 112, True, 0),
+               # the dense decoder configs: tinyllama (GQA 32/4, dh 64),
+               # stablelm (MHA, dh 80), granite (32/8, dh 128), internvl2
+               # (48/8), gemma3 (8/4, dh 256, a window of 1,024 keys)
+               (1, 512, 32, 4, 64, True, 0), (1, 300, 32, 32, 80, True, 0),
+               (1, 256, 32, 8, 128, True, 0), (1, 200, 48, 8, 128, True, 0),
+               (1, 1500, 8, 4, 256, True, 1024)]
 
 
 def flash_tol(want: torch.Tensor, dtype) -> float:
@@ -1177,7 +1183,12 @@ QR_ROUTE_CASES = [(24, 896, 256, BF, ("blocked", "tensor_core")),
                   (2, 37, 5, BF, ("blocked", "fma")),
                   (2, 1000, 288, F32, ("blocked", "fma")),
                   (2, 1000, 296, F32, ("global", "fma")),
-                  (1, 1000, 320, BF, ("global", "fma"))]
+                  (1, 1000, 320, BF, ("global", "fma")),
+                  # tinyllama-1.1b's refresh stacks: K = 512 takes the
+                  # global factor, K = 128 the blocked one
+                  (22, 2048, 512, BF, ("global", "fma")),
+                  (22, 256, 128, BF, ("blocked", "tensor_core")),
+                  (22, 5632, 512, BF, ("global", "fma"))]
 
 
 @pytest.mark.cuda
@@ -1217,3 +1228,56 @@ def test_choleskyqr_routes_match_plain_version_and_repeat(cuda, b, m, k,
 def test_choleskyqr_blocked_smem_formula_matches_the_source(cuda, k):
     assert kqr._blocked_lib().choleskyqr_blocked_smem_bytes(k) == \
         kqr.blocked_smem_bytes(k)
+
+
+# ---------------------------------------------------------------------------
+# remat="block" on the card
+# ---------------------------------------------------------------------------
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("method", ["wsi", "wasi"])
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+def test_remat_block_step_gradients_equal_none(cuda, method, dtype):
+    """One training step's loss and gradients on tinyllama smoke under
+    ``remat="block"`` and ``"none"``, from the same weights, ASI states and
+    batch: the recompute relaunches every forward kernel (#2 and #7 twice
+    a step, #3 once) on the same inputs, takes the same routes, and the
+    kernels sum in a fixed order, so the gradients are bit-equal."""
+    import dataclasses
+
+    from repro_torch import api, configs
+    from repro_torch.models import lm
+    from repro_torch.train.step import value_and_grad
+
+    base = configs.get_smoke("tinyllama-1.1b")
+    b, s = 4, 64
+    got = {}
+    for remat in ("none", "block"):
+        cfg = base.replace(remat=remat, dtype=str(dtype).split(".")[1],
+                           wasi=dataclasses.replace(base.wasi,
+                                                    method=method))
+        api.install(api.resolve(cfg, batch=b, seq=s))
+        model = lm.init_lm(cfg, device=cuda, seed=3)
+        model.requires_grad_(True)
+        states = (lm.init_lm_states(cfg, b, s, dtype=dtype, device=cuda,
+                                    seed=3)
+                  if cfg.wasi.compress_acts else None)
+        g = torch.Generator().manual_seed(4)
+        toks = torch.randint(0, cfg.vocab_size, (b, s + 1), generator=g)
+        batch = {"tokens": toks[:, :-1].to(cuda),
+                 "labels": toks[:, 1:].to(cuda)}
+        ops.reset_launches()
+        loss, _, grads, _ = value_and_grad(lm.lm_loss, model, batch, cfg,
+                                           states)
+        torch.cuda.synchronize()
+        got[remat] = (loss, grads, ops.launch_counts())
+    n, sites = base.n_layers, 7
+    (l0, g0, c0), (l1, g1, c1) = got["none"], got["block"]
+    assert c1["flash_attention"] == 2 * c0["flash_attention"] == 2 * n
+    if method == "wsi":
+        assert c1["lowrank_fwd_sketch"] == 2 * c0["lowrank_fwd_sketch"] \
+            == 2 * sites * n
+        assert c1["lowrank_bwd"] == c0["lowrank_bwd"] == sites * n
+    assert torch.equal(l0, l1)
+    for k in g0:
+        assert torch.equal(g0[k], g1[k]), k

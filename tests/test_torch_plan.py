@@ -75,4 +75,4 @@ def test_unported_paths_raise():
     with pytest.raises(NotImplementedError):
         tapi.resolve(cfg, calibration={"mlp/up": None})
     with pytest.raises(KeyError, match="ROADMAP"):
-        tconfigs.get("gemma3-4b")
+        tconfigs.get("mixtral-8x7b")
