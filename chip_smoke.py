@@ -185,11 +185,31 @@ Phases, in order; any failure raises and the script exits non-zero:
    serve phase 5's requests (internvl2 also a forward of precomputed
    embeddings); exact launches; each config's logits against the f32
    CPU at reduced depth (gemma3: one pattern of 6 layers, a 1,100-token
-   prompt, then decode reading wrapped rolling caches).
+   prompt, then decode reading wrapped rolling caches);
+21. tinyllama-1.1b in the paper's project mode, full width and depth:
+   dense weights drawn on the card (method ``none``, a pretrained
+   checkpoint's place) -> ``api.resolve(cfg, calibration=dense)``, the
+   epsilon-0.8 ranks of every site (the max over its 22-layer stack,
+   rank_align 128), timed, with ``mlp/gate``'s unaligned rank at layers 0
+   and 21 held to ``pick_rank`` on the CPU -> ``convert.factorize`` to the
+   project layout {w, L, R}; kernel #1 held to its plain version at the
+   calibrated sites' shapes; per method (``wasi``, ``wsi``): the
+   converted factors as warm WSI states (``make_train_state``), the saved
+   bytes and peaks of one loss under ``block`` and ``none``, 6 steps under
+   ``block`` (phase 19's batch 4 x 512, SGD+momentum 0.9 at 0.05) through
+   ``train_loop`` with exact launches (#7 44 a step, nothing else), a
+   profiled step (busy share) and a profiled WSI step (its device time
+   beside the rest of the step's), and one project step at 2 layers, bf16
+   on the card against f32 on the CPU (loss, W gradients, then one
+   ``update_project_states``); the trained W -> ``convert.factorize``
+   under the calibrated plan in the config's factored mode -> a
+   plan-bearing checkpoint -> ``ServeEngine.from_checkpoint`` serves phase
+   5's requests (#1's route per site at decode and prefill, 154 launches
+   a forward) and one prompt's logits against the f32 CPU.
 
 Every full-sequence attention (training, a forward without caches, the
 prefill at offset 0) goes through kernel #7, so phases 5, 7, 8, 10, 12,
-19 and 20 count its launches too: 24 per qwen2-0.5b forward or prefill
+19, 20 and 21 count its launches too: 24 per qwen2-0.5b forward or prefill
 call, none per decode step. Under ``remat="block"`` (every full LM
 config) a training step runs each forward kernel twice, the forward and
 the backward's recompute, so phases 8, 12 and 19 count #2 and #7 twice a
@@ -235,6 +255,10 @@ from repro_torch.checkpoint import (  # noqa: E402
     save_checkpoint,
 )
 from repro_torch.config import TrainConfig  # noqa: E402
+from repro_torch.core.project import (  # noqa: E402
+    project_forward_params,
+    update_project_states,
+)
 from repro_torch.core.orthogonal import (  # noqa: E402
     cholesky_qr_mix_ref,
     orthonormality_error,
@@ -522,11 +546,11 @@ def routed(launch, x, r, l_, *extra):
 RAGGED_SHAPE = {"ragged": (70, 5, 33)}
 
 
-def plan_shapes(cfg) -> dict:
-    """{"wq|wo": (I, K, O), ...}: a config's factored sites grouped by
+def plan_shapes(plan) -> dict:
+    """{"wq|wo": (I, K, O), ...}: a plan's factored sites grouped by
     shape, in the plan's order."""
     shapes: dict = {}
-    for sp in api.resolve(cfg).specs:
+    for sp in plan.specs:
         shapes.setdefault((sp.in_dim, sp.rank, sp.out_dim), []).append(
             sp.name.split("/")[1])
     return {"|".join(names): sh for sh, names in shapes.items()}
@@ -540,7 +564,8 @@ def dense_lowrank_rows(card: str) -> tuple[list, dict]:
     rows, counts = [], {}
     for arch in ("tinyllama-1.1b", "internvl2-26b"):
         tag = arch.split("-")[0]
-        for name, (i, k, o) in plan_shapes(configs.get(arch)).items():
+        for name, (i, k, o) in plan_shapes(
+                api.resolve(configs.get(arch))).items():
             counts[f"{tag}:{name}"] = name.count("|") + 1
             for m in (4, 1024):
                 row = lowrank_row(f"[{tag}]", f"{tag}:{name}", m, i, k, o,
@@ -672,15 +697,18 @@ LOGIT_RMS_TOL, LOGIT_MAX_TOL = 0.015, 0.07
 
 
 def serve_dense(tag: str, cfg, model, plan, card: str, *, extra=(),
-                max_cache: int = 512, check_sums: bool = False) -> dict:
+                max_cache: int = 512, check_sums: bool = False,
+                engine=None) -> dict:
     """Phase 5's 8 requests (2 sampled) and prompts of ``extra`` lengths
     through 4 slots, 16 new tokens each: decode and prefill tok/s, TTFT,
     TPOT, weight and KV MiB, the allocator's peak, exact launches (7 L of
     #1 per forward or decode step, L of #7 per prefill call, none per
     decode step) and the busy share of a decode tick (``profile_decode``,
-    which ``check_sums`` is handed to)."""
-    eng = ServeEngine(model, plan=plan, max_slots=4, max_cache=max_cache,
-                      device="cuda")
+    which ``check_sums`` is handed to). ``engine``: an engine built
+    elsewhere (``ServeEngine.from_checkpoint``, 4 slots) instead of one
+    over ``model``."""
+    eng = engine or ServeEngine(model, plan=plan, max_slots=4,
+                                max_cache=max_cache, device="cuda")
     rng = np.random.default_rng(1)
     eng.submit(list(map(int, rng.integers(0, cfg.vocab_size, 9))), max_new=4)
     eng.run()
@@ -773,7 +801,8 @@ def logits_vs_cpu(tag: str, cfg, model, card: str, *, prompt_len: int = 16,
                                          (1, prompt_len + decode)))
     cache_len = prompt_len + decode
     cfg32 = cfg.replace(dtype="float32")
-    api.install(api.resolve(cfg32))
+    plan = api.plan_of(cfg)
+    api.install(dataclasses.replace(plan, model=cfg32))
 
     def run(m, c, dev, dtype):
         caches = init_lm_cache(c, 1, cache_len, dtype=dtype, device=dev)
@@ -824,7 +853,7 @@ def logits_vs_cpu(tag: str, cfg, model, card: str, *, prompt_len: int = 16,
           f"{[round(e['rms'], 4) for e in errs]}, argmax card/cpu "
           f"{[(e['argmax_card'], e['argmax_cpu']) for e in errs]} | {card}",
           flush=True)
-    api.install(api.resolve(cfg))
+    api.install(plan)
     return dict(steps=errs, worst_rel=worst, worst_max_rel=worst_max,
                 rms_tol=rms_tol, max_tol=max_tol, prompt_len=prompt_len,
                 n_layers=cfg.n_layers)
@@ -1570,6 +1599,20 @@ def phase_smoke_training(card: str) -> dict:
                 factor_abs_err=par_err, launches=cuda["launches"])
 
 
+def profiled(fn):
+    """``fn()`` under torch.profiler, synchronized: (its result, the host
+    wall clock in µs, the profile, its ``device_events``)."""
+    acts = [torch.profiler.ProfilerActivity.CPU,
+            torch.profiler.ProfilerActivity.CUDA]
+    torch.cuda.synchronize()
+    with torch.profiler.profile(activities=acts) as prof:
+        t0 = time.perf_counter()
+        out = fn()
+        torch.cuda.synchronize()
+        wall_us = (time.perf_counter() - t0) * 1e6
+    return out, wall_us, prof, device_events(prof)
+
+
 def profile_train_step(state, step, batch, card: str,
                        check_sums: bool = False):
     """Device busy share of one full-width training step (no refresh)
@@ -1577,16 +1620,7 @@ def profile_train_step(state, step, batch, card: str,
     host wall clock of the step (the profiler's own host cost included, so
     the share is a lower bound), and the top kernels by device time.
     ``check_sums``: also ``check_device_sums`` on the trace."""
-    acts = [torch.profiler.ProfilerActivity.CPU,
-            torch.profiler.ProfilerActivity.CUDA]
-    torch.cuda.synchronize()
-    with torch.profiler.profile(activities=acts) as prof:
-        t0 = time.perf_counter()
-        state, m = step(state, batch)
-        float(m["loss"])
-        torch.cuda.synchronize()
-        wall_us = (time.perf_counter() - t0) * 1e6
-    events = device_events(prof)
+    (state, _), wall_us, prof, events = profiled(lambda: step(state, batch))
     dev_us = sum(e.self_device_time_total for e in events)
     if dev_us <= 0:
         print(f"[profile] no device time in the trace: busy share not "
@@ -3648,14 +3682,16 @@ def with_remat(cfg, remat: str, b: int, s: int):
 
 def train_want(cfg, method: str, n_steps: int, refreshes: int) -> dict:
     """Exact launches of ``n_steps`` training steps: per step L attentions
-    (#7) and, under ``wsi``, 7 L sketch forwards (#2), each run
+    (#7) and, under factored ``wsi``, 7 L sketch forwards (#2), each run
     ``remat_runs(cfg)`` times; 7 L backwards (#3) once; 7 Gram (#5) and 7
-    CholeskyQR (#4) calls a refresh; nothing else."""
+    CholeskyQR (#4) calls a refresh; nothing else. Project mode launches
+    #7 alone: its linears and its WSI step are plain, as in the
+    reference."""
     sites = len(api.plan_of(cfg).specs)
     runs = remat_runs(cfg)
     want = dict.fromkeys(ops.launch_counts(), 0)
     want["flash_attention"] = n_steps * cfg.n_layers * runs
-    if method == "wsi":
+    if method == "wsi" and cfg.wasi.factored:
         want["lowrank_fwd_sketch"] = n_steps * sites * cfg.n_layers * runs
         want["lowrank_bwd"] = n_steps * sites * cfg.n_layers
     want["gram"] = want["choleskyqr"] = refreshes * sites
@@ -3667,7 +3703,7 @@ def want_text(cfg, method: str, n_steps: int, refreshes: int) -> str:
     runs, sites, n = remat_runs(cfg), len(api.plan_of(cfg).specs), \
         cfg.n_layers
     out = [f"flash_attention = {n_steps} steps x {n} layers x {runs}"]
-    if method == "wsi":
+    if method == "wsi" and cfg.wasi.factored:
         out += [f"lowrank_fwd_sketch = {n_steps} x {sites} sites x {n} x "
                 f"{runs}", f"lowrank_bwd = {n_steps} x {sites} x {n}"]
     out.append(f"gram = choleskyqr = {refreshes} refreshes x {sites}")
@@ -3695,13 +3731,14 @@ def uniform_batches(cfg, b: int, s: int, seed: int):
     return batch_fn
 
 
-def grad_peak(model, batch, cfg, states) -> float:
+def grad_peak(model, batch, cfg, states, fwd=None) -> float:
     """The allocator's peak MiB of one forward and backward
-    (``value_and_grad``) under ``cfg``, from what is live before it."""
+    (``value_and_grad``, on ``fwd`` where given: project mode's tree) under
+    ``cfg``, from what is live before it."""
     gc.collect()
     torch.cuda.synchronize()
     torch.cuda.reset_peak_memory_stats()
-    out = value_and_grad(lm_loss, model, batch, cfg, states)
+    out = value_and_grad(lm_loss, model, batch, cfg, states, fwd)
     torch.cuda.synchronize()
     peak = torch.cuda.max_memory_allocated() / 2 ** 20
     del out
@@ -3711,20 +3748,25 @@ def grad_peak(model, batch, cfg, states) -> float:
 def remat_memory(state, batch, cfg, cfg_none) -> dict:
     """The config's ``remat="block"`` beside ``"none"`` (the paper's memory
     comparison) from one state and batch: the saved-for-backward bytes and
-    arrays of one ``lm_loss`` (``utils.memprof``) and the allocator's peak
-    of one forward and backward (``grad_peak``)."""
+    arrays of one ``lm_loss`` (``utils.memprof``; in project mode on the
+    tree with the factors injected, whose L and R count where the
+    checkpoint keeps them) and the allocator's peak of one forward and
+    backward (``grad_peak``)."""
     from repro_torch.utils.memprof import measured_residual_bytes
 
+    fwd = (None if state.wsi is None
+           else project_forward_params(state.params, state.wsi))
     out = {}
     for remat, c in (("block", cfg), ("none", cfg_none)):
         rep = measured_residual_bytes(
-            lambda: lm_loss(state.params, batch, c, states=state.asi))
+            lambda: lm_loss(state.params if fwd is None else fwd, batch, c,
+                            states=state.asi))
         out[f"residual_bytes_{remat}"] = rep.total_bytes
         out[f"residual_arrays_{remat}"] = rep.n_arrays
         del rep
         torch.cuda.empty_cache()
         out[f"grad_peak_mib_{remat}"] = grad_peak(state.params, batch, c,
-                                                  state.asi)
+                                                  state.asi, fwd)
     torch.cuda.empty_cache()
     return out
 
@@ -4025,6 +4067,372 @@ def phase_dense_configs(card: str) -> dict:
         torch.cuda.empty_cache()
     return out
 
+# phase 21: tinyllama-1.1b in the paper's project mode. Dense weights drawn
+# on the card stand in for a pretrained checkpoint; the plan is calibrated
+# on them (epsilon 0.8, rank_align 128), the converted checkpoint's factors
+# become warm WSI states, each method trains PROJ_STEPS steps under the
+# config's remat "block" at phase 19's batch, optimizer and rate, then a
+# profiled step and one profiled WSI step; the trained dense W is
+# factorized under the calibrated plan in factored mode and served.
+PROJ_METHODS = ("wasi", "wsi")
+PROJ_STEPS = 6
+PROJ_RANK_LAYERS = (0, 21)      # layers whose ranks are held to the CPU's
+PROJ_RANK_SITE = "mlp/gate"
+PROJ_CKPT = os.path.join(ROOT, "build", "chip_smoke_project_ckpt")
+# the reduced-depth check: 2 layers at full width, batch 2 x 64; bf16 on
+# the card against f32 on the CPU, limits per square root of the depth
+# (logits_vs_cpu's rule): the loss's relative error, each trained leaf's
+# gradient's RMS error over its RMS, the WSI states' L R likewise. On an
+# H100 the check reads 3.9e-5, 0.0120 and 0.0017 per square root of the
+# depth (the same weights and batch every run, so the readings repeat);
+# the limits are 1.5x those.
+PROJ_CHECK_B, PROJ_CHECK_S = 2, 64
+PROJ_LOSS_TOL, PROJ_GRAD_TOL, PROJ_WSI_TOL = 6e-5, 0.018, 0.0025
+
+
+def with_wasi(cfg, **kw):
+    return cfg.replace(wasi=dataclasses.replace(cfg.wasi, **kw))
+
+
+def project_ranks(dense, full, card) -> dict:
+    """The calibrated plans (one per method, project mode, and the
+    config's own factored mode for serving) from the dense weights on the
+    card, each timed; ``PROJ_RANK_SITE``'s unaligned rank at
+    ``PROJ_RANK_LAYERS`` on the card held to ``pick_rank`` on the CPU,
+    with the margin by which the cumulative explained variance passes
+    epsilon, and the card's f32 ``svdvals`` (cuSOLVER) beside the f64
+    Gram that ``pick_rank`` takes on the card."""
+    from repro_torch.core import svd as tsvd
+
+    out, plans = {}, {}
+    for name, cfg in [(m, with_wasi(full, method=m, update_mode="project"))
+                      for m in PROJ_METHODS] + [("serve", full)]:
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        plans[name] = api.resolve(cfg, batch=TINY_B, seq=TINY_S,
+                                  calibration=dense)
+        out[f"calibrate_s_{name}"] = time.perf_counter() - t0
+    ranks = [(sp.name, sp.rank) for sp in plans["serve"].specs]
+    if any([(sp.name, sp.rank) for sp in p.specs] != ranks
+           for p in plans.values()) or not all(p.calibrated
+                                               for p in plans.values()):
+        raise AssertionError("project: the calibrated plans differ")
+    print(f"[project] calibrated ranks (epsilon {full.wasi.epsilon}, "
+          f"rank_align {full.wasi.rank_align}, the max over the "
+          f"{full.n_layers}-layer stack): {dict(ranks)}; calibration "
+          f"{out['calibrate_s_wasi']:.2f} s (wsi {out['calibrate_s_wsi']:.2f}"
+          f" s, serving plan {out['calibrate_s_serve']:.2f} s) | {card}",
+          flush=True)
+    eps = full.wasi.epsilon
+    w = dense.groups[0][0][PROJ_RANK_SITE.split("/")[0]][
+        PROJ_RANK_SITE.split("/")[1]]["w"]
+    checks = []
+    for j in PROJ_RANK_LAYERS:
+        t0 = time.perf_counter()
+        k_card = tsvd.pick_rank(w[j], eps)
+        card_s = time.perf_counter() - t0
+        s_card = tsvd.singular_values(w[j])
+        cpu = w[j].detach().float().cpu()
+        t0 = time.perf_counter()
+        k_cpu = tsvd.pick_rank(cpu, eps)
+        cpu_s = time.perf_counter() - t0
+        s_cpu = tsvd.singular_values(cpu)
+        s32 = torch.linalg.svdvals(w[j].detach().float()).cpu()
+        k32 = int(tsvd.rank_for_threshold(s32, eps))
+        cum = torch.cumsum(tsvd.explained_variance(s_card.double()), 0)
+        row = dict(layer=j, rank_card=k_card, rank_cpu=k_cpu,
+                   rank_card_svdvals32=k32,
+                   margin_above=float(cum[k_card - 1] - eps),
+                   margin_below=float(eps - cum[k_card - 2]),
+                   gram_err=float((s_card - s_cpu).abs().max() / s_cpu[0]),
+                   svdvals32_err=float((s32 - s_cpu).abs().max()
+                                       / s_cpu[0]),
+                   card_s=card_s, cpu_s=cpu_s)
+        checks.append(row)
+        print(f"[project] {PROJ_RANK_SITE} layer {j}: unaligned epsilon rank"
+              f" card {k_card} (f64 Gram, {card_s * 1e3:.1f} ms) cpu {k_cpu}"
+              f" (f32 LAPACK, {cpu_s * 1e3:.0f} ms); cumulative explained "
+              f"variance passes {eps} by {row['margin_above']:.2e} at the "
+              f"rank, {row['margin_below']:.2e} short one below it; largest"
+              f" singular-value difference from the CPU's, over the largest:"
+              f" Gram {row['gram_err']:.2e}, the card's f32 svdvals "
+              f"{row['svdvals32_err']:.2e} (its rank {k32}) | {card}",
+              flush=True)
+        if k_card != k_cpu:
+            raise AssertionError(f"project: {PROJ_RANK_SITE} layer {j} "
+                                 f"rank {k_card} on the card, {k_cpu} on "
+                                 "the CPU")
+    out.update(ranks=dict(ranks), rank_checks=checks)
+    return out, plans
+
+
+def project_rows(plan, card: str) -> tuple[list, dict]:
+    """Kernel #1 at the calibrated plan's site shapes, bf16, a decode
+    step's rows (M = 4) and a prefill bucket's (M = 1,024), held to the
+    plain version; the decode layer's headline."""
+    gen = torch.Generator(device="cuda").manual_seed(21)
+    rows, counts = [], {}
+    for name, (i, k, o) in plan_shapes(plan).items():
+        counts[name] = name.count("|") + 1
+        for m in (4, 1024):
+            rows.append(lowrank_row("[project]", name, m, i, k, o,
+                                    torch.bfloat16, gen, card))
+    head = layer_headline(
+        "one calibrated tinyllama-1.1b layer's 7 sites at decode (M=4, "
+        "bf16)", [r for r in rows if r["M"] == 4], counts, torch.bfloat16,
+        card)
+    return rows, head
+
+
+def _cut(tree, n: int):
+    """A converted LM tree cut to its first ``n`` layers (one group)."""
+    def stack(node):
+        if isinstance(node, dict):
+            return {k: stack(v) for k, v in node.items()}
+        return node[:n]
+    out = {k: v for k, v in tree.items() if k != "groups"}
+    out["groups"] = [[stack(tree["groups"][0][0])]]
+    return out
+
+
+def project_vs_cpu(tree, plan, card: str) -> dict:
+    """One project step at reduced depth (2 layers, full width) from the
+    converted tree's first layers: the loss and every trained leaf's
+    gradient, bf16 on the card against the same values in f32 on the CPU
+    (ASI states alike), then one ``update_project_states`` of the same W
+    on each; limits per square root of the depth (``PROJ_*_TOL``)."""
+    from repro_torch.config import LayerGroup
+    from repro_torch.models.lm import init_lm_states, map_states
+
+    small = reduced(plan.model, (LayerGroup(pattern=("dense",), repeat=2),))
+    small32 = small.replace(dtype="float32")
+    tcfg = TrainConfig(optimizer="sgd", lr=TINY_LR, momentum=0.9, steps=1)
+    part = _cut(tree, 2)
+    g = torch.Generator().manual_seed(2121)
+    toks = torch.randint(0, small.vocab_size,
+                         (PROJ_CHECK_B, PROJ_CHECK_S + 1), generator=g)
+    asi = (init_lm_states(small, PROJ_CHECK_B, PROJ_CHECK_S,
+                          dtype=torch.bfloat16, device="cpu", seed=2121)
+           if small.wasi.compress_acts else None)
+    out = {}
+    for dev, c in (("cuda", small), ("cpu", small32)):
+        api.install(dataclasses.replace(plan, model=c))
+        model = from_reference(part, c, dev).to(_dtype(c.dtype))
+        st = (None if asi is None else
+              map_states(lambda t: t.to(dev, _dtype(c.dtype)), asi))
+        state = make_train_state(model, c, tcfg, asi_states=st)
+        batch = {"tokens": toks[:, :-1].to(dev), "labels": toks[:, 1:].to(dev)}
+        fwd = project_forward_params(state.params, state.wsi)
+        loss, _, grads, _ = value_and_grad(lm_loss, state.params, batch, c,
+                                           state.asi, fwd)
+        wsi = update_project_states(state.params, state.wsi)
+        out[dev] = (float(loss), {k: v.float().cpu() for k, v in
+                                  grads.items()},
+                    {k: (v.L.float() @ v.R.float()).cpu()
+                     for k, v in wsi.items()})
+        del model, state, fwd, grads, wsi
+    (l1, g1, w1), (l0, g0, w0) = out["cuda"], out["cpu"]
+    root = math.sqrt(small.n_layers)
+
+    def rms_rel(a, b):
+        return float((a - b).square().mean().sqrt()
+                     / b.square().mean().sqrt().clamp(min=1e-30))
+
+    loss_rel = abs(l1 / l0 - 1)
+    trained = [k for k in g0 if k.startswith("groups")]
+    grad_rel = {k: rms_rel(g1[k], g0[k]) for k in trained}
+    wsi_rel = {k: rms_rel(w1[k], w0[k]) for k in w0}
+    worst_g = max(grad_rel, key=grad_rel.get)
+    worst_w = max(wsi_rel, key=wsi_rel.get)
+    print(f"[project] {small.wasi.method} one step at 2 layers, bf16 card vs"
+          f" f32 CPU: loss {l1:.5f} / {l0:.5f} (relative error "
+          f"{loss_rel:.2e}, limit {PROJ_LOSS_TOL * root:.4f}); W gradients' "
+          f"RMS error over their RMS: largest {grad_rel[worst_g]:.3e} "
+          f"({worst_g}, limit {PROJ_GRAD_TOL * root:.4f}); WSI states' L R "
+          f"after one update_project_states: largest {wsi_rel[worst_w]:.3e}"
+          f" ({worst_w}, limit {PROJ_WSI_TOL * root:.4f}) | {card}",
+          flush=True)
+    if not (loss_rel <= PROJ_LOSS_TOL * root
+            and grad_rel[worst_g] <= PROJ_GRAD_TOL * root
+            and wsi_rel[worst_w] <= PROJ_WSI_TOL * root):
+        raise AssertionError(f"project {small.wasi.method}: card vs CPU at "
+                             "reduced depth")
+    api.install(plan)
+    return dict(loss_rel=loss_rel, grad_rms_rel=grad_rel,
+                wsi_rms_rel=wsi_rel, n_layers=small.n_layers)
+
+
+def wsi_device_ms(state, card: str) -> dict:
+    """One ``update_project_states`` (a WSI step of every site) under the
+    profiler: its device time and wall time; the states are left as they
+    were."""
+    _, wall_us, _, events = profiled(
+        lambda: update_project_states(state.params, state.wsi))
+    wall = wall_us / 1e6
+    dev_ms = sum(e.self_device_time_total for e in events) / 1e3
+    top = sorted(events, key=lambda e: -e.self_device_time_total)[:4]
+    print(f"[project] one WSI step of every site: device {dev_ms:.3f} ms in "
+          f"{wall * 1e3:.3f} ms wall; top: " + ", ".join(
+              f"{e.key[:40]} {e.self_device_time_total / 1e3:.2f} ms x "
+              f"{e.count}" for e in top) + f" | {card}", flush=True)
+    return dict(wsi_device_ms=dev_ms, wsi_wall_ms=wall * 1e3,
+                wsi_top=[(e.key[:70], e.self_device_time_total / 1e3,
+                          e.count) for e in top])
+
+
+def project_method(method: str, tree, plan, card: str):
+    """One method in project mode at full width: the converted tree's
+    factors as warm states, the saved bytes and peaks under ``block`` and
+    ``none``, PROJ_STEPS steps under ``block`` through ``train_run`` (#7
+    alone, 44 a step), a profiled step, a profiled WSI step, and the
+    reduced-depth check. Returns (row, state)."""
+    from repro_torch.models.lm import init_lm_states
+
+    cfg = api.install(plan).model
+    cfg_none = cfg.replace(remat="none")
+    api.install(dataclasses.replace(plan, model=cfg_none))
+    b, s = TINY_B, TINY_S
+    tcfg = TrainConfig(optimizer="sgd", lr=TINY_LR, momentum=0.9,
+                       schedule="constant", steps=PROJ_STEPS + 1,
+                       checkpoint_every=0)
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    model = from_reference(tree, cfg, "cuda")
+    asi = (init_lm_states(cfg, b, s, dtype=_dtype(cfg.dtype), device="cuda",
+                          seed=21) if cfg.wasi.compress_acts else None)
+    state = make_train_state(model, cfg, tcfg, asi_states=asi)
+    torch.cuda.synchronize()
+    res = dict(method=method, build_s=time.perf_counter() - t0)
+    gate = tree["groups"][0][0]["mlp"]["gate"]
+    if cfg.remat != "block" or not torch.equal(
+            state.wsi["groups/0/0/mlp/gate/w"].L, gate["L"]) or \
+            {k: v.L.shape[-1] for k, v in state.wsi.items()} != {
+                k: plan.spec(f"{k.split('/')[-3]}/{k.split('/')[-2]}").rank
+                for k in state.wsi}:
+        raise AssertionError(f"project {method}: the warm states are not "
+                             "the converted checkpoint's")
+    step = make_train_step(lm_loss, cfg, tcfg)
+    batch_fn = uniform_batches(cfg, b, s, 2100)
+    res.update(remat_memory(state, batch_fn(200), cfg, cfg_none))
+    state, row = train_run("project", state, step, batch_fn, tcfg, cfg,
+                           method, 0, PROJ_STEPS, b * s)
+    state, prof = profile_train_step(state, step, batch_fn(300), card)
+    row.update(prof)
+    row.update(wsi_device_ms(state, card))
+    busy = row["train_busy_share"]
+    print(f"[project] {method} project block: step_ms_median="
+          f"{row['step_ms_median']:.3f} tok_s={row['tok_s']:.1f} "
+          f"dev_peak_mib={row['dev_peak_mib']:.1f} saved_MiB="
+          f"{res['residual_bytes_block'] / 2 ** 20:.1f} (none "
+          f"{res['residual_bytes_none'] / 2 ** 20:.1f}) fwd+bwd_peak_MiB="
+          f"{res['grad_peak_mib_block']:.1f} (none "
+          f"{res['grad_peak_mib_none']:.1f}) busy_share="
+          f"{'n/a' if busy is None else f'{busy:.3f}'}; device ms of the "
+          f"profiled step {row.get('train_step_device_ms', float('nan')):.3f}"
+          f", of it the WSI steps' {row['wsi_device_ms']:.3f} (measured "
+          f"alone), the rest "
+          f"{row.get('train_step_device_ms', float('nan')) - row['wsi_device_ms']:.3f}"
+          f"; losses {[round(x, 4) for x in row['losses']]} | {card}",
+          flush=True)
+    res["block"] = row
+    res["cpu_check"] = project_vs_cpu(tree, plan, card)
+    api.install(plan)
+    gc.collect()
+    torch.cuda.empty_cache()
+    return res, state
+
+
+def phase_project(card: str) -> dict:
+    print("== phase 21: tinyllama-1.1b, the paper's project mode, full width"
+          " and depth (22 layers, d 2048, bf16): epsilon-calibrated ranks, "
+          "a converted checkpoint, wasi and wsi training, the calibrated "
+          "factored checkpoint served", flush=True)
+    full = configs.get("tinyllama-1.1b")
+    dense_cfg = with_wasi(full, method="none")
+    api.install(api.resolve(dense_cfg))
+    gen = torch.Generator(device="cuda").manual_seed(21)
+    dense = init_lm(dense_cfg, device="cuda", generator=gen)
+    out, plans = project_ranks(dense, full, card)
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    tree = convert.factorize(dense, plans["wasi"])
+    torch.cuda.synchronize()
+    out["convert_project_s"] = time.perf_counter() - t0
+    del dense
+    print(f"[project] convert.factorize to the project layout {{w, L, R}}: "
+          f"{out['convert_project_s']:.2f} s | {card}", flush=True)
+    out["rows"], out["decode_headline"] = project_rows(plans["serve"], card)
+    state = None
+    for method in PROJ_METHODS:
+        del state
+        gc.collect()
+        torch.cuda.empty_cache()
+        out[method], state = project_method(method, tree, plans[method], card)
+    del tree
+    gc.collect()
+    # the trained dense W (the last method's) -> the calibrated plan in the
+    # config's factored mode -> a plan-bearing checkpoint -> served
+    fplan = api.install(plans["serve"])
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    ftree = convert.factorize(state.params, fplan)
+    torch.cuda.synchronize()
+    out["convert_factored_s"] = time.perf_counter() - t0
+    del state
+    shutil.rmtree(PROJ_CKPT, ignore_errors=True)
+    t0 = time.perf_counter()
+    save_checkpoint(PROJ_CKPT, PROJ_STEPS, ftree, plan=fplan, label="params")
+    out["save_s"] = time.perf_counter() - t0
+    del ftree
+    gc.collect()
+    torch.cuda.empty_cache()
+    if not load_manifest(PROJ_CKPT, PROJ_STEPS)["plan"]["calibrated"]:
+        raise AssertionError("project: the manifest's plan is not "
+                             "calibrated")
+    t0 = time.perf_counter()
+    api.uninstall(full)
+    eng = ServeEngine.from_checkpoint(PROJ_CKPT, max_slots=4, max_cache=512,
+                                      device="cuda")
+    out["load_s"] = time.perf_counter() - t0
+    if not eng.plan.calibrated or eng.plan.specs != fplan.specs:
+        raise AssertionError("project: the served plan is not the "
+                             "calibrated one")
+    print(f"[project] factorize the trained W to the factored layout "
+          f"{out['convert_factored_s']:.2f} s, save "
+          f"{out['save_s']:.2f} s, ServeEngine.from_checkpoint "
+          f"{out['load_s']:.2f} s (manifest: calibrated) | {card}",
+          flush=True)
+    routes = {}
+    layer = eng.params.layer_views()[0][0][0]
+    for sp in fplan.specs:
+        p = layer[sp.name.split("/")[0]][sp.name.split("/")[1]]
+        x = torch.empty(1024, sp.in_dim, dtype=torch.bfloat16, device="cuda")
+        routes[sp.name] = {m: klowrank.forward_route(
+            m, sp.in_dim, sp.rank, sp.out_dim, torch.bfloat16,
+            (x[:m], p["R"], p["L"])) for m in (4, 1024)}
+    print(f"[project] #1's routes at K = "
+          f"{sorted({sp.rank for sp in fplan.specs})} (decode M=4 / prefill"
+          f" M=1024): " + ", ".join(f"{k} {v[4]}/{v[1024]}"
+                                    for k, v in routes.items())
+          + f"; the decode route's dynamic shared memory at K=1152 "
+          f"{klowrank.decode_smem_bytes(1, 1152)} B of "
+          f"{klowrank.SMEM_LIMIT} | {card}", flush=True)
+    if any(v[4] != "decode" or v[1024] != "tensor_core"
+           for v in routes.values()):
+        raise AssertionError(f"project: #1's routes {routes}")
+    out["routes"] = routes
+    out["serve"] = serve_dense("project", fplan.model, eng.params, fplan,
+                               card, engine=eng)
+    if out["serve"]["launches_per_forward"] != 154:
+        raise AssertionError("project: 154 launches of #1 per forward")
+    out["serve"]["cpu_logits"] = logits_vs_cpu("project", fplan.model,
+                                               eng.params, card)
+    del eng
+    shutil.rmtree(PROJ_CKPT, ignore_errors=True)
+    gc.collect()
+    torch.cuda.empty_cache()
+    return out
+
 
 def main() -> None:
     ap = argparse.ArgumentParser(description=__doc__.splitlines()[0])
@@ -4080,6 +4488,7 @@ def main() -> None:
     zamba = run(18, phase_zamba2_full, card)
     tiny = run(19, phase_tinyllama, card)
     dense = run(20, phase_dense_configs, card)
+    project = run(21, phase_project, card)
 
     head = k["headline"]
     kernels = [{
@@ -4174,6 +4583,7 @@ def main() -> None:
                        "ssd_headline": ssd["headline"],
                        "zamba2_smoke": z_smoke, "zamba2_full": zamba,
                        "tinyllama": tiny, "dense_configs": dense,
+                       "project": project,
                        "kernels": line["kernels"],
                        "phase_seconds": seconds,
                        "seconds": time.perf_counter() - t_start}, f,

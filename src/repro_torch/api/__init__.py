@@ -5,6 +5,7 @@ init / apply, shared by every linear site.
 
     plan = api.install(api.resolve(cfg))   # decide subspaces ONCE
     model = init_lm(cfg, device="cuda")    # plan-driven layouts
+    plan = api.resolve(cfg, calibration=dense_model)   # epsilon ranks
 
 ``api.bridge`` carries parameter trees across from the JAX package, and
 ``api.convert`` factorizes, densifies and quantizes them and restores
@@ -14,6 +15,7 @@ from repro_torch.api import bind, convert, plan
 from repro_torch.api.plan import (
     LinearSpec,
     SubspacePlan,
+    collect_linear_weights,
     install,
     installed,
     plan_of,
@@ -27,6 +29,7 @@ __all__ = [
     "LinearSpec",
     "SubspacePlan",
     "bind",
+    "collect_linear_weights",
     "convert",
     "install",
     "installed",

@@ -205,6 +205,15 @@ def linear_layout(p) -> str:
     return "dense"
 
 
+def dense_weight(v):
+    """The dense (..., O, I) weight of a dense-layout linear dict, else
+    None (plan calibration reads dense trees only)."""
+    if isinstance(v, (Mapping, nn.ParameterDict)) and "w" in v \
+            and getattr(v["w"], "ndim", 0) >= 2:
+        return v["w"]
+    return None
+
+
 def linear_dims(p) -> tuple[int, int]:
     """(out_dim, in_dim) of a linear param dict in any layout."""
     if linear_layout(p) == "factored":

@@ -21,8 +21,10 @@ order. ``wsi_from_reference`` carries project mode's ``{path:
 WSIState(L, R)}`` dict in, whose paths the two packages spell alike;
 ``states_to_reference`` takes it out as it takes any state tree.
 
-Leaves keep their dtype (a Mamba-2 mixer's f32 ``A_log``, ``dt_bias``
-and ``D`` beside bf16 weights included), int8 weights and their f32 scales (an int8
+Every leaf is copied, torch tensors on the same device too, so the model
+shares no storage with the tree it was built from. Leaves keep their
+dtype (a Mamba-2 mixer's f32 ``A_log``, ``dt_bias`` and ``D`` beside bf16
+weights included), int8 weights and their f32 scales (an int8
 deployment tree, ``api.convert.quantize``) included; leaves may also be
 torch tensors (``api.convert.load_checkpoint`` gives those). bfloat16 is
 carried bit for bit through an int16 view, since numpy has no bfloat16 of
@@ -56,7 +58,9 @@ _TOP = {"lm": ("embed", "final_norm", "groups"),
 
 def _tensor(a, device) -> torch.Tensor:
     if isinstance(a, torch.Tensor):
-        return a.detach().to(device).contiguous()
+        # a copy, as numpy's is: training the model must not write into
+        # the tree it came from (a dense model ``api.convert`` factorized)
+        return a.detach().to(device, copy=True).contiguous()
     a = np.array(a, copy=True, order="C")
     if a.dtype.name == "bfloat16":
         t = torch.from_numpy(a.view(np.int16)).view(torch.bfloat16)

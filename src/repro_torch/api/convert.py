@@ -38,8 +38,9 @@ from repro_torch.checkpoint.ckpt import (
 
 def _svd_factors(w: torch.Tensor, k: int):
     """W (..., O, I) -> (L (..., O, K), R (..., K, I)) by truncated SVD in
-    f32, batched over leading stack dims."""
-    u, s, vt = torch.linalg.svd(w.float(), full_matrices=False)
+    f32, batched over leading stack dims; no autograd history (a trained
+    model's W may require grad)."""
+    u, s, vt = torch.linalg.svd(w.detach().float(), full_matrices=False)
     L = u[..., :, :k] * s[..., None, :k]
     R = vt[..., :k, :]
     return L.to(w.dtype), R.to(w.dtype)

@@ -1,12 +1,15 @@
 """Declarative subspace plan: which subspace each linear lives in, decided
 ONCE per model. The port of ``repro.api.plan``.
 
-    plan = resolve(cfg)          # static rank policy
+    plan = resolve(cfg)                       # static rank policy
+    plan = resolve(cfg, calibration=params)   # per-site eps-ranks (Alg. 1 t=0)
     install(plan)                # model internals read it via plan_of(cfg)
 
 A :class:`LinearSpec` names one linear *site* (e.g. ``mlp/up``), shared by
-every stacked layer. The fields match the reference's one for one, so a
-plan's JSON written by either package reads in the other.
+every stacked layer, so a calibrated rank is the max over the site's
+stack (and over every stack that holds the site). The fields match the
+reference's one for one, so a plan's JSON written by either package reads
+in the other.
 
 Differences from the reference, all deliberate:
 
@@ -18,9 +21,9 @@ Differences from the reference, all deliberate:
   one block: each output tile is owned by one block and the row reduction
   runs inside it, so it serves every site and needs no fit rule. The field
   stays ``None``.
-* Calibrated (``epsilon``) resolution raises ``NotImplementedError``.
-  Project-mode training picks its epsilon ranks from the weights instead
-  (``core.project.init_project_states(use_epsilon=True)``).
+* Calibration reads tensors on any device (or numpy arrays): each
+  slice's singular values come from its own device
+  (``core.svd.pick_rank``), the card's for a model on the card.
 * Of the deployment stamps, ``quantized`` is ported; ``with_draft``,
   ``with_adapter`` and ``with_sharding`` are not yet. Their fields still
   load from JSON.
@@ -33,6 +36,10 @@ import json
 from dataclasses import dataclass
 from typing import Any, Literal, Mapping, Sequence
 
+import numpy as np
+import torch
+from torch import nn
+
 from repro_torch.config import (
     AsiConfig,
     LayerGroup,
@@ -41,7 +48,11 @@ from repro_torch.config import (
     SsmConfig,
     WasiConfig,
 )
-from repro_torch.core.rank_policy import asi_mode_ranks, static_rank
+from repro_torch.core.rank_policy import (
+    asi_mode_ranks,
+    epsilon_ranks,
+    static_rank,
+)
 
 Mode = Literal["dense", "factored", "project"]
 Kernel = Literal["einsum", "fused_lowrank"]
@@ -134,11 +145,10 @@ def resolve_linear_spec(wasi: WasiConfig, name: str, role: str,
                         in_dim: int, out_dim: int, *, bias: bool = False,
                         act_shape: Sequence[int] | None = None,
                         weight=None) -> LinearSpec:
-    """Resolve ONE site under ``wasi`` with the static rank policy."""
-    if weight is not None:
-        raise NotImplementedError(
-            "epsilon-calibrated ranks are not ported yet (ROADMAP.md "
-            "queue 1); resolve with the static rank policy")
+    """Resolve ONE site under ``wasi``. ``weight`` (a dense (..., O, I)
+    tensor or array) switches the rank policy from the static
+    ``rank_frac`` to the paper's explained-variance ``epsilon`` (Alg. 1
+    t = 0 truncated-SVD rank; the max over any leading stack dims)."""
     treated = role_treated(wasi, role)
     if treated and wasi.factored:
         mode: Mode = "factored"
@@ -148,8 +158,12 @@ def resolve_linear_spec(wasi: WasiConfig, name: str, role: str,
         mode = "dense"
     rank = 0
     if mode != "dense":
-        rank = static_rank(in_dim, out_dim, wasi.rank_frac,
-                           align=wasi.rank_align, min_rank=wasi.min_rank)
+        if weight is not None:
+            rank = _epsilon_rank(weight, wasi)
+        else:
+            rank = static_rank(in_dim, out_dim, wasi.rank_frac,
+                               align=wasi.rank_align,
+                               min_rank=wasi.min_rank)
     asi_ranks = None
     if treated and wasi.compress_acts and act_shape is not None:
         asi_ranks = _act_mode_ranks(tuple(act_shape), wasi)
@@ -171,6 +185,26 @@ def _act_mode_ranks(act_shape: tuple[int, ...],
             + (a.feature_frac,)
     return asi_mode_ranks(act_shape, fracs, skip_batch=a.skip_batch,
                           align=a.align)
+
+
+def _as_weight(x) -> torch.Tensor:
+    """A weight as a tensor on its own device, without grad history;
+    numpy bfloat16 (the reference's) read as float32, which holds every
+    bfloat16 value exactly."""
+    if isinstance(x, torch.Tensor):
+        return x.detach()
+    a = np.asarray(x)
+    if a.dtype.name == "bfloat16":
+        a = a.astype(np.float32)
+    return torch.tensor(a)
+
+
+def _epsilon_rank(weight, wasi: WasiConfig) -> int:
+    """pick_rank at wasi.epsilon; the max over leading stack dims (stacked
+    layers share one rank)."""
+    w = _as_weight(weight)
+    return max(epsilon_ranks(w.reshape(-1, *w.shape[-2:]), wasi.epsilon,
+                             align=wasi.rank_align))
 
 
 @dataclass(frozen=True)
@@ -230,6 +264,24 @@ class SubspacePlan:
     @property
     def is_quantized(self) -> bool:
         return any(s.quant is not None for s in self.specs)
+
+    def summary(self) -> str:
+        """Human-readable one-line-per-site table (the reference's, less
+        its TPU ``bwd=`` column)."""
+        lines = [f"SubspacePlan[{self.model.name}] method={self.wasi.method} "
+                 f"update={self.wasi.update_mode} scope={self.wasi.scope}"
+                 + (" (eps-calibrated)" if self.calibrated else "")]
+        for s in self.specs:
+            extra = f" rank={s.rank}" if s.mode != "dense" else ""
+            if s.asi_ranks is not None:
+                extra += f" asi={list(s.asi_ranks)}"
+            for key in ("quant", "draft", "adapter"):
+                if getattr(s, key) is not None:
+                    extra += f" {key}={getattr(s, key)}"
+            lines.append(f"  {s.name:16s} {s.role:9s} "
+                         f"({s.in_dim}->{s.out_dim}) {s.mode:8s}"
+                         f" {s.kernel}{extra}")
+        return "\n".join(lines)
 
     # -- serialization ------------------------------------------------------
 
@@ -318,21 +370,61 @@ def _site_dims(cfg: ModelConfig) -> list[tuple[str, str, int, int, bool, int]]:
     return out
 
 
+def collect_linear_weights(tree) -> dict[str, list]:
+    """Walk a (possibly stacked) DENSE param tree (nested dicts and lists,
+    nn containers, or a model with ``.tree()``) collecting each site's
+    weight leaves, keyed by spec name. Used for eps-rank calibration."""
+    from repro_torch.api.bind import dense_weight  # bind imports plan
+
+    found: dict[str, list] = {}
+
+    def walk(node):
+        if isinstance(node, (Mapping, nn.ModuleDict, nn.ParameterDict)):
+            for k, v in node.items():
+                w = dense_weight(v) if k in LEAF_TO_SPEC else None
+                if w is not None:
+                    found.setdefault(LEAF_TO_SPEC[k][0], []).append(w)
+                else:
+                    walk(v)
+        elif isinstance(node, (list, tuple, nn.ModuleList)):
+            for v in node:
+                walk(v)
+
+    walk(tree.tree() if hasattr(tree, "tree") else tree)
+    return found
+
+
 def resolve(cfg: ModelConfig, *, batch: int | None = None,
             seq: int | None = None, calibration=None) -> SubspacePlan:
-    """Resolve the plan for ``cfg`` ONCE with the static rank policy.
+    """Resolve the plan for ``cfg`` ONCE.
+
     ``batch``/``seq`` give the activation-shape hint for ASI mode-ranks.
-    ``calibration`` (epsilon ranks from real weights) is not ported yet."""
+    ``calibration`` is a dense param tree (or a model, or a {site-name:
+    weight} mapping): when given, factored/project ranks come from the
+    paper's explained-variance threshold on the actual weights instead of
+    the static ``rank_frac`` policy, one rank per site, the max over
+    every layer that holds it (the stacks concatenated, as the reference
+    does)."""
+    weights: Mapping[str, Any] = {}
     if calibration is not None:
-        raise NotImplementedError(
-            "epsilon-calibrated plans are not ported yet (ROADMAP.md "
-            "queue 1); resolve(cfg) uses the static rank policy")
+        if isinstance(calibration, Mapping) and calibration and all(
+                hasattr(v, "shape") for v in calibration.values()):
+            weights = {k: [v] for k, v in calibration.items()}
+        else:
+            weights = collect_linear_weights(calibration)
     specs = []
     for name, role, i_dim, o_dim, bias, act_in in _site_dims(cfg):
+        w = None
+        flat = [t.reshape(-1, o_dim, i_dim)
+                for t in map(_as_weight, weights.get(name, ()))
+                if tuple(t.shape[-2:]) == (o_dim, i_dim)]
+        if flat:
+            w = flat[0] if len(flat) == 1 else torch.cat(flat)
         act = (batch, seq, act_in) if batch and seq else None
         specs.append(resolve_linear_spec(cfg.wasi, name, role, i_dim, o_dim,
-                                         bias=bias, act_shape=act))
-    return SubspacePlan(model=cfg, specs=tuple(specs), batch=batch, seq=seq)
+                                         bias=bias, act_shape=act, weight=w))
+    return SubspacePlan(model=cfg, specs=tuple(specs), batch=batch, seq=seq,
+                        calibrated=calibration is not None)
 
 
 # ---------------------------------------------------------------------------

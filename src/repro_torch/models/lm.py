@@ -25,7 +25,13 @@ in place.
 
 Entry points: init_lm / init_lm_states / init_lm_cache, lm_forward
 (logits), lm_loss (training), lm_prefill (token-parallel prompt pass that
-fills the caches), lm_decode_step.
+fills the caches), lm_decode_step. Each takes the model or a plain tree
+of the same structure (nested dicts and lists holding the model's own
+leaves): project mode's ``core.project.project_forward_params`` hands
+``lm_loss`` the tree with a detached (L, R) beside each treated W, as the
+reference's ``lm_loss(params, ...)`` takes its pytree. A tree's per-layer
+views (``tree_layer_views``) are built anew on every call; the model's
+own path keeps ``LanguageModel.layer_views``.
 
 ``remat="block"`` (every full config's setting) is the reference's
 ``jax.checkpoint`` of its scan body: with grad enabled and no caches, one
@@ -45,6 +51,8 @@ saved tensors. Serving (no grad, or caches) never checkpoints. The
 computed values do not depend on the setting.
 """
 from __future__ import annotations
+
+from typing import Mapping
 
 import torch
 from torch import nn
@@ -128,9 +136,26 @@ class LanguageModel(nn.Module):
 
 
 def _slice(node, j: int):
-    if isinstance(node, (nn.ModuleDict, nn.ParameterDict)):
+    if isinstance(node, (Mapping, nn.ModuleDict, nn.ParameterDict)):
         return {k: _slice(v, j) for k, v in node.items()}
     return node[j]
+
+
+def tree_layer_views(tree: Mapping, cfg: ModelConfig) -> list:
+    """``LanguageModel.layer_views`` of a plain tree: ``views[gi][pi][j]``
+    is layer ``j`` of group ``gi`` at pattern position ``pi``, views into
+    the tree's stacked leaves (injected L and R included), built anew on
+    every call so autograd records each ``leaf[j]``."""
+    return [[[_slice(blk, j) for j in range(cfg.groups[gi].repeat)]
+             for blk in grp] for gi, grp in enumerate(tree["groups"])]
+
+
+def _part(params, key: str):
+    """Top-level part ``key`` (``embed``, ``final_norm``, ``lm_head``,
+    ``shared_attn``) of a model or a tree; None where it has none."""
+    if isinstance(params, Mapping):
+        return params.get(key)
+    return getattr(params, key, None)
 
 
 def needs_shared(cfg: ModelConfig) -> bool:
@@ -262,8 +287,9 @@ def _unflatten(skeleton, leaves):
 
 
 def _as_tree(node):
-    """A module of parameters as nested dicts of its tensors."""
-    if isinstance(node, (nn.ModuleDict, nn.ParameterDict)):
+    """A module of parameters (or a dict holding modules) as nested dicts
+    of its tensors."""
+    if isinstance(node, (Mapping, nn.ModuleDict, nn.ParameterDict)):
         return {k: _as_tree(v) for k, v in node.items()}
     return node
 
@@ -303,15 +329,20 @@ def _checkpointed_pattern(pattern, cfg: ModelConfig, x, params: list,
                       preserve_rng_state=False)
 
 
-def lm_backbone(model: LanguageModel, x, cfg: ModelConfig, *, states=None,
-                caches=None, pos=None, valid_len=None):
+def lm_backbone(model, x, cfg: ModelConfig, *, states=None, caches=None,
+                pos=None, valid_len=None):
     """Run embedded hidden states through all layer groups, a loop over
     each group's repeats, each repeat one pass of the group's pattern
     (checkpointed under ``remat="block"`` with grad enabled and no
-    caches). Returns (x, new_states, caches, aux); new_states is None
+    caches). ``model``: a ``LanguageModel`` or its tree (injected L and R
+    ride into each checkpoint as flat arguments with the layer's other
+    views). Returns (x, new_states, caches, aux); new_states is None
     without ``states``."""
-    views = model.layer_views()
-    shared = getattr(model, "shared_attn", None)
+    if isinstance(model, LanguageModel):
+        views = model.layer_views()
+    else:
+        views = tree_layer_views(model, cfg)
+    shared = _part(model, "shared_attn")
     remat = (cfg.remat == "block" and caches is None
              and torch.is_grad_enabled())
     if remat and shared is not None:
@@ -336,12 +367,12 @@ def lm_backbone(model: LanguageModel, x, cfg: ModelConfig, *, states=None,
                     o.append(s)
         if states is not None:
             new_states.append([_stack_states(o) for o in out])
-    x = apply_norm(cfg.norm, model.final_norm, x)
+    x = apply_norm(cfg.norm, _part(model, "final_norm"), x)
     return x, (new_states if states is not None else None), caches, 0.0
 
 
-def _logits(model: LanguageModel, x, cfg: ModelConfig):
-    head = model.embed["w"] if cfg.tie_embeddings else model.lm_head["w"]
+def _logits(model, x, cfg: ModelConfig):
+    head = _part(model, "embed" if cfg.tie_embeddings else "lm_head")["w"]
     logits = torch.matmul(x, head.T)
     if cfg.logit_softcap > 0:
         c = cfg.logit_softcap
@@ -349,14 +380,15 @@ def _logits(model: LanguageModel, x, cfg: ModelConfig):
     return logits
 
 
-def _embed(model: LanguageModel, tokens, cfg: ModelConfig):
-    return model.embed["w"][tokens].to(_dtype(cfg.dtype))
+def _embed(model, tokens, cfg: ModelConfig):
+    return _part(model, "embed")["w"][tokens].to(_dtype(cfg.dtype))
 
 
-def lm_forward(model: LanguageModel, tokens, cfg: ModelConfig, *,
-               states=None, caches=None, pos=None):
+def lm_forward(model, tokens, cfg: ModelConfig, *, states=None, caches=None,
+               pos=None):
     """tokens (B, S) -> logits (B, S, V). Returns (logits, states, caches,
-    aux). Float ``tokens`` are taken as precomputed embeddings."""
+    aux). Float ``tokens`` are taken as precomputed embeddings. ``model``:
+    a ``LanguageModel`` or its tree."""
     if tokens.is_floating_point():
         x = tokens.to(_dtype(cfg.dtype))
     else:
@@ -366,11 +398,13 @@ def lm_forward(model: LanguageModel, tokens, cfg: ModelConfig, *,
     return _logits(model, x, cfg), ns, nc, aux
 
 
-def lm_loss(model: LanguageModel, batch: dict, cfg: ModelConfig, *,
-            states=None, policy=None):
+def lm_loss(model, batch: dict, cfg: ModelConfig, *, states=None,
+            policy=None):
     """Cross-entropy (f32 reductions) + 0.01 x MoE aux. batch: {tokens
-    (B, S), labels (B, S)}; labels < 0 are masked out. Returns (loss,
-    (new_states, metrics)) with metrics ``ce``, ``aux``, ``ppl_proxy``."""
+    (B, S), labels (B, S)}; labels < 0 are masked out. ``model``: a
+    ``LanguageModel`` or its tree (project mode's, with the factors
+    injected). Returns (loss, (new_states, metrics)) with metrics ``ce``,
+    ``aux``, ``ppl_proxy``."""
     if policy is not None:
         raise NotImplementedError("sharding policies arrive with the "
                                   "distributed slice (ROADMAP.md queue 1)")
@@ -388,8 +422,7 @@ def lm_loss(model: LanguageModel, batch: dict, cfg: ModelConfig, *,
     return loss, (ns, metrics)
 
 
-def lm_decode_step(model: LanguageModel, token, caches, pos,
-                   cfg: ModelConfig):
+def lm_decode_step(model, token, caches, pos, cfg: ModelConfig):
     """One serve step. token (B, 1) int; ``pos`` the absolute position of
     this token: an int (lockstep batch) or a (B,) tensor of per-slot
     positions. Returns (logits (B, V), caches)."""
@@ -398,7 +431,7 @@ def lm_decode_step(model: LanguageModel, token, caches, pos,
     return _logits(model, x, cfg)[:, 0], nc
 
 
-def lm_prefill(model: LanguageModel, tokens, cfg: ModelConfig, *, caches,
+def lm_prefill(model, tokens, cfg: ModelConfig, *, caches,
                valid_len=None, last_only: bool = False, pos=None):
     """Token-parallel prefill: ONE forward over the whole prompt that also
     writes every layer's KV cache. tokens (B, P) from absolute position 0

@@ -19,8 +19,9 @@ WASI maintenance per update mode:
 * factored: after the update of step ``s``, when ``(s + 1) %
   refresh_every == 0``, every (L, R) pair is re-orthogonalized
   (``core.wsi.wsi_refresh_factored``: one CholeskyQR per stacked site).
-* project (paper Eq. 9-11, the ViT path): ``TrainState.wsi`` holds a
-  path-keyed ``WSIState`` per wasi-scoped dense W. Each step the loss runs
+* project (paper Eq. 9-11; ViTs and decoder LMs): ``TrainState.wsi``
+  holds a path-keyed ``WSIState`` per wasi-scoped dense W (stacked on a
+  layer group's ``repeat`` dim for an LM). Each step the loss runs
   on the param tree with each (L, R) beside its W
   (``core.project.project_forward_params``; the factors detached, so
   autograd never asks for their gradients, which the reference computes
@@ -29,9 +30,8 @@ WASI maintenance per update mode:
   (``update_project_states``, paper Alg. 1).
 
 Not ported yet, and refused with ``NotImplementedError``: PowerSGD
-(``tcfg.powersgd_rank``), the data-parallel step (``mesh=``,
-``mean_fn=``) and project mode for decoder LMs (``lm_loss`` takes the
-model, not a tree). See ROADMAP.md queue 1.
+(``tcfg.powersgd_rank``) and the data-parallel step (``mesh=``,
+``mean_fn=``). See ROADMAP.md queue 1.
 """
 from __future__ import annotations
 
@@ -90,8 +90,6 @@ def make_train_state(model, cfg: ModelConfig, tcfg: TrainConfig, *,
         _refuse("PowerSGD gradient compression")
     if dp_degree:
         _refuse("the data-parallel train state")
-    if cfg.wasi.project and cfg.family != "vit":
-        _refuse(f"project update mode for the {cfg.family!r} family")
     from repro_torch.api.bind import is_quantized, iter_linear_dicts
     packed = [path for path, p in iter_linear_dicts(model.tree())
               if is_quantized(p)]

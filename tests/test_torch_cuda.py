@@ -1281,3 +1281,77 @@ def test_remat_block_step_gradients_equal_none(cuda, method, dtype):
     assert torch.equal(l0, l1)
     for k in g0:
         assert torch.equal(g0[k], g1[k]), k
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("method", ["wsi", "wasi"])
+def test_project_mode_step_on_the_card_matches_the_cpu(cuda, method):
+    """The paper's project mode on tinyllama smoke (f32): the epsilon ranks
+    calibrated on the card equal the CPU's (the f64 Gram's singular values
+    on the card, f32 LAPACK on the CPU); one step of the same converted
+    checkpoint (factorized once, on the CPU) and ASI states, SGD+momentum,
+    on the card and on the CPU. The card launches #7 once a layer and no
+    other kernel: the project-mode linears and the WSI step are plain, as
+    in the reference. Loss within 1e-5 relative, W after the step within
+    1e-5 of its scale, the WSI states' L R and the ASI factors within 1e-4
+    of theirs (f32 sums in other orders; #7 takes f32 as exact bf16
+    pieces)."""
+    import dataclasses
+
+    from repro_torch import api, configs
+    from repro_torch.api import convert
+    from repro_torch.api.bridge import from_reference
+    from repro_torch.config import TrainConfig
+    from repro_torch.models import lm
+    from repro_torch.train.step import make_train_state, make_train_step
+
+    base = configs.get_smoke("tinyllama-1.1b")
+    dense_cfg = base.replace(wasi=dataclasses.replace(base.wasi,
+                                                      method="none"))
+    cfg = base.replace(wasi=dataclasses.replace(base.wasi, method=method,
+                                                update_mode="project"))
+    b, s = 4, 32
+    dense = lm.init_lm(dense_cfg, device="cpu", seed=5)
+    plan = api.install(api.resolve(cfg, batch=b, seq=s, calibration=dense))
+    on_card = {k: torch.cat(v).to(cuda)
+               for k, v in api.collect_linear_weights(dense).items()}
+    card_plan = api.resolve(cfg, batch=b, seq=s, calibration=on_card)
+    assert [sp.rank for sp in card_plan.specs] == \
+        [sp.rank for sp in plan.specs]
+    tree = convert.factorize(dense, plan)
+    g = torch.Generator().manual_seed(6)
+    toks = torch.randint(0, cfg.vocab_size, (b, s + 1), generator=g)
+    tcfg = TrainConfig(optimizer="sgd", lr=0.05, momentum=0.9, steps=1)
+    out = {}
+    for dev in ("cpu", cuda):
+        states = (lm.init_lm_states(cfg, b, s, device=dev, seed=7)
+                  if cfg.wasi.compress_acts else None)
+        state = make_train_state(from_reference(tree, cfg, dev), cfg, tcfg,
+                                 asi_states=states)
+        batch = {"tokens": toks[:, :-1].to(dev), "labels": toks[:, 1:].to(dev)}
+        ops.reset_launches()
+        state, m = make_train_step(lm.lm_loss, cfg, tcfg)(state, batch)
+        if dev == cuda:
+            torch.cuda.synchronize()
+        out[dev] = (float(m["loss"]), state, ops.launch_counts())
+    (l0, s0, c0), (l1, s1, c1) = out["cpu"], out[cuda]
+    assert c0 == dict.fromkeys(c0, 0)
+    assert c1 == dict(dict.fromkeys(c1, 0), flash_attention=cfg.n_layers)
+    assert abs(l1 / l0 - 1) <= 1e-5
+
+    def close(got, want, rel):
+        got, want = got.detach().float().cpu(), want.detach().float()
+        assert (got - want).abs().max() <= rel * want.abs().max()
+
+    p0 = dict(s0.params.named_parameters())
+    for k, v in s1.params.named_parameters():
+        close(v, p0[k], 1e-5)
+    for k, st in s0.wsi.items():
+        close(s1.wsi[k].L @ s1.wsi[k].R, st.L @ st.R, 1e-4)
+    if s0.asi is not None:
+        a, c = [], []
+        lm.map_states(a.append, s0.asi)
+        lm.map_states(c.append, s1.asi)
+        assert len(a) == len(c) > 0
+        for x, y in zip(c, a):
+            close(x, y, 1e-4)

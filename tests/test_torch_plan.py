@@ -1,7 +1,10 @@
 """The port's SubspacePlan resolves exactly as the reference's."""
 import json
 
+import jax.numpy as jnp
+import numpy as np
 import pytest
+import torch
 
 import repro.api as rapi
 import repro.configs as rconfigs
@@ -71,8 +74,17 @@ def test_install_plan_of_uninstall():
 
 
 def test_unported_paths_raise():
-    cfg = tconfigs.get_smoke("qwen2-0.5b")
-    with pytest.raises(NotImplementedError):
-        tapi.resolve(cfg, calibration={"mlp/up": None})
+    """Calibrated resolution is ported: a {site: weight} mapping gives the
+    reference's epsilon rank at that site (and the static ranks
+    elsewhere), the plan marked calibrated. mixtral-8x7b still raises."""
+    rcfg, cfg = _cfgs(False)
+    w = np.random.default_rng(0).standard_normal((128, 64)).astype(
+        np.float32)
+    got = tapi.resolve(cfg, calibration={"mlp/up": torch.from_numpy(w)})
+    want = rapi.resolve(rcfg, calibration={"mlp/up": jnp.asarray(w)})
+    assert got.calibrated and want.calibrated
+    assert [tuple(getattr(s, f) for f in FIELDS) for s in got.specs] == \
+        [tuple(getattr(s, f) for f in FIELDS) for s in want.specs]
+    assert got.spec("mlp/up").rank != tapi.resolve(cfg).spec("mlp/up").rank
     with pytest.raises(KeyError, match="ROADMAP"):
         tconfigs.get("mixtral-8x7b")

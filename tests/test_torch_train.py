@@ -315,12 +315,36 @@ def test_launcher_trains_on_the_cpu_and_refuses_a_silent_fallback(
 
 
 def test_unported_training_modes_raise():
+    """Project mode for decoder LMs is ported: from the same dense weights
+    the port's train state holds the reference's WSI states, the same
+    paths and static ranks, each L R a best rank-K approximation of its W
+    as the reference's is (||W - L R|| / ||W|| equal within 1e-5; a random
+    W cut at half its rank has near-equal singular values at the cut,
+    where two LAPACK builds pick other subspaces of the same error).
+    PowerSGD, the mesh step and ``batch_sharding`` still raise."""
     rcfg, tcfg = _cfgs()
+    rproj, tproj = (c.replace(wasi=dataclasses.replace(
+        c.wasi, update_mode="project")) for c in (rcfg, tcfg))
+    dense = tlm.init_lm(tproj, device="cpu")
+    rstate = rmake_state(KEY, jax.tree.map(jnp.asarray, to_reference(dense)),
+                         rproj, RTrainConfig())
+    pstate = make_train_state(dense, tproj, TrainConfig())
+    assert sorted(pstate.wsi) == sorted(rstate.wsi)
+    flat = dict(jax.tree_util.tree_flatten_with_path(rstate.params)[0])
+    for k, st in rstate.wsi.items():
+        assert pstate.wsi[k].L.shape == st.L.shape, k
+        w = np.asarray(next(v for p, v in flat.items()
+                            if "/".join(str(getattr(e, "key", getattr(
+                                e, "idx", e))) for e in p) == k))
+
+        def residual(lr):
+            return np.linalg.norm(w - lr, axis=(-2, -1)) / np.linalg.norm(
+                w, axis=(-2, -1))
+        np.testing.assert_allclose(
+            residual((pstate.wsi[k].L @ pstate.wsi[k].R).detach().numpy()),
+            residual(np.asarray(st.L @ st.R)), rtol=0, atol=1e-5,
+            err_msg=k)
     model = tlm.init_lm(tcfg, device="cpu")
-    project = tcfg.replace(wasi=dataclasses.replace(tcfg.wasi,
-                                                    update_mode="project"))
-    with pytest.raises(NotImplementedError, match="ROADMAP"):
-        make_train_state(model, project, TrainConfig())
     with pytest.raises(NotImplementedError, match="ROADMAP"):
         make_train_state(model, tcfg, TrainConfig(powersgd_rank=2))
     with pytest.raises(NotImplementedError, match="ROADMAP"):
