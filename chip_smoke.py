@@ -205,7 +205,34 @@ Phases, in order; any failure raises and the script exits non-zero:
    under the calibrated plan in the config's factored mode -> a
    plan-bearing checkpoint -> ``ServeEngine.from_checkpoint`` serves phase
    5's requests (#1's route per site at decode and prefill, 154 launches
-   a forward) and one prompt's logits against the f32 CPU.
+   a forward) and one prompt's logits against the f32 CPU;
+22. #8's gradient: ``ops.ssd_scan`` with grad (``_SSDScan``: the kernel's
+   forward, a plain chunked backward) at zamba2-7b's heads (H 112, dh 64,
+   N 64, chunk 256), bf16 and f32, S 256, 512 and a ragged 700, against
+   the CPU's plain autograd in f32 (``ssd_grad_tol``: 8 eps sqrt(r) of
+   each gradient's scale, r the terms an entry sums, plus one bf16
+   rounding), two runs bit-equal, one launch a forward and none a
+   backward; the forward's and the backward's device time at one
+   zamba2 training layer (4 x 512);
+23. zamba2-7b trained at full width and depth (81 layers, bf16, the
+   config's ``remat="block"``), batch 4 x 512 of seeded uniform tokens,
+   SGD+momentum 0.9 at a constant 0.05, refresh every 8, under ``wasi``
+   and ``wsi``: the saved-for-backward bytes and peak of one loss, 8
+   steps through ``train_loop`` (exact launches of every kernel:
+   ``train_want`` from ``forward_counts``) and a profiled step (busy
+   share); per method one step at 9 layers (the pattern once and the
+   tail) on the card under ``block`` and ``none`` (the same bits) and in
+   f32, against the f32 CPU; then int8 zamba2 at 9 layers through
+   ``plan.quantized("int8")`` -> ``convert.quantize`` -> a plan-bearing
+   checkpoint -> ``ServeEngine.from_checkpoint``, serving phase 5's
+   requests through #6 (exact launches);
+24. falcon-mamba-7b (64 Mamba-1 layers, d 4,096, bf16): kernel #1 at its
+   four sites' shapes (M = 4 and 1,024); served at full width and depth
+   (phase 5's requests and a 700-token prompt, 256 launches of #1 a
+   forward, the plain selective scan's device time in a profiled prefill
+   tick and alone at the buckets' shapes), then int8 through #6; logits
+   against the f32 CPU at 4 layers; one ``wasi`` and one ``wsi`` run of 2
+   steps at 4 layers, batch 4 x 512 (exact #2 and #3 launches).
 
 Every full-sequence attention (training, a forward without caches, the
 prefill at offset 0) goes through kernel #7, so phases 5, 7, 8, 10, 12,
@@ -214,7 +241,8 @@ call, none per decode step. Under ``remat="block"`` (every full LM
 config) a training step runs each forward kernel twice, the forward and
 the backward's recompute, so phases 8, 12 and 19 count #2 and #7 twice a
 step and #3 once. Every Mamba-2 scan of a train or prefill pass goes
-through kernel #8 (phases 17, 18).
+through kernel #8 (phases 17, 18, 22, 23); Mamba-1's selective scan is
+plain PyTorch, as the reference's is (phase 24).
 
 Phase 6 also holds the CholeskyQR kernel's shift ladder against the plain
 ladder on a stack with one well-conditioned and one ill-conditioned index.
@@ -698,15 +726,19 @@ LOGIT_RMS_TOL, LOGIT_MAX_TOL = 0.015, 0.07
 
 def serve_dense(tag: str, cfg, model, plan, card: str, *, extra=(),
                 max_cache: int = 512, check_sums: bool = False,
-                engine=None) -> dict:
+                engine=None, kernel: str = "lowrank_fwd",
+                prefill_profile: bool = False) -> dict:
     """Phase 5's 8 requests (2 sampled) and prompts of ``extra`` lengths
     through 4 slots, 16 new tokens each: decode and prefill tok/s, TTFT,
-    TPOT, weight and KV MiB, the allocator's peak, exact launches (7 L of
-    #1 per forward or decode step, L of #7 per prefill call, none per
-    decode step) and the busy share of a decode tick (``profile_decode``,
-    which ``check_sums`` is handed to). ``engine``: an engine built
-    elsewhere (``ServeEngine.from_checkpoint``, 4 slots) instead of one
-    over ``model``."""
+    TPOT, weight and cache MiB, the allocator's peak, exact launches (the
+    factored linears' ``kernel``, #1 or #6 of an int8 deployment, per
+    forward or decode step; #7 and #8 per attention and Mamba-2 layer of
+    a prefill call, none per decode step; ``forward_counts``) and the busy
+    share of a decode tick (``profile_decode``, which ``check_sums`` is
+    handed to) and, with ``prefill_profile``, of a prefill tick
+    (``profile_prefill``). ``engine``: an engine built elsewhere
+    (``ServeEngine.from_checkpoint``, 4 slots) instead of one over
+    ``model``."""
     eng = engine or ServeEngine(model, plan=plan, max_slots=4,
                                 max_cache=max_cache, device="cuda")
     rng = np.random.default_rng(1)
@@ -734,22 +766,26 @@ def serve_dense(tag: str, cfg, model, plan, card: str, *, extra=(),
         if not all(0 <= t < cfg.padded_vocab for t in h.generated):
             raise AssertionError(f"{tag} request {h.rid}: token out of "
                                  "range")
-    per_fwd = len(plan.specs) * cfg.n_layers
-    lr = counts["lowrank_fwd"]
+    fc = forward_counts(cfg)
+    per_fwd = fc["sites"]
+    lr = counts[kernel]
     if lr % per_fwd or lr < per_fwd * s["decode_steps"]:
-        raise AssertionError(f"{tag} lowrank_fwd launches {lr} is not a "
+        raise AssertionError(f"{tag} {kernel} launches {lr} is not a "
                              f"multiple of {per_fwd} covering "
                              f"{s['decode_steps']} decode steps")
     prefills = lr // per_fwd - s["decode_steps"]
     want = dict.fromkeys(counts, 0)
-    want.update(lowrank_fwd=lr, flash_attention=cfg.n_layers * prefills)
+    want.update({kernel: lr, "flash_attention": fc["flash"] * prefills,
+                 "ssd_scan": fc["ssd"] * prefills})
     if counts != want:
         raise AssertionError(f"{tag} serving launches {counts} != {want}")
-    print(f"[{tag}] launches: lowrank_fwd {lr} = {lr // per_fwd} forwards x"
-          f" {per_fwd} ({len(plan.specs)} sites x {cfg.n_layers} layers; "
+    print(f"[{tag}] launches: {kernel} {lr} = {lr // per_fwd} forwards x"
+          f" {per_fwd} factored linears ({cfg.n_layers} layers; "
           f"{s['decode_steps']} decode steps + {prefills} prefill calls); "
           f"flash_attention {counts['flash_attention']} = {prefills} prefill"
-          f" calls x {cfg.n_layers}, 0 per decode step", flush=True)
+          f" calls x {fc['flash']}, ssd_scan {counts['ssd_scan']} = "
+          f"{prefills} x {fc['ssd']}, 0 of either per decode step",
+          flush=True)
     ttft = [h.ttft_s for h in hs]
     tpot = [h.tpot_s for h in hs]
     res = dict(prefill_tok_s=s["prefill_tok_s"],
@@ -775,12 +811,15 @@ def serve_dense(tag: str, cfg, model, plan, card: str, *, extra=(),
               f"{[round(t, 1) for t in res['ttft_ms_extra']]} ms | {card}")
     print(f"[{tag}] greedy sample rid=0: {hs[0].generated}")
     res.update(profile_decode(eng, cfg, rng, card, check_sums))
+    if prefill_profile:
+        res.update(profile_prefill(eng, cfg, rng, card))
     del eng
     return res
 
 
 def logits_vs_cpu(tag: str, cfg, model, card: str, *, prompt_len: int = 16,
-                  decode: int = 4) -> dict:
+                  decode: int = 4,
+                  limits: tuple = (LOGIT_RMS_TOL, LOGIT_MAX_TOL)) -> dict:
     """One prompt prefilled, then ``decode`` - 1 teacher-forced decode
     steps, bf16 on the card against the same weights in f32 on the CPU:
     the one logits check of phases 5, 18, 19 and 20. bf16 rounds every
@@ -795,7 +834,9 @@ def logits_vs_cpu(tag: str, cfg, model, card: str, *, prompt_len: int = 16,
     sqrt(L): 1.5x the attention models' largest readings, 1.15x and 1.27x
     zamba2's (the readings repeat to the digit from call to call). A
     wrong kernel, layout or cache gives an RMS error near the logits'
-    own."""
+    own. ``limits``: another (RMS, largest) pair per sqrt(L), where a
+    family's bf16 error differs for a stated reason (Mamba-1's, phase
+    24) or the model runs in f32."""
     rng = np.random.default_rng(20)
     toks = torch.from_numpy(rng.integers(0, cfg.vocab_size,
                                          (1, prompt_len + decode)))
@@ -825,8 +866,8 @@ def logits_vs_cpu(tag: str, cfg, model, card: str, *, prompt_len: int = 16,
     del cpu32
     gc.collect()
     errs = []
-    rms_tol = LOGIT_RMS_TOL * math.sqrt(cfg.n_layers)
-    max_tol = LOGIT_MAX_TOL * math.sqrt(cfg.n_layers)
+    rms_tol = limits[0] * math.sqrt(cfg.n_layers)
+    max_tol = limits[1] * math.sqrt(cfg.n_layers)
     for i, (a, b) in enumerate(zip(gpu, cpu)):
         err = (a - b).abs().max().item()
         scale = b.abs().max().item()
@@ -844,7 +885,8 @@ def logits_vs_cpu(tag: str, cfg, model, card: str, *, prompt_len: int = 16,
     worst = max(e["rms_err"] / e["rms"] for e in errs)
     worst_max = max(e["max_abs_err"] / e["rms"] for e in errs)
     print(f"[{tag}] {cfg.n_layers} layers, a {prompt_len}-token prompt and "
-          f"{decode - 1} decode steps, bf16 card vs f32 CPU logits: largest "
+          f"{decode - 1} decode steps, {cfg.dtype} card vs f32 CPU logits: "
+          f"largest "
           f"RMS error {worst:.3e} of the RMS logit (limit {rms_tol:.4f}), "
           f"largest error {worst_max:.3e} of it (limit {max_tol:.4f}); per "
           f"step max"
@@ -886,6 +928,10 @@ def phase_full_width(card: str) -> dict:
     return res
 
 
+#: the profiler range phase 24 wraps each Mamba-1 selective scan in
+SCAN_RANGE = "selective_scan"
+
+
 class DeviceRow(NamedTuple):
     """One kernel (or copy) name's device time in a trace."""
     key: str
@@ -893,19 +939,24 @@ class DeviceRow(NamedTuple):
     count: int
 
 
-def device_events(prof) -> list:
+def device_events(prof, ranges: bool = False) -> list:
     """The profile's device-side rows, summed by name from the profiler's
     raw events: what ``key_averages`` gives for the device's kernels and
     copies (an aten op's row, which repeats the device time of the
     kernels it launched, is left out), without building every host
     event's record first (``key_averages`` took 11-24 s on a trace of
-    80,000 launches on an H100; this takes well under one)."""
+    80,000 launches on an H100; this takes well under one). The device
+    span of a ``record_function`` range named ``SCAN_RANGE``, which
+    repeats its kernels' time, is left out too; ``ranges`` returns those
+    spans alone."""
     us: dict = {}
     count: dict = {}
     for e in prof.profiler.kineto_results.events():
         if not str(e.device_type()).endswith("CUDA"):
             continue
         name = e.name()
+        if (name == SCAN_RANGE) != ranges:
+            continue
         us[name] = us.get(name, 0.0) + e.duration_ns() / 1e3
         count[name] = count.get(name, 0) + 1
     return [DeviceRow(k, v, count[k]) for k, v in us.items() if v > 0]
@@ -3402,13 +3453,40 @@ def zamba2_lowrank_rows(card: str) -> list:
             for name, (i, k, o) in ZAMBA_SHAPES.items() for m in (4, 1024)]
 
 
+def forward_counts(cfg) -> dict:
+    """Kernel calls of one forward of ``cfg``, by its layers' kinds:
+    ``sites``, the factored linears (#1 serving, #2 training, #6 int8);
+    ``stateless``, those of them without an ASI state under ``wasi`` (the
+    shared block's 7 in each ``mamba2_attn`` layer, Mamba-1's
+    ``dt_proj``), which train through #2 and #3 there too; ``flash``, the
+    attention layers (#7, full-sequence passes only); ``ssd``, the Mamba-2
+    layers (#8, full-sequence passes only). ``stacks``: the factored
+    (L, R) leaves of the tree, one CholeskyQR and one Gram each a
+    refresh."""
+    specs = [s.name for s in api.plan_of(cfg).specs]
+    blk = sum(not n.startswith("ssm/") for n in specs)   # attention + MLP
+    mixer = len(specs) - blk
+    out = dict(sites=0, stateless=0, flash=0, ssd=0, stacks=0)
+    for g in cfg.groups:
+        for kind in g.pattern:
+            attn = kind in ("dense", "local", "mamba2_attn")
+            own = blk if kind in ("dense", "local") else mixer
+            out["sites"] += g.repeat * (own + (blk if kind == "mamba2_attn"
+                                               else 0))
+            out["stateless"] += g.repeat * (blk if kind == "mamba2_attn" else
+                                            1 if kind == "mamba1" else 0)
+            out["flash"] += g.repeat * attn
+            out["ssd"] += g.repeat * (kind in ("mamba2", "mamba2_attn"))
+            out["stacks"] += own
+    if any("mamba2_attn" in g.pattern for g in cfg.groups):
+        out["stacks"] += blk                 # the shared block, one copy
+    return out
+
+
 def zamba2_per_forward(cfg) -> tuple[int, int, int]:
     """(#1 per forward or decode step, #8 and #7 per prefill call)."""
-    kinds = [k for g in cfg.groups for k in g.pattern * g.repeat]
-    n_mamba = sum(k in ("mamba2", "mamba2_attn") for k in kinds)
-    n_attn = sum(k == "mamba2_attn" for k in kinds)
-    return (ZAMBA_MIXER_SITES * n_mamba + ZAMBA_SHARED_SITES * n_attn,
-            n_mamba, n_attn)
+    c = forward_counts(cfg)
+    return c["sites"], c["ssd"], c["flash"]
 
 
 def phase_zamba2_smoke(card: str) -> dict:
@@ -3541,7 +3619,17 @@ def profile_prefill(eng, cfg, rng, card: str) -> dict:
     print(f"[profile]   #8 (ssd_scan) in the tick: {ssd_ms:.3f} ms of "
           f"{dev_us / 1e3:.3f} ms device time, "
           f"{sum(e.count for e in ssd)} launches | {card}")
+    scan_ms = None
+    if cfg.groups[0].pattern[0] == "mamba1":
+        # the plain selective scan's ranges (``scan_ranges``): their spans
+        # on the device, from each one's first kernel to its last
+        rows = device_events(prof, ranges=True)
+        scan_ms = sum(e.self_device_time_total for e in rows) / 1e3
+        print(f"[profile]   plain selective scan in the tick: {scan_ms:.3f}"
+              f" ms (the ranges' spans on the device) of {dev_us / 1e3:.3f} "
+              f"ms device time, {sum(e.count for e in rows)} calls | {card}")
     return {"prefill_busy_share": dev_us / wall_us,
+            "prefill_scan_device_ms": scan_ms,
             "prefill_tick_wall_ms": wall_us / 1e3,
             "prefill_tick_device_ms": dev_us / 1e3,
             "prefill_ssd_device_ms": ssd_ms,
@@ -3681,32 +3769,44 @@ def with_remat(cfg, remat: str, b: int, s: int):
 
 
 def train_want(cfg, method: str, n_steps: int, refreshes: int) -> dict:
-    """Exact launches of ``n_steps`` training steps: per step L attentions
-    (#7) and, under factored ``wsi``, 7 L sketch forwards (#2), each run
-    ``remat_runs(cfg)`` times; 7 L backwards (#3) once; 7 Gram (#5) and 7
-    CholeskyQR (#4) calls a refresh; nothing else. Project mode launches
-    #7 alone: its linears and its WSI step are plain, as in the
-    reference."""
-    sites = len(api.plan_of(cfg).specs)
+    """Exact launches of ``n_steps`` training steps (``forward_counts``):
+    per step the attentions (#7) and Mamba-2 scans (#8) and, under
+    factored ``wsi``, every factored linear's sketch forward (#2), each
+    run ``remat_runs(cfg)`` times, and its backward (#3) once; under
+    ``wasi`` only the linears without an ASI state take #2 and #3; one
+    Gram (#5) and one CholeskyQR (#4) per factored stack a refresh;
+    nothing else (#8's backward is plain). Project mode launches #7 alone:
+    its linears and its WSI step are plain, as in the reference."""
+    c = forward_counts(cfg)
     runs = remat_runs(cfg)
     want = dict.fromkeys(ops.launch_counts(), 0)
-    want["flash_attention"] = n_steps * cfg.n_layers * runs
-    if method == "wsi" and cfg.wasi.factored:
-        want["lowrank_fwd_sketch"] = n_steps * sites * cfg.n_layers * runs
-        want["lowrank_bwd"] = n_steps * sites * cfg.n_layers
-    want["gram"] = want["choleskyqr"] = refreshes * sites
+    want["flash_attention"] = n_steps * c["flash"] * runs
+    want["ssd_scan"] = n_steps * c["ssd"] * runs
+    if cfg.wasi.factored and method in ("wsi", "wasi"):
+        sites = c["sites"] if method == "wsi" else c["stateless"]
+        want["lowrank_fwd_sketch"] = n_steps * sites * runs
+        want["lowrank_bwd"] = n_steps * sites
+    if cfg.wasi.factored:
+        want["gram"] = want["choleskyqr"] = refreshes * c["stacks"]
     return want
 
 
 def want_text(cfg, method: str, n_steps: int, refreshes: int) -> str:
     """``train_want``'s formula, for the log."""
-    runs, sites, n = remat_runs(cfg), len(api.plan_of(cfg).specs), \
-        cfg.n_layers
-    out = [f"flash_attention = {n_steps} steps x {n} layers x {runs}"]
-    if method == "wsi" and cfg.wasi.factored:
-        out += [f"lowrank_fwd_sketch = {n_steps} x {sites} sites x {n} x "
-                f"{runs}", f"lowrank_bwd = {n_steps} x {sites} x {n}"]
-    out.append(f"gram = choleskyqr = {refreshes} refreshes x {sites}")
+    runs, c = remat_runs(cfg), forward_counts(cfg)
+    out = [f"flash_attention = {n_steps} steps x {c['flash']} attention "
+           f"layers x {runs}"]
+    if c["ssd"]:
+        out.append(f"ssd_scan = {n_steps} x {c['ssd']} Mamba-2 layers x "
+                   f"{runs}")
+    if cfg.wasi.factored and method in ("wsi", "wasi"):
+        sites = c["sites"] if method == "wsi" else c["stateless"]
+        what = "sites" if method == "wsi" else "sites without an ASI state"
+        out += [f"lowrank_fwd_sketch = {n_steps} x {sites} {what} x {runs}",
+                f"lowrank_bwd = {n_steps} x {sites}"]
+    if cfg.wasi.factored:
+        out.append(f"gram = choleskyqr = {refreshes} refreshes x "
+                   f"{c['stacks']} stacks")
     return "; ".join(out) + (f" (x {runs}: the forward and the recompute)"
                              if runs == 2 else "")
 
@@ -3805,7 +3905,8 @@ def train_run(tag: str, state, step, batch_fn, tcfg, cfg, method: str,
                        launches=counts, refreshes=refreshes)
 
 
-def remat_grads(state, cfg, cfg_none, method: str, batch, card: str) -> dict:
+def remat_grads(state, cfg, cfg_none, method: str, batch, card: str,
+                tag: str = "tinyllama") -> dict:
     """One step's loss, gradients and refreshed ASI states under ``block``
     and under ``none`` from the same state and batch, and their launches.
     Both run the same kernels on the same inputs (the recompute takes the
@@ -3843,7 +3944,7 @@ def remat_grads(state, cfg, cfg_none, method: str, batch, card: str) -> dict:
         raise AssertionError(f"{method}: block and none gradients differ by "
                              f"{worst:.3e} of a leaf's scale, ASI states by "
                              f"{st_worst:.3e} (tol 2^-8)")
-    print(f"[tinyllama] {method}: one step from the same state, block "
+    print(f"[{tag}] {method}: one step from the same state, block "
           f"against none: loss {float(lb):.6f} / {float(ln):.6f}, "
           f"gradients {'bit-equal' if bits else 'NOT bit-equal'} (largest "
           f"difference {worst:.3e} of a leaf's scale, tol 2^-8), ASI states "
@@ -4434,6 +4535,552 @@ def phase_project(card: str) -> dict:
     return out
 
 
+# ---------------------------------------------------------------------------
+# the Mamba family: #8's gradient, zamba2-7b trained, falcon-mamba-7b served
+# ---------------------------------------------------------------------------
+
+# phase 22: #8's gradient at zamba2-7b's scan heads (H 112, dh 64, N 64,
+# chunk 256), two rows of a batch, over one, two and a ragged three chunks;
+# and the forward and backward device time at the training shape (a layer
+# of phase 23's batch 4 x 512)
+SSD_GRAD_BZ, SSD_GRAD_S = 2, (256, 512, 700)
+SSD_GRAD_HEADS = (112, 64, 64, 256)          # H, dh, N, chunk
+SSD_TRAIN_SHAPE = (4, 512)
+
+
+def ssd_grad_tol(name: str, g: torch.Tensor, bz: int, s: int) -> float:
+    """The card's gradient (the plain chunked backward, f32, TF32 off)
+    against the CPU's plain autograd on the same values differ only by
+    the order of f32 sums: each entry of a gradient sums on average r =
+    Bz S min(Q, S) H dh N / numel(g) products (the chunk's (Q, Q, H)
+    decay block against dh, each entry of C B^T a sum over N: u's entries
+    sum Q N); dt and A enter through the chunk's cumulative sum of dt A,
+    whose gradient is a reverse cumulative sum over the chunk, so theirs
+    sum min(Q, S) times more. A sum of r
+    rounded terms of both signs strays about eps sqrt(r) of its scale:
+    held to 8 eps sqrt(r) of the gradient's largest entry. A gradient
+    that comes back in bf16 (u's, B's and C's in a bf16 model, summed in
+    f32 and rounded once) adds one rounding, at most half an ulp, 2^-8 of
+    the value and so of the scale."""
+    h, dh, n, chunk = SSD_GRAD_HEADS
+    q = min(chunk, s)
+    r = bz * s * q * h * dh * n / g.numel()
+    if name in ("dt", "A"):
+        r *= q
+    return 8 * EPS32 * math.sqrt(r) + (2.0 ** -8 if g.dtype ==
+                                       torch.bfloat16 else 0.0)
+
+
+def ssd_grad_row(s: int, dtype, gen, card: str) -> dict:
+    """One phase 22 row: ``ops.ssd_scan`` with grad on the card (the
+    kernel's forward, ``_SSDScan``'s plain backward) against autograd of
+    the plain version on the CPU in f32 on the same values; two runs
+    bit-equal; exactly one #8 launch a forward and none in the backward."""
+    bz = SSD_GRAD_BZ
+    h, dh, n, chunk = SSD_GRAD_HEADS
+    (args,) = ssd_inputs(bz, s, h, dh, n, gen, dtype=dtype)
+    d = torch.randn(h, device="cuda", generator=gen)
+    w = torch.randn(bz, s, h, dh, device="cuda", generator=gen)
+    leaves = [t.detach().requires_grad_() for t in (*args, d)]
+    ops.reset_launches()
+    runs = []
+    for _ in range(2):
+        y = ops.ssd_scan(*leaves, chunk)
+        runs.append(torch.autograd.grad((y * w).sum(), leaves))
+    torch.cuda.synchronize()
+    launches = ops.launch_counts()["ssd_scan"]
+    if launches != 2:
+        raise AssertionError(f"ssd_scan grad S={s}: {launches} launches, "
+                             "want 2 (one a forward, none a backward)")
+    bits = all(torch.equal(a, b) for a, b in zip(*runs))
+    if not bits:
+        raise AssertionError(f"ssd_scan grad S={s}: two runs differ")
+    cpu = [t.detach().float().cpu().requires_grad_() for t in leaves]
+    y_c = ref.ssd_scan_ref(*cpu[:5], chunk)[0] \
+        + cpu[5][None, None, :, None] * cpu[0]
+    want = torch.autograd.grad((y_c * w.cpu()).sum(), cpu)
+    errs = {}
+    for name, g, wg, t in zip(("u", "dt", "A", "B", "C", "D"), runs[0],
+                              want, leaves):
+        if g.dtype != t.dtype:
+            raise AssertionError(f"d{name} is {g.dtype}, not {t.dtype}")
+        scale = wg.abs().max().item()
+        err = (g.float().cpu() - wg).abs().max().item()
+        tol = ssd_grad_tol(name, g, bz, s)
+        errs[name] = dict(err=err / scale, tol=tol)
+        if not err <= tol * scale:
+            raise AssertionError(f"ssd_scan grad S={s} {dtype}: d{name} err "
+                                 f"{err:.3e} of scale {scale:.3e} (tol "
+                                 f"{tol:.2e} of it)")
+    dname = "bf16" if dtype == torch.bfloat16 else "f32"
+    route = kssd.ssd_route(args[0], args[3], args[4])
+    print(f"[ssd_grad] S={s} {dname} ({route}) Bz={bz} H={h} dh={dh} N={n} "
+          f"chunk={chunk}: gradients card vs CPU, error / tolerance (of "
+          f"each one's scale) " + ", ".join(
+              f"d{k} {v['err']:.2e}/{v['tol']:.2e}" for k, v in errs.items())
+          + f"; two runs bit-equal; ssd_scan launches 2 (2 forwards, 0 in "
+          f"the backwards) | {card}", flush=True)
+    return dict(S=s, dtype=dname, route=route, errors=errs, bit_equal=bits,
+                launches=launches)
+
+
+def ssd_train_times(card: str) -> dict:
+    """At one zamba2-7b layer of phase 23's batch, bf16 u, B and C: #8's
+    forward (``time_ms``, as phase 16 times it) and ``_SSDScan``'s plain
+    backward (one call alone under the profiler, its kernels' device time
+    summed), and the backward's peak memory above its inputs."""
+    bz, s = SSD_TRAIN_SHAPE
+    h, dh, n, chunk = SSD_GRAD_HEADS
+    gen = torch.Generator(device="cuda").manual_seed(2222)
+    (args,) = ssd_inputs(bz, s, h, dh, n, gen, dtype=torch.bfloat16)
+    fwd_ms = time_ms(lambda *a: kssd.ssd_scan_cuda(*a, chunk), [args])
+    d = torch.randn(h, device="cuda", generator=gen)
+    leaves = [t.detach().requires_grad_() for t in (*args, d)]
+    w = torch.randn(bz, s, h, dh, device="cuda", generator=gen)
+    for _ in range(2):                            # the second is timed
+        loss = (ops.ssd_scan(*leaves, chunk) * w).sum()
+        torch.cuda.synchronize()
+        torch.cuda.reset_peak_memory_stats()
+        base = torch.cuda.memory_allocated()
+        (_, _, _, bwd) = profiled(lambda: torch.autograd.grad(loss, leaves))
+        peak = torch.cuda.max_memory_allocated() - base
+    out = dict(fwd_device_ms=fwd_ms,
+               bwd_device_ms=sum(e.self_device_time_total for e in bwd)
+               / 1e3, bwd_peak_mib=peak / 2 ** 20, Bz=bz, S=s)
+    print(f"[ssd_grad] one zamba2-7b layer's scan at Bz={bz} S={s} (bf16): "
+          f"#8 forward {out['fwd_device_ms']:.3f} ms, plain backward "
+          f"{out['bwd_device_ms']:.3f} ms device time, backward peak "
+          f"{out['bwd_peak_mib']:.1f} MiB above its inputs | {card}",
+          flush=True)
+    return out
+
+
+def phase_ssd_grad(card: str) -> dict:
+    print("== phase 22: #8's gradient (kernel forward, plain chunked "
+          "backward) at zamba2-7b's heads against the CPU", flush=True)
+    gen = torch.Generator(device="cuda").manual_seed(22)
+    rows = [ssd_grad_row(s, dt, gen, card)
+            for dt in (torch.bfloat16, torch.float32) for s in SSD_GRAD_S]
+    out = dict(rows=rows, train_shape=ssd_train_times(card))
+    gc.collect()
+    torch.cuda.empty_cache()
+    return out
+
+
+# phase 23: zamba2-7b trained at full width and depth, phase 19's optimizer
+# (SGD+momentum 0.9 at a constant 0.05), refresh every 8: 8 steps (the
+# refresh at the 8th) and a profiled step per method, batch 4 x 512
+Z_TRAIN_B, Z_TRAIN_S, Z_TRAIN_STEPS, Z_REFRESH = 4, 512, 8, 8
+Z_METHODS = ("wasi", "wsi")
+# the reduced-depth check: one repeat of the pattern and the tail (9
+# layers) at full width, batch 1 x 320 (two chunks of #8, the second
+# ragged), limits per square root of the depth as ``logits_vs_cpu``'s.
+# f32 on the card (#8's fma route, the f32 routes of #2, #3, #7) against
+# f32 on the CPU: the loss's relative error and each gradient's RMS error
+# over its RMS (``MAMBA_F32_*``; on an H100 8.8e-8 and 9.9e-5 at 9
+# layers, limits set before the reading). bf16 on the card against f32 on
+# the CPU: the loss (``Z_LOSS_TOL``) and each gradient's cosine with the
+# CPU's (at least ``MAMBA_BF16_COS``). An RMS limit cannot hold bf16
+# there: the scan's gradient in dt cancels (card and CPU in f32 already
+# differ by 1.2e-4 of its scale at one layer, phase 22), so bf16's
+# rounding of every activation moves the gradients by 15-16% of their RMS
+# (median) at 9 layers on an H100, cosines 0.968-0.975; a wrong gradient
+# reads a cosine near 0. The bf16 loss reads 9.5e-5 (``wasi``) and
+# 2.15e-4 (``wsi``: #2's pieced sketch rounds otherwise than ``wasi``'s
+# plain products) per square root of the depth; the limit is 1.5x the
+# larger, as phase 21's are 1.5x its readings.
+Z_CHECK_B, Z_CHECK_S = 1, 320
+Z_LOSS_TOL = 3.3e-4
+MAMBA_F32_LOSS_TOL, MAMBA_F32_GRAD_TOL, MAMBA_BF16_COS = 1e-5, 0.01, 0.9
+Z_INT8_DIR = os.path.join(ROOT, "build", "chip_smoke_zamba2_int8")
+
+
+def zamba2_reduced(cfg):
+    """zamba2 at full width, its pattern once and the tail (9 layers)."""
+    from repro_torch.config import LayerGroup
+
+    return reduced(cfg, (LayerGroup(pattern=cfg.groups[0].pattern,
+                                    repeat=1),) + cfg.groups[1:])
+
+
+def with_method(cfg, method: str, refresh: int):
+    return cfg.replace(wasi=dataclasses.replace(
+        cfg.wasi, method=method, refresh_every=refresh))
+
+
+def mamba_vs_cpu(tag: str, cfg, method: str, card: str, b: int, s: int,
+                 loss_tol: float) -> dict:
+    """One step's loss and gradients at reduced depth (``cfg``), weights
+    drawn on the card in bf16: under ``block`` and ``none`` on the card in
+    bf16 (exact launches; the same bits expected, held to 2^-8 as phase
+    19's), under ``none`` on the card in f32 and on the CPU in f32, from
+    the same values (ASI states alike). f32 card against f32 CPU:
+    ``MAMBA_F32_LOSS_TOL`` and ``MAMBA_F32_GRAD_TOL`` per square root of
+    the depth; bf16 card against f32 CPU: ``loss_tol`` per square root of
+    the depth and every gradient's cosine with the CPU's at least
+    ``MAMBA_BF16_COS``."""
+    from repro_torch.models.lm import init_lm_states, map_states
+
+    plan = api.install(api.resolve(cfg, batch=b, seq=s))
+    gen = torch.Generator(device="cuda").manual_seed(2323)
+    model = init_lm(cfg, device="cuda", generator=gen)
+    model.requires_grad_(True)
+    tree = to_reference(model)
+    g = torch.Generator().manual_seed(2324)
+    toks = torch.randint(0, cfg.vocab_size, (b, s + 1), generator=g)
+    asi = (map_states(lambda t: t.to(torch.bfloat16).float(), init_lm_states(
+        cfg, b, s, dtype=torch.float32, device="cpu", seed=2325))
+        if cfg.wasi.compress_acts else None)
+    cfg32 = cfg.replace(dtype="float32", remat="none")
+    out = {}
+    for key, dev, c in (("bf16_block", "cuda", cfg),
+                        ("bf16_none", "cuda", cfg.replace(remat="none")),
+                        ("f32_card", "cuda", cfg32),
+                        ("f32_cpu", "cpu", cfg32)):
+        api.install(dataclasses.replace(plan, model=c))
+        m = model if c.dtype == "bfloat16" else from_reference(
+            tree, c, dev, trainable=True)
+        st = None if asi is None else map_states(
+            lambda t: t.to(dev, _dtype(c.dtype)), asi)
+        batch = {"tokens": toks[:, :-1].to(dev),
+                 "labels": toks[:, 1:].to(dev)}
+        ops.reset_launches()
+        loss, _, grads, _ = value_and_grad(lm_loss, m, batch, c, st)
+        if dev == "cuda":
+            torch.cuda.synchronize()
+            want = train_want(c, method, 1, 0)
+            if ops.launch_counts() != want:
+                raise AssertionError(f"{tag} {method} {key} one step "
+                                     f"launches {ops.launch_counts()} != "
+                                     f"{want}")
+        out[key] = (float(loss), {k: v.float().cpu()
+                                  for k, v in grads.items()})
+        del grads, m
+    api.install(plan)
+    (lb, gb), (ln, gn) = out["bf16_block"], out["bf16_none"]
+    (l1, g1), (l0, g0) = out["f32_card"], out["f32_cpu"]
+    bits = lb == ln and all(torch.equal(gb[k], gn[k]) for k in gn)
+    remat_worst = max((gb[k] - gn[k]).abs().max().item()
+                      / max(gn[k].abs().max().item(), 1e-30) for k in gn)
+    if remat_worst > 2.0 ** -8:
+        raise AssertionError(f"{tag} {method}: block and none gradients "
+                             f"differ by {remat_worst:.3e} of a leaf's scale")
+
+    def rms_rel(a, b_):
+        return float((a - b_).square().mean().sqrt()
+                     / b_.square().mean().sqrt().clamp(min=1e-30))
+
+    def cos(a, b_):
+        return float(torch.nn.functional.cosine_similarity(
+            a.flatten().double(), b_.flatten().double(), dim=0))
+
+    root = math.sqrt(cfg.n_layers)
+    f32_loss = abs(l1 / l0 - 1)
+    f32_rel = {k: rms_rel(g1[k], g0[k]) for k in g0}
+    bf16_loss = abs(lb / l0 - 1)
+    bf16_rel = {k: rms_rel(gb[k], g0[k]) for k in g0}
+    bf16_cos = {k: cos(gb[k], g0[k]) for k in g0}
+    w32 = max(f32_rel, key=f32_rel.get)
+    wbf = min(bf16_cos, key=bf16_cos.get)
+    print(f"[{tag}] {method} one step at {cfg.n_layers} layers, batch {b} x "
+          f"{s}: bf16 block against none on the card: gradients "
+          f"{'bit-equal' if bits else 'NOT bit-equal'} (largest difference "
+          f"{remat_worst:.3e} of a leaf's scale, tol 2^-8); f32 card vs f32 "
+          f"CPU: loss {l1:.6f} / {l0:.6f} (relative error {f32_loss:.2e}, "
+          f"limit {MAMBA_F32_LOSS_TOL * root:.2e}), gradients' RMS error "
+          f"over their RMS largest {f32_rel[w32]:.3e} ({w32}, limit "
+          f"{MAMBA_F32_GRAD_TOL * root:.4f}), median "
+          f"{statistics.median(f32_rel.values()):.3e}; bf16 card vs f32 CPU:"
+          f" loss {lb:.5f} (relative error {bf16_loss:.2e}, limit "
+          f"{loss_tol * root:.4f}), gradients' cosine smallest "
+          f"{bf16_cos[wbf]:.4f} ({wbf}, limit {MAMBA_BF16_COS}), RMS error "
+          f"median {statistics.median(bf16_rel.values()):.3e}, largest "
+          f"{max(bf16_rel.values()):.3e} | {card}", flush=True)
+    if not (f32_loss <= MAMBA_F32_LOSS_TOL * root
+            and f32_rel[w32] <= MAMBA_F32_GRAD_TOL * root
+            and bf16_loss <= loss_tol * root
+            and bf16_cos[wbf] >= MAMBA_BF16_COS):
+        raise AssertionError(f"{tag} {method}: card vs CPU at reduced depth")
+    del model
+    gc.collect()
+    torch.cuda.empty_cache()
+    return dict(f32_loss_rel=f32_loss, f32_grad_rms_rel=f32_rel,
+                bf16_loss_rel=bf16_loss, bf16_grad_rms_rel=bf16_rel,
+                bf16_grad_cos=bf16_cos, grad_bit_equal_block_none=bits,
+                grad_max_rel_diff_block_none=remat_worst,
+                n_layers=cfg.n_layers)
+
+
+def zamba2_train_method(method: str, card: str) -> dict:
+    """One method at full width and depth under the config's ``block``:
+    the saved-for-backward bytes and the allocator's peak of one loss,
+    ``Z_TRAIN_STEPS`` steps through ``train_loop`` with exact launches, a
+    profiled step."""
+    from repro_torch.models.lm import init_lm_states
+    from repro_torch.utils.memprof import measured_residual_bytes
+
+    b, s = Z_TRAIN_B, Z_TRAIN_S
+    cfg = with_method(configs.get("zamba2-7b"), method, Z_REFRESH)
+    tcfg = TrainConfig(optimizer="sgd", lr=TINY_LR, momentum=0.9,
+                       schedule="constant", steps=Z_TRAIN_STEPS + 1,
+                       checkpoint_every=0)
+    t0 = time.perf_counter()
+    api.install(api.resolve(cfg, batch=b, seq=s))
+    # weights and ASI states drawn on the card from a seeded generator
+    gen = torch.Generator(device="cuda").manual_seed(2300)
+    model = init_lm(cfg, device="cuda", generator=gen)
+    asi = (init_lm_states(cfg, b, s, dtype=torch.bfloat16, device="cuda",
+                          generator=gen) if cfg.wasi.compress_acts else None)
+    state = make_train_state(model, cfg, tcfg, asi_states=asi)
+    step = make_train_step(lm_loss, cfg, tcfg)
+    torch.cuda.synchronize()
+    res = dict(method=method, build_s=time.perf_counter() - t0,
+               params=sum(p.numel() for p in model.parameters()))
+    batch_fn = uniform_batches(cfg, b, s, 2300)
+    rep = measured_residual_bytes(
+        lambda: lm_loss(state.params, batch_fn(200), cfg, states=state.asi))
+    res.update(residual_bytes_block=rep.total_bytes,
+               residual_arrays_block=rep.n_arrays)
+    del rep
+    torch.cuda.empty_cache()
+    res["grad_peak_mib_block"] = grad_peak(state.params, batch_fn(200), cfg,
+                                           state.asi)
+    state, row = train_run("zamba2", state, step, batch_fn, tcfg, cfg,
+                           method, 0, Z_TRAIN_STEPS, b * s)
+    state, prof = profile_train_step(state, step, batch_fn(300), card)
+    row.update(prof)
+    res.update(row)
+    print(f"[zamba2] {method} remat=block at {cfg.n_layers} layers, batch "
+          f"{b} x {s}: "
+          f"step_ms_median={row['step_ms_median']:.3f} tok_s="
+          f"{row['tok_s']:.1f} dev_peak_mib={row['dev_peak_mib']:.1f} "
+          f"saved_for_backward_mib={res['residual_bytes_block'] / 2**20:.1f}"
+          f" fwd+bwd_peak_mib={res['grad_peak_mib_block']:.1f} busy_share="
+          f"{row['train_busy_share']} losses "
+          f"{[round(x, 4) for x in row['losses']]} | {card}", flush=True)
+    del state, step, model
+    gc.collect()
+    torch.cuda.empty_cache()
+    return res
+
+
+def zamba2_int8(card: str) -> dict:
+    """zamba2 at full width and reduced depth (``zamba2_reduced``): the
+    bf16 weights through ``plan.quantized("int8")`` -> ``convert.quantize``
+    -> a plan-bearing checkpoint -> ``ServeEngine.from_checkpoint``, which
+    serves phase 5's requests through #6 (exact launches)."""
+    cfg = zamba2_reduced(configs.get("zamba2-7b"))
+    plan = api.install(api.resolve(cfg))
+    gen = torch.Generator(device="cuda").manual_seed(2400)
+    model = init_lm(cfg, device="cuda", generator=gen)
+    qplan = plan.quantized("int8")
+    shutil.rmtree(Z_INT8_DIR, ignore_errors=True)
+    t0 = time.perf_counter()
+    save_checkpoint(Z_INT8_DIR, 0, convert.quantize(model, qplan),
+                    plan=qplan, label="params")
+    del model
+    api.uninstall(cfg)
+    eng = ServeEngine.from_checkpoint(Z_INT8_DIR, device="cuda", max_slots=4,
+                                      max_cache=512)
+    load_s = time.perf_counter() - t0
+    if eng.plan.to_json() != qplan.to_json() or \
+            not eng.summary()["quantized"]:
+        raise AssertionError("zamba2 int8: the checkpoint's plan")
+    print(f"[zamba2_int8] {cfg.n_layers} layers: quantize, save and "
+          f"from_checkpoint {load_s:.1f}s", flush=True)
+    res = serve_dense("zamba2_int8", cfg, None, qplan, card, engine=eng,
+                      kernel="lowrank_q8")
+    del eng
+    shutil.rmtree(Z_INT8_DIR, ignore_errors=True)
+    gc.collect()
+    torch.cuda.empty_cache()
+    return res
+
+
+def phase_zamba2_train(card: str) -> dict:
+    print("== phase 23: zamba2-7b trained at full width and depth (81 "
+          "layers, d 3584, bf16, remat block) under wasi and wsi; card vs "
+          "CPU at 9 layers; int8 from a plan-bearing checkpoint", flush=True)
+    out = {}
+    for method in Z_METHODS:
+        out[method] = zamba2_train_method(method, card)
+        out[method]["cpu_check"] = mamba_vs_cpu(
+            "zamba2", with_method(zamba2_reduced(configs.get("zamba2-7b")),
+                                  method, Z_REFRESH),
+            method, card, Z_CHECK_B, Z_CHECK_S, Z_LOSS_TOL)
+    out["int8"] = zamba2_int8(card)
+    return out
+
+
+# phase 24: falcon-mamba-7b (64 Mamba-1 layers, d 4096)
+F_SITES = {"ssm/in_proj": (4096, 16384, 1024), "ssm/x_proj": (8192, 288, 128),
+           "ssm/dt_proj": (256, 8192, 128), "ssm/out_proj": (8192, 4096, 1024)}
+F_LOGIT_LAYERS, F_TRAIN_LAYERS = 4, 4
+# ``logits_vs_cpu``'s limits for falcon-mamba, per sqrt(L): 2x the
+# attention models'. Mamba-1 takes dt, rounded to bf16, into exp(dt A)
+# with |A| up to 16 and sums the state over the whole prompt, so its bf16
+# logits stray further: the prefill read 0.0171 and 0.073 sqrt(L) of the
+# RMS logit at 4 layers on an H100. In f32 on the card the same check
+# holds 1e-4 and 5e-4 sqrt(L): a wrong kernel or layout reads near 1.
+F_LOGIT_TOLS = (2 * LOGIT_RMS_TOL, 2 * LOGIT_MAX_TOL)
+F32_LOGIT_TOLS = (1e-4, 5e-4)
+F_TRAIN_B, F_TRAIN_S, F_TRAIN_STEPS = 4, 512, 2
+
+
+class scan_ranges:
+    """Within it, every Mamba-1 selective scan runs inside a profiler
+    range named ``SCAN_RANGE`` (``profile_prefill`` reads its device
+    time); the module's function is restored on exit."""
+
+    def __enter__(self):
+        import repro_torch.nn.mamba as mamba
+
+        self.mod, self.fn = mamba, mamba._selective_scan
+
+        def traced(*a, _fn=self.fn, **kw):
+            with torch.profiler.record_function(SCAN_RANGE):
+                return _fn(*a, **kw)
+
+        mamba._selective_scan = traced
+        return self
+
+    def __exit__(self, *exc):
+        self.mod._selective_scan = self.fn
+
+
+def scan_device_ms(bz: int, s: int, card: str) -> dict:
+    """Device time of one plain selective scan at falcon-mamba-7b's widths
+    (d_inner 8192, N 16, f32 as the mixer hands it over), the call alone
+    under the profiler, and its peak memory above its inputs."""
+    from repro_torch.nn.mamba import _selective_scan
+
+    di, n = 8192, 16
+    g = torch.Generator(device="cuda").manual_seed(2424)
+    u = torch.randn(bz, s, di, device="cuda", generator=g)
+    dt = torch.nn.functional.softplus(
+        torch.randn(bz, s, di, device="cuda", generator=g) - 4)
+    a = -torch.arange(1, n + 1, device="cuda", dtype=torch.float32).expand(
+        di, n).contiguous()
+    b = torch.randn(bz, s, n, device="cuda", generator=g)
+    c = torch.randn(bz, s, n, device="cuda", generator=g)
+    d = torch.ones(di, device="cuda")
+    with torch.inference_mode():
+        _selective_scan(u, dt, a, b, c, d)
+        torch.cuda.synchronize()
+        torch.cuda.reset_peak_memory_stats()
+        base = torch.cuda.memory_allocated()
+        _, wall_us, _, ev = profiled(
+            lambda: _selective_scan(u, dt, a, b, c, d, return_final=True))
+        peak = torch.cuda.max_memory_allocated() - base
+    ms = sum(e.self_device_time_total for e in ev) / 1e3
+    q = 128 if s % 128 == 0 else s
+    print(f"[falcon] plain selective scan Bz={bz} S={s} d_inner={di} N={n} "
+          f"(chunks of {q}): {ms:.3f} ms device time, wall {wall_us / 1e3:.3f}"
+          f" ms, peak {peak / 2**20:.1f} MiB above its inputs | {card}",
+          flush=True)
+    return dict(Bz=bz, S=s, chunk=q, device_ms=ms, wall_ms=wall_us / 1e3,
+                peak_mib=peak / 2 ** 20)
+
+
+def falcon_train(method: str, card: str) -> dict:
+    """``F_TRAIN_STEPS`` steps at full width and ``F_TRAIN_LAYERS`` layers
+    under ``block``, batch 4 x 512 (four chunks of the scan): exact
+    launches (#2 and #3: every site under ``wsi``, ``dt_proj`` alone under
+    ``wasi``), step time of the second step, peak memory."""
+    from repro_torch.config import LayerGroup
+    from repro_torch.models.lm import init_lm_states
+
+    b, s = F_TRAIN_B, F_TRAIN_S
+    cfg = with_method(reduced(configs.get("falcon-mamba-7b"), (LayerGroup(
+        pattern=("mamba1",), repeat=F_TRAIN_LAYERS),)), method, 8)
+    tcfg = TrainConfig(optimizer="sgd", lr=TINY_LR, momentum=0.9,
+                       schedule="constant", steps=F_TRAIN_STEPS,
+                       checkpoint_every=0)
+    api.install(api.resolve(cfg, batch=b, seq=s))
+    gen = torch.Generator(device="cuda").manual_seed(2424)
+    model = init_lm(cfg, device="cuda", generator=gen)
+    asi = (init_lm_states(cfg, b, s, dtype=torch.bfloat16, device="cuda",
+                          generator=gen) if cfg.wasi.compress_acts else None)
+    state = make_train_state(model, cfg, tcfg, asi_states=asi)
+    step = make_train_step(lm_loss, cfg, tcfg)
+    state, row = train_run("falcon", state, step,
+                           uniform_batches(cfg, b, s, 2400), tcfg, cfg,
+                           method, 0, F_TRAIN_STEPS, b * s)
+    print(f"[falcon] {method} remat=block at {cfg.n_layers} layers, batch "
+          f"{b} x {s}: step_ms (2nd) {row['step_ms_median']:.3f} tok_s="
+          f"{row['tok_s']:.1f} dev_peak_mib={row['dev_peak_mib']:.1f} losses"
+          f" {[round(x, 4) for x in row['losses']]} | {card}", flush=True)
+    del state, step, model
+    gc.collect()
+    torch.cuda.empty_cache()
+    return row
+
+
+def phase_falcon_mamba(card: str) -> dict:
+    from repro_torch.config import LayerGroup
+
+    print("== phase 24: falcon-mamba-7b full width and depth (64 Mamba-1 "
+          "layers, d 4096, bf16): served bf16 and int8, logits vs CPU at 4 "
+          "layers, a wasi and a wsi step at 4 layers", flush=True)
+    cfg = configs.get("falcon-mamba-7b")
+    plan = api.install(api.resolve(cfg))
+    fc = forward_counts(cfg)
+    if (fc["sites"], fc["flash"], fc["ssd"]) != (4 * cfg.n_layers, 0, 0) or {
+            sp.name: (sp.in_dim, sp.out_dim, sp.rank) for sp in plan.specs
+            if sp.mode == "factored"} != F_SITES:
+        raise AssertionError(f"falcon-mamba plan {plan.specs}")
+    t0 = time.perf_counter()
+    gen = torch.Generator(device="cuda").manual_seed(24)
+    model = init_lm(cfg, device="cuda", generator=gen)
+    torch.cuda.synchronize()
+    param_mib = sum(p.numel() * p.element_size()
+                    for p in model.parameters()) / 2**20
+    print(f"[falcon] init {time.perf_counter() - t0:.1f}s, parameters "
+          f"{param_mib:.1f} MiB", flush=True)
+    gen_r = torch.Generator(device="cuda").manual_seed(1)
+    for name, (i, o, k) in F_SITES.items():
+        for m in (4, 1024):
+            # kernel #1's route and error at the narrow sites' shapes
+            lowrank_row("[falcon]", name, m, i, k, o, torch.bfloat16, gen_r,
+                        card)
+    with scan_ranges():
+        out = {"serve": serve_dense("falcon", cfg, model, plan, card,
+                                    extra=(700,), max_cache=1024,
+                                    prefill_profile=True)}
+    out["serve"]["param_mib"] = param_mib
+    out["scan"] = [scan_device_ms(4, 256, card), scan_device_ms(1, 768, card),
+                   scan_device_ms(1, 700, card)]
+    qplan = api.install(plan.quantized("int8"))
+    qmodel = from_reference(convert.quantize(model, qplan), cfg, "cuda")
+    del model
+    gc.collect()
+    torch.cuda.empty_cache()
+    out["int8"] = serve_dense("falcon_int8", cfg, qmodel, qplan, card,
+                              extra=(700,), max_cache=1024,
+                              kernel="lowrank_q8")
+    del qmodel
+    gc.collect()
+    torch.cuda.empty_cache()
+    red = reduced(cfg, (LayerGroup(pattern=("mamba1",),
+                                   repeat=F_LOGIT_LAYERS),))
+    api.install(api.resolve(red))
+    model = init_lm(red, device="cuda",
+                    generator=torch.Generator(device="cuda").manual_seed(25))
+    out["cpu_logits"] = logits_vs_cpu("falcon", red, model, card,
+                                      limits=F_LOGIT_TOLS)
+    red32 = red.replace(dtype="float32")
+    api.install(dataclasses.replace(api.plan_of(red), model=red32))
+    model = from_reference(to_reference(model), red32, "cuda")
+    out["cpu_logits_f32"] = logits_vs_cpu("falcon_f32", red32, model, card,
+                                          limits=F32_LOGIT_TOLS)
+    del model
+    gc.collect()
+    torch.cuda.empty_cache()
+    for method in ("wasi", "wsi"):
+        out[f"train_{method}"] = falcon_train(method, card)
+    return out
+
+
 def main() -> None:
     ap = argparse.ArgumentParser(description=__doc__.splitlines()[0])
     ap.add_argument("--json", default="",
@@ -4489,6 +5136,9 @@ def main() -> None:
     tiny = run(19, phase_tinyllama, card)
     dense = run(20, phase_dense_configs, card)
     project = run(21, phase_project, card)
+    ssd_grad = run(22, phase_ssd_grad, card)
+    z_train = run(23, phase_zamba2_train, card)
+    falcon = run(24, phase_falcon_mamba, card)
 
     head = k["headline"]
     kernels = [{
@@ -4583,7 +5233,8 @@ def main() -> None:
                        "ssd_headline": ssd["headline"],
                        "zamba2_smoke": z_smoke, "zamba2_full": zamba,
                        "tinyllama": tiny, "dense_configs": dense,
-                       "project": project,
+                       "project": project, "ssd_grad": ssd_grad,
+                       "zamba2_train": z_train, "falcon_mamba": falcon,
                        "kernels": line["kernels"],
                        "phase_seconds": seconds,
                        "seconds": time.perf_counter() - t_start}, f,

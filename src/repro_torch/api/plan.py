@@ -332,12 +332,12 @@ def _site_dims(cfg: ModelConfig) -> list[tuple[str, str, int, int, bool, int]]:
     has them, the Mamba sites, deduplicated by name. Families and kinds
     the port cannot run yet raise."""
     kinds = {k for g in cfg.groups for k in g.pattern}
-    unported = kinds - {"dense", "local", "mamba2", "mamba2_attn"}
+    unported = kinds - {"dense", "local", "mamba1", "mamba2", "mamba2_attn"}
     if cfg.family not in ("lm", "vit") or unported:
         raise NotImplementedError(
             f"config {cfg.name!r} ({cfg.family}, blocks {sorted(kinds)}) "
-            "is not ported yet; only dense (with local) and Mamba-2 "
-            "decoder LMs and ViTs are (ROADMAP.md)")
+            "is not ported yet; only dense (with local), Mamba-1 and "
+            "Mamba-2 decoder LMs and ViTs are (ROADMAP.md)")
     d, f = cfg.d_model, cfg.d_ff
     h, kvh, dh = cfg.n_heads, cfg.n_kv_heads, cfg.resolved_head_dim
     sites: list[tuple[str, str, int, int, bool, int]] = []
@@ -354,10 +354,16 @@ def _site_dims(cfg: ModelConfig) -> list[tuple[str, str, int, int, bool, int]]:
             sites.append(("mlp/gate", "mlp", d, f, False, d))
         sites += [("mlp/up", "mlp", d, f, False, d),
                   ("mlp/down", "mlp", f, d, False, f)]
+    ssm = cfg.ssm
+    di = ssm.expand * d
+    n = ssm.d_state
+    if "mamba1" in kinds:
+        dtr = ssm.dt_rank or max(d // 16, 1)
+        sites += [("ssm/in_proj", "ssm", d, 2 * di, False, d),
+                  ("ssm/x_proj", "ssm", di, dtr + 2 * n, False, di),
+                  ("ssm/dt_proj", "ssm", dtr, di, True, dtr),
+                  ("ssm/out_proj", "ssm", di, d, False, di)]
     if kinds & {"mamba2", "mamba2_attn"}:
-        ssm = cfg.ssm
-        di = ssm.expand * d
-        n = ssm.d_state
         nh = di // ssm.head_dim
         sites += [("ssm/in_proj", "ssm", d, 2 * di, False, d),
                   ("ssm/bcdt_proj", "ssm_small", d, 2 * n + nh, False, d),

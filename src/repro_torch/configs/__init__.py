@@ -1,7 +1,7 @@
 """Architecture config registry. ``get(name)`` resolves ``--arch <id>``.
 
 Only the architectures the port can run are listed, in the JAX package's
-order (``repro.configs.ARCHS``); the others (whisper-tiny, falcon-mamba-7b,
+order (``repro.configs.ARCHS``); the others (whisper-tiny,
 deepseek-moe-16b, mixtral-8x7b) arrive with their model families, in the
 order ROADMAP.md gives."""
 from __future__ import annotations
@@ -17,6 +17,7 @@ ARCHS = (
     "granite-3-8b",
     "stablelm-3b",
     "internvl2-26b",
+    "falcon-mamba-7b",
     # the paper's own models
     "tinyllama-1.1b",
     "vit-base",

@@ -348,6 +348,89 @@ def flash_attention(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor, *,
     return _flash_forward(q, k, v, causal, window)
 
 
+def _ssd_forward(u, dt, A, B, C, chunk):
+    if _on_cpu(u):
+        return ref.ssd_scan_ref(u, dt, A, B, C, chunk)
+    return ssd_scan_cuda(u, dt, A, B, C, chunk)
+
+
+class _SSDScan(torch.autograd.Function):
+    """The SSD scan without D.u, with kernel #8's forward (the reference
+    has no backward kernel for it: it differentiates the plain
+    ``_ssd_chunked``). Differentiated: u, dt, A, B and C as f32 (the
+    casts ``ssd_scan`` makes); the scan reads ``stored``, the same u, B
+    and C as stored (a bf16 model's, for the card's tensor-core route).
+    Forward: the kernel on a CUDA tensor (one ``ssd_scan`` launch),
+    ``ref.ssd_scan_ref`` on a CPU tensor; returns (y, final state); only
+    the stored u, B, C and dt, A are saved. Backward: plain PyTorch, one
+    chunk at a time (``_ssd_scan_bwd``), the final state's gradient, where
+    it has one, carried in."""
+
+    @staticmethod
+    def forward(ctx, u, dt, A, B, C, chunk, stored):
+        ctx.chunk = chunk
+        ctx.dtypes = [t.dtype for t in (u, dt, A, B, C)]
+        ctx.set_materialize_grads(False)
+        su, sb, sc = stored
+        ctx.save_for_backward(su, dt, A, sb, sc)
+        return _ssd_forward(su, dt, A, sb, sc, chunk)
+
+    @staticmethod
+    def backward(ctx, dy, d_final):
+        grads = _ssd_scan_bwd(*ctx.saved_tensors, dy, d_final, ctx.chunk)
+        return (*(g.to(dt) for g, dt in zip(grads, ctx.dtypes)), None, None)
+
+
+def _ssd_scan_bwd(u, dt, A, B, C, dy, d_final, chunk):
+    """(du, ddt, dA, dB, dC), f32, of ``ref.ssd_scan_ref``'s (y, final
+    state) against (``dy``, ``d_final``; either may be None). One pass
+    without grad gives the state entering each chunk; then, from the last
+    chunk back, ``torch.autograd.grad`` through that chunk's
+    ``ref.ssd_chunk_ref`` gives its gradients and the entering state's,
+    which the chunk before takes as its leaving state's. At most one
+    chunk's (Bz, Q, Q, H) decay block and its autograd graph live at once.
+    A ragged S is padded as the forward pads it."""
+    s = u.shape[1]
+    uf, dtf, Bf, Cf = ref.ssd_pad(chunk, *(t.detach().float()
+                                           for t in (u, dt, B, C)))
+    Af = A.detach().float()
+    pad = (0, 0, 0, 0, 0, uf.shape[1] - s)
+    dyf = (torch.zeros_like(uf) if dy is None
+           else torch.nn.functional.pad(dy.float(), pad))
+    starts = range(0, uf.shape[1], chunk)
+    state = torch.zeros((uf.shape[0], uf.shape[2], uf.shape[3],
+                         Bf.shape[-1]), dtype=torch.float32,
+                        device=uf.device)
+    entering = []
+    with torch.no_grad():
+        for c0 in starts:
+            entering.append(state)
+            sl = slice(c0, c0 + chunk)
+            state = ref.ssd_chunk_ref(uf[:, sl], dtf[:, sl], Af, Bf[:, sl],
+                                      Cf[:, sl], state)[1]
+    seq = [torch.empty_like(t) for t in (uf, dtf, Bf, Cf)]
+    dA = torch.zeros_like(Af)
+    d_state = None if d_final is None else d_final.float()
+    for c0, s_in in zip(reversed(starts), reversed(entering)):
+        sl = slice(c0, c0 + chunk)
+        with torch.enable_grad():
+            ins = [t[:, sl].detach().requires_grad_()
+                   for t in (uf, dtf, Bf, Cf)]
+            a, st = Af.detach().requires_grad_(), s_in.requires_grad_()
+            y, s_out = ref.ssd_chunk_ref(ins[0], ins[1], a, ins[2], ins[3],
+                                         st)
+            outs, douts = [y], [dyf[:, sl]]
+            if d_state is not None:
+                outs.append(s_out)
+                douts.append(d_state)
+            *g, ga, d_state = torch.autograd.grad(outs, [*ins, a, st], douts)
+        for dst, gi in zip(seq, g):
+            dst[:, sl] = gi
+        dA += ga
+    du, ddt, dB, dC = (t[:, :s] for t in seq)
+    return du, ddt, dA, dB, dC
+
+
 def ssd_scan(u: torch.Tensor, dt: torch.Tensor, A: torch.Tensor,
              B: torch.Tensor, C: torch.Tensor, D: torch.Tensor, chunk: int,
              *, return_final: bool = False):
@@ -360,19 +443,17 @@ def ssd_scan(u: torch.Tensor, dt: torch.Tensor, A: torch.Tensor,
     bf16 (B and C row views). CUDA: one call of the scan's wrapper
     (``kernels/ssd_scan.py``: the route ``ssd_route`` picks, counted as
     one launch), which masks the ragged chunk itself, so no padding needs
-    slicing off; the kernel has no
-    gradient, as the reference's Pallas kernel has none, so a CUDA input
-    that requires grad raises. CPU: the plain version, differentiable."""
-    if _on_cpu(u):
-        u = u.float()  # one cast, shared by the scan and D.u (and its grad)
-        y, final = ref.ssd_scan_ref(u, dt, A, B, C, chunk)
+    slicing off. CPU: the plain version. With grad enabled and any of u,
+    dt, A, B, C requiring grad the scan goes through ``_SSDScan`` (the
+    same forward on u, B and C as stored, a plain chunked backward), which
+    differentiates their f32 casts, so u's gradient from the scan and from
+    D.u (outside it) is summed in f32 and rounded to u's dtype once."""
+    uf = u.float()   # one cast, shared by the scan's gradient and D.u
+    if torch.is_grad_enabled() and any(
+            t.requires_grad for t in (u, dt, A, B, C)):
+        y, final = _SSDScan.apply(uf, dt, A, B.float(), C.float(), chunk,
+                                  (u, B, C))
     else:
-        if torch.is_grad_enabled() and any(
-                t.requires_grad for t in (u, dt, A, B, C, D)):
-            raise NotImplementedError(
-                "ssd_scan has no backward on the card: training the "
-                "Mamba-2 family waits for its slice (ROADMAP.md queue 1, "
-                "zamba2 training)")
-        y, final = ssd_scan_cuda(u, dt, A, B, C, chunk)
-    y = y + D.float()[None, None, :, None] * u.float()
+        y, final = _ssd_forward(u, dt, A, B, C, chunk)
+    y = y + D.float()[None, None, :, None] * uf
     return (y, final) if return_final else y

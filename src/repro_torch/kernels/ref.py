@@ -128,6 +128,45 @@ def flash_attention_ref(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
     return o.reshape(q.shape).to(q.dtype)
 
 
+def ssd_chunk_ref(u: torch.Tensor, dt: torch.Tensor, A: torch.Tensor,
+                  B: torch.Tensor, C: torch.Tensor, state: torch.Tensor):
+    """One chunk of ``ssd_scan_ref``, f32 throughout: u (Bz, Q, H, dh), dt
+    (Bz, Q, H), A (H,), B and C (Bz, Q, N), the (Bz, H, dh, N) state
+    entering the chunk -> (y (Bz, Q, H, dh), the state leaving it).
+    Differentiable by autograd; ``ops._SSDScan`` takes its gradient one
+    chunk at a time."""
+    q = u.shape[1]
+    tri = torch.tril(torch.ones((q, q), dtype=torch.bool, device=u.device))
+    da = dt * A[None, None, :]                                  # (B,Q,H)
+    cum = torch.cumsum(da, dim=1)
+    li = cum[:, :, None, :] - cum[:, None, :, :]                # (B,Q,Q,H)
+    # masked BEFORE the exp: above the diagonal li is a positive decay sum
+    # that passes f32's exp range (88.7) within a long chunk, and the
+    # reference's where(tri, exp(li), 0) then has a NaN gradient (0 * inf);
+    # the values are the same
+    L = torch.exp(li.masked_fill(~tri[None, :, :, None], float("-inf")))
+    cbm = torch.einsum("bqn,bkn->bqk", C, B)                    # (B,Q,Q)
+    du = dt[..., None] * u                                      # (B,Q,H,dh)
+    y_intra = torch.einsum("bqkh,bkhd->bqhd", cbm[..., None] * L, du)
+    decay_in = torch.exp(cum)                                   # (B,Q,H)
+    y_inter = torch.einsum("bqn,bhdn,bqh->bqhd", C, state, decay_in)
+    decay_out = torch.exp(cum[:, -1:, :] - cum)                 # (B,Q,H)
+    s_c = torch.einsum("bqh,bqhd,bqn->bhdn", decay_out, du, B)
+    chunk_decay = torch.exp(torch.sum(da, dim=1))               # (B,H)
+    return y_intra + y_inter, chunk_decay[..., None, None] * state + s_c
+
+
+def ssd_pad(chunk: int, u, dt, B, C):
+    """u, dt, B and C zero-padded along S to a multiple of ``chunk``: with
+    dt = 0 the padded steps are identity steps (decay 1, no input)."""
+    pad = -u.shape[1] % chunk
+    if not pad:
+        return u, dt, B, C
+    f = torch.nn.functional.pad
+    return (f(u, (0, 0, 0, 0, 0, pad)), f(dt, (0, 0, 0, pad)),
+            f(B, (0, 0, 0, pad)), f(C, (0, 0, 0, pad)))
+
+
 def ssd_scan_ref(u: torch.Tensor, dt: torch.Tensor, A: torch.Tensor,
                  B: torch.Tensor, C: torch.Tensor, chunk: int):
     """The SSD (Mamba-2) chunked scan in f32, without the D.u skip term:
@@ -138,43 +177,20 @@ def ssd_scan_ref(u: torch.Tensor, dt: torch.Tensor, A: torch.Tensor,
         y = ((C B^T) * L)(dt u) + exp(cum) * (C S^T)
         S <- exp(cum_Q) S + (dt u exp(cum_Q - cum))^T B
 
-    from S = 0. A ragged S is zero-padded to a chunk multiple with dt = 0
-    (identity steps) and the padding sliced off. Returns (y (Bz, S, H,
-    dh), final S (Bz, H, dh, N)). A copy of the reference's
-    ``repro.nn.mamba._ssd_chunked`` (a Python loop in place of its
-    ``lax.scan``); differentiable by autograd."""
+    from S = 0 (``ssd_chunk_ref``). A ragged S is zero-padded to a chunk
+    multiple with dt = 0 (identity steps) and the padding sliced off.
+    Returns (y (Bz, S, H, dh), final S (Bz, H, dh, N)). A copy of the
+    reference's ``repro.nn.mamba._ssd_chunked`` (a Python loop in place of
+    its ``lax.scan``); differentiable by autograd."""
     u, dt, A, B, C = (t.float() for t in (u, dt, A, B, C))
     b, s, h, dh = u.shape
-    n = B.shape[-1]
-    s_orig = s
-    if s % chunk != 0:
-        pad = chunk - s % chunk
-        u = torch.nn.functional.pad(u, (0, 0, 0, 0, 0, pad))
-        dt = torch.nn.functional.pad(dt, (0, 0, 0, pad))
-        B = torch.nn.functional.pad(B, (0, 0, 0, pad))
-        C = torch.nn.functional.pad(C, (0, 0, 0, pad))
-        s = s + pad
-    tri = torch.tril(torch.ones((chunk, chunk), dtype=torch.bool,
-                                device=u.device))
-    state = torch.zeros((b, h, dh, n), dtype=torch.float32, device=u.device)
+    u, dt, B, C = ssd_pad(chunk, u, dt, B, C)
+    state = torch.zeros((b, h, dh, B.shape[-1]), dtype=torch.float32,
+                        device=u.device)
     ys = []
-    for c0 in range(0, s, chunk):
-        ucb, dtb = u[:, c0:c0 + chunk], dt[:, c0:c0 + chunk]
-        Bb, Cb = B[:, c0:c0 + chunk], C[:, c0:c0 + chunk]
-        da = dtb * A[None, None, :]                             # (B,Q,H)
-        cum = torch.cumsum(da, dim=1)
-        li = cum[:, :, None, :] - cum[:, None, :, :]            # (B,Q,Q,H)
-        L = torch.where(tri[None, :, :, None], torch.exp(li),
-                        torch.zeros((), device=u.device))
-        cbm = torch.einsum("bqn,bkn->bqk", Cb, Bb)              # (B,Q,Q)
-        du = dtb[..., None] * ucb                               # (B,Q,H,dh)
-        y_intra = torch.einsum("bqkh,bkhd->bqhd", cbm[..., None] * L, du)
-        decay_in = torch.exp(cum)                               # (B,Q,H)
-        y_inter = torch.einsum("bqn,bhdn,bqh->bqhd", Cb, state, decay_in)
-        decay_out = torch.exp(cum[:, -1:, :] - cum)             # (B,Q,H)
-        s_c = torch.einsum("bqh,bqhd,bqn->bhdn", decay_out, du, Bb)
-        chunk_decay = torch.exp(torch.sum(da, dim=1))           # (B,H)
-        state = chunk_decay[..., None, None] * state + s_c
-        ys.append(y_intra + y_inter)
-    y = torch.cat(ys, dim=1)[:, :s_orig]
-    return y, state
+    for c0 in range(0, u.shape[1], chunk):
+        c1 = c0 + chunk
+        y, state = ssd_chunk_ref(u[:, c0:c1], dt[:, c0:c1], A, B[:, c0:c1],
+                                 C[:, c0:c1], state)
+        ys.append(y)
+    return torch.cat(ys, dim=1)[:, :s], state

@@ -2,10 +2,11 @@
 for the ``dense`` kind (attention + MLP, pre-norm residuals), ``local``
 (the same block with sliding-window attention over ``cfg.window`` keys and
 a rolling KV cache of ``cfg.window`` slots; gemma3's local layers) and the
-Mamba-2 kinds: ``mamba2`` (pre-norm Mamba-2 mixer) and zamba2's
-``mamba2_attn`` (the mixer, then the SHARED attention + MLP block, whose
-weights are passed in as ``shared``: one copy for the whole net, while
-each occurrence keeps its own KV cache). The other kinds arrive with their
+Mamba kinds: ``mamba1`` (pre-norm Mamba-1 mixer; falcon-mamba),
+``mamba2`` (pre-norm Mamba-2 mixer) and zamba2's ``mamba2_attn`` (the
+mixer, then the SHARED attention + MLP block, whose weights are passed in
+as ``shared``: one copy for the whole net, while each occurrence keeps
+its own KV cache). The other kinds arrive with their
 model families and raise until then.
 
     init_block(kind, cfg, ...)              -> params (nn.ModuleDict)
@@ -26,7 +27,11 @@ from repro_torch.nn.attention import (
     init_cache,
 )
 from repro_torch.nn.mamba import (
+    apply_mamba1,
     apply_mamba2,
+    init_mamba1,
+    init_mamba1_cache,
+    init_mamba1_state,
     init_mamba2,
     init_mamba2_cache,
     init_mamba2_state,
@@ -34,8 +39,8 @@ from repro_torch.nn.mamba import (
 from repro_torch.nn.mlp import apply_mlp, init_mlp, init_mlp_state
 from repro_torch.nn.norms import apply_norm, init_norm
 
-PORTED_KINDS = ("dense", "local", "mamba2", "mamba2_attn")
-MAMBA_KINDS = ("mamba2", "mamba2_attn")
+PORTED_KINDS = ("dense", "local", "mamba1", "mamba2", "mamba2_attn")
+MAMBA_KINDS = ("mamba1", "mamba2", "mamba2_attn")
 
 
 def _check_kind(kind: str) -> None:
@@ -56,9 +61,10 @@ def init_block(kind: str, cfg: ModelConfig, *, generator: torch.Generator,
     d = cfg.d_model
     kw = dict(lead=lead, dtype=dtype, device=device)
     if kind in MAMBA_KINDS:
+        init = init_mamba1 if kind == "mamba1" else init_mamba2
         return nn.ModuleDict({
             "ln": init_norm(cfg.norm, d, **kw),
-            "mixer": init_mamba2(cfg, generator=generator, **kw)})
+            "mixer": init(cfg, generator=generator, **kw)})
     return nn.ModuleDict({
         "ln1": init_norm(cfg.norm, d, **kw),
         "attn": init_attention(cfg, generator=generator, **kw),
@@ -71,11 +77,13 @@ def init_block_state(kind: str, cfg: ModelConfig, batch: int, seq: int, *,
                      generator: torch.Generator, dtype=torch.float32,
                      device=None) -> dict:
     """ASI warm-start states of one layer: {"attn": ..., "mlp": ...}, or
-    {"mixer": ...} for a Mamba-2 layer; the shared attention of
+    {"mixer": ...} for a Mamba layer; the shared attention of
     ``mamba2_attn`` runs without ASI (its weights are shared across
     layers), so its entry is {}."""
     _check_kind(kind)
     kw = dict(generator=generator, dtype=dtype, device=device)
+    if kind == "mamba1":
+        return {"mixer": init_mamba1_state(cfg, batch, seq, **kw)}
     if kind == "mamba2":
         return {"mixer": init_mamba2_state(cfg, batch, seq, **kw)}
     if kind == "mamba2_attn":
@@ -89,10 +97,12 @@ def init_block_cache(kind: str, cfg: ModelConfig, batch: int, seq: int, *,
                      lead: tuple[int, ...] = (), dtype=torch.bfloat16,
                      device=None) -> dict:
     """{"kv": KVCache} of an attention layer, {"ssm": MambaState} of a
-    Mamba-2 layer, both for ``mamba2_attn`` (its shared attention sees the
+    Mamba layer, both for ``mamba2_attn`` (its shared attention sees the
     full sequence)."""
     _check_kind(kind)
     kw = dict(lead=lead, dtype=dtype, device=device)
+    if kind == "mamba1":
+        return {"ssm": init_mamba1_cache(cfg, batch, **kw)}
     if kind in MAMBA_KINDS:
         out = {"ssm": init_mamba2_cache(cfg, batch, **kw)}
         if kind == "mamba2_attn":
@@ -109,12 +119,13 @@ def apply_block(kind: str, p, x: torch.Tensor, cfg: ModelConfig, *,
     this is a token-parallel PREFILL step; ``valid_len`` (B,) masks
     right-padded rows out of the cache writes and freezes recurrent
     states past each row's length. KV caches are written in place; a
-    Mamba-2 layer returns its new state in ``new_cache["ssm"]``."""
+    Mamba layer returns its new state in ``new_cache["ssm"]``."""
     _check_kind(kind)
     st = states or {}
     if kind in MAMBA_KINDS:
         h = apply_norm(cfg.norm, p["ln"], x)
-        m, new_ssm, s_m = apply_mamba2(
+        fn = apply_mamba1 if kind == "mamba1" else apply_mamba2
+        m, new_ssm, s_m = fn(
             p["mixer"], h, cfg, state=None if cache is None else cache["ssm"],
             states=st.get("mixer"), valid_len=valid_len)
         new_st = {"mixer": s_m}

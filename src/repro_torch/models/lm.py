@@ -1,7 +1,7 @@
 """Decoder language model over layer groups. Port of ``repro.models.lm``
-for dense decoder LMs and the Mamba-2 hybrid (zamba2: ``shared_attn``,
-one attention + MLP block whose weights every ``mamba2_attn`` layer
-shares).
+for dense decoder LMs, Mamba-1 (falcon-mamba) and the Mamba-2 hybrid
+(zamba2: ``shared_attn``, one attention + MLP block whose weights every
+``mamba2_attn`` layer shares).
 
 The parameter tree is the reference's, as modules: ``embed`` and
 ``final_norm`` are ``ParameterDict``s, ``groups`` is a ``ModuleList`` (one
@@ -18,8 +18,9 @@ returned caches are the ones passed in. ASI warm-start states (the
 of block state trees whose factors carry the leading ``repeat`` dim
 (identity modes stay None). The loop hands layer ``j`` its slice and
 stacks the refreshed states it returns into new tensors, as the scan's
-``ys`` do. A Mamba-2 layer's cache is ``{"ssm": MambaState(ssm, conv=
-(conv_u, conv_bc))}`` (``mamba2_attn`` adds its ``"kv"``); its new state
+``ys`` do. A Mamba layer's cache is ``{"ssm": MambaState(ssm, conv)}``,
+``conv`` one buffer (Mamba-1) or the pair (conv_u, conv_bc) (Mamba-2;
+``mamba2_attn`` adds its ``"kv"``); its new state
 is copied back into the stacked leaves, so those caches too are updated
 in place.
 
@@ -263,7 +264,7 @@ def _layer_cache(gcache: dict, j: int) -> dict:
 
 
 def _write_back(layer_cache: dict, new_cache: dict) -> None:
-    """Copy a Mamba-2 layer's new recurrent and conv state into its slice
+    """Copy a Mamba layer's new recurrent and conv state into its slice
     of the stacked cache (KV slices are written in place already)."""
     if "ssm" in new_cache:
         map_states(lambda dst, src: dst.copy_(src), layer_cache["ssm"],

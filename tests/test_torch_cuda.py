@@ -921,18 +921,53 @@ def test_ssd_scan_bf16_short_and_strided(cuda, s):
 
 
 @pytest.mark.cuda
-def test_ssd_scan_refuses_grad_on_the_card(cuda):
-    """The kernel has no backward (nor has the reference's): a CUDA input
-    that requires grad raises, and nothing runs the plain version."""
-    args = list(_ssd_inputs(1, 16, 2, 8, 4, cuda))
-    args[0].requires_grad_(True)
+@pytest.mark.parametrize("s", [256, 300, 700])
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+def test_ssd_scan_gradients_on_the_card_match_the_cpu(cuda, s, dtype):
+    """``ops.ssd_scan`` with grad on the card (``_SSDScan``: the kernel's
+    forward, one launch; the plain chunked backward, none) at zamba2's
+    head widths and chunk, one to three chunks, u, B and C in ``dtype``
+    (B and C as row views): y and the final state's gradients (u, dt, A,
+    B, C, D) against the CPU's plain autograd in f32 on the same values,
+    within 8 eps sqrt(r) of each gradient's scale, r the terms an entry
+    sums (``chip_smoke.ssd_grad_tol``'s count), plus 2^-8 for a gradient
+    rounded to bf16; two runs bit-equal."""
+    import math
+
+    bz, h, dh, n, q = 2, 4, 64, 64, 256
+    args = _ssd_inputs(bz, s, h, dh, n, cuda, seed=s, dtype=dtype,
+                       views=True)
+    g = torch.Generator().manual_seed(1)
+    d = torch.randn(h, generator=g).to(cuda)
+    wy = torch.randn(bz, s, h, dh, generator=g).to(cuda)
+    wf = torch.randn(bz, h, dh, n, generator=g).to(cuda)
+    leaves = [t.detach().requires_grad_() for t in (*args, d)]
     before = ops.launch_counts()["ssd_scan"]
-    with pytest.raises(NotImplementedError, match="no backward"):
-        ops.ssd_scan(*args, torch.ones(2, device=cuda), 8)
-    assert ops.launch_counts()["ssd_scan"] == before
-    with torch.no_grad():
-        ops.ssd_scan(*args, torch.ones(2, device=cuda), 8)
-    assert ops.launch_counts()["ssd_scan"] == before + 1
+    runs = []
+    for _ in range(2):
+        y, final = ops.ssd_scan(*leaves, q, return_final=True)
+        runs.append(torch.autograd.grad((y * wy).sum() + (final * wf).sum(),
+                                        leaves))
+    torch.cuda.synchronize()
+    assert ops.launch_counts()["ssd_scan"] == before + 2
+    assert all(torch.equal(a, b) for a, b in zip(*runs))
+    cpu = [t.detach().float().cpu().requires_grad_() for t in leaves]
+    py, pf = ref.ssd_scan_ref(*cpu[:5], q)
+    want = torch.autograd.grad(
+        ((py + cpu[5][None, None, :, None] * cpu[0]) * wy.cpu()).sum()
+        + (pf * wf.cpu()).sum(), cpu)
+    eps = torch.finfo(torch.float32).eps
+    for name, got, w, t in zip("u dt A B C D".split(), runs[0], want,
+                               leaves):
+        assert got.dtype == t.dtype, name
+        r = bz * s * min(q, s) * h * dh * n / got.numel()
+        if name in ("dt", "A"):
+            r *= min(q, s)
+        tol = 8 * eps * math.sqrt(r) + (2.0 ** -8 if got.dtype
+                                        == torch.bfloat16 else 0.0)
+        scale = w.abs().max().item()
+        assert (got.float().cpu() - w).abs().max().item() <= tol * scale, \
+            name
 
 
 @pytest.mark.cuda
@@ -1279,6 +1314,52 @@ def test_remat_block_step_gradients_equal_none(cuda, method, dtype):
             == 2 * sites * n
         assert c1["lowrank_bwd"] == c0["lowrank_bwd"] == sites * n
     assert torch.equal(l0, l1)
+    for k in g0:
+        assert torch.equal(g0[k], g1[k]), k
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("method", ["wsi", "wasi"])
+@pytest.mark.parametrize("arch", ["zamba2-7b", "falcon-mamba-7b"])
+def test_mamba_block_step_gradients_equal_none(cuda, arch, method):
+    """One bf16 training step of zamba2 smoke (#8 with ``_SSDScan``'s
+    plain backward) and falcon-mamba smoke (the plain selective scan,
+    its chunks checkpointed inside the block's) under ``remat="block"``
+    and ``"none"``: the recompute relaunches #8 (twice a layer under
+    ``block``, once under ``none``, never in the backward), which gives
+    the same bits twice, so loss and gradients are bit-equal."""
+    import dataclasses
+
+    from repro_torch import api, configs
+    from repro_torch.models import lm
+    from repro_torch.train.step import value_and_grad
+
+    base = configs.get_smoke(arch)
+    b, s = 2, 48
+    got = {}
+    for remat in ("none", "block"):
+        cfg = base.replace(remat=remat, dtype="bfloat16",
+                           wasi=dataclasses.replace(base.wasi,
+                                                    method=method))
+        api.install(api.resolve(cfg, batch=b, seq=s))
+        model = lm.init_lm(cfg, device=cuda, seed=3)
+        model.requires_grad_(True)
+        states = (lm.init_lm_states(cfg, b, s, dtype=torch.bfloat16,
+                                    device=cuda, seed=3)
+                  if cfg.wasi.compress_acts else None)
+        g = torch.Generator().manual_seed(4)
+        toks = torch.randint(0, cfg.vocab_size, (b, s + 1), generator=g)
+        batch = {"tokens": toks[:, :-1].to(cuda),
+                 "labels": toks[:, 1:].to(cuda)}
+        ops.reset_launches()
+        loss, _, grads, _ = value_and_grad(lm.lm_loss, model, batch, cfg,
+                                           states)
+        torch.cuda.synchronize()
+        got[remat] = (loss, grads, ops.launch_counts())
+    (l0, g0, c0), (l1, g1, c1) = got["none"], got["block"]
+    n_ssd = base.n_layers if arch == "zamba2-7b" else 0
+    assert c0["ssd_scan"] == n_ssd and c1["ssd_scan"] == 2 * n_ssd
+    assert torch.isfinite(l0) and torch.equal(l0, l1)
     for k in g0:
         assert torch.equal(g0[k], g1[k]), k
 

@@ -1,7 +1,7 @@
 """The port's Mamba-2 family against the reference's on the CPU: kernel
 #8's function (``ref.ssd_scan_ref``, what ``ops.ssd_scan`` runs on a CPU
 tensor) against the reference's ``_ssd_chunked`` and its Pallas kernel
-``ssd_scan_tiled`` in interpret mode; ``apply_mamba2`` in train, prefill
+``ssd_scan_tiled`` in interpret mode; the card's branch with grad; ``apply_mamba2`` in train, prefill
 and decode modes; zamba2 smoke's logits, caches, padded prefill, loss and
 gradients; the serve engine's greedy tokens. The same numpy inputs, made
 from a seed, go to both packages; parameters cross by ``api.bridge``.
@@ -98,21 +98,26 @@ def test_ssd_scan_ref_matches_reference(bz, s, h, dh, n, chunk):
 
 
 def test_ssd_scan_card_path_refuses_grad_and_cpu_tensors(monkeypatch):
-    """On a CUDA input that requires grad ``ops.ssd_scan`` raises (the
-    kernel has no backward, and nothing falls back to the plain version);
-    the kernel's wrapper takes CUDA tensors only. Shown here by sending
-    CPU tensors down the card's branch."""
+    """On the card's branch a scan whose inputs require grad goes through
+    ``ops._SSDScan`` (the kernel's forward, a plain chunked backward), so
+    it no longer refuses a gradient; the kernel's wrapper still takes
+    CUDA tensors only, with grad or without. Shown by sending CPU tensors
+    down the card's branch."""
     args = [torch.from_numpy(t) for t in _scan_inputs(1, 16, 2, 8, 4, 0)]
     d = torch.ones(2)
     monkeypatch.setattr(ops, "_on_cpu", lambda t: False)
     u = args[0].clone().requires_grad_(True)
-    with pytest.raises(NotImplementedError, match="no backward"):
-        ops.ssd_scan(u, *args[1:], d, 8)
-    with pytest.raises(ValueError, match="CUDA tensors only"):
-        ops.ssd_scan(*args, d, 8)
+    for scan_args in ((u, *args[1:]), args):
+        with pytest.raises(ValueError, match="CUDA tensors only"):
+            ops.ssd_scan(*scan_args, d, 8)
     with pytest.raises(ValueError, match="CUDA tensors only"):
         kssd.ssd_scan_cuda(*args, 8)
     assert ops.launch_counts()["ssd_scan"] == 0
+    monkeypatch.setattr(ops, "ssd_scan_cuda", ref.ssd_scan_ref)
+    y = ops.ssd_scan(u, *args[1:], d, 8)
+    assert "_SSDScanBackward" in str(y.grad_fn.next_functions)
+    y.sum().backward()
+    assert u.grad is not None and torch.isfinite(u.grad).all()
 
 
 def test_smem_formula_covers_zamba2_chunk():
