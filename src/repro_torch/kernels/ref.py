@@ -168,8 +168,11 @@ def ssd_pad(chunk: int, u, dt, B, C):
 
 
 def ssd_scan_ref(u: torch.Tensor, dt: torch.Tensor, A: torch.Tensor,
-                 B: torch.Tensor, C: torch.Tensor, chunk: int):
-    """The SSD (Mamba-2) chunked scan in f32, without the D.u skip term:
+                 B: torch.Tensor, C: torch.Tensor, chunk: int, *,
+                 dtype=torch.float32):
+    """The SSD (Mamba-2) chunked scan in f32 (or ``dtype``: float64 gives
+    the exact values an f32 run's rounding is measured against), without
+    the D.u skip term:
     u (Bz, S, H, dh), dt (Bz, S, H) > 0, A (H,) < 0, B and C (Bz, S, N).
     Per chunk of ``chunk`` steps, with cum = cumsum(dt A) inside it and
     L[i, j] = exp(cum_i - cum_j) for j <= i (0 above the diagonal):
@@ -182,10 +185,10 @@ def ssd_scan_ref(u: torch.Tensor, dt: torch.Tensor, A: torch.Tensor,
     Returns (y (Bz, S, H, dh), final S (Bz, H, dh, N)). A copy of the
     reference's ``repro.nn.mamba._ssd_chunked`` (a Python loop in place of
     its ``lax.scan``); differentiable by autograd."""
-    u, dt, A, B, C = (t.float() for t in (u, dt, A, B, C))
+    u, dt, A, B, C = (t.to(dtype) for t in (u, dt, A, B, C))
     b, s, h, dh = u.shape
     u, dt, B, C = ssd_pad(chunk, u, dt, B, C)
-    state = torch.zeros((b, h, dh, B.shape[-1]), dtype=torch.float32,
+    state = torch.zeros((b, h, dh, B.shape[-1]), dtype=dtype,
                         device=u.device)
     ys = []
     for c0 in range(0, u.shape[1], chunk):

@@ -1,7 +1,7 @@
 """Serving launcher: thin CLI over the continuous-batching engine. Port of
-``repro.launch.serve`` (dense slots, int8 deployment and plan-bearing
-checkpoints; the paged, speculative, adapter and mesh flags arrive with
-those features).
+``repro.launch.serve`` (dense slots, the paged KV pool with its prefix
+cache and chunked prefill, int8 deployment and plan-bearing checkpoints;
+the speculative, adapter and mesh flags arrive with those features).
 
 ``python -m repro_torch.launch.serve --arch qwen2-0.5b --full --tokens 32``
 runs on the CUDA device; ``--device cpu`` asks for the CPU.
@@ -10,6 +10,10 @@ Every factored linear runs in its rank-K subspace, ``y = (x R^T) L^T``,
 through the fused CUDA kernel (kernels/csrc/lowrank_fwd.cu) on the card;
 with ``--quant int8`` the factors are packed to int8 with per-channel
 scales and run through the int8 kernel (kernels/csrc/lowrank_q8.cu).
+``--paged`` serves from a paged KV pool (``--page-size``,
+``--total-pages``, ``--prefill-chunk``, ``--prefill-every``,
+``--no-prefix-cache``; configs with sliding-window or Mamba layers
+cannot be paged and raise).
 ``--ckpt DIR`` serves the latest step of a plan-bearing checkpoint (its
 plan carries the config; ``--quant`` packs it first unless it is packed
 already). Without ``--ckpt`` the weights are random, drawn from seed 0;
@@ -105,6 +109,23 @@ def build_parser() -> argparse.ArgumentParser:
     ap.add_argument("--seed", type=int, default=None,
                     help="sampling seed (default: stable per-request rid)")
     ap.add_argument("--sched", default="fcfs", choices=sorted(SCHEDULERS))
+    ap.add_argument("--paged", action="store_true",
+                    help="paged KV pool with prefix sharing + chunked "
+                         "prefill (serve/kvpool.py); needs full causal "
+                         "attention in every layer")
+    ap.add_argument("--page-size", type=int, default=16,
+                    help="KV positions per page (paged mode)")
+    ap.add_argument("--total-pages", type=int, default=0,
+                    help="pool size (0 => dense-equivalent capacity)")
+    ap.add_argument("--prefill-chunk", type=int, default=0,
+                    help="tokens per chunked-prefill tick (0 => largest "
+                         "bucket)")
+    ap.add_argument("--prefill-every", type=int, default=1,
+                    help="run chunked prefill every Nth tick while decodes "
+                         "are active (higher => lower decode TPOT tax, "
+                         "slower long-prompt TTFT)")
+    ap.add_argument("--no-prefix-cache", action="store_true",
+                    help="disable cross-request radix prefix reuse")
     ap.add_argument("--stream", action="store_true",
                     help="print tokens as they are generated")
     ap.add_argument("--device", default="cuda", choices=["cuda", "cpu"])
@@ -144,9 +165,16 @@ def main(argv=None) -> dict:
         api.uninstall(cfg)
         api.install(plan)
         tree = from_reference(tree, cfg, args.device)
+    paged_kw = {}
+    if args.paged:
+        paged_kw.update(paged=True, page_size=args.page_size,
+                        total_pages=args.total_pages or None,
+                        prefill_chunk=args.prefill_chunk or None,
+                        prefill_every=args.prefill_every,
+                        prefix_cache=not args.no_prefix_cache)
     engine = ServeEngine(tree, plan=plan, max_slots=slots,
                          max_cache=max_cache, scheduler=args.sched,
-                         device=args.device)
+                         device=args.device, **paged_kw)
     sp = SamplingParams(temperature=args.temperature, top_k=args.top_k,
                         top_p=args.top_p, seed=args.seed)
     prompts = np.random.default_rng(0).integers(
@@ -163,11 +191,16 @@ def main(argv=None) -> dict:
     stag = "" if sp.is_greedy else (f" T={sp.temperature}"
                                     f" top_k={sp.top_k} top_p={sp.top_p}")
     qtag = " quant=int8" if s["quantized"] else ""
+    ptag = ""
+    if s["paged"]:
+        ptag = (f" paged pg={s['page_size']} pages={s['total_pages']} "
+                f"chunks={s['prefill_chunks']} "
+                f"prefix_hits={s['prefix_hit_tokens']}")
     print(f"[serve] arch={cfg.name} wasi={cfg.wasi.method}{qtag}{stag} "
           f"device={s['device']} sched={s['scheduler']} slots={slots} "
           f"requests={args.batch} wall={dt:.2f}s "
           f"weights={s['weight_mib']:.2f}MiB "
-          f"kv={s['cache_bytes'] / 2**20:.2f}MiB")
+          f"kv={s['cache_bytes'] / 2**20:.2f}MiB{ptag}")
     print(f"[serve] prefill {s['prefill_tokens']} tok "
           f"({s['prefill_tok_s']:.1f} tok/s) | decode {s['decode_tokens']} "
           f"tok ({s['decode_tok_s']:.1f} tok/s) | "

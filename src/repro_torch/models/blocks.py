@@ -11,7 +11,8 @@ model families and raise until then.
 
     init_block(kind, cfg, ...)              -> params (nn.ModuleDict)
     init_block_state(kind, cfg, B, S, ...)  -> ASI warm-start states
-    init_block_cache(kind, cfg, B, S, ...)  -> decode cache
+    init_block_cache(kind, cfg, B, S, ...)  -> decode cache (a paged
+                                               pool for ``dense``)
     apply_block(kind, params, x, cfg, ...)  -> (x, cache, states, aux)
 """
 from __future__ import annotations
@@ -25,6 +26,7 @@ from repro_torch.nn.attention import (
     init_attention,
     init_attention_state,
     init_cache,
+    init_paged_cache,
 )
 from repro_torch.nn.mamba import (
     apply_mamba1,
@@ -95,12 +97,20 @@ def init_block_state(kind: str, cfg: ModelConfig, batch: int, seq: int, *,
 
 def init_block_cache(kind: str, cfg: ModelConfig, batch: int, seq: int, *,
                      lead: tuple[int, ...] = (), dtype=torch.bfloat16,
-                     device=None) -> dict:
+                     device=None, pages: int | None = None,
+                     page_size: int | None = None) -> dict:
     """{"kv": KVCache} of an attention layer, {"ssm": MambaState} of a
     Mamba layer, both for ``mamba2_attn`` (its shared attention sees the
-    full sequence)."""
+    full sequence). With ``pages`` and ``page_size`` an attention layer's
+    cache is a paged pool, {"kv": PagedKVCache}: only the ``dense`` kind
+    (causal full attention) can hold one, every other kind raises."""
     _check_kind(kind)
     kw = dict(lead=lead, dtype=dtype, device=device)
+    if pages is not None:
+        if kind != "dense":
+            raise ValueError(f"block kind {kind!r} cannot use a paged KV "
+                             "cache (causal full attention only)")
+        return {"kv": init_paged_cache(cfg, pages, page_size, **kw)}
     if kind == "mamba1":
         return {"ssm": init_mamba1_cache(cfg, batch, **kw)}
     if kind in MAMBA_KINDS:
@@ -114,12 +124,15 @@ def init_block_cache(kind: str, cfg: ModelConfig, batch: int, seq: int, *,
 
 def apply_block(kind: str, p, x: torch.Tensor, cfg: ModelConfig, *,
                 shared=None, cache: dict | None = None, pos=None,
-                states=None, valid_len=None):
+                states=None, valid_len=None, page_table=None):
     """Returns (x, new_cache, new_states, aux_loss). With a cache and S > 1
     this is a token-parallel PREFILL step; ``valid_len`` (B,) masks
     right-padded rows out of the cache writes and freezes recurrent
     states past each row's length. KV caches are written in place; a
-    Mamba layer returns its new state in ``new_cache["ssm"]``."""
+    Mamba layer returns its new state in ``new_cache["ssm"]``.
+    ``page_table`` (B, pages_per_slot) rides along when the cache is a
+    paged pool: one table serves every layer, since page allocation is
+    layer-independent."""
     _check_kind(kind)
     st = states or {}
     if kind in MAMBA_KINDS:
@@ -149,7 +162,7 @@ def apply_block(kind: str, p, x: torch.Tensor, cfg: ModelConfig, *,
     a, new_kv, s_attn = apply_attention(
         p["attn"], h, cfg, causal=True, window=block_window(kind, cfg),
         cache=None if cache is None else cache["kv"], pos=pos,
-        states=st.get("attn"), valid_len=valid_len)
+        states=st.get("attn"), valid_len=valid_len, page_table=page_table)
     x = x + a
     h = apply_norm(cfg.norm, p["ln2"], x)
     f, s_mlp = apply_mlp(p["mlp"], h, cfg, st.get("mlp"))

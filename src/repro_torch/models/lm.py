@@ -11,10 +11,12 @@ dim. ``api.bridge`` maps it one-to-one onto the reference's pytree.
 
 The reference's ``lax.scan`` over a group becomes a Python loop over the
 stacked dim; ``jax.jit`` becomes eager PyTorch. Decode caches mirror the
-groups (leaves (repeat, B, S, KVH, Dh)) and are updated IN PLACE: the
-returned caches are the ones passed in. ASI warm-start states (the
-``wasi``/``asi`` methods) mirror the groups too, as the reference's
-``init_lm_states`` lays them out: per group a list per pattern position
+groups (leaves (repeat, B, S, KVH, Dh), or paged pools (repeat, pages,
+page_size, KVH, Dh) read and written through a ``page_table``) and are
+updated IN PLACE: the returned caches are the ones passed in. ASI
+warm-start states (the ``wasi``/``asi`` methods) mirror the groups too,
+as the reference's ``init_lm_states`` lays them out: per group a list
+per pattern position
 of block state trees whose factors carry the leading ``repeat`` dim
 (identity modes stay None). The loop hands layer ``j`` its slice and
 stacks the refreshed states it returns into new tensors, as the scan's
@@ -62,6 +64,7 @@ from torch.utils.checkpoint import checkpoint
 from repro_torch.config import ModelConfig
 from repro_torch.models.blocks import (
     apply_block,
+    block_window,
     init_block,
     init_block_cache,
     init_block_state,
@@ -250,12 +253,34 @@ def init_lm_states(cfg: ModelConfig, batch: int, seq: int, *,
 
 
 def init_lm_cache(cfg: ModelConfig, batch: int, seq: int, *,
-                  dtype=torch.bfloat16, device=None) -> list:
-    """Decode caches mirroring ``groups`` (leaves stacked on ``repeat``)."""
+                  dtype=torch.bfloat16, device=None,
+                  pages: int | None = None,
+                  page_size: int | None = None) -> list:
+    """Decode caches mirroring ``groups`` (leaves stacked on ``repeat``).
+
+    With ``pages`` and ``page_size`` every attention layer's KV cache is a
+    PAGED pool, leaves (repeat, pages, page_size, KVH, Dh), shared by all
+    serve slots: ``batch`` and ``seq`` then only bound the logical
+    per-slot view the engine gathers through its page table
+    (serve/kvpool.py). Only causal full-attention layers can be paged;
+    any other kind raises (the engine serves such configs dense, see
+    ``supports_paging``)."""
+    if (pages is None) != (page_size is None):
+        raise ValueError("pages and page_size must be given together")
     dev = resolve_device(device)
     return [[init_block_cache(kind, cfg, batch, seq, lead=(g.repeat,),
-                              dtype=dtype, device=dev)
+                              dtype=dtype, device=dev, pages=pages,
+                              page_size=page_size)
              for kind in g.pattern] for g in cfg.groups]
+
+
+def supports_paging(cfg: ModelConfig) -> bool:
+    """True when every layer's decode state can live in a paged pool:
+    causal full attention only (no sliding window, no recurrent SSM or
+    conv state, no shared-attention interleave). The reference's rule,
+    ``moe`` included (that kind is not ported yet and raises at init)."""
+    return all(kind in ("dense", "moe") and not block_window(kind, cfg)
+               for g in cfg.groups for kind in g.pattern)
 
 
 def _layer_cache(gcache: dict, j: int) -> dict:
@@ -265,7 +290,11 @@ def _layer_cache(gcache: dict, j: int) -> dict:
 
 def _write_back(layer_cache: dict, new_cache: dict) -> None:
     """Copy a Mamba layer's new recurrent and conv state into its slice
-    of the stacked cache (KV slices are written in place already)."""
+    of the stacked cache. KV slices, dense or paged, are written in place
+    already: their writes index the layer's views of the stacked leaves,
+    so they land in the stacked storage (a write through a copy would lose
+    the K/V silently; the paged tests read chunk 1's K/V back after chunk
+    2)."""
     if "ssm" in new_cache:
         map_states(lambda dst, src: dst.copy_(src), layer_cache["ssm"],
                    new_cache["ssm"])
@@ -296,7 +325,8 @@ def _as_tree(node):
 
 
 def _apply_pattern(pattern, cfg: ModelConfig, x, params: list, states,
-                   shared, caches=None, pos=None, valid_len=None):
+                   shared, caches=None, pos=None, valid_len=None,
+                   page_table=None):
     """One repeat of a group's pattern, the reference's scan body: each
     pattern position's block in turn on its layer's ``params``, ``states``
     and ``caches`` slices. Returns (x, new states per position)."""
@@ -306,7 +336,7 @@ def _apply_pattern(pattern, cfg: ModelConfig, x, params: list, states,
         x, nc, ns, _ = apply_block(
             kind, params[pi], x, cfg, shared=shared, cache=cache, pos=pos,
             states=None if states is None else states[pi],
-            valid_len=valid_len)
+            valid_len=valid_len, page_table=page_table)
         if cache is not None:
             _write_back(cache, nc)
         new.append(ns)
@@ -331,14 +361,15 @@ def _checkpointed_pattern(pattern, cfg: ModelConfig, x, params: list,
 
 
 def lm_backbone(model, x, cfg: ModelConfig, *, states=None, caches=None,
-                pos=None, valid_len=None):
+                pos=None, valid_len=None, page_table=None):
     """Run embedded hidden states through all layer groups, a loop over
     each group's repeats, each repeat one pass of the group's pattern
     (checkpointed under ``remat="block"`` with grad enabled and no
     caches). ``model``: a ``LanguageModel`` or its tree (injected L and R
     ride into each checkpoint as flat arguments with the layer's other
-    views). Returns (x, new_states, caches, aux); new_states is None
-    without ``states``."""
+    views). ``page_table`` (B, pages_per_slot) routes every layer's KV
+    reads and writes through its paged pool. Returns (x, new_states,
+    caches, aux); new_states is None without ``states``."""
     if isinstance(model, LanguageModel):
         views = model.layer_views()
     else:
@@ -362,7 +393,7 @@ def lm_backbone(model, x, cfg: ModelConfig, *, states=None, caches=None,
                 cache = (None if caches is None else
                          [_layer_cache(c, j) for c in caches[gi]])
                 x, ns = _apply_pattern(g.pattern, cfg, x, params, st, shared,
-                                       cache, pos, valid_len)
+                                       cache, pos, valid_len, page_table)
             if states is not None:
                 for o, s in zip(out, ns):
                     o.append(s)
@@ -423,27 +454,40 @@ def lm_loss(model, batch: dict, cfg: ModelConfig, *, states=None,
     return loss, (ns, metrics)
 
 
-def lm_decode_step(model, token, caches, pos, cfg: ModelConfig):
+def lm_decode_step(model, token, caches, pos, cfg: ModelConfig, *,
+                   page_table=None):
     """One serve step. token (B, 1) int; ``pos`` the absolute position of
     this token: an int (lockstep batch) or a (B,) tensor of per-slot
-    positions. Returns (logits (B, V), caches)."""
+    positions. ``page_table`` (B, pages_per_slot) routes reads and writes
+    through the paged pools of ``init_lm_cache(..., pages=)`` (``pos``
+    then per row). Returns (logits (B, V), caches)."""
     x = _embed(model, token, cfg)
-    x, _, nc, _ = lm_backbone(model, x, cfg, caches=caches, pos=pos)
+    x, _, nc, _ = lm_backbone(model, x, cfg, caches=caches, pos=pos,
+                              page_table=page_table)
     return _logits(model, x, cfg)[:, 0], nc
 
 
 def lm_prefill(model, tokens, cfg: ModelConfig, *, caches,
-               valid_len=None, last_only: bool = False, pos=None):
+               valid_len=None, last_only: bool = False, pos=None,
+               page_table=None):
     """Token-parallel prefill: ONE forward over the whole prompt that also
     writes every layer's KV cache. tokens (B, P) from absolute position 0
     (or the int ``pos``); ``valid_len`` (B,) gives true lengths of rows
     right-padded to a bucket. ``last_only`` gathers each row's last VALID
     hidden state before the output projection and returns (B, 1, V).
+
+    Paged chunked prefill: with ``page_table`` and paged caches, ``pos``
+    is a (B,) tensor of absolute chunk offsets and ``tokens`` is ONE chunk
+    of a longer prompt; attention runs against the slot's whole logical
+    cache (earlier chunks, shared prefix pages), so a prompt may prefill
+    across several calls. ``valid_len`` then counts the valid rows WITHIN
+    the chunk, and ``last_only`` picks the chunk's last valid row: only
+    the final chunk's logits mean anything.
     Returns (logits, caches)."""
     x = _embed(model, tokens, cfg)
     x, _, nc, _ = lm_backbone(model, x, cfg, caches=caches,
                               pos=0 if pos is None else pos,
-                              valid_len=valid_len)
+                              valid_len=valid_len, page_table=page_table)
     if last_only:
         if valid_len is None:
             last = torch.full((x.shape[0],), x.shape[1] - 1,

@@ -25,7 +25,15 @@ Differences from the reference, deliberate:
   A scalar write position must lie inside the cache (JAX would clamp it).
 * ``chunked_attention`` is a Python loop over query blocks and KV chunks
   in place of ``lax.map``/``lax.scan`` (no remat: serving has no backward).
-* The paged, speculative-verify and cross-attention branches of
+* Paged writes make every index safe BEFORE they index: JAX fills an
+  out-of-range gather and drops an out-of-range scatter, while torch
+  raises on the CPU and, on the card, a device-side assert kills the
+  CUDA context. A position past the page table goes to the trash page 0
+  (see ``_page_ids``), where the reference drops it; every other page
+  receives exactly the reference's writes.
+* The paged branches attend plainly (gathered pages, a masked softmax),
+  as the reference's do: kernel #7 has no query offset and no page table.
+* The speculative-verify and cross-attention branches of
   ``apply_attention`` are not ported yet and raise.
 """
 from __future__ import annotations
@@ -46,6 +54,26 @@ NEG_INF = -1e30
 class KVCache(NamedTuple):
     k: torch.Tensor  # (B, S_cache, KVH, Dh)
     v: torch.Tensor  # (B, S_cache, KVH, Dh)
+
+
+class PagedKVCache(NamedTuple):
+    """Pooled KV storage: pages instead of per-slot rows.
+
+    The batch dimension is gone: storage is a pool of ``n_pages`` pages of
+    ``page_size`` token slots each, shared by every serve slot. A per-slot
+    ``page_table`` (B, pages_per_slot) maps logical page j of slot b to a
+    physical page; reads gather the table into a (B, S_logical) view,
+    writes scatter through it. Page 0 is the engine's trash page (dead and
+    still-prefilling rows point their table there), so the pool needs no
+    per-row validity flags: a position is readable iff the causal mask
+    says so, exactly as with dense caches."""
+
+    k: torch.Tensor  # (n_pages, page_size, KVH, Dh)
+    v: torch.Tensor  # (n_pages, page_size, KVH, Dh)
+
+    @property
+    def page_size(self) -> int:
+        return self.k.shape[1]
 
 
 # ---------------------------------------------------------------------------
@@ -208,6 +236,18 @@ def init_cache(cfg: ModelConfig, batch: int, seq: int, *, window: int = 0,
                    v=torch.zeros(shape, dtype=dtype, device=device))
 
 
+def init_paged_cache(cfg: ModelConfig, n_pages: int, page_size: int, *,
+                     lead: tuple[int, ...] = (), dtype=torch.bfloat16,
+                     device=None) -> PagedKVCache:
+    """Pooled KV storage for one layer (``lead``: the group's stacked
+    ``repeat``): ``n_pages`` pages shared by every serve slot
+    (serve/kvpool.py owns the page accounting)."""
+    kvh, dh = cfg.n_kv_heads, cfg.resolved_head_dim
+    shape = (*lead, n_pages, page_size, kvh, dh)
+    return PagedKVCache(k=torch.zeros(shape, dtype=dtype, device=device),
+                        v=torch.zeros(shape, dtype=dtype, device=device))
+
+
 def decode_attention(q, cache: KVCache, pos, *, window: int = 0):
     """Single-token decode. q (B,1,H,Dh); the cache holds positions <= pos.
     ``pos`` is an int (lockstep batch) or a (B,) tensor of per-row
@@ -291,6 +331,108 @@ def cache_update_prefill(cache: KVCache, k_new, v_new, offset: int = 0, *,
 
 
 # ---------------------------------------------------------------------------
+# Paged gather / scatter / attention
+# ---------------------------------------------------------------------------
+
+def paged_gather(pool: torch.Tensor, page_table: torch.Tensor
+                 ) -> torch.Tensor:
+    """(n_pages, PG, KVH, Dh) pool + (B, P) table -> (B, P*PG, KVH, Dh)
+    per-slot logical view. Positions no page was written at hold whatever
+    the physical page last held; every read below masks by position, so
+    such slots get a softmax weight of exactly zero. Every table entry is
+    a page id, so the gather is always in range."""
+    g = pool[page_table.long()]                   # (B, P, PG, KVH, Dh)
+    b, p, pg = g.shape[:3]
+    return g.reshape(b, p * pg, *g.shape[3:])
+
+
+def _page_ids(page_table: torch.Tensor, pos: torch.Tensor, page_size: int,
+              valid=None) -> torch.Tensor:
+    """Physical page under each absolute position ``pos`` (B, C) of a
+    row, made safe BEFORE it indexes. Two kinds of position lie past the
+    row's table:
+
+    * dead rows keep their stale ``pos``, which equals ``max_cache`` after
+      a request that used its whole budget, so ``pos // page_size`` equals
+      ``pages_per_slot``;
+    * the padded rows of a prefill chunk sit past ``end``, and so past the
+      engine's ``n_hist``-sliced table.
+
+    The reference gathers first (JAX fills an out-of-range index, and its
+    scatter then drops the write) and routes ``valid_len``'s padding to
+    page 0 after. Torch would raise, or assert on the card and lose the
+    CUDA context, so here the logical page is clamped into the table for
+    the gather and every out-of-range or invalid position is routed to the
+    trash page 0. Only page 0 differs from the reference's writes, and
+    nothing reads it unmasked."""
+    n_log = page_table.shape[1]
+    logical = torch.div(pos, page_size, rounding_mode="floor")
+    inside = logical < n_log
+    if valid is not None:
+        inside = inside & valid
+    pid = torch.gather(page_table.long(), 1,
+                       torch.clamp(logical, max=n_log - 1))
+    return torch.where(inside, pid, 0)
+
+
+def paged_update_decode(cache: PagedKVCache, k_new, v_new, pos,
+                        page_table: torch.Tensor) -> PagedKVCache:
+    """Write one token's K/V per row at absolute position ``pos`` (B,)
+    through the page table, in place. The engine guarantees the page under
+    any LIVE row's write position is exclusively owned (shared prefix
+    pages are read-only by construction); dead rows carry an all-trash
+    table. Several dead rows can write page 0 at one offset: which write
+    wins is undefined, in torch as in JAX, and harmless, because nothing
+    reads the trash page unmasked."""
+    pg = cache.page_size
+    pos = pos.to(cache.k.device).long()[:, None]
+    pid = _page_ids(page_table.to(cache.k.device), pos, pg)[:, 0]
+    off = torch.remainder(pos[:, 0], pg)
+    cache.k[pid, off] = k_new[:, 0]
+    cache.v[pid, off] = v_new[:, 0]
+    return cache
+
+
+def paged_update_prefill(cache: PagedKVCache, k_new, v_new, offset,
+                         page_table: torch.Tensor,
+                         valid_len=None) -> PagedKVCache:
+    """Write one prefill chunk (B, C) of K/V at absolute positions
+    ``offset[b] + i`` through the page table, in place. ``valid_len`` (B,)
+    counts the chunk's valid rows; padded positions go to the trash
+    page."""
+    b, c = k_new.shape[:2]
+    dev = cache.k.device
+    rel = torch.arange(c, device=dev)[None, :]
+    pos = offset.to(dev).long()[:, None] + rel                # (B, C) abs
+    valid = None if valid_len is None else rel < valid_len.to(dev)[:, None]
+    pid = _page_ids(page_table.to(dev), pos, cache.page_size, valid)
+    off = torch.remainder(pos, cache.page_size)
+    cache.k[pid, off] = k_new
+    cache.v[pid, off] = v_new
+    return cache
+
+
+def paged_prefill_attention(q, cache: PagedKVCache, page_table, qpos):
+    """Chunked-prefill attention: q (B, C, H, Dh) at absolute positions
+    ``qpos`` (B, C) attends over the slot's ENTIRE logical cache (history
+    from earlier chunks and shared prefix pages included), masked causally
+    by absolute position. This is what lets a prompt prefill in chunks,
+    unlike the dense prefill path, which attends only within the chunk."""
+    k = paged_gather(cache.k, page_table)
+    v = paged_gather(cache.v, page_table)
+    b, c, h, dh = q.shape
+    kvh = k.shape[2]
+    g = h // kvh
+    qg = q.reshape(b, c, kvh, g, dh) * (dh ** -0.5)
+    s = _gqa_scores(qg, k).float()                  # (B,KVH,G,C,S_log)
+    kpos = torch.arange(k.shape[1], device=q.device)
+    ok = kpos[None, None, :] <= qpos[:, :, None]    # (B, C, S_log)
+    s = s + torch.where(ok, 0.0, NEG_INF)[:, None, None, :, :]
+    p = torch.softmax(s, dim=-1).to(q.dtype)
+    return _gqa_combine(p, v).reshape(b, c, h, dh)
+
+
+# ---------------------------------------------------------------------------
 # Full block-level attention apply
 # ---------------------------------------------------------------------------
 
@@ -311,11 +453,23 @@ def apply_attention(p, x: torch.Tensor, cfg: ModelConfig, *,
       - decode:  cache given, S == 1   -> one-token step at ``pos`` (int, or
                  (B,) per-slot tensor), cache updated in place
 
+    A :class:`PagedKVCache` (``page_table`` required, (B, pages_per_slot))
+    switches prefill and decode to the paged pool: reads gather the
+    slot's logical view through the table, writes scatter through it, and
+    prefill becomes CHUNKED: ``pos`` is a (B,) tensor of absolute chunk
+    offsets and q attends over the whole logical cache (earlier chunks and
+    shared prefix pages), not just the chunk. Paged mode is causal full
+    attention only (no sliding window, no cross-attention).
+
     Returns (out, new_cache, new_states)."""
+    paged = isinstance(cache, PagedKVCache)
+    if paged:
+        if page_table is None:
+            raise ValueError("PagedKVCache needs a page_table")
+        if window > 0 or kv_memory is not None or not causal:
+            raise ValueError("paged KV supports causal full attention only")
     if kv_memory is not None:
         raise NotImplementedError("cross-attention is not ported yet")
-    if page_table is not None:
-        raise NotImplementedError("paged KV caches are not ported yet")
     h, kvh, dh = cfg.n_heads, cfg.n_kv_heads, cfg.resolved_head_dim
     b, sq, _ = x.shape
     plan = plan_of(cfg)
@@ -343,6 +497,17 @@ def apply_attention(p, x: torch.Tensor, cfg: ModelConfig, *,
         q, k = maybe_rope(q, positions), maybe_rope(k, positions)
         o = ops.flash_attention(q, k, v, causal=causal, window=window)
         new_cache = None
+    elif sq > 1 and paged:  # chunked prefill through the page table
+        if pos is None:
+            offset = torch.zeros(b, dtype=torch.long, device=x.device)
+        else:
+            offset = pos.to(x.device).long()
+        qpos = offset[:, None] + torch.arange(sq, device=x.device)[None, :]
+        q, k = maybe_rope(q, qpos), maybe_rope(k, qpos)
+        new_cache = paged_update_prefill(cache, k, v, offset, page_table,
+                                         valid_len=valid_len)
+        o = paged_prefill_attention(q, new_cache, page_table.to(x.device),
+                                    qpos)
     elif sq > 1:  # token-parallel prefill
         if is_vector_pos(pos):
             raise NotImplementedError(
@@ -359,6 +524,19 @@ def apply_attention(p, x: torch.Tensor, cfg: ModelConfig, *,
             attn = (chunked_attention if sq > chunked_threshold
                     else dense_attention)
             o = attn(q, k, v, causal=causal, window=window, q_offset=offset)
+    elif paged:  # decode one token per row through the page table
+        if not is_vector_pos(pos):
+            raise ValueError("paged decode needs per-row (B,) positions")
+        rope_pos = pos.to(x.device)[:, None]
+        q, k = maybe_rope(q, rope_pos), maybe_rope(k, rope_pos)
+        new_cache = paged_update_decode(cache, k, v, pos, page_table)
+        # the per-slot logical view through the SAME masked decode
+        # attention the dense path runs: with pages_per_slot x page_size
+        # equal to the dense cache's length the shapes are the dense ones
+        table = page_table.to(x.device)
+        gathered = KVCache(k=paged_gather(new_cache.k, table),
+                           v=paged_gather(new_cache.v, table))
+        o = decode_attention(q, gathered, pos, window=0)
     else:  # decode one token at ``pos`` (int, or (B,) per row)
         if is_vector_pos(pos):
             rope_pos = pos.to(x.device)[:, None]

@@ -1,33 +1,51 @@
-"""Continuous-batching serve engine over a fixed slot pool. Port of
-``repro.serve.engine`` in DENSE-SLOT mode.
+"""Continuous-batching serve engine over a fixed slot pool, with an
+optional paged KV pool, radix prefix sharing and chunked prefill. Port of
+``repro.serve.engine``.
 
-* The engine owns ONE set of batched decode caches (``init_lm_cache`` with
-  batch = max_slots: KV caches, and for Mamba-2 layers the SSM state and
-  both conv buffers). A slot is a batch row: admitting a request prefills
-  its prompt into that row, finishing (or cancelling, or evicting) frees
-  the row for the next queued request.
-* Prefill is token-parallel (``lm_prefill``): admitted prompts are
+* DENSE mode (``paged=False``, the oracle path): ONE set of batched decode
+  caches (``init_lm_cache`` with batch = max_slots: KV caches, and for
+  Mamba layers the SSM state and conv buffers). A slot is a batch row:
+  admitting a request prefills its prompt into that row, finishing (or
+  cancelling, or evicting) frees the row for the next queued request.
+  Prefill is token-parallel (``lm_prefill``): admitted prompts are
   right-padded to bucket lengths and same-bucket admissions prefill
   together as one batch (rows gathered out of the caches, prefilled,
   scattered back).
+* PAGED mode (``paged=True``, or ``"auto"`` where ``supports_paging``):
+  KV storage is a pool of fixed-size pages (``serve/kvpool.py`` owns
+  refcounts and the free list; ``nn/attention.py::PagedKVCache`` is the
+  device side). Each slot maps logical pages to physical ones through a
+  page-table row, so live slots decouple from ``max_cache``: a 12-token
+  prompt holds pages for 12 + max_new tokens, not max_cache. A radix tree
+  over prompt prefixes lets a shared system prompt prefill ONCE: later
+  requests attach its pages by refcount and prefill only their suffix.
+  Prefill is CHUNKED: at most ``prefill_chunks_per_tick`` chunks of
+  ``(1, prefill_chunk)`` tokens advance per tick (every
+  ``prefill_every``-th tick while decodes run), interleaved with the
+  decode tick, so one long prompt cannot spike every other request's
+  TPOT. Paged mode needs causal full attention in every layer; a config
+  with sliding-window or Mamba layers serves dense (``"auto"``) or
+  raises (``True``).
 * Decode runs ALL slots every tick at per-slot positions (``pos`` a (B,)
-  vector). Free slots ride along as dead rows that keep writing K/V at
-  their stale positions; the causal masks never read those back, and the
-  row is re-prefilled before it is read again.
+  vector). Free (and, paged, still-prefilling) slots ride along as dead
+  rows: dense dead rows keep writing K/V at their stale positions, which
+  the causal masks never read back; paged dead rows carry an all-trash
+  page-table row, so their writes land on page 0.
 * Sampling runs on the device (``serve/sampling.py``); only the (B,)
   sampled tokens reach the host each tick.
 
 * An int8 deployment (``plan.quantized("int8")`` with
-  ``convert.quantize``) serves through the same engine: every factored
-  linear then runs the int8 kernel (``kernels/csrc/lowrank_q8.cu``), and
-  ``summary()`` reports ``quantized`` and the packed ``weight_bytes``.
+  ``convert.quantize``) serves through the same engine, dense or paged:
+  every factored linear then runs the int8 kernel
+  (``kernels/csrc/lowrank_q8.cu``), and ``summary()`` reports
+  ``quantized`` and the packed ``weight_bytes``.
   ``ServeEngine.from_checkpoint`` builds the engine from a plan-bearing
   checkpoint with no config in hand.
 
 Where the reference jits and donates the caches, this engine runs eager
 PyTorch under ``torch.inference_mode()`` and updates the caches in place.
-Not ported yet (they raise ``NotImplementedError``): paged KV pools,
-speculative decoding, tenant adapters and mesh serving.
+Not ported yet (they raise ``NotImplementedError``): speculative decoding,
+tenant adapters and mesh serving.
 """
 from __future__ import annotations
 
@@ -48,13 +66,16 @@ from repro_torch.models.lm import (
     lm_decode_step,
     lm_prefill,
     map_states,
+    supports_paging,
 )
+from repro_torch.serve.kvpool import PagePool, RadixCache, pages_needed
 from repro_torch.serve.sampling import SamplingParams, sample_tokens
 from repro_torch.serve.scheduler import Scheduler, make_scheduler
 from repro_torch.serve.session import Event, EventKind, GenerationHandle, Request
 from repro_torch.utils.device import resolve_device
 
 DEFAULT_BUCKETS = (8, 16, 32, 64, 128, 256)
+DEFAULT_PAGE_SIZE = 16
 
 
 def bucket_for(length: int, buckets: Sequence[int],
@@ -68,6 +89,34 @@ def bucket_for(length: int, buckets: Sequence[int],
             return int(min(b, cap))
     big = buckets[-1]
     return int(min(-(-length // big) * big, cap))
+
+
+def paged_chunk_prefill(params, cfg: ModelConfig, caches,
+                        prompt: Sequence[int], cur: int, chunk: int,
+                        table_row: np.ndarray, page_size: int, device):
+    """One chunk of a paged prefill: prompt tokens ``[cur, end)``, end =
+    min(cur + chunk, len(prompt)), right-padded to ``(1, chunk)``, through
+    ``lm_prefill`` at offset ``cur``, reading and writing the slot's pages
+    through ``table_row`` (pages_per_slot,). Returns (logits (1, 1, V) of
+    the chunk's last valid row, end).
+
+    The table is sliced to a power-of-2 HISTORY bucket: the chunk attends
+    (and writes) only positions < end, and masked columns contribute
+    exactly 0, so early chunks of a long prompt cost O(history so far).
+    The chunk's padded rows lie past ``end`` and so may lie past this
+    slice: ``_page_ids`` in nn/attention.py routes them to the trash page
+    before indexing."""
+    end = min(cur + chunk, len(prompt))
+    toks = np.zeros((1, chunk), np.int64)
+    toks[0, :end - cur] = prompt[cur:end]
+    n_hist = min(len(table_row),
+                 1 << (pages_needed(end, page_size) - 1).bit_length())
+    logits, _ = lm_prefill(
+        params, torch.as_tensor(toks, device=device), cfg, caches=caches,
+        pos=torch.tensor([cur], device=device),
+        valid_len=torch.tensor([end - cur], device=device), last_only=True,
+        page_table=torch.as_tensor(table_row[None, :n_hist], device=device))
+    return logits, end
 
 
 def _tree_leaves(caches):
@@ -100,14 +149,20 @@ class ServeEngine:
                  max_cache: int = 512,
                  buckets: Sequence[int] = DEFAULT_BUCKETS,
                  scheduler: Scheduler | str = "fcfs",
-                 paged: bool | str = False, spec_k: int = 0,
-                 adapters=None, mesh=None, device=None):
-        for name, val in (("paged", paged), ("spec_k", spec_k),
-                          ("adapters", adapters), ("mesh", mesh)):
+                 paged: bool | str = False,
+                 page_size: int = DEFAULT_PAGE_SIZE,
+                 total_pages: int | None = None,
+                 prefix_cache: bool = True,
+                 prefill_chunk: int | None = None,
+                 prefill_chunks_per_tick: int = 1,
+                 prefill_every: int = 1,
+                 spec_k: int = 0, adapters=None, mesh=None, device=None):
+        for name, val in (("spec_k", spec_k), ("adapters", adapters),
+                          ("mesh", mesh)):
             if val:
                 raise NotImplementedError(
                     f"ServeEngine({name}=...) is not ported yet; the port "
-                    "serves dense slots (ROADMAP.md queue 1)")
+                    "serves dense and paged slots (ROADMAP.md queue 1)")
         if cfg is None:
             if plan is None:
                 raise ValueError("ServeEngine needs a ModelConfig or a "
@@ -131,10 +186,48 @@ class ServeEngine:
         from repro_torch.utils.memprof import model_weight_bytes
         self.weight_report = model_weight_bytes(params.tree())
         self.buckets = tuple(sorted(buckets))
-        self.paged = False
-        self.caches = init_lm_cache(cfg, max_slots, max_cache,
-                                    dtype=_dtype(cfg.dtype),
-                                    device=self.device)
+        if paged == "auto":
+            paged = supports_paging(cfg)
+        elif paged and not supports_paging(cfg):
+            raise ValueError(
+                f"config {cfg.name!r} has layers a paged KV pool cannot hold "
+                "(sliding-window or recurrent state); serve it dense or use "
+                "paged='auto'")
+        self.paged = bool(paged)
+        dtype = _dtype(cfg.dtype)
+        if self.paged:
+            self.page_size = int(page_size)
+            self.pages_per_slot = pages_needed(max_cache, page_size)
+            if total_pages is None:
+                # dense-equivalent capacity by default; pass fewer pages to
+                # oversubscribe slots, or more to grow the prefix cache
+                total_pages = max_slots * self.pages_per_slot + 1
+            self.pool = PagePool(total_pages, page_size)
+            self.radix = RadixCache(self.pool) if prefix_cache else None
+            self.prefill_chunk = int(prefill_chunk or self.buckets[-1])
+            self.prefill_chunks_per_tick = int(prefill_chunks_per_tick)
+            # stride: with decodes active, advance prefill only every Nth
+            # tick; each chunk attends over the gathered history, so on
+            # long prompts a chunk can cost several decode ticks, and the
+            # stride bounds its TPOT tax at the price of long-request TTFT
+            self.prefill_every = max(1, int(prefill_every))
+            self._tick = 0
+            self.caches = init_lm_cache(cfg, max_slots, max_cache,
+                                        dtype=dtype, device=self.device,
+                                        pages=total_pages,
+                                        page_size=page_size)
+            # host-side slot state: page-table rows, per-slot page lists,
+            # and the prefill cursor (absolute position of the next
+            # unprefilled prompt token; None = not prefilling)
+            self.tables = np.zeros((max_slots, self.pages_per_slot),
+                                   np.int64)
+            self.slot_pages: list[list[int]] = [[] for _ in range(max_slots)]
+            self._cursor: list[int | None] = [None] * max_slots
+            self._pf_rr = 0
+        else:
+            self.pool = self.radix = None
+            self.caches = init_lm_cache(cfg, max_slots, max_cache,
+                                        dtype=dtype, device=self.device)
         self.slots: list[Request | None] = [None] * max_slots
         # per-slot decode state, row-aligned with the cache batch axis
         self.pos = np.zeros(max_slots, np.int64)
@@ -145,10 +238,11 @@ class ServeEngine:
         self.seed = np.zeros(max_slots, np.uint32)
         self.count = np.zeros(max_slots, np.int64)
         self._rid = 0
-        self.stats = {"prefill_tokens": 0, "decode_steps": 0,
+        self.stats = {"prefill_tokens": 0, "prefill_chunks": 0,
+                      "prefix_hit_tokens": 0, "decode_steps": 0,
                       "decode_tokens": 0, "completed": 0, "cancelled": 0,
-                      "evicted": 0, "wall_s": 0.0, "prefill_s": 0.0,
-                      "decode_s": 0.0}
+                      "evicted": 0, "deferred": 0, "wall_s": 0.0,
+                      "prefill_s": 0.0, "decode_s": 0.0}
 
     @classmethod
     def from_checkpoint(cls, ckpt_dir: str, step: int | None = None,
@@ -189,6 +283,13 @@ class ServeEngine:
                 f"max_cache ({self.max_cache})")
         if len(prompt) < 1:
             raise ValueError("empty prompt")
+        if self.paged:
+            need = pages_needed(len(prompt) + sp.max_new, self.page_size)
+            if need > self.pool.usable_pages:
+                raise ValueError(
+                    f"request needs {need} pages but the pool has "
+                    f"{self.pool.usable_pages} usable (total_pages too "
+                    "small for this prompt + max_new)")
         req = Request(rid=self._rid, prompt=list(map(int, prompt)),
                       sampling=sp, submitted_at=time.perf_counter())
         self._rid += 1
@@ -214,14 +315,53 @@ class ServeEngine:
         """True while any request is queued or occupying a slot."""
         return bool(len(self.sched)) or any(r is not None for r in self.slots)
 
+    # -- paged-pool maintenance ---------------------------------------------
+
+    def release_prefix_cache(self) -> int:
+        """Drop every radix-held page (frees them back to the pool).
+        Returns the number of pages released. After a full drain plus this
+        call, every page refcount is zero."""
+        return self.radix.clear() if self.radix is not None else 0
+
+    def check_invariants(self) -> None:
+        """Audit the paged bookkeeping (no-op in dense mode): the pool's
+        structure is sound and every page's refcount equals its holder
+        count (slots holding it in their table + radix nodes)."""
+        if not self.paged:
+            return
+        self.pool.check()
+        expected = np.zeros(self.pool.total_pages, np.int64)
+        for slot, pages in enumerate(self.slot_pages):
+            if self.slots[slot] is not None:
+                for p in pages:
+                    expected[p] += 1
+        if self.radix is not None:
+            for p in self.radix.held_pages():
+                expected[p] += 1
+        actual = self.pool.refs.astype(np.int64)
+        if not (expected == actual).all():
+            bad = np.nonzero(expected != actual)[0]
+            raise AssertionError(
+                f"page refcount leak: pages {bad.tolist()} expected "
+                f"{expected[bad].tolist()} got {actual[bad].tolist()}")
+
     # -- internals ----------------------------------------------------------
 
     def _free_slot(self, slot: int) -> None:
-        """Recycle a slot and reset its sampling row to greedy."""
+        """Recycle a slot and reset its sampling row to greedy. In paged
+        mode also release the slot's page references and point its table
+        row at the trash page, so the dead row's lockstep writes can never
+        land in a page the pool hands to someone else."""
         self.slots[slot] = None
         self.temp[slot] = 0.0
         self.top_k[slot] = 0
         self.top_p[slot] = 1.0
+        if self.paged:
+            for p in self.slot_pages[slot]:
+                self.pool.unref(p)
+            self.slot_pages[slot] = []
+            self.tables[slot, :] = 0
+            self._cursor[slot] = None
 
     def _emit_token(self, req: Request, token: int, t: float) -> None:
         req.generated.append(token)
@@ -324,15 +464,135 @@ class ServeEngine:
                 self._finish_if_done(slot)
         self.stats["prefill_s"] += time.perf_counter() - t0
 
+    def _admit_paged(self) -> None:
+        """Admit queued requests into free slots by RESERVING pages; the
+        prefill itself runs chunk by chunk in ``_prefill_tick``. The radix
+        cache is consulted first: matched full-page prefixes attach by
+        reference (refcount bump, no prefill) and the prefill cursor
+        starts past them. A request the pool cannot satisfy, even after
+        LRU eviction of unreferenced prefix-cache pages, goes back to the
+        scheduler and admission stops for this tick: running requests
+        free pages as they retire."""
+        free = [i for i, r in enumerate(self.slots) if r is None]
+        if not free or not len(self.sched):
+            return
+        t0 = time.perf_counter()
+        pg = self.page_size
+        while free:
+            req = self.sched.pop(t0)
+            if req is None:
+                break
+            if req.terminal:
+                continue
+            prompt = req.prompt
+            need = pages_needed(len(prompt) + req.sampling.max_new, pg)
+            shared: list[int] = []
+            if self.radix is not None:
+                # cap the shared pages so at least ONE prompt token is left
+                # to prefill: the final chunk must produce next-token
+                # logits. Tenant-namespaced, as in the reference (the port
+                # serves no tenant yet, so the namespace is None)
+                shared = self.radix.match(
+                    prompt, namespace=req.tenant)[:(len(prompt) - 1) // pg]
+                for p in shared:       # protect from our own eviction below
+                    self.pool.ref(p)
+            fresh = need - len(shared)
+            if self.pool.free_pages < fresh and self.radix is not None:
+                self.radix.evict(fresh - self.pool.free_pages)
+            alloc = self.pool.alloc(fresh)
+            if alloc is None:
+                for p in shared:
+                    self.pool.unref(p)
+                self.sched.add(req)        # not enough pages: wait
+                self.stats["deferred"] += 1
+                break
+            slot = free.pop(0)
+            pages = shared + alloc
+            self.tables[slot, :] = 0
+            self.tables[slot, :len(pages)] = pages
+            self.slot_pages[slot] = pages
+            self.slots[slot] = req
+            self._set_sampling_row(slot, req)
+            self._cursor[slot] = len(shared) * pg
+            self.pos[slot] = 0
+            self.count[slot] = 0
+            self.stats["prefix_hit_tokens"] += len(shared) * pg
+        self.stats["prefill_s"] += time.perf_counter() - t0
+
+    def _prefill_tick(self) -> None:
+        """Advance chunked prefill: up to ``prefill_chunks_per_tick``
+        chunks across the slots currently prefilling, round-robin so a
+        long prompt cannot starve a short one. Each chunk is one
+        (1, prefill_chunk) call that writes K/V through the slot's page
+        table; the final chunk samples the request's first token and
+        publishes the prompt's full pages to the radix cache."""
+        if not self.paged:
+            return
+        waiting = [s for s in range(self.max_slots)
+                   if self.slots[s] is not None and self._cursor[s] is not None]
+        if not waiting:
+            return
+        decoding = any(self.slots[s] is not None and self._cursor[s] is None
+                       for s in range(self.max_slots))
+        if decoding and self._tick % self.prefill_every:
+            return      # the stride only matters when someone would starve
+        t0 = time.perf_counter()
+        order = sorted(waiting,
+                       key=lambda s: (s - self._pf_rr) % self.max_slots)
+        for slot in order[:self.prefill_chunks_per_tick]:
+            self._pf_rr = (slot + 1) % self.max_slots
+            req = self.slots[slot]
+            cur = self._cursor[slot]
+            rows = slice(slot, slot + 1)
+            logits, end = paged_chunk_prefill(
+                self.params, self.cfg, self.caches, req.prompt, cur,
+                self.prefill_chunk, self.tables[slot], self.page_size,
+                self.device)
+            self.stats["prefill_tokens"] += end - cur
+            self.stats["prefill_chunks"] += 1
+            if end < len(req.prompt):
+                self._cursor[slot] = end
+                continue
+            first = int(sample_tokens(
+                logits[:, 0], self.temp[rows], self.top_k[rows],
+                self.top_p[rows], self.seed[rows],
+                np.zeros(1, np.int64)).cpu()[0])
+            # prompt complete: publish full pages for prefix reuse, then
+            # emit the sampled first token and hand the slot to decode
+            self._cursor[slot] = None
+            if self.radix is not None:
+                n_full = len(req.prompt) // self.page_size
+                self.radix.insert(req.prompt,
+                                  self.slot_pages[slot][:n_full],
+                                  namespace=req.tenant)
+            self._emit_token(req, first, time.perf_counter())
+            self.pos[slot] = len(req.prompt)
+            self.next_tok[slot] = first
+            self.count[slot] = 1
+            self._finish_if_done(slot)
+        self.stats["prefill_s"] += time.perf_counter() - t0
+
     def _decode_all(self) -> None:
-        active = [i for i, r in enumerate(self.slots) if r is not None]
+        active = [i for i, r in enumerate(self.slots)
+                  if r is not None and (not self.paged
+                                        or self._cursor[i] is None)]
         if not active:
             return
         t0 = time.perf_counter()
         dev = self.device
+        table = None
+        if self.paged:
+            # still-prefilling rows ride along dead: route their lockstep
+            # writes to the trash page, not into pages their prefill owns
+            tbl = self.tables.copy()
+            for s in range(self.max_slots):
+                if self._cursor[s] is not None:
+                    tbl[s, :] = 0
+            table = torch.as_tensor(tbl, device=dev)
         logits, self.caches = lm_decode_step(
             self.params, torch.as_tensor(self.next_tok[:, None], device=dev),
-            self.caches, torch.as_tensor(self.pos, device=dev), self.cfg)
+            self.caches, torch.as_tensor(self.pos, device=dev), self.cfg,
+            page_table=table)
         nxt = sample_tokens(logits, self.temp, self.top_k, self.top_p,
                             self.seed, self.count).cpu().numpy()
         self.stats["decode_steps"] += 1
@@ -350,12 +610,19 @@ class ServeEngine:
     # -- driving ------------------------------------------------------------
 
     def step(self) -> None:
-        """One engine tick: enforce deadlines, admit whatever fits, then
-        decode every active slot by one token."""
+        """One engine tick: enforce deadlines, admit whatever fits, advance
+        chunked prefill (paged mode), then decode every active slot by one
+        token."""
         t0 = time.perf_counter()
+        if self.paged:
+            self._tick += 1
         with torch.inference_mode():
             self._evict(t0)
-            self._admit_dense()
+            if self.paged:
+                self._admit_paged()
+                self._prefill_tick()
+            else:
+                self._admit_dense()
             self._decode_all()
         self.stats["wall_s"] += time.perf_counter() - t0
 
@@ -372,8 +639,11 @@ class ServeEngine:
             self.stats[k] = type(self.stats[k])()
 
     def cache_bytes(self) -> int:
-        """Device bytes of the decode caches (slots x max_cache per layer,
-        and every Mamba-2 layer's SSM state and conv buffers)."""
+        """Device bytes of the decode caches: dense reserves slots x
+        max_cache per attention layer (and every Mamba layer's SSM state
+        and conv buffers), paged total_pages x page_size per attention
+        layer (``utils.memprof.kv_cache_bytes`` computes either from the
+        config)."""
         from repro_torch.utils.memprof import array_bytes
         return int(sum(array_bytes(a) for a in _tree_leaves(self.caches)))
 
@@ -388,7 +658,13 @@ class ServeEngine:
         s["weight_mib"] = self.weight_report["total_bytes"] / 2**20
         s["quantized"] = self.quantized
         s["scheduler"] = getattr(self.sched, "name", type(self.sched).__name__)
-        s["paged"] = False
+        s["paged"] = self.paged
         s["cache_bytes"] = self.cache_bytes()
         s["device"] = str(self.device)
+        if self.paged:
+            s["page_size"] = self.page_size
+            s["total_pages"] = self.pool.total_pages
+            s["pages_in_use"] = self.pool.pages_in_use
+            s["prefix_cache_pages"] = (self.radix.n_nodes
+                                       if self.radix is not None else 0)
         return s

@@ -15,6 +15,8 @@ device allocator's peak.
 3. ``device_peak_bytes``: the CUDA allocator's intra-step high-water mark
    (``torch.cuda.max_memory_allocated``); None on the CPU, which has no
    such counter: output says "n/a" there, never a made-up number.
+4. ``kv_cache_bytes``: a serve engine's decode-cache storage, dense or
+   paged, from the real ``init_lm_cache`` on the ``meta`` device.
 """
 from __future__ import annotations
 
@@ -163,6 +165,32 @@ def model_weight_bytes(params) -> dict:
     out["total_bytes"] = (out["weights_bytes"] + out["scales_bytes"]
                           + out["bias_bytes"])
     return out
+
+
+def kv_cache_bytes(cfg, batch: int, max_cache: int, *,
+                   pages: int | None = None,
+                   page_size: int | None = None) -> dict:
+    """Decode-cache storage of a serve engine, dense or paged, computed by
+    running the REAL ``init_lm_cache`` on the ``meta`` device (shapes and
+    dtypes, no storage), as the reference runs it under
+    ``jax.eval_shape``: the number is the allocator's, not a formula that
+    can drift from the code.
+
+    Dense reserves ``batch x max_cache`` KV per attention layer (every slot
+    pays for the worst case); paged reserves ``pages x page_size`` rows per
+    attention layer SHARED by all slots. Returns {"total_bytes",
+    "per_layer_bytes", "n_arrays", "mode"}."""
+    from repro_torch.models.lm import _dtype, init_lm_cache, map_states
+
+    caches = init_lm_cache(cfg, batch, max_cache, dtype=_dtype(cfg.dtype),
+                           device="meta", pages=pages, page_size=page_size)
+    leaves: list = []
+    map_states(leaves.append, caches)
+    total = sum(array_bytes(t) for t in leaves)
+    return {"total_bytes": total,
+            "per_layer_bytes": total // max(cfg.n_layers, 1),
+            "n_arrays": len(leaves),
+            "mode": "paged" if pages is not None else "dense"}
 
 
 # ---------------------------------------------------------------------------

@@ -1436,3 +1436,100 @@ def test_project_mode_step_on_the_card_matches_the_cpu(cuda, method):
         assert len(a) == len(c) > 0
         for x, y in zip(c, a):
             close(x, y, 1e-4)
+
+
+def _trained_smoke(dev):
+    """qwen2 smoke trained 40 ``wsi`` steps on the CPU (the port's
+    ``tests/test_torch_paged.py`` weights), served under its own plan on
+    ``dev``: trained logits have no greedy near-ties for the paged and
+    dense paths' rounding to flip."""
+    import dataclasses
+
+    from repro_torch import api, configs
+    from repro_torch.api.bridge import from_reference, to_reference
+    from repro_torch.config import TrainConfig
+    from repro_torch.data.synthetic import SyntheticLM
+    from repro_torch.models import lm
+    from repro_torch.train.step import make_train_state, make_train_step
+
+    cfg = configs.get_smoke("qwen2-0.5b")
+    wcfg = cfg.replace(wasi=dataclasses.replace(cfg.wasi, method="wsi"))
+    api.uninstall(wcfg)
+    api.install(api.resolve(wcfg))
+    tcfg = TrainConfig(optimizer="sgd", lr=0.3, momentum=0.9,
+                       checkpoint_every=0)
+    state = make_train_state(lm.init_lm(wcfg, device="cpu", seed=0), wcfg,
+                             tcfg)
+    step = make_train_step(lm.lm_loss, wcfg, tcfg)
+    data = SyntheticLM(vocab_size=cfg.vocab_size, seq_len=32, global_batch=8,
+                       seed=1)
+    for i in range(40):
+        state, _ = step(state, data.batch(i))
+    api.uninstall(wcfg)
+    return cfg, from_reference(to_reference(state.params), cfg, dev)
+
+
+@pytest.mark.cuda
+def test_paged_engine_on_the_card_matches_the_dense_engine(cuda):
+    """qwen2 smoke (f32) on the card: prompts sharing an 8-token prefix
+    through 2 slots, paged (page_size 8, chunks of 8) and dense; greedy
+    tokens equal, the prefix cache hit, the pool's refcounts audited
+    every tick, and no page held after ``release_prefix_cache``."""
+    from repro_torch.serve import ServeEngine
+
+    cfg, model = _trained_smoke(cuda)
+    rng = np.random.default_rng(42)
+    prefix = list(map(int, rng.integers(0, cfg.vocab_size, 8)))
+    prompts = [prefix + list(map(int, rng.integers(0, cfg.vocab_size, n)))
+               for n in (2, 5, 12)]
+    prompts += [list(map(int, rng.integers(0, cfg.vocab_size, n)))
+                for n in (3, 20)]
+    kw = dict(max_slots=2, max_cache=32, buckets=(4, 8, 16), device=cuda)
+    out = {}
+    for paged in (False, True):
+        eng = ServeEngine(model, cfg, **kw, **(
+            dict(paged=True, page_size=8, prefill_chunk=8) if paged else {}))
+        hs = [eng.submit(p, max_new=6) for p in prompts]
+        while eng.busy:
+            eng.step()
+            eng.check_invariants()
+        torch.cuda.synchronize()
+        out[paged] = [h.generated for h in hs]
+        if paged:
+            assert eng.stats["prefix_hit_tokens"] > 0
+            eng.release_prefix_cache()
+            eng.check_invariants()
+            assert eng.pool.pages_in_use == 0
+    assert out[True] == out[False]
+
+
+@pytest.mark.cuda
+def test_paged_writes_past_the_table_on_the_card(cuda):
+    """The two index edge cases on CUDA tensors, against the same calls on
+    the CPU: a dead row at ``pos == max_cache`` (whose table is real) and
+    a prefill chunk whose padded tail lies past an ``n_hist``-sliced
+    table. Both must route to the trash page before indexing: an
+    out-of-range index would trip a device-side assert and lose the CUDA
+    context. Every page but the trash page is equal to the bit."""
+    from repro_torch.nn import attention as attn
+
+    g = torch.Generator().manual_seed(0)
+    pool = [torch.randn(12, 8, 2, 16, generator=g) for _ in range(2)]
+    dec = (torch.randn(3, 1, 2, 16, generator=g),
+           torch.tensor([13, 31, 32]),
+           torch.tensor([[3, 5, 1, 7], [2, 6, 4, 8], [9, 10, 11, 6]]))
+    pre = (torch.randn(1, 16, 2, 16, generator=g), torch.tensor([8]),
+           torch.tensor([[4, 9]]), torch.tensor([5]))
+    out = {}
+    for dev in ("cpu", cuda):
+        c = attn.PagedKVCache(*(t.clone().to(dev) for t in pool))
+        kn, pos, table = (t.to(dev) for t in dec)
+        attn.paged_update_decode(c, kn, kn * 2, pos, table)
+        kn, off, table, vl = (t.to(dev) for t in pre)
+        attn.paged_update_prefill(c, kn, kn * 2, off, table, valid_len=vl)
+        if dev != "cpu":
+            torch.cuda.synchronize()
+        out[str(dev)] = [t.cpu() for t in c]
+    for a, b in zip(out["cpu"], out[str(cuda)]):
+        assert torch.equal(a[1:], b[1:])
+    assert torch.equal(out[str(cuda)][0][6], pool[0][6])   # not clamped

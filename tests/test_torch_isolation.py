@@ -62,6 +62,7 @@ def test_port_imports_with_jax_blocked():
             "import repro_torch.core.svd, repro_torch.core.project\n"
             "import repro_torch.models.vit, repro_torch.configs.vit_base\n"
             "import repro_torch.kernels.flash_attention\n"
+            "import repro_torch.serve.kvpool\n"
             "print('ok')\n")
     env = dict(os.environ, PYTHONPATH=str(ROOT / "src"))
     proc = subprocess.run([sys.executable, "-c", code], env=env,
