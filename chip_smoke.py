@@ -20,7 +20,11 @@ Phases, in order; any failure raises and the script exits non-zero:
    tinyllama-1.1b's and internvl2-26b's site shapes (M = 4 on the decode
    route, and 1,024) and a tinyllama decode layer's headline; a sweep
    of the decode and tensor-core routes over M = 1-32 (where the decode
-   threshold comes from);
+   threshold comes from); the decode route on a rank:0.5 draft's views
+   (``draft_rows``: ``L[:, :K']`` read in place, rows K apart, at qwen2's
+   K' = 128/64, bf16 and f32: bit-equal to its contiguous copy, no copy
+   made, timed on both beside the library's matmuls on the same views)
+   and each decode-route call's host cost (``eager_line``);
 4. smoke parity: qwen2 smoke in f32, the same seeded weights on the card
    and on the CPU, prefill then teacher-forced decode, logits compared at
    every step; the card's engine against its own lockstep generate;
@@ -67,6 +71,7 @@ Phases, in order; any failure raises and the script exits non-zero:
    plain version, library yardstick and bound; headlines for a decode
    layer (M = 4) and a prefill layer (M = 1,024); a sweep of the decode
    and tensor-core routes over M = 1-32 (where the threshold comes from);
+   the decode route on an int8 rank draft's views, as phase 3's;
 10. int8 deployment at full width: phase 8's checkpoint ->
    ``load_checkpoint`` -> ``plan.quantized("int8")`` -> ``convert.quantize``
    -> ``save_checkpoint`` -> ``ServeEngine.from_checkpoint`` on the card
@@ -249,7 +254,27 @@ Phases, in order; any failure raises and the script exits non-zero:
    defers and drains; two 300-token prompts' paged logits (cold in two
    chunks, then from the radix cache's 16 pages) against the f32 CPU
    (``logits_vs_cpu``); the int8 deployment served paged (168 of #6 per
-   forward, none of #1).
+   forward, none of #1);
+26. self-speculative decoding: qwen2-0.5b at full width and depth (bf16)
+   through 4 slots at ``max_cache`` 512, spec_k 4: phase 5's eight
+   lengths with 32 new tokens, all greedy on the dense cache and mixed
+   (half at temperature 0.8, top-p 0.95) paged behind phase 25's system
+   prompt (``SPEC_RUNS``), each without spec and through each draft
+   (``int8``: #6 at M = 4; ``rank:0.5``: #1's decode route on the
+   factors' views), the verify through #1 at M = 20: TTFT, TPOT, decode
+   tok/s, acceptance, tokens per verify, the int8 draft's extra MiB,
+   exact launches of each run (``spec_want``) and of its draft steps
+   alone (``draft_want``), no copy of a draft's L view; greedy spec
+   tokens equal the non-spec run's unless they part at a near-tie (top-2
+   margin within ``logits_vs_cpu``'s largest-error limit,
+   ``greedy_agreement``); the verify's logits against the f32 CPU; a
+   spec tick's busy share and its device ms split into draft, verify and
+   accept (``profile_spec``); phase 25's 65-page pool filled so a draft
+   must shrink (``spec_starved``), audited and emptied; in f32
+   (``spec_f32``), greedy tokens against a never-drafted run at the f32
+   near-tie limit and the rollback: every generated position's K/V
+   within f32 rounding of the never-drafted run's, and a control whose
+   verify writes are undone must fall outside.
 
 Every full-sequence attention (training, a forward without caches, the
 prefill at offset 0) goes through kernel #7, so phases 5, 7, 8, 10, 12,
@@ -636,6 +661,128 @@ def dense_lowrank_rows(card: str) -> tuple[list, dict]:
     return rows, head
 
 
+# qwen2-0.5b's rank:0.5 speculative draft at each site shape: (I, K, O, K'),
+# the draft reading R's leading K' rows and L's leading K' columns, L as a
+# view whose rows lie K apart (``bind.draft_slice``)
+DRAFT_SHAPES = {name: (i, k, o, k // 2) for name, (i, k, o) in SHAPES.items()}
+DRAFT_M = 4
+
+
+def draft_row(kernel: str, name: str, i, k, o, kd, dtype, gen,
+              card: str) -> dict:
+    """One kernel's decode route at a rank draft's shape, M = 4: L[:, :K']
+    read in place (rows K apart). The route must be ``decode`` and no
+    copy may be made (``ops.copy_counts``); two calls bit-equal, the same
+    bits as on L's contiguous copy, within the plain version's tolerance;
+    timed on the view and on the copy, beside the plain version, the
+    library's ``torch.matmul``s on the same views, the bound of the
+    draft's own bytes and flops, and one eager call (host launch cost
+    included)."""
+    m = DRAFT_M
+    q8 = kernel == "lowrank_q8"
+    if q8:
+        def cut(sets):
+            return [(x, rq[:kd].contiguous(), rs[:kd], lq[:, :kd], ls)
+                    for x, rq, rs, lq, ls in sets]
+        make = q8_inputs
+        fn, plain = ops.lowrank_matmul_q8, ref.lowrank_q8_ref
+        nbytes, flops = q8_work(m, i, kd, o, dtype)
+    else:
+        def cut(sets):
+            return [(x, r[:kd].contiguous(), l_[:, :kd])
+                    for x, r, l_ in sets]
+        make = inputs
+        fn, plain = ops.lowrank_matmul, ref.lowrank_matmul_ref
+        nbytes, flops = work(m, i, kd, o, dtype)
+
+    def dense(args):
+        a = list(args)
+        a[-2 if q8 else -1] = a[-2 if q8 else -1].contiguous()
+        return tuple(a)
+
+    args, = cut(make(m, i, k, o, dtype, gen))
+    lv = args[3] if q8 else args[2]
+    route = (kquant.q8_route(m, i, kd, o, dtype, (args[0], args[1], lv))
+             if q8 else klowrank.forward_route(m, i, kd, o, dtype, args))
+    if route != "decode" or lv.stride(0) != k or lv.is_contiguous():
+        raise AssertionError(f"draft {kernel} {name}: route {route}, L "
+                             f"strides {lv.stride()}")
+    copies = ops.copy_counts()[kernel]
+    want = plain(*args)
+    tol = lowrank_tol(want, i, kd, dtype)
+    err = held_twice(f"draft {kernel} {name} {dtype}", fn, args, want, tol)
+    if not torch.equal(fn(*args), fn(*dense(args))):
+        raise AssertionError(f"draft {kernel} {name} {dtype}: the view and "
+                             "its contiguous copy give other bits")
+    if ops.copy_counts()[kernel] != copies:
+        raise AssertionError(f"draft {kernel} {name}: the decode route "
+                             "copied its L view")
+    del args, want
+    n_sets = max(1, min(48, int(120e6 // nbytes) + 1))
+    sets = cut(make(m, i, k, o, dtype, gen, n_sets))
+    k_ms = time_ms(fn, sets)
+    c_ms = time_ms(fn, [dense(a) for a in sets])
+    p_ms = time_ms(plain, sets)
+    l_ms = (time_ms(library_q8, _library_sets(sets)) if q8
+            else time_ms(library_lowrank, sets))
+    e_ms = call_ms(fn, sets)
+    b_ms, b_by = bound_of(nbytes, flops, dtype)
+    print(f"[draft] {kernel} {name:11s} I={i} K'={kd} (rows {k} apart) "
+          f"O={o} M={m} {str(dtype)[6:]:8s} route={route} err={err:.2e} "
+          f"(tol {tol:.2e}) kernel_ms={k_ms:.4f} contiguous_copy_ms="
+          f"{c_ms:.4f} plain_ms={p_ms:.4f} library_ms={l_ms:.4f} "
+          f"bound_ms={b_ms:.5f} ({b_by}) eager_call_ms={e_ms:.4f} copies 0 "
+          f"| {card}", flush=True)
+    return dict(site=name, M=m, I=i, K=kd, ldl=k, O=o, dtype=str(dtype)[6:],
+                route=route, kernel_ms=k_ms, contiguous_ms=c_ms,
+                plain_ms=p_ms, library_ms=l_ms, bound_ms=b_ms, bound_by=b_by,
+                kernel_call_ms=e_ms, max_abs_err=err, tol=tol,
+                nbytes=nbytes, flops=flops)
+
+
+def draft_rows(kernel: str, card: str) -> tuple[list, dict]:
+    """``draft_row`` at each of qwen2-0.5b's draft shapes, bf16 and f32,
+    and the headline of one bf16 draft decode layer's 7 sites."""
+    gen = torch.Generator(device="cuda").manual_seed(26)
+    rows = [draft_row(kernel, name, *shape, dtype, gen, card)
+            for name, shape in DRAFT_SHAPES.items()
+            for dtype in (torch.bfloat16, torch.float32)]
+    head = {"ms": 0.0, "plain_ms": 0.0, "library_ms": 0.0,
+            "eager_call_ms": 0.0}
+    nbytes = flops = 0
+    for r in rows:
+        if r["dtype"] != "bfloat16":
+            continue
+        c = r["site"].count("|") + 1
+        for key, src in (("ms", "kernel_ms"), ("plain_ms", "plain_ms"),
+                         ("library_ms", "library_ms"),
+                         ("eager_call_ms", "kernel_call_ms")):
+            head[key] += c * r[src]
+        nbytes, flops = nbytes + c * r["nbytes"], flops + c * r["flops"]
+    head["bound_ms"], head["bound_by"] = bound_of(nbytes, flops,
+                                                  torch.bfloat16)
+    print(f"[draft] {kernel} one rank:0.5 draft decode layer's 7 sites (M=4, "
+          f"bf16, L read in place): kernel_ms={head['ms']:.4f} plain_ms="
+          f"{head['plain_ms']:.4f} library_ms={head['library_ms']:.4f} "
+          f"bound_ms={head['bound_ms']:.5f} ({head['bound_by']}) "
+          f"eager_call_ms={head['eager_call_ms']:.4f} | {card}", flush=True)
+    return rows, head
+
+
+def eager_line(kernel: str, rows: list, card: str) -> dict:
+    """The decode route's host cost per eager call: eager_call_ms (CUDA
+    events around a loop of calls, the host's launch work included) less
+    the graph-replayed kernel_ms, per row, and its median."""
+    cost = {f"{r['site']} M={r['M']} {r['dtype']}":
+            (r["kernel_call_ms"] - r["kernel_ms"]) * 1e3 for r in rows}
+    med = statistics.median(cost.values())
+    print(f"[eager] {kernel} decode route, host microseconds per call over "
+          f"the graph-replayed kernel time: median {med:.1f}; "
+          f"{', '.join(f'{k} {v:.1f}' for k, v in cost.items())} | {card}",
+          flush=True)
+    return dict(per_row_us=cost, median_us=med)
+
+
 def phase_kernels(card: str) -> dict:
     print("== phase 3: lowrank_fwd (each route) against its plain version",
           flush=True)
@@ -684,7 +831,14 @@ def phase_kernels(card: str) -> dict:
         [r for r in zrows if r["M"] == 1024], ZAMBA_LAYER_SITES,
         torch.bfloat16, card)
     sweep = route_sweep(card)
+    drows_draft, draft_head = draft_rows("lowrank_fwd", card)
+    worst = max(worst, max(r["max_abs_err"] for r in drows_draft))
+    eager = eager_line("lowrank_fwd", [
+        r for r in rows + zrows + drows_draft
+        if r["route"] == "decode" and r["dtype"] == "bfloat16"], card)
     return dict(rows=rows, zamba2_rows=zrows, worst=worst, sweep=sweep,
+                draft_rows=drows_draft, draft_headline=draft_head,
+                eager=eager,
                 zamba2_headline=zamba, dense_rows=drows,
                 tinyllama_decode_headline=dense_head, headline=dict(
                     tot, bound_ms=max(tb, tf) * 1e3,
@@ -1003,6 +1157,9 @@ def phase_full_width(card: str) -> dict:
 
 #: the profiler range phase 24 wraps each Mamba-1 selective scan in
 SCAN_RANGE = "selective_scan"
+#: every profiler range whose device span repeats its kernels' time: the
+#: Mamba-1 scan's and the spec engine's draft, verify and accept
+RANGES = (SCAN_RANGE, "spec_draft", "spec_verify", "spec_accept")
 
 
 class DeviceRow(NamedTuple):
@@ -1019,7 +1176,7 @@ def device_events(prof, ranges: bool = False) -> list:
     kernels it launched, is left out), without building every host
     event's record first (``key_averages`` took 11-24 s on a trace of
     80,000 launches on an H100; this takes well under one). The device
-    span of a ``record_function`` range named ``SCAN_RANGE``, which
+    span of a ``record_function`` range named in ``RANGES``, which
     repeats its kernels' time, is left out too; ``ranges`` returns those
     spans alone."""
     us: dict = {}
@@ -1028,7 +1185,7 @@ def device_events(prof, ranges: bool = False) -> list:
         if not str(e.device_type()).endswith("CUDA"):
             continue
         name = e.name()
-        if (name == SCAN_RANGE) != ranges:
+        if (name in RANGES) != ranges:
             continue
         us[name] = us.get(name, 0.0) + e.duration_ns() / 1e3
         count[name] = count.get(name, 0) + 1
@@ -2094,8 +2251,13 @@ def phase_q8_kernels(card: str) -> dict:
     head = q8_layer(4, card, gen)
     prefill = q8_layer(1024, card, gen)
     sweep = q8_route_sweep(card)
+    drows, draft_head = draft_rows("lowrank_q8", card)
+    worst = max(worst, max(r["max_abs_err"] for r in drows))
+    eager = eager_line("lowrank_q8", [r for r in drows
+                                      if r["dtype"] == "bfloat16"], card)
     return dict(rows=rows, worst=worst, headline=head,
-                prefill_headline=prefill, sweep=sweep)
+                prefill_headline=prefill, sweep=sweep, draft_rows=drows,
+                draft_headline=draft_head, eager=eager)
 
 
 def _count_calls(obj, name: str, counter: dict) -> None:
@@ -5348,6 +5510,526 @@ def phase_paged(card: str) -> dict:
     return out
 
 
+# ---------------------------------------------------------------------------
+# phase 26: self-speculative decoding
+# ---------------------------------------------------------------------------
+
+# qwen2-0.5b at full width and depth through 4 slots at max_cache 512:
+# phase 5's eight lengths, 32 new tokens each, spec_k 4 through each draft
+# source (int8: #6 at M = 4 on the full factors; rank:0.5: #1's decode
+# route on L[:, :K'], K' = 128/64, read in place), the verify (M = 4 x 5
+# rows) through #1's tensor-core route. Two request sets, each served
+# without spec and with each draft: all greedy on the dense cache, and
+# mixed (half at SPEC_MIXED) paged behind phase 25's system prompt
+SPEC_K, SPEC_NEW = 4, 32
+SPEC_DRAFTS = ("int8", "rank:0.5")
+SPEC_RANGES = ("spec_draft", "spec_verify", "spec_accept")
+SPEC_MIXED = SamplingParams(temperature=0.8, top_p=0.95)
+SPEC_RUNS = (("dense", "greedy"), ("paged", "mixed"))
+# the f32 check (``spec_f32``): phase 5's last four lengths through one
+# wave of the 4 slots, the int8 draft; the control keeps the draft's K/V
+# (``SPEC_CONTROL_NEW`` new tokens of the first prompt)
+SPEC_F32_LENGTHS = SERVE_LENGTHS[4:]
+SPEC_CONTROL_NEW = 12
+
+
+def range_split(prof, names) -> dict:
+    """Device ms of the kernels that start inside each of the profiler
+    ranges ``names`` (their device-side spans in the trace), summed by
+    range name; None where the trace holds no span of that name."""
+    spans, kernels = [], []
+    for e in prof.profiler.kineto_results.events():
+        if not str(e.device_type()).endswith("CUDA"):
+            continue
+        if e.name() in names:
+            spans.append((e.start_ns(), e.start_ns() + e.duration_ns(),
+                          e.name()))
+        elif e.name() not in RANGES:
+            kernels.append((e.start_ns(), e.duration_ns()))
+    if not spans:
+        return dict.fromkeys(names)
+    out = dict.fromkeys(names, 0.0)
+    for t, d in kernels:
+        for a, b, n in spans:
+            if a <= t < b:
+                out[n] += d / 1e6
+                break
+    return out
+
+
+def spec_engine(model, plan, spec, paged: bool, **kw):
+    """A 4-slot engine at max_cache 512, speculative with draft ``spec``
+    (None: not), paged with phase 25's pool settings where asked."""
+    api.uninstall(plan.model)
+    engine_kw = dict(PAGED_KW) if paged else {}
+    engine_kw.update(kw)
+    if spec:
+        engine_kw.update(spec_k=SPEC_K, draft=spec)
+    return ServeEngine(model, plan=plan, max_slots=4, max_cache=512,
+                       device="cuda", **engine_kw)
+
+
+def _count_launches(obj, name: str, into: dict) -> None:
+    """Add to ``into`` the kernel launches made inside each call of
+    ``obj.name`` (an engine's draft step), read from ``ops.launch_counts``
+    before and after the call."""
+    fn = getattr(obj, name)
+
+    def counted(*a, **kw):
+        before = ops.launch_counts()
+        out = fn(*a, **kw)
+        for k, v in ops.launch_counts().items():
+            into[k] = into.get(k, 0) + v - before[k]
+        return out
+
+    setattr(obj, name, counted)
+
+
+def spec_want(cfg, s, spec, prefills: int) -> dict:
+    """Exact launches of a serve run: per decode step (spec or not) and
+    per prefill call (dense) or chunk (paged) one forward of 168 sites;
+    a spec tick adds ``SPEC_K`` draft forwards (#6 for int8, #1 for
+    rank); #7 24 per dense prefill call only (the paged prefill and both
+    verifies attend plainly)."""
+    per_fwd = forward_counts(cfg)["sites"]
+    want = dict.fromkeys(ops.launch_counts(), 0)
+    want["lowrank_fwd"] = per_fwd * (s["decode_steps"] + prefills)
+    if spec == "int8":
+        want["lowrank_q8"] = per_fwd * SPEC_K * s["spec_steps"]
+    elif spec:
+        want["lowrank_fwd"] += per_fwd * SPEC_K * s["spec_steps"]
+    if not s["paged"]:
+        want["flash_attention"] = forward_counts(cfg)["flash"] * prefills
+    return want
+
+
+def draft_want(cfg, s, spec) -> dict:
+    """Exact launches of a run's draft steps alone: ``SPEC_K`` forwards a
+    tick through #6 (int8) or #1 (rank), nothing else."""
+    want = dict.fromkeys(ops.launch_counts(), 0)
+    want["lowrank_q8" if spec == "int8" else "lowrank_fwd"] = \
+        forward_counts(cfg)["sites"] * SPEC_K * s["spec_steps"]
+    return want
+
+
+def spec_serve(tag: str, cfg, model, plan, card: str, *, spec, paged: bool,
+               mixed: bool, prompts, engine_kw=None) -> dict:
+    """``prompts``, ``SPEC_NEW`` new tokens each, through ``spec_engine``
+    (after one warm-up request): every other one at ``SPEC_MIXED`` where
+    ``mixed``. TTFT, TPOT, decode tok/s, acceptance, tokens per verify,
+    the draft's extra bytes, the copies of an L view (must be 0), exact
+    launches of the run (``spec_want``) and of its draft steps alone
+    (``draft_want``, counted around ``ServeEngine._draft_step``); each
+    request's tokens are returned."""
+    eng = spec_engine(model, plan, spec, paged, **(engine_kw or {}))
+    calls = {"_prefill": 0}
+    if not paged:
+        _count_calls(eng, "_prefill", calls)
+    drafted: dict = {}
+    if spec:
+        _count_launches(eng, "_draft_step", drafted)
+    rng = np.random.default_rng(1)
+    eng.submit(list(map(int, rng.integers(0, cfg.vocab_size, 9))), max_new=2)
+    eng.run()
+    eng.reset_stats()
+    calls["_prefill"] = 0
+    drafted.clear()
+    torch.cuda.synchronize()
+    ops.reset_launches()
+    hs = [eng.submit(p, max_new=SPEC_NEW, sampling=dataclasses.replace(
+              SPEC_MIXED, seed=100 + i) if mixed and i % 2 else None)
+          for i, p in enumerate(prompts)]
+    eng.run()
+    torch.cuda.synchronize()
+    counts, copies = ops.launch_counts(), ops.copy_counts()
+    s = eng.summary()
+    for h in hs:
+        if not (h.finished and len(h.generated) == SPEC_NEW):
+            raise AssertionError(f"{tag} request {h.rid} ended {h.status} "
+                                 f"with {len(h.generated)} tokens")
+    prefills = s["prefill_chunks"] if paged else calls["_prefill"]
+    want = spec_want(cfg, s, spec, prefills)
+    if counts != want:
+        raise AssertionError(f"{tag} launches {counts} != {want} "
+                             f"({s['decode_steps']} decode steps, "
+                             f"{prefills} prefill calls)")
+    if spec:
+        drafted = {k: drafted.get(k, 0) for k in counts}
+        if drafted != draft_want(cfg, s, spec):
+            raise AssertionError(f"{tag} draft-step launches {drafted} != "
+                                 f"{draft_want(cfg, s, spec)}")
+    if any(copies.values()):
+        raise AssertionError(f"{tag}: the draft's L views were copied "
+                             f"{copies} times")
+    res = dict(ttft_ms_median=statistics.median(h.ttft_s for h in hs) * 1e3,
+               tpot_ms_median=statistics.median(h.tpot_s for h in hs) * 1e3,
+               decode_tok_s=s["decode_tok_s"],
+               decode_steps=s["decode_steps"], launches=counts,
+               draft_launches=drafted, copies=copies,
+               tokens=[h.generated for h in hs], prompts=prompts,
+               sampled=[bool(mixed and i % 2) for i in range(len(hs))],
+               draft_extra_mib=s.get("draft_extra_bytes", 0) / 2**20,
+               spec_page_shrinks=s["spec_page_shrinks"],
+               deferred=s["deferred"])
+    extra = ""
+    if spec:
+        res.update(acceptance_rate=s["acceptance_rate"],
+                   tokens_per_verify=s["tokens_per_verify"],
+                   spec_steps=s["spec_steps"])
+        extra = (f" acceptance_rate={s['acceptance_rate']:.3f} "
+                 f"tokens_per_verify={s['tokens_per_verify']:.3f} "
+                 f"verify_steps={s['spec_steps']} draft steps' launches "
+                 f"exact ({', '.join(f'{k} {v}' for k, v in drafted.items() if v)})"
+                 f" draft_extra_mib={res['draft_extra_mib']:.3f} L-view "
+                 "copies 0")
+    print(f"[{tag}] TTFT median {res['ttft_ms_median']:.3f} ms, TPOT "
+          f"median {res['tpot_ms_median']:.3f} ms, decode "
+          f"{res['decode_tok_s']:.1f} tok/s, {s['decode_steps']} decode "
+          f"ticks; launches exact ({', '.join(f'{k} {v}' for k, v in counts.items() if v)})"
+          f"{extra} | {card}", flush=True)
+    if paged:
+        eng.check_invariants()
+        eng.release_prefix_cache()
+        eng.check_invariants()
+        if eng.pool.pages_in_use:
+            raise AssertionError(f"{tag}: {eng.pool.pages_in_use} pages in "
+                                 "use after release_prefix_cache")
+    res["engine"] = eng
+    return res
+
+
+def greedy_margins(model, cfg, prompts, tokens) -> list:
+    """Each request's top-2 logit margin at each generated token (after
+    the first), from one teacher-forced forward over its prompt and
+    tokens on the card in the model's dtype."""
+    out = []
+    with torch.inference_mode():
+        for p, g in zip(prompts, tokens):
+            seq = torch.tensor([p + g[:-1]], device="cuda")
+            lg, _, _, _ = lm_forward(model, seq, cfg)
+            top = torch.topk(lg[0, len(p) - 1:].float(), 2, dim=-1).values
+            out.append((top[:, 0] - top[:, 1]).cpu().tolist())
+    return out
+
+
+def greedy_agreement(tag, base, run, margins, limit, card) -> dict:
+    """Greedy spec tokens against the non-spec run's, whole: the runs may
+    part only at a near-tie, a step whose top-2 margin (``margins``, from
+    the non-spec run's tokens, which the spec run shares up to there)
+    lies within ``limit``; after it their contexts differ and nothing
+    more is compared. The requests that part are printed with the step
+    and its margin."""
+    parted = {}
+    greedy = [r for r in range(len(base["tokens"])) if not base["sampled"][r]]
+    for r in greedy:
+        a, b = base["tokens"][r], run["tokens"][r]
+        d = next((j for j, (u, v) in enumerate(zip(a, b)) if u != v), None)
+        if d is None:
+            continue
+        if margins[r][d] > limit:
+            raise AssertionError(f"{tag} request {r}: spec token {b[d]} != "
+                                 f"non-spec {a[d]} at step {d}, whose top-2 "
+                                 f"margin {margins[r][d]:.4g} is no near-tie "
+                                 f"(limit {limit:.4g})")
+        parted[r] = dict(step=d, margin=margins[r][d])
+    where = ", ".join(f"{r}: ({p['step']}, {p['margin']:.4g})"
+                      for r, p in parted.items())
+    print(f"[{tag}] greedy tokens equal the non-spec run's in "
+          f"{len(greedy) - len(parted)} of {len(greedy)} requests, all "
+          f"{SPEC_NEW} tokens; the others part at a near-tie (top-2 margin "
+          f"<= {limit:.4g}) as request: (step, margin): {{{where}}} | "
+          f"{card}", flush=True)
+    return dict(parted=parted, whole=len(greedy) - len(parted),
+                greedy=len(greedy), limit=limit)
+
+
+def spec_verify_logits(cfg, model, card: str) -> dict:
+    """The dense verify pass against the f32 CPU (``logits_vs_cpu``): two
+    prompts prefilled to position 15, then one verify block of 4 tokens
+    at per-row offsets 15 (``lm_prefill`` with a (B,) ``pos`` and
+    ``valid_len``), whose 4 positions' logits are the CPU's prefill and 3
+    decode steps."""
+    plen, dec = 16, 4
+
+    def card_run(m, c, toks):
+        caches = init_lm_cache(c, len(toks), plen + dec,
+                               dtype=_dtype(c.dtype), device="cuda")
+        t = toks.to("cuda")
+        b = len(toks)
+        with torch.inference_mode():
+            lm_prefill(m, t[:, :plen - 1], c, caches=caches)
+            lg, _ = lm_prefill(
+                m, t[:, plen - 1:plen - 1 + dec], c, caches=caches,
+                pos=torch.full((b,), plen - 1, device="cuda"),
+                valid_len=torch.full((b,), dec, device="cuda"))
+        return [lg[r, j].float().cpu() for r in range(b) for j in range(dec)]
+
+    toks = torch.from_numpy(np.random.default_rng(26).integers(
+        0, cfg.vocab_size, (2, plen + dec)))
+    return logits_vs_cpu("spec_verify", cfg, model, card, prompt_len=plen,
+                         decode=dec, toks=toks, card_run=card_run)
+
+
+def _kv_gap(caches_a, slot_a, caches_b, slot_b, lo: int, hi: int):
+    """(RMS error, largest error) of one slot's K/V at positions lo..hi-1
+    against another's, each over the RMS of the second's values there,
+    the worst over every layer's K and V."""
+    worst = (0.0, 0.0)
+    for a, b in zip(_tree_leaves(caches_a), _tree_leaves(caches_b)):
+        for layer in range(a.shape[0]):
+            x = a[layer, slot_a, lo:hi].float()
+            y = b[layer, slot_b, lo:hi].float()
+            rms = y.square().mean().sqrt().item()
+            worst = (max(worst[0], (x - y).square().mean().sqrt().item()
+                         / rms),
+                     max(worst[1], (x - y).abs().max().item() / rms))
+    return worst
+
+
+def _valid(prompt, a, b) -> tuple:
+    """Positions whose K/V two runs of ``prompt`` share the context of:
+    generated token j lies at len(prompt) + j once it is fed back (the
+    last one never is), up to the first token the runs part on."""
+    same = next((j for j, (u, v) in enumerate(zip(a, b)) if u != v),
+                min(len(a), len(b)))
+    return len(prompt), len(prompt) + min(same, len(a) - 1, len(b) - 1)
+
+
+def spec_f32(cfg, card: str, rms: float) -> dict:
+    """qwen2-0.5b at full width and depth in f32 (the routes agree to
+    about 1e-6 there, where bf16's differ by as much as the int8 draft's
+    weights do): ``SPEC_F32_LENGTHS`` greedy, ``SPEC_NEW`` new tokens,
+    through one wave of a dense engine without spec and one with the
+    int8 draft. Greedy tokens whole (``greedy_agreement``, near-tie
+    limit the f32 largest-error limit ``F32_LOGIT_TOLS``); the rollback:
+    each request's generated positions' K/V, every layer (``_kv_gap``),
+    within ``F32_LOGIT_TOLS`` sqrt(L) of the RMS value of the
+    never-drafted run's. The control, one request through a spec engine
+    whose verify's cache writes are undone (the draft's K/V kept), must
+    fall outside those limits."""
+    cfg32 = cfg.replace(dtype="float32")
+    plan32 = api.install(api.resolve(cfg32))
+    model = init_lm(cfg32, device="cuda", seed=0)
+    rng = np.random.default_rng(264)
+    prompts = [list(map(int, rng.integers(0, cfg.vocab_size, n)))
+               for n in SPEC_F32_LENGTHS]
+    runs = {}
+    for spec in (None, "int8"):
+        eng = spec_engine(model, plan32, spec, False)
+        hs = [eng.submit(p, max_new=SPEC_NEW) for p in prompts]
+        eng.step()
+        slot = {r.rid: i for i, r in enumerate(eng.slots) if r is not None}
+        eng.run()
+        if not all(h.finished and len(h.generated) == SPEC_NEW for h in hs):
+            raise AssertionError(f"spec_f32 {spec}: a request ended short")
+        runs[spec] = dict(engine=eng, slots=[slot[h.rid] for h in hs],
+                          tokens=[h.generated for h in hs],
+                          sampled=[False] * len(hs), summary=eng.summary())
+    root = math.sqrt(cfg.n_layers)
+    limits = (F32_LOGIT_TOLS[0] * root, F32_LOGIT_TOLS[1] * root)
+    margins = greedy_margins(model, cfg32, prompts, runs[None]["tokens"])
+    agree = greedy_agreement("spec_f32_int8", runs[None], runs["int8"],
+                             margins, F32_LOGIT_TOLS[1] * root * rms, card)
+    base, spec = runs[None], runs["int8"]
+    worst, valid = (0.0, 0.0), 0
+    for r, p in enumerate(prompts):
+        lo, hi = _valid(p, base["tokens"][r], spec["tokens"][r])
+        valid += hi - lo
+        gap = _kv_gap(spec["engine"].caches, spec["slots"][r],
+                      base["engine"].caches, base["slots"][r], lo, hi)
+        worst = (max(worst[0], gap[0]), max(worst[1], gap[1]))
+    if not (worst[0] <= limits[0] and worst[1] <= limits[1]):
+        raise AssertionError(f"spec_f32 rollback: K/V RMS err {worst[0]:.3e}"
+                             f", max err {worst[1]:.3e} of the RMS value "
+                             f"(limits {limits[0]:.2e}, {limits[1]:.2e})")
+    ctl = spec_engine(model, plan32, "int8", False)
+    verify = ctl._verify
+
+    def verify_writes_undone(*a, **kw):
+        kept = [t.clone() for t in _tree_leaves(ctl.caches)]
+        out = verify(*a, **kw)
+        for t, k in zip(_tree_leaves(ctl.caches), kept):
+            t.copy_(k)
+        return out
+
+    ctl._verify = verify_writes_undone
+    h = ctl.submit(prompts[0], max_new=SPEC_CONTROL_NEW)
+    ctl.run()
+    lo, hi = _valid(prompts[0], base["tokens"][0][:SPEC_CONTROL_NEW],
+                    h.generated)
+    control = (_kv_gap(ctl.caches, 0, base["engine"].caches,
+                       base["slots"][0], lo, hi) if hi > lo else (0.0, 0.0))
+    if control[0] <= limits[0] and control[1] <= limits[1]:
+        raise AssertionError(f"spec_f32 control: the draft's K/V left in "
+                             f"place reads {control[0]:.3e} / "
+                             f"{control[1]:.3e}, inside the rollback limits")
+    s = spec["summary"]
+    print(f"[spec_f32] rollback: {len(prompts)} requests' generated "
+          f"positions ({valid} in all) of a spec run (int8 draft, "
+          f"acceptance {s['acceptance_rate']:.3f}) against a never-drafted "
+          f"run, every layer's K and V in f32: RMS error {worst[0]:.3e} of "
+          f"the RMS value (limit {limits[0]:.2e}), largest {worst[1]:.3e} "
+          f"(limit {limits[1]:.2e}); control (the verify's writes undone, "
+          f"the draft's K/V kept) over {hi - lo} positions: {control[0]:.3e}"
+          f" / {control[1]:.3e}, outside as it must be | {card}", flush=True)
+    out = dict(agreement=agree, rms_rel=worst[0], max_rel=worst[1],
+               valid_positions=valid, control_rms_rel=control[0],
+               control_max_rel=control[1], control_positions=hi - lo,
+               acceptance_rate=s["acceptance_rate"],
+               tokens_per_verify=s["tokens_per_verify"])
+    del runs, base, spec, ctl, model
+    api.uninstall(cfg32)
+    gc.collect()
+    torch.cuda.empty_cache()
+    return out
+
+
+def spec_starved(model, plan, cfg, card: str) -> dict:
+    """Phase 25's starved pool (65 pages of 16, 64 usable) under a
+    ``rank:0.5`` draft, filled exactly by three requests whose budgets end
+    on page boundaries: two of 448 + 16 tokens (29 pages each) and one of
+    80 + 16 (6 pages). Their prompts' pages stay held by live slots, so
+    nothing is free and nothing evictable when the first of them reaches
+    its last 3 tokens, where the verify block (4 positions past the
+    current one; the rank draft emits about one token a tick) runs past
+    its reservation: that tick's draft must shrink to the pages held
+    (``spec_page_shrinks``). Launches exact; the pool audited every tick
+    and empty after ``release_prefix_cache``."""
+    per_slot = pages_needed(512, PAGED_PAGE)
+    eng = spec_engine(model, plan, "rank:0.5", True,
+                      total_pages=2 * per_slot + 1)
+    rng = np.random.default_rng(263)
+    ops.reset_launches()
+    hs = [eng.submit(list(map(int, rng.integers(0, cfg.vocab_size, n))),
+                     max_new=new) for n, new in ((448, 16), (448, 16),
+                                                 (80, 16))]
+    if eng.pool.usable_pages != sum(
+            pages_needed(len(h.prompt) + h.sampling.max_new, PAGED_PAGE)
+            for h in hs):
+        raise AssertionError("spec_starved: the requests do not fill the "
+                             "pool")
+    while eng.busy:
+        eng.step()
+        eng.check_invariants()
+    torch.cuda.synchronize()
+    s = eng.summary()
+    counts = ops.launch_counts()
+    want = spec_want(cfg, s, "rank:0.5", s["prefill_chunks"])
+    if counts != want or any(ops.copy_counts().values()):
+        raise AssertionError(f"spec_starved: launches {counts} != {want}, "
+                             f"copies {ops.copy_counts()}")
+    if s["spec_page_shrinks"] < 1 or not all(h.finished for h in hs):
+        raise AssertionError(f"spec_starved: {s['spec_page_shrinks']} "
+                             "drafts shrunk (want >= 1)")
+    eng.release_prefix_cache()
+    eng.check_invariants()
+    if eng.pool.pages_in_use:
+        raise AssertionError(f"spec_starved: {eng.pool.pages_in_use} pages "
+                             "in use after release_prefix_cache")
+    print(f"[spec] starved pool ({eng.pool.total_pages} pages, filled by "
+          f"the three reservations): {s['spec_page_shrinks']} drafts "
+          f"shrunk to the pages held, {s['deferred']} deferrals, launches "
+          f"exact, audited every tick, 0 pages after release | {card}",
+          flush=True)
+    return dict(spec_page_shrinks=s["spec_page_shrinks"],
+                deferred=s["deferred"], launches=counts)
+
+
+def profile_spec(eng, cfg, card: str) -> dict:
+    """Device busy share of steady speculative decode: 4 requests, 3 spec
+    ticks under the profiler; device ms per tick and its split into the
+    draft steps, the verify and the accept (kernels starting inside each
+    of the engine's ``SPEC_RANGES``)."""
+    rng = np.random.default_rng(262)
+    hs = [eng.submit(list(map(int, rng.integers(0, cfg.vocab_size, 16))),
+                     max_new=20) for _ in range(4)]
+    while not all(h.generated for h in hs):
+        eng.step()
+    _, wall_us, prof, ev = profiled(lambda: [eng.step() for _ in range(3)])
+    eng.run()
+    dev_ms = sum(e.self_device_time_total for e in ev) / 1e3
+    split = range_split(prof, SPEC_RANGES)
+    per = {k: (None if v is None else v / 3) for k, v in split.items()}
+    print(f"[spec] 3 spec ticks (4 slots, k={SPEC_K}): wall "
+          f"{wall_us / 3e3:.3f} ms a tick, device busy {dev_ms / 3:.3f} ms a "
+          f"tick, busy share {dev_ms * 1e3 / wall_us:.3f}; device ms a tick: "
+          f"{', '.join(f'{k} {v:.3f}' if v is not None else f'{k} not measured' for k, v in per.items())}"
+          f" | {card}", flush=True)
+    return dict(tick_wall_ms=wall_us / 3e3, tick_device_ms=dev_ms / 3,
+                busy_share=dev_ms * 1e3 / wall_us, split_ms=per)
+
+
+def phase_spec(card: str) -> dict:
+    print("== phase 26: qwen2-0.5b served speculatively at full width and "
+          f"depth (24 layers, bf16): spec_k {SPEC_K}, {SPEC_NEW} new tokens, "
+          f"drafts {list(SPEC_DRAFTS)} (#6; #1 on L views) on the request "
+          f"sets {[f'{a} {b}' for a, b in SPEC_RUNS]}, each against the "
+          "same requests without spec; greedy and the rollback in f32",
+          flush=True)
+    cfg = configs.get("qwen2-0.5b")
+    plan = api.install(api.resolve(cfg))
+    model = init_lm(cfg, device="cuda", seed=0)
+    system = list(map(int, np.random.default_rng(25).integers(
+        0, cfg.vocab_size, PAGED_SYSTEM)))
+    rng = np.random.default_rng(260)
+    body = [list(map(int, rng.integers(0, cfg.vocab_size, n)))
+            for n in SERVE_LENGTHS]
+    out: dict = {"verify_logits": spec_verify_logits(cfg, model, card)}
+    api.install(plan)
+    rms = statistics.median(e["rms"] for e in out["verify_logits"]["steps"])
+    limit = LOGIT_MAX_TOL * math.sqrt(cfg.n_layers) * rms
+    for layout, mix in SPEC_RUNS:
+        paged, mixed = layout == "paged", mix == "mixed"
+        prompts = [system + p for p in body] if paged else body
+        key = f"{layout}_{mix}"
+        base = spec_serve(f"spec_{key}_none", cfg, model, plan, card,
+                          spec=None, paged=paged, mixed=mixed,
+                          prompts=prompts)
+        margins = greedy_margins(
+            model, cfg, prompts, [t if not smp else [0, 0] for t, smp in
+                                  zip(base["tokens"], base["sampled"])])
+        runs = {"none": base}
+        for draft in SPEC_DRAFTS:
+            run = spec_serve(f"spec_{key}_{draft}", cfg, model, plan,
+                             card, spec=draft, paged=paged, mixed=mixed,
+                             prompts=prompts)
+            run["agreement"] = greedy_agreement(f"spec_{key}_{draft}", base,
+                                                run, margins, limit, card)
+            if draft == "int8" and not paged:
+                run["profile"] = profile_spec(run["engine"], cfg, card)
+            runs[draft] = run
+        for r in runs.values():
+            del r["engine"]
+        out[key] = runs
+        print(f"[spec] {key}, spec against none: " + "; ".join(
+            f"{d}: TPOT median {r['tpot_ms_median']:.3f} / "
+            f"{base['tpot_ms_median']:.3f} ms, TTFT median "
+            f"{r['ttft_ms_median']:.3f} / {base['ttft_ms_median']:.3f} ms, "
+            f"decode tok/s {r['decode_tok_s']:.1f} / "
+            f"{base['decode_tok_s']:.1f}, acceptance "
+            f"{r['acceptance_rate']:.3f}, tokens per verify "
+            f"{r['tokens_per_verify']:.3f}, draft extra MiB "
+            f"{r['draft_extra_mib']:.3f}"
+            for d, r in runs.items() if d != "none") + f" | {card}",
+            flush=True)
+    out["starved"] = spec_starved(model, plan, cfg, card)
+    api.uninstall(cfg)
+    del model
+    gc.collect()
+    torch.cuda.empty_cache()
+    out["f32"] = spec_f32(cfg, card, rms)
+    # the draft steps' own launches in the dense greedy runs (counted
+    # around ServeEngine._draft_step): #6 on the int8 draft's full
+    # factors, #1's decode route on the rank draft's L views
+    out["draft_launches"] = {
+        "lowrank_q8": out["dense_greedy"]["int8"]["draft_launches"][
+            "lowrank_q8"],
+        "lowrank_fwd": out["dense_greedy"]["rank:0.5"]["draft_launches"][
+            "lowrank_fwd"]}
+    api.install(plan)
+    return out
+
+
 def main() -> None:
     ap = argparse.ArgumentParser(description=__doc__.splitlines()[0])
     ap.add_argument("--json", default="",
@@ -5407,6 +6089,7 @@ def main() -> None:
     z_train = run(23, phase_zamba2_train, card)
     falcon = run(24, phase_falcon_mamba, card)
     paged = run(25, phase_paged, card)
+    spec = run(26, phase_spec, card)
 
     head = k["headline"]
     kernels = [{
@@ -5467,6 +6150,29 @@ def main() -> None:
         "max_abs_err": ssd["worst"], "ms": h["ms"], "plain_ms": h["plain_ms"],
         "bound_ms": h["bound_ms"], "bound_by": h["bound_by"],
         "library_ms": None})
+    # phase 26's draft steps, launches counted around the engine's draft
+    # step: #1's decode route on the rank:0.5 draft's L views (timed on
+    # those views, one draft decode layer's 7 sites at M = 4), and #6 on
+    # the int8 draft's full factors (the work of phase 9's decode-layer
+    # headline, M = 4). Phase 9's rows of #6 on an int8 L's column views
+    # have no launches here: no phase serves an int8 engine through a
+    # rank draft
+    for name, src, tpu, head, err, n in (
+            ("lowrank_fwd_draft", "lowrank_decode.cu", "lowrank.py:58",
+             k["draft_headline"],
+             max(r["max_abs_err"] for r in k["draft_rows"]),
+             spec["draft_launches"]["lowrank_fwd"]),
+            ("lowrank_q8_draft", "lowrank_q8_routes.cu", "quant.py:38",
+             q8["headline"], q8["worst"],
+             spec["draft_launches"]["lowrank_q8"])):
+        kernels.append({
+            "name": name, "route": "cuda",
+            "source": f"src/repro_torch/kernels/csrc/{src}",
+            "replaces": f"src/repro/kernels/{tpu}", "launches": n,
+            "max_abs_err": err,
+            "ms": head["ms"], "plain_ms": head["plain_ms"],
+            "bound_ms": head["bound_ms"], "bound_by": head["bound_by"],
+            "library_ms": head["library_ms"]})
     line = {"kernels": kernels}
     if args.json:
         os.makedirs(os.path.dirname(os.path.abspath(args.json)),
@@ -5503,7 +6209,7 @@ def main() -> None:
                        "tinyllama": tiny, "dense_configs": dense,
                        "project": project, "ssd_grad": ssd_grad,
                        "zamba2_train": z_train, "falcon_mamba": falcon,
-                       "paged": paged,
+                       "paged": paged, "spec": spec,
                        "kernels": line["kernels"],
                        "phase_seconds": seconds,
                        "seconds": time.perf_counter() - t_start}, f,

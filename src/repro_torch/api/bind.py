@@ -138,7 +138,10 @@ def apply(spec: LinearSpec, p: Mapping[str, torch.Tensor], x: torch.Tensor,
     if is_quantized(p):
         # int8 deployment (plan.quantized + convert.quantize): the scales
         # fold into the products, no dequantized weight is ever formed
-        if spec.quant is None:
+        if spec.quant is None and spec.draft != "int8":
+            # a draft-stamped spec sees both layouts: the f32 params on
+            # the verify pass, the int8 draft's (convert.draft_view) on
+            # the draft steps
             raise ValueError(
                 f"site {spec.name}: params are quantized but the spec is "
                 "not; serve under plan.quantized(...)")
@@ -203,6 +206,21 @@ def linear_layout(p) -> str:
     if "L" in p:
         return "factored"
     return "dense"
+
+
+def draft_slice(p, k: int) -> dict:
+    """The rank-k draft view of a factored linear dict: the leading k
+    columns of L and rows of R (and the matching sR entries of an int8
+    site; sL scales output channels and stays). Views of the resident
+    factors, sharing their storage: the draft costs no weights. L's view
+    keeps the row stride of the full rank, which the decode routes of
+    kernels #1 and #6 read in place."""
+    out = dict(p.items())
+    out["L"] = p["L"][..., :k]
+    out["R"] = p["R"][..., :k, :]
+    if "sR" in p:
+        out["sR"] = p["sR"][..., :k]
+    return out
 
 
 def dense_weight(v):

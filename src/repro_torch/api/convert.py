@@ -15,7 +15,9 @@ Every function returns a new nested dict/list; ``api.bridge
 The plan rides in the checkpoint's manifest, so ``load_checkpoint(dir)``
 rebuilds (params, plan) with no config in hand.
 
-``draft_view`` (speculative decoding) is not ported yet.
+``draft_view(model, plan)`` gives speculative decoding's draft: a
+``LanguageModel`` beside the target that shares its storage (``rank:``)
+or packs its sites to int8.
 """
 from __future__ import annotations
 
@@ -136,6 +138,74 @@ def dequantize(params, plan: SubspacePlan):
 
     return _walk_linears(params, plan,
                          lambda spec, p: dequantize_linear(p, spec))
+
+
+def _draft_linear(spec: LinearSpec, p):
+    """One linear dict's draft under its stamped spec (``draft_view``)."""
+    import dataclasses
+
+    from torch import nn
+
+    from repro_torch.api.bind import draft_slice
+    from repro_torch.quant.quantize import quantize_linear
+
+    if spec.draft is None:
+        return p
+    with torch.no_grad():
+        if spec.draft == "int8":
+            if is_quantized(p):
+                return p
+            out = quantize_linear(p, dataclasses.replace(spec, quant="int8"))
+        elif linear_layout(p) != "factored":
+            return p
+        else:
+            out = draft_slice(p, int(spec.draft.split(":", 1)[1]))
+    if not isinstance(p, nn.ParameterDict):
+        return out
+    return nn.ParameterDict({
+        k: v if isinstance(v, nn.Parameter)
+        else nn.Parameter(v, requires_grad=False) for k, v in out.items()})
+
+
+def draft_view(params, plan: SubspacePlan):
+    """The speculative-decoding draft of a draft-stamped plan
+    (``plan.with_draft(...)``).
+
+    ``int8`` packs every draft-stamped site to int8 + per-channel scales,
+    ``convert.quantize``'s packed copy (sites already int8 pass through:
+    the draft is then the serving weights); ``rank:<k>`` slices the
+    leading k columns of each factored site's L and rows of its R
+    (``bind.draft_slice``). A ``LanguageModel`` gives a ``LanguageModel``
+    that shares every module the draft does not change (embeddings, norms,
+    unstamped sites) and whose sliced leaves are frozen ``nn.Parameter``s
+    over the target's storage: nothing is copied, no leaf requires grad. A
+    plain tree gives a nested dict/list, as the other conversions do."""
+    from torch import nn
+
+    from repro_torch.models.lm import LanguageModel
+
+    if not isinstance(params, LanguageModel):
+        return _walk_linears(params, plan, _draft_linear)
+
+    def walk(node):
+        if isinstance(node, nn.ModuleList):
+            return nn.ModuleList(walk(v) for v in node)
+        if not isinstance(node, nn.ModuleDict):
+            return node
+        out = {}
+        for key, v in node.items():
+            if key in LEAF_TO_SPEC and is_linear_params(v):
+                name, role = LEAF_TO_SPEC[key]
+                o, i = linear_dims(v)
+                out[key] = _draft_linear(plan.linear(name, i, o, role=role),
+                                         v)
+            else:
+                out[key] = walk(v)
+        return nn.ModuleDict(out)
+
+    return LanguageModel(params.cfg, params.embed, params.final_norm,
+                         walk(params.groups), getattr(params, "lm_head", None),
+                         getattr(params, "shared_attn", None))
 
 
 def load_plan(ckpt_dir: str, step: int | None = None) -> SubspacePlan | None:

@@ -24,7 +24,7 @@ Differences from the reference, all deliberate:
 * Calibration reads tensors on any device (or numpy arrays): each
   slice's singular values come from its own device
   (``core.svd.pick_rank``), the card's for a model on the card.
-* Of the deployment stamps, ``quantized`` is ported; ``with_draft``,
+* Of the deployment stamps, ``quantized`` and ``with_draft`` are ported;
   ``with_adapter`` and ``with_sharding`` are not yet. Their fields still
   load from JSON.
 """
@@ -264,6 +264,45 @@ class SubspacePlan:
     @property
     def is_quantized(self) -> bool:
         return any(s.quant is not None for s in self.specs)
+
+    def with_draft(self, source: str = "int8") -> "SubspacePlan":
+        """Stamp a speculative-decoding draft view per site.
+
+        ``source`` is ``"int8"`` (every packable site, factored pairs and
+        dense 2-D weights, drafts through the int8 kernel) or
+        ``"rank:<frac>"`` (factored sites draft through the leading
+        ``max(1, int(frac * rank))`` columns of L and rows of R; dense sites
+        have no narrower view and stay unstamped, so the draft runs them at
+        full precision). The stamp never changes the verify pass:
+        ``bind.apply`` reads ``draft`` only to permit the draft's int8
+        layout under an f32 spec, and ``convert.draft_view`` builds the
+        draft's params."""
+        if source == "int8":
+            specs = tuple(dataclasses.replace(s, draft="int8")
+                          if s.mode in ("factored", "dense") else s
+                          for s in self.specs)
+        elif source.startswith("rank:"):
+            frac = float(source.split(":", 1)[1])
+            if not 0.0 < frac <= 1.0:
+                raise ValueError(f"draft rank fraction must be in (0, 1]: "
+                                 f"{source!r}")
+            specs = tuple(
+                dataclasses.replace(
+                    s, draft=f"rank:{max(1, int(frac * s.rank))}")
+                if s.mode == "factored" and s.rank > 0 else s
+                for s in self.specs)
+        else:
+            raise ValueError(f"unknown draft source {source!r} "
+                             "(expected 'int8' or 'rank:<frac>')")
+        return dataclasses.replace(self, specs=specs)
+
+    @property
+    def draft_source(self) -> str | None:
+        """"int8" | "rank" | None: the stamped draft family, if any."""
+        for s in self.specs:
+            if s.draft is not None:
+                return "int8" if s.draft == "int8" else "rank"
+        return None
 
     def summary(self) -> str:
         """Human-readable one-line-per-site table (the reference's, less

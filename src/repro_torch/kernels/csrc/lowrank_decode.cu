@@ -77,19 +77,21 @@ int lowrank_decode_smem_bytes(int nt, int K) {
   return decode::smem_bytes<uint16_t>(nt, K);
 }
 
-// x (M, I), r (K, I), l (O, K) row-major, one dtype (0 = float32, 1 =
-// bfloat16); y (M, O) in that dtype; h (M, K) f32 scratch. nt: n8 tiles
-// (1, 2 or 4; 8 nt >= M). wk_h, wk_y: warps along the reduction in a block
-// of each launch (1, 2, 4 or 8). cluster: blocks of a cluster along I in
-// the first launch (1-8). Widths multiples of 8, bases 16-byte aligned.
+// x (M, I), r (K, I) row-major, l (O, K) with rows ldl >= K apart (K for a
+// contiguous L, the full rank for a rank draft's leading columns), one
+// dtype (0 = float32, 1 = bfloat16); y (M, O) in that dtype; h (M, K) f32
+// scratch. nt: n8 tiles (1, 2 or 4; 8 nt >= M). wk_h, wk_y: warps along
+// the reduction in a block of each launch (1, 2, 4 or 8). cluster: blocks
+// of a cluster along I in the first launch (1-8). Widths and ldl multiples
+// of 8, bases 16-byte aligned.
 int lowrank_decode(const void* x, const void* r, const void* l, void* y,
-                   float* h, int M, int I, int K, int O, int dtype, int nt,
-                   int wk_h, int cluster, int wk_y, void* stream) {
+                   float* h, int M, int I, int K, int O, int ldl, int dtype,
+                   int nt, int wk_h, int cluster, int wk_y, void* stream) {
   if (M <= 0 || O <= 0) return 0;
-  if (int err = decode::check(M, nt, cluster)) return err;
+  if (int err = decode::check(M, nt, cluster, K, ldl)) return err;
   cudaStream_t st = static_cast<cudaStream_t>(stream);
-  decode::Args gh{r, x, h, M, K, I, wk_h, 0, nullptr};
-  decode::Args gy{l, h, y, M, O, K, wk_y, dtype == 1, nullptr};
+  decode::Args gh{r, x, h, M, K, I, wk_h, 0, nullptr, I};
+  decode::Args gy{l, h, y, M, O, K, wk_y, dtype == 1, nullptr, ldl};
   using decode::launch;
   using bf16 = uint16_t;
   const bool f32 = dtype == 0;

@@ -19,6 +19,13 @@
 // cluster's rank-ordered sum, and y = h Lq^T by sL at the store.
 // kernels/lowrank.py::decode_plan (its `slice` is 4 V) and decode_smem_bytes
 // mirror the grid and the staged bytes.
+//
+// The weight's rows may lie further apart than its width (Args::lda): a
+// rank draft reads the leading K' columns of the resident L (O, K) where
+// they lie, rows K apart, with no copy. Each lane's 16-byte load then
+// needs lda to keep 16-byte rows: a multiple of 8 elements for bf16 and
+// f32 weights, of 16 for int8 (kernels/lowrank.py::aligned, quant.py's
+// q8_route).
 #pragma once
 
 #include <cooperative_groups.h>
@@ -160,13 +167,15 @@ __device__ __forceinline__ void reduce_warps(const float (&acc)[NT][4],
 }
 
 struct Args {
-  const void* a;   // (N, J) row-major: R, then L
+  const void* a;   // (N, J) rows lda apart: R, then L
   const void* b;   // (M, J) row-major: x (first product), h f32 (second)
   void* out;       // h f32 (M, N) (first), y (M, N) in x's dtype (second)
   int M, N, J;
   int wk;          // warps along J in a block (1, 2, 4 or 8)
   int out_bf16;
   const float* scale;  // int8 weights: the per-row scales of a (N,)
+  int lda;         // row stride of a in elements, >= J: J for a contiguous
+                   // factor, the full rank for a rank draft's L[:, :K']
 };
 
 // h (M, K) = x R^T. grid (cluster, ceil(K / (16 * 8 / wk))), clusters of
@@ -204,8 +213,8 @@ __global__ void __launch_bounds__(THREADS) decode_h(const Args g) {
     for (int q = 0; q < U; ++q) {
       const int j = (u + q) * SLICE + V * tq;
       const bool in = u + q < u1 && j < g.J;
-      a0[q].load(g.a, static_cast<size_t>(ra) * g.J + j, in && ra < g.N);
-      a1[q].load(g.a, static_cast<size_t>(rb) * g.J + j, in && rb < g.N);
+      a0[q].load(g.a, static_cast<size_t>(ra) * g.lda + j, in && ra < g.N);
+      a1[q].load(g.a, static_cast<size_t>(rb) * g.lda + j, in && rb < g.N);
 #pragma unroll
       for (int nt = 0; nt < NT; ++nt) {
         const int m = nt * 8 + gq;
@@ -277,8 +286,8 @@ __global__ void __launch_bounds__(THREADS) decode_y(const Args g) {
     for (int q = 0; q < U; ++q) {
       const int j = (u + q) * SLICE + V * tq;
       const bool in = u + q < u1 && j < g.J;
-      a0[q].load(g.a, static_cast<size_t>(ra) * g.J + j, in && ra < g.N);
-      a1[q].load(g.a, static_cast<size_t>(rb) * g.J + j, in && rb < g.N);
+      a0[q].load(g.a, static_cast<size_t>(ra) * g.lda + j, in && ra < g.N);
+      a1[q].load(g.a, static_cast<size_t>(rb) * g.lda + j, in && rb < g.N);
     }
   };
   // L does not depend on h: the first slices load while the first launch
@@ -391,10 +400,11 @@ int launch(const Args& gh, const Args& gy, int cluster, cudaStream_t st) {
   return static_cast<int>(cudaGetLastError());
 }
 
-// Check the launch shape both entry points share (0 = fine).
-inline int check(int M, int nt, int cluster) {
+// Check the launch shape both entry points share (0 = fine): the row
+// stride of L holds its K values.
+inline int check(int M, int nt, int cluster, int K, int ldl) {
   if (nt < 1 || nt > MAX_NT || 8 * nt < M || cluster < 1 ||
-      cluster > MAX_CLUSTER)
+      cluster > MAX_CLUSTER || ldl < K)
     return static_cast<int>(cudaErrorInvalidValue);
   return 0;
 }

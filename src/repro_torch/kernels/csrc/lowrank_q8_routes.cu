@@ -52,17 +52,18 @@ int lowrank_q8_decode_smem_bytes(int nt, int K) {
 }
 
 // The decode route. x (M, I) in dtype (0 = float32, 1 = bfloat16); rq, lq
-// int8; rs, ls f32; y (M, O) in x's dtype; h (M, K) f32 scratch. nt, wk_h,
-// cluster, wk_y as lowrank_decode's.
+// int8, lq's rows ldl apart (>= K, a multiple of 16); rs, ls f32; y (M, O)
+// in x's dtype; h (M, K) f32 scratch. nt, wk_h, cluster, wk_y as
+// lowrank_decode's.
 int lowrank_q8_decode(const void* x, const void* rq, const float* rs,
                       const void* lq, const float* ls, void* y, float* h,
-                      int M, int I, int K, int O, int dtype, int nt, int wk_h,
-                      int cluster, int wk_y, void* stream) {
+                      int M, int I, int K, int O, int ldl, int dtype, int nt,
+                      int wk_h, int cluster, int wk_y, void* stream) {
   if (M <= 0 || O <= 0) return 0;
-  if (int err = decode::check(M, nt, cluster)) return err;
+  if (int err = decode::check(M, nt, cluster, K, ldl)) return err;
   cudaStream_t st = static_cast<cudaStream_t>(stream);
-  decode::Args gh{rq, x, h, M, K, I, wk_h, 0, rs};
-  decode::Args gy{lq, h, y, M, O, K, wk_y, dtype == 1, ls};
+  decode::Args gh{rq, x, h, M, K, I, wk_h, 0, rs, I};
+  decode::Args gy{lq, h, y, M, O, K, wk_y, dtype == 1, ls, ldl};
   using decode::launch;
   using i8 = int8_t;
   using bf16 = uint16_t;

@@ -44,6 +44,12 @@ LAUNCHES: dict[str, int] = {"lowrank_fwd": 0, "lowrank_q8": 0,
                             "ssd_scan": 0}
 TRAIN_LAUNCHES: dict[str, int] = {"lowrank_fwd_sketch": 0, "lowrank_bwd": 0,
                                   "gram": 0, "choleskyqr": 0}
+#: copies of an L that the route taking a call cannot read where it lies,
+#: per wrapper: ``lowrank_fused`` and ``quant.lowrank_q8`` read a row view
+#: (``row_view``) in place on their decode routes and copy it, counted
+#: here, on any other route; ``ops.reset_launches`` zeroes them beside the
+#: launch counts, ``ops.copy_counts`` reads them
+COPIES: dict[str, int] = {"lowrank_fwd": 0, "lowrank_q8": 0}
 
 CLUSTER = 8           # CTAs per thread-block cluster (csrc: CL)
 SMS = 132             # streaming multiprocessors of an H100 SXM
@@ -137,8 +143,41 @@ def dtype_code(op: str, t: torch.Tensor) -> int:
     return _DTYPES[t.dtype]
 
 
+def row_view(t: torch.Tensor) -> bool:
+    """A 2-D tensor of unit-stride rows that lie at least its width apart:
+    a contiguous matrix, or the leading columns of one (a rank draft's
+    ``L[:, :K']``, rows K apart)."""
+    return t.dim() == 2 and (t.shape[0] <= 1 or t.stride(0) >= t.shape[1]) \
+        and (t.shape[1] <= 1 or t.stride(1) == 1)
+
+
+def check_factor(op: str, name: str, t: torch.Tensor, like: torch.Tensor
+                 ) -> None:
+    """The checks ``check_cuda`` makes, for a factor the decode routes may
+    read as a ``row_view`` in place of a contiguous matrix."""
+    if t.device != like.device:
+        raise ValueError(f"{op}: {name} is on {t.device}, x on "
+                         f"{like.device}")
+    if not row_view(t):
+        raise ValueError(f"{op}: {name} must be 2-D with unit-stride rows "
+                         f"at least its width apart, got shape "
+                         f"{tuple(t.shape)} strides {t.stride()}")
+    if t.shape[0] * max(t.stride(0), 1) >= 2 ** 31:
+        raise ValueError(f"{op}: {name} too large for 32-bit sizes")
+
+
+def counted_copy(l: torch.Tensor, counter: str) -> torch.Tensor:
+    """A contiguous copy of an L view for a route that cannot read it where
+    it lies (any route but the decode routes), made in the open and
+    counted in ``COPIES[counter]``: the copy goes to a kernel, whose route
+    the caller decides again; nothing falls back to the plain version."""
+    COPIES[counter] += 1
+    return l.contiguous()
+
+
 def _check(x: torch.Tensor, r: torch.Tensor, l: torch.Tensor) -> None:
-    check_cuda("lowrank_fused", x=x, R=r, L=l)
+    check_cuda("lowrank_fused", x=x, R=r)
+    check_factor("lowrank_fused", "L", l, x)
     for name, t in (("x", x), ("R", r), ("L", l)):
         if t.dim() != 2:
             raise ValueError(f"lowrank_fused: {name} must be 2-D, got "
@@ -155,7 +194,10 @@ def _check(x: torch.Tensor, r: torch.Tensor, l: torch.Tensor) -> None:
 def lowrank_fused(x: torch.Tensor, r_factor: torch.Tensor,
                   l_factor: torch.Tensor, *, save_sketch: bool = False):
     """y (M, O) = x (M, I) R^T (I, K) L^T (K, O) on the current stream.
-    bf16 or f32; all three of one dtype. Without ``save_sketch`` the route
+    bf16 or f32; all three of one dtype. L may be a ``row_view`` (a rank
+    draft's leading columns): the decode route reads it in place, any
+    other route a counted copy (``counted_copy``). Without
+    ``save_sketch`` the route
     is ``forward_route``'s: the two launches of ``lowrank_decode.cu``, the
     two tensor-core launches of ``lowrank_sketch.cu`` (no h stored), or
     one launch of ``lowrank_fwd.cu``; a call counts one launch of
@@ -175,20 +217,25 @@ def lowrank_fused(x: torch.Tensor, r_factor: torch.Tensor,
                          "written by the CTAs that compute y)")
     if m == 0 or o == 0:
         return (y, h) if save_sketch else y
+    route = ("sketch" if save_sketch else
+             forward_route(m, i, k, o, x.dtype, (x, r_factor, l_factor)))
+    if route != "decode" and not l_factor.is_contiguous():
+        l_factor = counted_copy(l_factor, "lowrank_fwd")
+        if not save_sketch:
+            route = forward_route(m, i, k, o, x.dtype,
+                                  (x, r_factor, l_factor))
+    if route in ("decode", "tensor_core"):
+        if route == "decode":
+            _decode(x, r_factor, l_factor, y)
+        else:
+            _sketch_bf16(x, r_factor, l_factor, y, None)
+        LAUNCHES["lowrank_fwd"] += 1
+        return y
     if save_sketch and tensor_core_route(x.dtype, (i, k, o),
                                          (x, r_factor, l_factor)):
         _sketch_bf16(x, r_factor, l_factor, y, h)
         TRAIN_LAUNCHES["lowrank_fwd_sketch"] += 1
         return y, h
-    if not save_sketch:
-        route = forward_route(m, i, k, o, x.dtype, (x, r_factor, l_factor))
-        if route != "fused":
-            if route == "decode":
-                _decode(x, r_factor, l_factor, y)
-            else:
-                _sketch_bf16(x, r_factor, l_factor, y, None)
-            LAUNCHES["lowrank_fwd"] += 1
-            return y
     cfg = launch_config(m, k, o)
     lib = _lib()
     args = (m, i, k, o, _DTYPES[x.dtype], cfg.bm, cfg.ks, cfg.oc, cfg.groups)
@@ -335,10 +382,13 @@ PIECES_F32_OUT = 3
 
 
 def aligned(widths, tensors) -> bool:
-    """Every width a multiple of 8 and every base 16-byte aligned: what
-    the 16-byte copies of the tensor-core and decode kernels need."""
+    """Every width a multiple of 8, every base 16-byte aligned and every
+    2-D tensor's rows a multiple of 8 elements apart (a rank draft's L
+    view: its row stride ldl, the full rank): what the 16-byte copies of
+    the tensor-core and decode kernels need."""
     return (all(w % 8 == 0 for w in widths)
-            and all(t.data_ptr() % 16 == 0 for t in tensors))
+            and all(t.data_ptr() % 16 == 0 for t in tensors)
+            and all(t.stride(0) % 8 == 0 for t in tensors if t.dim() == 2))
 
 
 def tensor_core_route(dtype: torch.dtype, widths, tensors) -> bool:
@@ -563,14 +613,15 @@ def _decode_lib() -> ctypes.CDLL:
     if lib.lowrank_decode.argtypes is None:
         lib.lowrank_decode.restype = ctypes.c_int
         lib.lowrank_decode.argtypes = [ctypes.c_void_p] * 5 \
-            + [ctypes.c_int] * 9 + [ctypes.c_void_p]
+            + [ctypes.c_int] * 10 + [ctypes.c_void_p]
         lib.lowrank_decode_smem_bytes.restype = ctypes.c_int
         lib.lowrank_decode_smem_bytes.argtypes = [ctypes.c_int] * 2
     return lib
 
 
 def _decode(x, r_factor, l_factor, y) -> None:
-    """Launch the decode route into y; h (M, K) f32 is scratch of this
+    """Launch the decode route into y, L read where it lies (rows
+    ``l_factor.stride(0)`` apart); h (M, K) f32 is scratch of this
     call."""
     m, i = x.shape
     k, o = r_factor.shape[0], l_factor.shape[0]
@@ -580,8 +631,8 @@ def _decode(x, r_factor, l_factor, y) -> None:
         stream = torch.cuda.current_stream(x.device).cuda_stream
         err = _decode_lib().lowrank_decode(
             x.data_ptr(), r_factor.data_ptr(), l_factor.data_ptr(),
-            y.data_ptr(), h.data_ptr(), m, i, k, o, _DTYPES[x.dtype], *plan,
-            stream)
+            y.data_ptr(), h.data_ptr(), m, i, k, o, l_factor.stride(0),
+            _DTYPES[x.dtype], *plan, stream)
     if err != 0:
         raise RuntimeError(f"lowrank_decode launch failed: CUDA error {err} "
                            f"(M={m} I={i} K={k} O={o} {plan})")

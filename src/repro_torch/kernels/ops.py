@@ -10,6 +10,8 @@ of an int8 deployment, ``matmul_tiled`` of the two-launch baseline,
 ``flash_attention`` and ``ssd_scan``),
 ``TRAIN_LAUNCHES`` the kernels training reaches (``lowrank_fwd_sketch``,
 ``lowrank_bwd``, ``gram``, ``choleskyqr``); ``launch_counts`` reads both.
+``copy_counts`` reads the copies of an L view (a rank draft's leading
+columns) that a route other than the decode routes had to make.
 """
 from __future__ import annotations
 
@@ -19,10 +21,12 @@ from repro_torch.kernels import ref
 from repro_torch.kernels.flash_attention import flash_attention_cuda
 from repro_torch.kernels.gram import gram as _gram_kernel
 from repro_torch.kernels.lowrank import (
+    COPIES,
     LAUNCHES,
     TRAIN_LAUNCHES,
     lowrank_bwd,
     lowrank_fused,
+    row_view,
 )
 from repro_torch.kernels.matmul_tiled import matmul_tiled
 from repro_torch.kernels.qr import choleskyqr
@@ -30,14 +34,15 @@ from repro_torch.kernels.quant import lowrank_q8
 from repro_torch.kernels.ssd_scan import ssd_scan_cuda
 
 __all__ = ["LAUNCHES", "TRAIN_LAUNCHES", "cholesky_qr_mix", "choleskyqr_fused",
-           "dense_matmul_q8", "flash_attention", "gram", "launch_counts",
-           "lowrank_bwd_fused", "lowrank_matmul", "lowrank_matmul_q8",
+           "copy_counts", "dense_matmul_q8", "flash_attention", "gram",
+           "launch_counts", "lowrank_bwd_fused", "lowrank_matmul", "lowrank_matmul_q8",
            "lowrank_matmul_q8_fused", "lowrank_matmul_unfused", "matmul",
            "reset_launches", "ssd_scan"]
 
 
 def reset_launches() -> None:
-    for counts in (LAUNCHES, TRAIN_LAUNCHES):
+    """Zero every launch count and the factor copies (``copy_counts``)."""
+    for counts in (LAUNCHES, TRAIN_LAUNCHES, COPIES):
         for name in counts:
             counts[name] = 0
 
@@ -45,6 +50,13 @@ def reset_launches() -> None:
 def launch_counts() -> dict[str, int]:
     """Every kernel's launches: {name: count}."""
     return {**LAUNCHES, **TRAIN_LAUNCHES}
+
+
+def copy_counts() -> dict[str, int]:
+    """Contiguous copies of an L view made because the route taking the
+    call could not read it in place: {wrapper: count}
+    (``lowrank.COPIES``)."""
+    return dict(COPIES)
 
 
 def _on_cpu(t: torch.Tensor) -> bool:
@@ -96,8 +108,16 @@ def lowrank_matmul(x: torch.Tensor, r_factor: torch.Tensor,
     if _on_cpu(x):
         return ref.lowrank_matmul_ref(x, r_factor, l_factor)
     x2 = x.reshape(-1, x.shape[-1]).contiguous()
-    y = lowrank_fused(x2, r_factor.contiguous(), l_factor.contiguous())
+    y = lowrank_fused(x2, r_factor.contiguous(), _factor(l_factor))
     return y.reshape(*lead, l_factor.shape[0])
+
+
+def _factor(l_factor: torch.Tensor) -> torch.Tensor:
+    """L as the kernel wrappers take it: a ``row_view`` (a rank draft's
+    leading columns, rows the full rank apart) as it lies, which the
+    decode routes read in place and any other route copies and counts
+    (``lowrank.counted_copy``); another layout contiguous."""
+    return l_factor if row_view(l_factor) else l_factor.contiguous()
 
 
 def matmul(a: torch.Tensor, b: torch.Tensor) -> torch.Tensor:
@@ -142,7 +162,7 @@ def lowrank_matmul_q8(x: torch.Tensor, r_q: torch.Tensor,
         return ref.lowrank_q8_ref(x, r_q, r_s, l_q, l_s)
     lead = x.shape[:-1]
     y = lowrank_q8(x.reshape(-1, x.shape[-1]).contiguous(), r_q.contiguous(),
-                   r_s.contiguous(), l_q.contiguous(), l_s.contiguous())
+                   r_s.contiguous(), _factor(l_q), l_s.contiguous())
     return y.reshape(*lead, l_q.shape[0])
 
 

@@ -34,6 +34,8 @@ from repro_torch.kernels.lowrank import (
     PIECES_BF16_OUT,
     SMEM_LIMIT,
     check_cuda,
+    check_factor,
+    counted_copy,
     decode_plan,
     decode_smem_bytes,
     dtype_code,
@@ -69,7 +71,7 @@ def _routes_lib() -> ctypes.CDLL:
     if lib.lowrank_q8_decode.argtypes is None:
         lib.lowrank_q8_decode.restype = ctypes.c_int
         lib.lowrank_q8_decode.argtypes = [ctypes.c_void_p] * 7 \
-            + [ctypes.c_int] * 9 + [ctypes.c_void_p]
+            + [ctypes.c_int] * 10 + [ctypes.c_void_p]
         lib.lowrank_q8_decode_smem_bytes.restype = ctypes.c_int
         lib.lowrank_q8_decode_smem_bytes.argtypes = [ctypes.c_int] * 2
         lib.lowrank_q8_tc.restype = ctypes.c_int
@@ -82,13 +84,16 @@ def q8_route(m: int, i: int, k: int, o: int, dtype: torch.dtype,
              tensors) -> str:
     """The kernel a call of #6 takes: ``"decode"`` for M <= Q8_DECODE_MAX_M
     rows of bf16 or f32 x where I and K are multiples of 16 and every base
-    16-byte aligned (so each 16-byte load of an int8 or x row lies wholly
-    inside or outside it) and the staged h fits in shared memory; else
+    16-byte aligned and row stride a multiple of 16 (so each 16-byte load
+    of an int8 or x row lies wholly inside or outside it; a rank draft's
+    Lq view has the full rank's stride) and the staged h fits in shared
+    memory; else
     ``"tensor_core"`` for bf16 x whose widths the 16-byte copies read (I, K
     multiples of 16, O of 8, aligned bases); else ``"fused"``
     (``lowrank_q8.cu``)."""
     rows16 = i % 16 == 0 and k % 16 == 0 and \
-        all(t.data_ptr() % 16 == 0 for t in tensors)
+        all(t.data_ptr() % 16 == 0 and t.stride(0) % 16 == 0
+            for t in tensors)
     nt = n8_tiles(m)
     if m <= Q8_DECODE_MAX_M and rows16 and dtype in _DTYPES and \
             decode_smem_bytes(nt, k, Q8_SLICE) + DECODE_STATIC_SMEM * nt \
@@ -101,7 +106,8 @@ def q8_route(m: int, i: int, k: int, o: int, dtype: torch.dtype,
 
 def _check(x, rq, rs, lq, ls) -> None:
     op = "lowrank_q8"
-    check_cuda(op, x=x, Rq=rq, sR=rs, Lq=lq, sL=ls)
+    check_cuda(op, x=x, Rq=rq, sR=rs, sL=ls)
+    check_factor(op, "Lq", lq, x)
     for name, t, nd in (("x", x, 2), ("Rq", rq, 2), ("sR", rs, 1),
                         ("Lq", lq, 2), ("sL", ls, 1)):
         if t.dim() != nd:
@@ -124,7 +130,8 @@ def _check(x, rq, rs, lq, ls) -> None:
 
 
 def _decode(x, rq, rs, lq, ls, y) -> int:
-    """Launch the decode route into y; h (M, K) f32 is scratch."""
+    """Launch the decode route into y, Lq read where it lies (rows
+    ``lq.stride(0)`` apart); h (M, K) f32 is scratch."""
     m, i = x.shape
     k, o = rq.shape[0], lq.shape[0]
     plan = decode_plan(m, i, k, o, Q8_SLICE)
@@ -134,7 +141,7 @@ def _decode(x, rq, rs, lq, ls, y) -> int:
         return _routes_lib().lowrank_q8_decode(
             x.data_ptr(), rq.data_ptr(), rs.data_ptr(), lq.data_ptr(),
             ls.data_ptr(), y.data_ptr(), h.data_ptr(), m, i, k, o,
-            _DTYPES[x.dtype], *plan, stream)
+            lq.stride(0), _DTYPES[x.dtype], *plan, stream)
 
 
 def _tensor_core(x, rq, rs, lq, ls, y) -> int:
@@ -173,7 +180,9 @@ def lowrank_q8(x: torch.Tensor, rq: torch.Tensor, rs: torch.Tensor,
                lq: torch.Tensor, ls: torch.Tensor) -> torch.Tensor:
     """y (M, O) in x's dtype = ((x (M, I) Rq^T) * sR) Lq^T * sL on the
     current stream, by ``q8_route``'s kernel. x bf16 or f32; Rq (K, I) and
-    Lq (O, K) int8; sR (K,) and sL (O,) f32."""
+    Lq (O, K) int8; sR (K,) and sL (O,) f32. Lq may be a ``row_view`` (a
+    rank draft's leading columns of an int8 L): the decode route reads it
+    in place, any other route a counted copy (``lowrank.counted_copy``)."""
     _check(x, rq, rs, lq, ls)
     m, i = x.shape
     k, o = rq.shape[0], lq.shape[0]
@@ -183,6 +192,9 @@ def lowrank_q8(x: torch.Tensor, rq: torch.Tensor, rs: torch.Tensor,
     if k == 0 or i == 0:
         return y.zero_()
     route = q8_route(m, i, k, o, x.dtype, (x, rq, lq))
+    if route != "decode" and not lq.is_contiguous():
+        lq = counted_copy(lq, "lowrank_q8")
+        route = q8_route(m, i, k, o, x.dtype, (x, rq, lq))
     err = _ROUTES[route](x, rq, rs, lq, ls, y)
     if err != 0:
         raise RuntimeError(f"lowrank_q8 ({route}) launch failed: CUDA error "

@@ -1,7 +1,8 @@
 """Serving launcher: thin CLI over the continuous-batching engine. Port of
 ``repro.launch.serve`` (dense slots, the paged KV pool with its prefix
-cache and chunked prefill, int8 deployment and plan-bearing checkpoints;
-the speculative, adapter and mesh flags arrive with those features).
+cache and chunked prefill, self-speculative decoding, int8 deployment and
+plan-bearing checkpoints; the adapter and mesh flags arrive with those
+features).
 
 ``python -m repro_torch.launch.serve --arch qwen2-0.5b --full --tokens 32``
 runs on the CUDA device; ``--device cpu`` asks for the CPU.
@@ -14,6 +15,9 @@ scales and run through the int8 kernel (kernels/csrc/lowrank_q8.cu).
 ``--total-pages``, ``--prefill-chunk``, ``--prefill-every``,
 ``--no-prefix-cache``; configs with sliding-window or Mamba layers
 cannot be paged and raise).
+``--spec-k K`` drafts K tokens a tick through a cheap view of the same
+weights (``--draft int8`` or ``rank:<frac>``) and verifies them in one
+forward; the summary then prints a ``[serve] spec ...`` line.
 ``--ckpt DIR`` serves the latest step of a plan-bearing checkpoint (its
 plan carries the config; ``--quant`` packs it first unless it is packed
 already). Without ``--ckpt`` the weights are random, drawn from seed 0;
@@ -126,6 +130,15 @@ def build_parser() -> argparse.ArgumentParser:
                          "slower long-prompt TTFT)")
     ap.add_argument("--no-prefix-cache", action="store_true",
                     help="disable cross-request radix prefix reuse")
+    ap.add_argument("--spec-k", type=int, default=0,
+                    help="self-speculative decoding: draft this many "
+                         "tokens a tick through a cheap subspace view of "
+                         "the SAME weights, verify them in one forward "
+                         "(0 = off)")
+    ap.add_argument("--draft", default="int8",
+                    help="draft source for --spec-k: 'int8' (packed "
+                         "factors) or 'rank:<frac>' (leading slice of each "
+                         "site's L/R, e.g. rank:0.5)")
     ap.add_argument("--stream", action="store_true",
                     help="print tokens as they are generated")
     ap.add_argument("--device", default="cuda", choices=["cuda", "cpu"])
@@ -166,6 +179,8 @@ def main(argv=None) -> dict:
         api.install(plan)
         tree = from_reference(tree, cfg, args.device)
     paged_kw = {}
+    if args.spec_k:
+        paged_kw.update(spec_k=args.spec_k, draft=args.draft)
     if args.paged:
         paged_kw.update(paged=True, page_size=args.page_size,
                         total_pages=args.total_pages or None,
@@ -205,6 +220,13 @@ def main(argv=None) -> dict:
           f"({s['prefill_tok_s']:.1f} tok/s) | decode {s['decode_tokens']} "
           f"tok ({s['decode_tok_s']:.1f} tok/s) | "
           f"{s['requests_s']:.2f} req/s")
+    if args.spec_k:
+        print(f"[serve] spec k={s['spec_k']} draft={s['draft_source']} "
+              f"acceptance_rate={s['acceptance_rate']:.3f} "
+              f"tokens_per_verify={s['tokens_per_verify']:.2f} "
+              f"verify_steps={s['spec_steps']} "
+              f"drafted={s['spec_draft_tokens']} "
+              f"accepted={s['spec_accepted_tokens']}")
     print("[serve] sample:", handles[0].tokens)
     return s
 

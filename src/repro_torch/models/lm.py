@@ -455,15 +455,17 @@ def lm_loss(model, batch: dict, cfg: ModelConfig, *, states=None,
 
 
 def lm_decode_step(model, token, caches, pos, cfg: ModelConfig, *,
-                   page_table=None):
+                   page_table=None, valid_len=None):
     """One serve step. token (B, 1) int; ``pos`` the absolute position of
     this token: an int (lockstep batch) or a (B,) tensor of per-slot
     positions. ``page_table`` (B, pages_per_slot) routes reads and writes
     through the paged pools of ``init_lm_cache(..., pages=)`` (``pos``
-    then per row). Returns (logits (B, V), caches)."""
+    then per row). ``valid_len`` (B,) of 0 or 1, with a vector ``pos``:
+    the rows at 0 write no K/V (the speculative draft's rows that are done
+    drafting, parked at ``max_cache``). Returns (logits (B, V), caches)."""
     x = _embed(model, token, cfg)
     x, _, nc, _ = lm_backbone(model, x, cfg, caches=caches, pos=pos,
-                              page_table=page_table)
+                              valid_len=valid_len, page_table=page_table)
     return _logits(model, x, cfg)[:, 0], nc
 
 
@@ -483,6 +485,15 @@ def lm_prefill(model, tokens, cfg: ModelConfig, *, caches,
     across several calls. ``valid_len`` then counts the valid rows WITHIN
     the chunk, and ``last_only`` picks the chunk's last valid row: only
     the final chunk's logits mean anything.
+
+    Speculative verify: the serve engine reuses this entry mid-decode,
+    ``tokens`` (B, k+1) the last committed token and k drafted ones from
+    the (B,) tensor ``pos``, ``valid_len`` each row's draft length + 1,
+    ``last_only=False``. With dense caches each row attends over its whole
+    cache (``nn.attention.dense_verify_attention``); with paged ones this
+    is the chunked prefill above. The writes double as the rollback:
+    accepted positions hold the target's K/V, rejected ones are written
+    over before anything reads them.
     Returns (logits, caches)."""
     x = _embed(model, tokens, cfg)
     x, _, nc, _ = lm_backbone(model, x, cfg, caches=caches,

@@ -31,10 +31,16 @@ Differences from the reference, deliberate:
   CUDA context. A position past the page table goes to the trash page 0
   (see ``_page_ids``), where the reference drops it; every other page
   receives exactly the reference's writes.
-* The paged branches attend plainly (gathered pages, a masked softmax),
-  as the reference's do: kernel #7 has no query offset and no page table.
-* The speculative-verify and cross-attention branches of
-  ``apply_attention`` are not ported yet and raise.
+* The paged branches and the dense speculative verify attend plainly
+  (gathered pages or the row's cache, a masked softmax), as the
+  reference's do: kernel #7 has no query offset and no page table.
+* The dense verify (``cache_update_verify``) and a decode step given
+  ``valid_len`` (a draft step's rows that are done drafting, parked at
+  ``pos == max_cache``) mask their writes where the reference routes them
+  out of range for its scatter to drop: the index wraps into the row and
+  the value written there is the one it holds.
+* The cross-attention branch of ``apply_attention`` is not ported yet and
+  raises.
 """
 from __future__ import annotations
 
@@ -273,18 +279,29 @@ def decode_attention(q, cache: KVCache, pos, *, window: int = 0):
     return _gqa_combine(p, cache.v).reshape(b, 1, h, dh)
 
 
-def cache_update(cache: KVCache, k_new, v_new, pos, *,
-                 window: int = 0) -> KVCache:
+def cache_update(cache: KVCache, k_new, v_new, pos, *, window: int = 0,
+                 valid_len=None) -> KVCache:
     """Write one token's K/V at ``pos`` (rolling if cache len == window),
-    in place. ``pos`` an int or (B,) per-row positions."""
+    in place. ``pos`` an int or (B,) per-row positions. ``valid_len`` (B,)
+    (with a vector ``pos``): a row at 0 writes nothing, whatever its
+    position (a draft step's row parked at ``max_cache``, where the
+    reference's scatter drops the write): its index wraps into the row and
+    takes back the value it holds."""
     s_cache = cache.k.shape[1]
     rolling = window > 0 and s_cache == window
     if is_vector_pos(pos):
+        dev = cache.k.device
         slot = torch.remainder(pos, window) if rolling else pos
-        rows = torch.arange(cache.k.shape[0], device=cache.k.device)
-        slot = slot.to(cache.k.device)
-        cache.k[rows, slot] = k_new[:, 0]
-        cache.v[rows, slot] = v_new[:, 0]
+        rows = torch.arange(cache.k.shape[0], device=dev)
+        slot = slot.to(dev)
+        k1, v1 = k_new[:, 0], v_new[:, 0]
+        if valid_len is not None:
+            slot = torch.remainder(slot, s_cache)
+            live = (valid_len.to(dev) > 0)[:, None, None]
+            k1 = torch.where(live, k1, cache.k[rows, slot])
+            v1 = torch.where(live, v1, cache.v[rows, slot])
+        cache.k[rows, slot] = k1
+        cache.v[rows, slot] = v1
         return cache
     slot = int(pos) % window if rolling else int(pos)
     n = k_new.shape[1]
@@ -328,6 +345,53 @@ def cache_update_prefill(cache: KVCache, k_new, v_new, offset: int = 0, *,
     kd.copy_(k_new)
     vd.copy_(v_new)
     return cache
+
+
+def cache_update_verify(cache: KVCache, k_new, v_new, offset,
+                        valid_len=None) -> KVCache:
+    """Write a (B, C) token block at PER-ROW absolute offsets, in place:
+    the dense analogue of ``paged_update_prefill``, for the speculative
+    verify pass, where every serve slot sits at its own position.
+
+    Positions past ``valid_len[b]`` (a row drafting fewer than k tokens; a
+    dead row) or past the cache leave the cache as it was, as the
+    reference's dropped writes do: their indices wrap into the row (C <=
+    S keeps a row's C indices distinct, so no write lands twice) and take
+    back the values held there."""
+    b, c = k_new.shape[:2]
+    s_cache = cache.k.shape[1]
+    if c > s_cache:
+        raise ValueError(f"verify block of {c} tokens exceeds the cache's "
+                         f"{s_cache} positions")
+    dev = cache.k.device
+    rel = torch.arange(c, device=dev)[None, :]
+    pos = offset.to(dev).long()[:, None] + rel                # (B, C) abs
+    valid = pos < s_cache
+    if valid_len is not None:
+        valid &= rel < valid_len.to(dev)[:, None]
+    idx = torch.remainder(pos, s_cache)
+    rows = torch.arange(b, device=dev)[:, None]
+    valid = valid[..., None, None]
+    cache.k[rows, idx] = torch.where(valid, k_new, cache.k[rows, idx])
+    cache.v[rows, idx] = torch.where(valid, v_new, cache.v[rows, idx])
+    return cache
+
+
+def dense_verify_attention(q, cache: KVCache, qpos):
+    """Token-parallel attention over each row's ENTIRE dense cache: q
+    (B, C, H, Dh) at absolute positions ``qpos`` (B, C), masked causally
+    by absolute position. The dense prefill attends within its chunk only;
+    a verify block conditions on the whole history before it."""
+    b, c, h, dh = q.shape
+    kvh = cache.k.shape[2]
+    g = h // kvh
+    qg = q.reshape(b, c, kvh, g, dh) * (dh ** -0.5)
+    s = _gqa_scores(qg, cache.k).float()            # (B,KVH,G,C,S)
+    kpos = torch.arange(cache.k.shape[1], device=q.device)
+    ok = kpos[None, None, :] <= qpos[:, :, None]    # (B, C, S)
+    s = s + torch.where(ok, 0.0, NEG_INF)[:, None, None, :, :]
+    p = torch.softmax(s, dim=-1).to(q.dtype)
+    return _gqa_combine(p, cache.v).reshape(b, c, h, dh)
 
 
 # ---------------------------------------------------------------------------
@@ -376,17 +440,21 @@ def _page_ids(page_table: torch.Tensor, pos: torch.Tensor, page_size: int,
 
 
 def paged_update_decode(cache: PagedKVCache, k_new, v_new, pos,
-                        page_table: torch.Tensor) -> PagedKVCache:
+                        page_table: torch.Tensor,
+                        valid_len=None) -> PagedKVCache:
     """Write one token's K/V per row at absolute position ``pos`` (B,)
     through the page table, in place. The engine guarantees the page under
     any LIVE row's write position is exclusively owned (shared prefix
     pages are read-only by construction); dead rows carry an all-trash
     table. Several dead rows can write page 0 at one offset: which write
     wins is undefined, in torch as in JAX, and harmless, because nothing
-    reads the trash page unmasked."""
+    reads the trash page unmasked. A row whose ``valid_len`` is 0 writes
+    to the trash page too."""
     pg = cache.page_size
-    pos = pos.to(cache.k.device).long()[:, None]
-    pid = _page_ids(page_table.to(cache.k.device), pos, pg)[:, 0]
+    dev = cache.k.device
+    pos = pos.to(dev).long()[:, None]
+    valid = None if valid_len is None else (valid_len.to(dev) > 0)[:, None]
+    pid = _page_ids(page_table.to(dev), pos, pg, valid)[:, 0]
     off = torch.remainder(pos[:, 0], pg)
     cache.k[pid, off] = k_new[:, 0]
     cache.v[pid, off] = v_new[:, 0]
@@ -417,19 +485,11 @@ def paged_prefill_attention(q, cache: PagedKVCache, page_table, qpos):
     ``qpos`` (B, C) attends over the slot's ENTIRE logical cache (history
     from earlier chunks and shared prefix pages included), masked causally
     by absolute position. This is what lets a prompt prefill in chunks,
-    unlike the dense prefill path, which attends only within the chunk."""
-    k = paged_gather(cache.k, page_table)
-    v = paged_gather(cache.v, page_table)
-    b, c, h, dh = q.shape
-    kvh = k.shape[2]
-    g = h // kvh
-    qg = q.reshape(b, c, kvh, g, dh) * (dh ** -0.5)
-    s = _gqa_scores(qg, k).float()                  # (B,KVH,G,C,S_log)
-    kpos = torch.arange(k.shape[1], device=q.device)
-    ok = kpos[None, None, :] <= qpos[:, :, None]    # (B, C, S_log)
-    s = s + torch.where(ok, 0.0, NEG_INF)[:, None, None, :, :]
-    p = torch.softmax(s, dim=-1).to(q.dtype)
-    return _gqa_combine(p, v).reshape(b, c, h, dh)
+    unlike the dense prefill path, which attends only within the chunk.
+    ``dense_verify_attention`` over the gathered logical view."""
+    gathered = KVCache(k=paged_gather(cache.k, page_table),
+                       v=paged_gather(cache.v, page_table))
+    return dense_verify_attention(q, gathered, qpos)
 
 
 # ---------------------------------------------------------------------------
@@ -450,8 +510,14 @@ def apply_attention(p, x: torch.Tensor, cfg: ModelConfig, *,
                  prompt from offset ``pos`` (an int, normally 0); K/V of all
                  positions written in one pass, ``valid_len`` (B,) masking
                  the right-padding of bucketed prompts
+      - verify:  cache given, S > 1, ``pos`` a (B,) tensor -> the
+                 speculative verify: per-row offsets, q attends over the
+                 row's whole cache, ``valid_len`` (B,) masks each row's
+                 writes past its draft (``cache_update_verify``)
       - decode:  cache given, S == 1   -> one-token step at ``pos`` (int, or
-                 (B,) per-slot tensor), cache updated in place
+                 (B,) per-slot tensor), cache updated in place; a row whose
+                 ``valid_len`` is 0 writes nothing (a draft step's parked
+                 row)
 
     A :class:`PagedKVCache` (``page_table`` required, (B, pages_per_slot))
     switches prefill and decode to the paged pool: reads gather the
@@ -508,11 +574,17 @@ def apply_attention(p, x: torch.Tensor, cfg: ModelConfig, *,
                                          valid_len=valid_len)
         o = paged_prefill_attention(q, new_cache, page_table.to(x.device),
                                     qpos)
+    elif sq > 1 and is_vector_pos(pos):  # speculative verify, dense cache
+        if window > 0:
+            raise ValueError("per-row dense verify needs full attention "
+                             "(spec decode is gated on supports_paging)")
+        qpos = pos.to(x.device).long()[:, None] \
+            + torch.arange(sq, device=x.device)[None, :]
+        q, k = maybe_rope(q, qpos), maybe_rope(k, qpos)
+        new_cache = cache_update_verify(cache, k, v, pos,
+                                        valid_len=valid_len)
+        o = dense_verify_attention(q, new_cache, qpos)
     elif sq > 1:  # token-parallel prefill
-        if is_vector_pos(pos):
-            raise NotImplementedError(
-                "per-row prefill offsets (speculative verify) are not "
-                "ported yet")
         offset = 0 if pos is None else int(pos)
         positions = offset + torch.arange(sq, device=x.device)
         q, k = maybe_rope(q, positions), maybe_rope(k, positions)
@@ -529,7 +601,8 @@ def apply_attention(p, x: torch.Tensor, cfg: ModelConfig, *,
             raise ValueError("paged decode needs per-row (B,) positions")
         rope_pos = pos.to(x.device)[:, None]
         q, k = maybe_rope(q, rope_pos), maybe_rope(k, rope_pos)
-        new_cache = paged_update_decode(cache, k, v, pos, page_table)
+        new_cache = paged_update_decode(cache, k, v, pos, page_table,
+                                        valid_len=valid_len)
         # the per-slot logical view through the SAME masked decode
         # attention the dense path runs: with pages_per_slot x page_size
         # equal to the dense cache's length the shapes are the dense ones
@@ -543,7 +616,8 @@ def apply_attention(p, x: torch.Tensor, cfg: ModelConfig, *,
         else:
             rope_pos = torch.full((sq,), int(pos), device=x.device)
         q, k = maybe_rope(q, rope_pos), maybe_rope(k, rope_pos)
-        new_cache = cache_update(cache, k, v, pos, window=window)
+        new_cache = cache_update(cache, k, v, pos, window=window,
+                                 valid_len=valid_len)
         o = decode_attention(q, new_cache, pos, window=window)
     out = proj("wo", o.reshape(b, sq, h * dh))
     return out, new_cache, new_st

@@ -1,7 +1,10 @@
 """Request-level serving (port of ``repro.serve``): the continuous-
 batching engine over dense slots or a paged KV pool with refcounted
-prefix sharing and chunked prefill (kvpool.py), device-side sampling,
-streaming handles and pluggable schedulers."""
+prefix sharing and chunked prefill (kvpool.py), self-speculative
+decoding (``spec_k > 0``: drafts through a cheap subspace view of the same
+weights, verified in one forward with the rejection rule of
+``sampling.spec_accept``), device-side sampling, streaming handles and
+pluggable schedulers."""
 
 from repro_torch.serve.engine import (
     DEFAULT_BUCKETS,
@@ -10,7 +13,13 @@ from repro_torch.serve.engine import (
     bucket_for,
 )
 from repro_torch.serve.kvpool import PagePool, RadixCache, pages_needed
-from repro_torch.serve.sampling import SamplingParams, sample_tokens
+from repro_torch.serve.sampling import (
+    SamplingParams,
+    sample_draft_tokens,
+    sample_tokens,
+    spec_accept,
+    warped_probs,
+)
 from repro_torch.serve.scheduler import (
     FCFS,
     SCHEDULERS,
@@ -40,5 +49,8 @@ __all__ = [
     "bucket_for",
     "make_scheduler",
     "pages_needed",
+    "sample_draft_tokens",
     "sample_tokens",
+    "spec_accept",
+    "warped_probs",
 ]

@@ -42,10 +42,24 @@ optional paged KV pool, radix prefix sharing and chunked prefill. Port of
   ``ServeEngine.from_checkpoint`` builds the engine from a plan-bearing
   checkpoint with no config in hand.
 
+* Self-speculative decoding (``spec_k > 0``): each decode tick drafts
+  ``spec_k`` tokens through a cheap view of the SAME weights (``draft=``
+  ``"int8"``: the factors packed to int8, kernel #6; ``"rank:<frac>"``:
+  the leading columns of each L and rows of each R, read in place by
+  kernel #1's decode route), then verifies them all in one forward of the
+  full factors (``lm_prefill`` at per-row offsets) and applies the
+  rejection rule on the device (``sampling.spec_accept``): greedy rows
+  emit exactly the non-spec tokens, sampled rows the target's
+  distribution. Rows done drafting are parked at ``pos == max_cache``:
+  dense ones write nothing (``valid_len`` 0), paged ones write to an
+  extra all-trash column of the table. Paged slots may hold pages past
+  their admission reservation for a tick (``_spec_pages``), returned at
+  its end (``_spec_release``).
+
 Where the reference jits and donates the caches, this engine runs eager
 PyTorch under ``torch.inference_mode()`` and updates the caches in place.
-Not ported yet (they raise ``NotImplementedError``): speculative decoding,
-tenant adapters and mesh serving.
+Not ported yet (they raise ``NotImplementedError``): tenant adapters and
+mesh serving.
 """
 from __future__ import annotations
 
@@ -69,7 +83,12 @@ from repro_torch.models.lm import (
     supports_paging,
 )
 from repro_torch.serve.kvpool import PagePool, RadixCache, pages_needed
-from repro_torch.serve.sampling import SamplingParams, sample_tokens
+from repro_torch.serve.sampling import (
+    SamplingParams,
+    sample_draft_tokens,
+    sample_tokens,
+    spec_accept,
+)
 from repro_torch.serve.scheduler import Scheduler, make_scheduler
 from repro_torch.serve.session import Event, EventKind, GenerationHandle, Request
 from repro_torch.utils.device import resolve_device
@@ -127,6 +146,14 @@ def _tree_leaves(caches):
     return out
 
 
+def _extra_bytes(draft: LanguageModel, target: LanguageModel) -> int:
+    """Bytes of the draft's leaves that live in no storage of the target:
+    0 for a rank draft (views), the packed copy for an int8 one."""
+    held = {p.untyped_storage().data_ptr() for p in target.parameters()}
+    return sum(p.numel() * p.element_size() for p in draft.parameters()
+               if p.untyped_storage().data_ptr() not in held)
+
+
 def _install(plan: SubspacePlan) -> SubspacePlan:
     """Install ``plan`` for its config, unless a different plan is
     installed there already (a quantized plan differs from its f32 one)."""
@@ -156,9 +183,9 @@ class ServeEngine:
                  prefill_chunk: int | None = None,
                  prefill_chunks_per_tick: int = 1,
                  prefill_every: int = 1,
-                 spec_k: int = 0, adapters=None, mesh=None, device=None):
-        for name, val in (("spec_k", spec_k), ("adapters", adapters),
-                          ("mesh", mesh)):
+                 spec_k: int = 0, draft: str = "int8", adapters=None,
+                 mesh=None, device=None):
+        for name, val in (("adapters", adapters), ("mesh", mesh)):
             if val:
                 raise NotImplementedError(
                     f"ServeEngine({name}=...) is not ported yet; the port "
@@ -186,6 +213,44 @@ class ServeEngine:
         from repro_torch.utils.memprof import model_weight_bytes
         self.weight_report = model_weight_bytes(params.tree())
         self.buckets = tuple(sorted(buckets))
+
+        # self-speculative decoding: spec_k tokens drafted a tick through
+        # a cheap view of the SAME weights, verified in one forward
+        self.spec_k = int(spec_k)
+        self.draft_source = draft
+        self.draft_params = None
+        self.draft_extra_bytes = 0
+        if self.spec_k:
+            if self.spec_k > max_cache - 2:
+                raise ValueError(f"spec_k ({spec_k}) leaves no room in "
+                                 f"max_cache ({max_cache})")
+            if not supports_paging(cfg):
+                # rolling-window and recurrent caches update destructively:
+                # a rejected draft could not be rolled back
+                raise ValueError(
+                    f"config {cfg.name!r} has sliding-window or recurrent "
+                    "layers whose caches cannot roll back rejected drafts; "
+                    "speculative decoding needs causal full attention")
+            if draft == "int8" and self.quantized:
+                raise ValueError(
+                    "engine already serves int8: an int8 draft would equal "
+                    "the target; use draft='rank:<frac>' to slice the "
+                    "resident int8 factors instead")
+            # the stamp lets bind.apply take the draft's layouts (int8
+            # params under an f32 spec); it never changes the verify pass,
+            # so it may replace an installed unstamped plan
+            stamped = self.plan.with_draft(draft)
+            if stamped.draft_source is None:
+                raise ValueError(
+                    f"draft {draft!r} stamps no site of this plan (rank "
+                    "drafts need factored sites: a dense-only plan has "
+                    "nothing to slice)")
+            if stamped != self.plan:
+                self.plan = install(stamped)
+            from repro_torch.api.convert import draft_view
+            self.draft_params = draft_view(params, self.plan)
+            self.draft_extra_bytes = _extra_bytes(self.draft_params, params)
+
         if paged == "auto":
             paged = supports_paging(cfg)
         elif paged and not supports_paging(cfg):
@@ -224,6 +289,10 @@ class ServeEngine:
             self.slot_pages: list[list[int]] = [[] for _ in range(max_slots)]
             self._cursor: list[int | None] = [None] * max_slots
             self._pf_rr = 0
+            # pages reserved at admission (pages_needed(prompt + max_new));
+            # a spec tick may hold pages past it for the draft's and the
+            # verify's writes, and returns them at its end (_spec_release)
+            self._prealloc = [0] * max_slots
         else:
             self.pool = self.radix = None
             self.caches = init_lm_cache(cfg, max_slots, max_cache,
@@ -242,7 +311,9 @@ class ServeEngine:
                       "prefix_hit_tokens": 0, "decode_steps": 0,
                       "decode_tokens": 0, "completed": 0, "cancelled": 0,
                       "evicted": 0, "deferred": 0, "wall_s": 0.0,
-                      "prefill_s": 0.0, "decode_s": 0.0}
+                      "prefill_s": 0.0, "decode_s": 0.0,
+                      "spec_steps": 0, "spec_draft_tokens": 0,
+                      "spec_accepted_tokens": 0, "spec_page_shrinks": 0}
 
     @classmethod
     def from_checkpoint(cls, ckpt_dir: str, step: int | None = None,
@@ -362,6 +433,7 @@ class ServeEngine:
             self.slot_pages[slot] = []
             self.tables[slot, :] = 0
             self._cursor[slot] = None
+            self._prealloc[slot] = 0
 
     def _emit_token(self, req: Request, token: int, t: float) -> None:
         req.generated.append(token)
@@ -511,6 +583,7 @@ class ServeEngine:
             self.tables[slot, :] = 0
             self.tables[slot, :len(pages)] = pages
             self.slot_pages[slot] = pages
+            self._prealloc[slot] = need
             self.slots[slot] = req
             self._set_sampling_row(slot, req)
             self._cursor[slot] = len(shared) * pg
@@ -607,6 +680,165 @@ class ServeEngine:
             self._finish_if_done(slot)
         self.stats["decode_s"] += time.perf_counter() - t0
 
+    def _spec_pages(self, active: list[int]) -> np.ndarray:
+        """Paged draft coverage: each active slot's draft length after
+        making sure pages lie under every position the draft and the
+        verify write (pos .. pos + draft_len). A draft near the end of its
+        budget may need pages past the admission reservation (the verify
+        block overruns prompt + max_new though emission never does): they
+        are allocated here and returned by ``_spec_release`` the same
+        tick. A pool that runs short shrinks the draft to the pages held
+        (``spec_page_shrinks``) instead of deferring the tick."""
+        draft_len = np.zeros(self.max_slots, np.int64)
+        pg = self.page_size
+        for slot in active:
+            pos = int(self.pos[slot])
+            dl = min(self.spec_k, self.max_cache - 1 - pos)
+            need = pages_needed(pos + dl + 1, pg)
+            have = len(self.slot_pages[slot])
+            if need > have:
+                want = need - have
+                if self.pool.free_pages < want and self.radix is not None:
+                    self.radix.evict(want - self.pool.free_pages)
+                grab = min(want, self.pool.free_pages)
+                alloc = self.pool.alloc(grab) if grab else None
+                if alloc:
+                    self.tables[slot, have:have + len(alloc)] = alloc
+                    self.slot_pages[slot].extend(alloc)
+                    have += len(alloc)
+                if have < need:
+                    dl = min(dl, have * pg - 1 - pos)
+                    self.stats["spec_page_shrinks"] += 1
+            draft_len[slot] = max(dl, 0)
+        return draft_len
+
+    def _spec_release(self) -> None:
+        """Return every page past a live slot's admission reservation to
+        the pool and zero its table tail: the rollback half of the paged
+        draft. Emission stops at max_new, so the slot never needs them
+        again; finished slots released everything in ``_free_slot``."""
+        for slot, req in enumerate(self.slots):
+            if req is None:
+                continue
+            keep = self._prealloc[slot]
+            extra = self.slot_pages[slot][keep:]
+            if not extra:
+                continue
+            for p in extra:
+                self.pool.unref(p)
+            self.slot_pages[slot] = self.slot_pages[slot][:keep]
+            self.tables[slot, keep:] = 0
+
+    def _draft_step(self, toks: torch.Tensor, i: int, draft_len: np.ndarray,
+                    table) -> tuple:
+        """Draft step ``i`` of a tick: one decode step of (B, 1) ``toks``
+        under ``draft_params``, sampled from the ``SALT_DRAFT`` stream ->
+        ((B,) proposals, (B, V) their warped q). Its K/V lands at pos + i
+        and is overwritten by the verify; rows past their draft length
+        write at ``max_cache`` (dense: masked by ``valid_len`` 0; paged:
+        the table's trash column)."""
+        dev = self.device
+        live = i < draft_len
+        pos = torch.as_tensor(np.where(live, self.pos + i, self.max_cache),
+                              device=dev)
+        valid = (None if self.paged else
+                 torch.as_tensor(live.astype(np.int64), device=dev))
+        logits, self.caches = lm_decode_step(
+            self.draft_params, toks, self.caches, pos, self.cfg,
+            page_table=table, valid_len=valid)
+        return sample_draft_tokens(logits, self.temp, self.top_k, self.top_p,
+                                   self.seed, self.count + i)
+
+    def _verify(self, toks: torch.Tensor, draft_q: torch.Tensor,
+                draft_len: np.ndarray, table) -> tuple:
+        """ONE forward of the full factors over (B, k + 1) ``toks`` =
+        [current, drafts] at each row's position (the dense verify branch,
+        or chunked prefill through ``table``), its K/V overwriting the
+        draft's, then the rejection rule on the device: host arrays
+        (n_acc (B,), out (B, k + 1))."""
+        dev = self.device
+        with torch.profiler.record_function("spec_verify"):
+            logits, self.caches = lm_prefill(
+                self.params, toks, self.cfg, caches=self.caches,
+                pos=torch.as_tensor(self.pos, device=dev),
+                valid_len=torch.as_tensor(draft_len + 1, device=dev),
+                page_table=table)
+        with torch.profiler.record_function("spec_accept"):
+            n_acc, out = spec_accept(
+                logits.float(), toks[:, 1:], draft_q, draft_len, self.temp,
+                self.top_k, self.top_p, self.seed, self.count)
+            return n_acc.cpu().numpy(), out.cpu().numpy()
+
+    def _spec_decode_all(self) -> None:
+        """One speculative tick over every decoding slot: ``spec_k`` draft
+        steps through ``draft_params``, one verify forward of the full
+        factors over [current token, drafts] at each row's position, the
+        rejection rule on the device; each row emits its accepted prefix
+        and one corrected or bonus token (one device-to-host copy a tick).
+        Draft lengths are capped by cache capacity only (max_cache - 1 -
+        pos): the host stops emitting at max_new or EOS, and the overrun's
+        K/V is never read (dense) or its pages are returned (paged). Dead
+        and still-prefilling rows ride along at draft length 0, parked at
+        ``pos == max_cache`` from the first draft step (their dense writes
+        masked, their paged ones on the trash column), as in
+        ``_decode_all``. The three parts run under profiler ranges
+        ``spec_draft``, ``spec_verify``, ``spec_accept``."""
+        active = [i for i, r in enumerate(self.slots)
+                  if r is not None and (not self.paged
+                                        or self._cursor[i] is None)]
+        if not active:
+            return
+        t0 = time.perf_counter()
+        k, dev = self.spec_k, self.device
+        table = None
+        if self.paged:
+            draft_len = self._spec_pages(active)
+            # dead and prefilling rows write to the trash page; every row
+            # gets one more trash column, under position max_cache
+            tbl = self.tables.copy()
+            for s in range(self.max_slots):
+                if self.slots[s] is None or self._cursor[s] is not None:
+                    tbl[s, :] = 0
+            table = torch.as_tensor(np.concatenate(
+                [tbl, np.zeros((self.max_slots, 1), np.int64)], axis=1),
+                device=dev)
+        else:
+            draft_len = np.zeros(self.max_slots, np.int64)
+            for slot in active:
+                draft_len[slot] = max(
+                    0, min(k, self.max_cache - 1 - int(self.pos[slot])))
+        cols = [torch.as_tensor(self.next_tok[:, None], device=dev)]
+        qs = []
+        with torch.profiler.record_function("spec_draft"):
+            for i in range(k):
+                nxt, q = self._draft_step(cols[-1], i, draft_len, table)
+                cols.append(nxt[:, None])
+                qs.append(q)
+        n_acc, out = self._verify(torch.cat(cols, dim=1),
+                                  torch.stack(qs, dim=1), draft_len, table)
+        self.stats["decode_steps"] += 1
+        self.stats["spec_steps"] += 1
+        now = time.perf_counter()
+        for slot in active:
+            req = self.slots[slot]
+            self.stats["spec_draft_tokens"] += int(draft_len[slot])
+            self.stats["spec_accepted_tokens"] += int(n_acc[slot])
+            req.accepted_counts.append(int(n_acc[slot]))
+            emitted = 0
+            for j in range(int(n_acc[slot]) + 1):
+                self._emit_token(req, int(out[slot, j]), now)
+                emitted += 1
+                if req.hit_stop:
+                    break
+            self.pos[slot] += emitted
+            self.next_tok[slot] = int(out[slot, emitted - 1])
+            self.count[slot] += emitted
+            self.stats["decode_tokens"] += emitted
+            self._finish_if_done(slot)
+        if self.paged:
+            self._spec_release()
+        self.stats["decode_s"] += time.perf_counter() - t0
+
     # -- driving ------------------------------------------------------------
 
     def step(self) -> None:
@@ -623,7 +855,10 @@ class ServeEngine:
                 self._prefill_tick()
             else:
                 self._admit_dense()
-            self._decode_all()
+            if self.spec_k:
+                self._spec_decode_all()
+            else:
+                self._decode_all()
         self.stats["wall_s"] += time.perf_counter() - t0
 
     def run(self) -> None:
@@ -667,4 +902,13 @@ class ServeEngine:
             s["pages_in_use"] = self.pool.pages_in_use
             s["prefix_cache_pages"] = (self.radix.n_nodes
                                        if self.radix is not None else 0)
+        if self.spec_k:
+            s["spec_k"] = self.spec_k
+            s["draft_source"] = self.draft_source
+            s["acceptance_rate"] = (s["spec_accepted_tokens"]
+                                    / max(s["spec_draft_tokens"], 1))
+            # mean tokens emitted per verify (accepted + corrected/bonus)
+            s["tokens_per_verify"] = (s["decode_tokens"]
+                                      / max(s["spec_steps"], 1))
+            s["draft_extra_bytes"] = self.draft_extra_bytes
         return s

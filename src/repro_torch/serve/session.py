@@ -53,6 +53,9 @@ class Request:
     tenant: str | None = None
     generated: list[int] = dataclasses.field(default_factory=list)
     events: list[Event] = dataclasses.field(default_factory=list)
+    # speculative decoding: accepted draft tokens per verify step this
+    # request took part in (empty under a non-speculative engine)
+    accepted_counts: list[int] = dataclasses.field(default_factory=list)
     status: EventKind | None = None   # None = queued/running; else terminal
     submitted_at: float = 0.0
     first_token_at: float = 0.0
@@ -153,6 +156,25 @@ class GenerationHandle:
         if len(r.generated) < 2 or not r.first_token_at:
             return None
         return (r.last_token_at - r.first_token_at) / (len(r.generated) - 1)
+
+    # -- speculative decoding -----------------------------------------------
+
+    @property
+    def accepted_counts(self) -> list[int]:
+        """Accepted draft tokens per verify step this request took part in
+        (empty under a non-speculative engine); each step also emits one
+        corrected or bonus token, budget and EOS permitting."""
+        return list(self._req.accepted_counts)
+
+    @property
+    def acceptance_rate(self) -> float | None:
+        """sum(accepted) / (steps x k), k the engine's draft length; None
+        when the engine never spec-decoded this request."""
+        c = self._req.accepted_counts
+        k = getattr(self._engine, "spec_k", 0)
+        if not c or not k:
+            return None
+        return sum(c) / (len(c) * k)
 
     # -- control ------------------------------------------------------------
 

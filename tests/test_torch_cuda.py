@@ -1533,3 +1533,102 @@ def test_paged_writes_past_the_table_on_the_card(cuda):
     for a, b in zip(out["cpu"], out[str(cuda)]):
         assert torch.equal(a[1:], b[1:])
     assert torch.equal(out[str(cuda)][0][6], pool[0][6])   # not clamped
+
+
+# ---------------------------------------------------------------------------
+# speculative decoding: the decode routes of #1 and #6 on a rank draft's
+# strided L, the spec engine
+# ---------------------------------------------------------------------------
+
+# qwen2-0.5b's sites (I, K, O) and the rank:0.5 draft's K' of each
+DRAFT_SITES = [(896, 256, 896, 128), (896, 128, 128, 64),
+               (896, 256, 4864, 128), (4864, 256, 896, 128)]
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("i,k,o,kd", DRAFT_SITES)
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+def test_decode_route_reads_a_rank_draft_view_in_place(cuda, i, k, o, kd,
+                                                       dtype):
+    """#1's decode route on ``L[:, :K']`` (rows K apart) at M = 4: the same
+    bits as on its contiguous copy, within the plain version's tolerance,
+    one launch a call and no copy; at M = 20 (the tensor-core route) the
+    view is copied once, counted, and the result equals the copy's."""
+    x, r, l_ = _inputs((4,), i, k, o, cuda, dtype)
+    lv, rv = l_[:, :kd], r[:kd].contiguous()
+    assert not lv.is_contiguous() and lv.stride(0) == k
+    assert lowrank.forward_route(4, i, kd, o, dtype, (x, rv, lv)) == "decode"
+    ops.reset_launches()
+    got = ops.lowrank_matmul(x, rv, lv)
+    torch.cuda.synchronize()
+    assert ops.launch_counts()["lowrank_fwd"] == 1
+    assert ops.copy_counts() == {"lowrank_fwd": 0, "lowrank_q8": 0}
+    assert torch.equal(got, ops.lowrank_matmul(x, rv, lv.contiguous()))
+    want = ref.lowrank_matmul_ref(x, rv, lv)
+    scale = want.float().abs().max().item()
+    tol = 2 * (i + kd) * EPS32 * max(scale, 1.0)
+    if dtype == torch.bfloat16:
+        tol += 2.0 ** -7 * scale
+    assert (got.float() - want.float()).abs().max().item() <= tol
+    x20 = torch.randn(20, i, device=cuda).to(dtype)
+    ops.reset_launches()
+    y20 = ops.lowrank_matmul(x20, rv, lv)
+    assert ops.copy_counts()["lowrank_fwd"] == 1
+    assert ops.launch_counts()["lowrank_fwd"] == 1
+    assert torch.equal(y20, ops.lowrank_matmul(x20, rv, lv.contiguous()))
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("i,k,o,kd", DRAFT_SITES)
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+def test_q8_decode_route_reads_a_rank_draft_view_in_place(cuda, i, k, o, kd,
+                                                          dtype):
+    """#6's decode route on an int8 ``Lq[:, :K']`` with ``sR[:K']``: bit-equal
+    to the contiguous copy, within the plain version's tolerance, one
+    launch a call, no copy."""
+    x, rq, rs, lq, ls = _q8_inputs((4,), i, k, o, cuda, dtype)
+    lv, rv, sv = lq[:, :kd], rq[:kd].contiguous(), rs[:kd]
+    assert kquant.q8_route(4, i, kd, o, dtype, (x, rv, lv)) == "decode"
+    ops.reset_launches()
+    got = ops.lowrank_matmul_q8(x, rv, sv, lv, ls)
+    torch.cuda.synchronize()
+    assert ops.launch_counts()["lowrank_q8"] == 1
+    assert ops.copy_counts() == {"lowrank_fwd": 0, "lowrank_q8": 0}
+    assert torch.equal(got, ops.lowrank_matmul_q8(x, rv, sv,
+                                                  lv.contiguous(), ls))
+    _close(got, ref.lowrank_q8_ref(x, rv, sv, lv, ls), i + kd, dtype)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("draft", ["int8", "rank:0.5"])
+@pytest.mark.parametrize("paged", [False, True])
+def test_spec_engine_on_the_card_matches_the_non_spec_engine(cuda, draft,
+                                                             paged):
+    """qwen2 smoke (f32, trained weights) on the card: the spec engine's
+    greedy tokens (k = 3) equal the non-spec engine's, and a paged pool
+    ends audited and empty."""
+    from repro_torch import api
+    from repro_torch.serve import ServeEngine
+
+    cfg, model = _trained_smoke(cuda)
+    rng = np.random.default_rng(7)
+    prompts = [list(map(int, rng.integers(0, cfg.vocab_size, n)))
+               for n in (3, 7, 12, 20)]
+    kw = dict(max_slots=2, max_cache=32, buckets=(4, 8, 16), device=cuda)
+    if paged:
+        kw.update(paged=True, page_size=8, prefill_chunk=8)
+    out = []
+    for spec in ({}, dict(spec_k=3, draft=draft)):
+        api.uninstall(cfg)
+        eng = ServeEngine(model, cfg, **kw, **spec)
+        hs = [eng.submit(p, max_new=10) for p in prompts]
+        eng.run()
+        torch.cuda.synchronize()
+        out.append([h.generated for h in hs])
+    assert eng.stats["spec_steps"] > 0
+    if paged:
+        eng.check_invariants()
+        eng.release_prefix_cache()
+        assert eng.pool.pages_in_use == 0
+    assert out[1] == out[0]
+    api.uninstall(cfg)
