@@ -24,7 +24,9 @@ Phases, in order; any failure raises and the script exits non-zero:
    (``draft_rows``: ``L[:, :K']`` read in place, rows K apart, at qwen2's
    K' = 128/64, bf16 and f32: bit-equal to its contiguous copy, no copy
    made, timed on both beside the library's matmuls on the same views)
-   and each decode-route call's host cost (``eager_line``);
+   and each decode-route call's host cost (``eager_line``); one qwen2
+   layer's 7 adapter sites, a solo tenant's f32 delta at M = 4, K_a
+   224/32 on the decode route (``adapter_rows``);
 4. smoke parity: qwen2 smoke in f32, the same seeded weights on the card
    and on the CPU, prefill then teacher-forced decode, logits compared at
    every step; the card's engine against its own lockstep generate;
@@ -222,8 +224,9 @@ Phases, in order; any failure raises and the script exits non-zero:
    a forward and none a
    backward; the forward's and the backward's device time at one
    zamba2 training layer (4 x 512);
-23. zamba2-7b trained at full width and depth (81 layers, bf16, the
-   config's ``remat="block"``), batch 4 x 512 of seeded uniform tokens,
+23. zamba2-7b trained at full width and a third of its depth (27
+   layers: the pattern 4 times and the tail; bf16, the config's
+   ``remat="block"``), batch 4 x 512 of seeded uniform tokens,
    SGD+momentum 0.9 at a constant 0.05, refresh every 8, under ``wasi``
    and ``wsi``: the saved-for-backward bytes and peak of one loss, 8
    steps through ``train_loop`` (exact launches of every kernel:
@@ -274,7 +277,23 @@ Phases, in order; any failure raises and the script exits non-zero:
    (``spec_f32``), greedy tokens against a never-drafted run at the f32
    near-tie limit and the rollback: every generated position's K/V
    within f32 rounding of the never-drafted run's, and a control whose
-   verify writes are undone must fall outside.
+   verify writes are undone must fall outside;
+27. tenant adapters: qwen2-0.5b at full width and depth in f32 (the
+   reference runs f32 adapters on f32 models only), ``rank_frac`` 0.25:
+   three tenants fine-tuned against the frozen base through
+   ``finetune_adapters`` (8 steps at 4 x 128, SGD at lr 1.0, momentum
+   0.9, clip 2.0, each on seeded tokens of its
+   own 1,024-token window; #1, #2, #3 and #7 launches exact;
+   ``eval_ce`` with the adapter below the base's; the base's bits
+   unchanged); stored content-addressed (t1 int8, a copy of t0 on t0's
+   object, bytes the plan's count); served mixed through 2 resident bank
+   rows, dense and paged behind phase 25's system prompt (deferrals,
+   evictions and prefix hits as a CPU twin of the scheduling predicts;
+   the base requests equal to a no-adapter engine's, the tenants' to
+   solo ``merge_adapters`` engines' unless parting at a near-tie, paged
+   to dense; merged logits against the f32 CPU; the deltas' device ms a
+   decode tick under the ``adapter_delta`` range; TPOT and TTFT against
+   the no-adapter engine).
 
 Every full-sequence attention (training, a forward without caches, the
 prefill at offset 0) goes through kernel #7, so phases 5, 7, 8, 10, 12,
@@ -372,6 +391,17 @@ from repro_torch.serve.engine import (  # noqa: E402
     paged_chunk_prefill,
 )
 from repro_torch.utils.memprof import kv_cache_bytes  # noqa: E402
+from repro_torch.api import bind  # noqa: E402
+from repro_torch.tenancy import (  # noqa: E402
+    AdapterStore,
+    eval_ce,
+    finetune_adapters,
+    merge_adapters,
+    zero_adapters,
+)
+from repro_torch.tenancy.adapter import tree_leaves  # noqa: E402
+from repro_torch.tenancy.finetune import DEFAULT_TCFG  # noqa: E402
+from repro_torch.tenancy.resident import ResidentAdapters  # noqa: E402
 
 # H100 SXM peaks (NVIDIA data sheet, dense): HBM3 rate, bf16 tensor-core
 # rate, f32 rate outside the tensor cores
@@ -836,8 +866,11 @@ def phase_kernels(card: str) -> dict:
     eager = eager_line("lowrank_fwd", [
         r for r in rows + zrows + drows_draft
         if r["route"] == "decode" and r["dtype"] == "bfloat16"], card)
+    arows, adapter_head = adapter_rows(card)
+    worst = max(worst, max(r["max_abs_err"] for r in arows))
     return dict(rows=rows, zamba2_rows=zrows, worst=worst, sweep=sweep,
                 draft_rows=drows_draft, draft_headline=draft_head,
+                adapter_rows=arows, adapter_headline=adapter_head,
                 eager=eager,
                 zamba2_headline=zamba, dense_rows=drows,
                 tinyllama_decode_headline=dense_head, headline=dict(
@@ -1159,7 +1192,8 @@ def phase_full_width(card: str) -> dict:
 SCAN_RANGE = "selective_scan"
 #: every profiler range whose device span repeats its kernels' time: the
 #: Mamba-1 scan's and the spec engine's draft, verify and accept
-RANGES = (SCAN_RANGE, "spec_draft", "spec_verify", "spec_accept")
+RANGES = (SCAN_RANGE, "spec_draft", "spec_verify", "spec_accept",
+          "adapter_delta")
 
 
 class DeviceRow(NamedTuple):
@@ -4942,10 +4976,15 @@ def phase_ssd_grad(card: str) -> dict:
     return out
 
 
-# phase 23: zamba2-7b trained at full width and depth, phase 19's optimizer
+# phase 23: zamba2-7b trained at full width, phase 19's optimizer
 # (SGD+momentum 0.9 at a constant 0.05), refresh every 8: 8 steps (the
-# refresh at the 8th) and a profiled step per method, batch 4 x 512
+# refresh at the 8th) and a profiled step per method, batch 4 x 512.
+# Depth: the pattern ``Z_TRAIN_REPEATS`` times of its 13 and the tail, 27
+# of 81 layers, so that the script stays inside its time limit beside
+# phase 27 (at 81 layers the phase took 157 s of a 1,032 s script on an
+# H100); every kind of layer, site and kernel of the 81 is in the 27
 Z_TRAIN_B, Z_TRAIN_S, Z_TRAIN_STEPS, Z_REFRESH = 4, 512, 8, 8
+Z_TRAIN_REPEATS = 4
 Z_METHODS = ("wasi", "wsi")
 # the reduced-depth check: one repeat of the pattern and the tail (9
 # layers) at full width, batch 1 x 320 (two chunks of #8, the second
@@ -4968,6 +5007,16 @@ Z_CHECK_B, Z_CHECK_S = 1, 320
 Z_LOSS_TOL = 3.3e-4
 MAMBA_F32_LOSS_TOL, MAMBA_F32_GRAD_TOL, MAMBA_BF16_COS = 1e-5, 0.01, 0.9
 Z_INT8_DIR = os.path.join(ROOT, "build", "chip_smoke_zamba2_int8")
+
+
+def zamba2_train_cfg(cfg):
+    """zamba2 at full width, its pattern ``Z_TRAIN_REPEATS`` times and
+    the tail (27 layers)."""
+    from repro_torch.config import LayerGroup
+
+    return reduced(cfg, (LayerGroup(pattern=cfg.groups[0].pattern,
+                                    repeat=Z_TRAIN_REPEATS),)
+                   + cfg.groups[1:])
 
 
 def zamba2_reduced(cfg):
@@ -5087,7 +5136,8 @@ def mamba_vs_cpu(tag: str, cfg, method: str, card: str, b: int, s: int,
 
 
 def zamba2_train_method(method: str, card: str) -> dict:
-    """One method at full width and depth under the config's ``block``:
+    """One method at full width and 27 layers (``zamba2_train_cfg``)
+    under the config's ``block``:
     the saved-for-backward bytes and the allocator's peak of one loss,
     ``Z_TRAIN_STEPS`` steps through ``train_loop`` with exact launches, a
     profiled step."""
@@ -5095,7 +5145,8 @@ def zamba2_train_method(method: str, card: str) -> dict:
     from repro_torch.utils.memprof import measured_residual_bytes
 
     b, s = Z_TRAIN_B, Z_TRAIN_S
-    cfg = with_method(configs.get("zamba2-7b"), method, Z_REFRESH)
+    cfg = with_method(zamba2_train_cfg(configs.get("zamba2-7b")), method,
+                      Z_REFRESH)
     tcfg = TrainConfig(optimizer="sgd", lr=TINY_LR, momentum=0.9,
                        schedule="constant", steps=Z_TRAIN_STEPS + 1,
                        checkpoint_every=0)
@@ -5173,8 +5224,8 @@ def zamba2_int8(card: str) -> dict:
 
 
 def phase_zamba2_train(card: str) -> dict:
-    print("== phase 23: zamba2-7b trained at full width and depth (81 "
-          "layers, d 3584, bf16, remat block) under wasi and wsi; card vs "
+    print("== phase 23: zamba2-7b trained at full width and 27 of its 81 "
+          "layers (d 3584, bf16, remat block) under wasi and wsi; card vs "
           "CPU at 9 layers; int8 from a plan-bearing checkpoint", flush=True)
     out = {}
     for method in Z_METHODS:
@@ -5712,13 +5763,15 @@ def greedy_margins(model, cfg, prompts, tokens) -> list:
     return out
 
 
-def greedy_agreement(tag, base, run, margins, limit, card) -> dict:
+def greedy_agreement(tag, base, run, margins, limit, card,
+                     against: str = "the non-spec run's") -> dict:
     """Greedy spec tokens against the non-spec run's, whole: the runs may
     part only at a near-tie, a step whose top-2 margin (``margins``, from
     the non-spec run's tokens, which the spec run shares up to there)
     lies within ``limit``; after it their contexts differ and nothing
     more is compared. The requests that part are printed with the step
-    and its margin."""
+    and its margin. ``against`` names the base run in the log (phase 27
+    holds tenant runs to solo and dense runs)."""
     parted = {}
     greedy = [r for r in range(len(base["tokens"])) if not base["sampled"][r]]
     for r in greedy:
@@ -5734,9 +5787,9 @@ def greedy_agreement(tag, base, run, margins, limit, card) -> dict:
         parted[r] = dict(step=d, margin=margins[r][d])
     where = ", ".join(f"{r}: ({p['step']}, {p['margin']:.4g})"
                       for r, p in parted.items())
-    print(f"[{tag}] greedy tokens equal the non-spec run's in "
+    print(f"[{tag}] greedy tokens equal {against} in "
           f"{len(greedy) - len(parted)} of {len(greedy)} requests, all "
-          f"{SPEC_NEW} tokens; the others part at a near-tie (top-2 margin "
+          f"{len(base['tokens'][0])} tokens; the others part at a near-tie (top-2 margin "
           f"<= {limit:.4g}) as request: (step, margin): {{{where}}} | "
           f"{card}", flush=True)
     return dict(parted=parted, whole=len(greedy) - len(parted),
@@ -6030,6 +6083,547 @@ def phase_spec(card: str) -> dict:
     return out
 
 
+# ---------------------------------------------------------------------------
+# phase 27: tenant adapters
+# ---------------------------------------------------------------------------
+
+# qwen2-0.5b at full width and depth in f32 (the reference runs f32
+# adapters on an f32 model only; ROADMAP.md queue 3), adapters at
+# rank_frac 0.25: K_a 224 at q, o, gate, up and down, 32 at k and v
+ADAPTER_FRAC = 0.25
+ADAPTER_TENANTS = ("t0", "t1", "t2")
+# each tenant's stream: seeded tokens uniform over its own window of the
+# vocabulary, the windows distinct (``TenantStream``)
+ADAPTER_WINDOW, ADAPTER_WINDOW_GAP = 1024, 50_000
+ADAPTER_STEPS, ADAPTER_BATCH, ADAPTER_SEQ, ADAPTER_EVAL = 8, 4, 128, 2
+# the fine-tune: ``DEFAULT_TCFG`` (SGD, momentum 0.9, clip 2.0, constant
+# schedule) at lr 1.0. Its lr of 0.3, set for smoke models, moves a full-
+# width tenant in tens of steps: in 8 it left the held-out CE within
+# -0.012..+0.015 of the base's (the batches' noise), at 1.0 it took
+# 0.17-0.29 off (an H100, PERF.md section 6)
+ADAPTER_TCFG = dataclasses.replace(DEFAULT_TCFG, lr=1.0)
+ADAPTER_NEW = 32
+# tenants cycled over phase 5's eight requests: three tenants through two
+# bank rows, so admissions defer and rows are evicted
+ADAPTER_ASSIGN = ("t0", "t1", None, "t2")
+ADAPTER_SLOTS = 2
+# the store formats: t1 int8, the others f32; t0-copy holds t0's tree
+ADAPTER_FORMATS = {"t0": "f32", "t1": "int8", "t2": "f32"}
+ADAPTER_STORE = os.path.join(ROOT, "build", "chip_smoke_adapters")
+# one tenant's f32 delta at full width: 24 layers x (q, o: 224 x (896 +
+# 896); k, v: 32 x (896 + 128); gate, up, down: 224 x (896 + 4864))
+ADAPTER_PARAMS = 113_737_728
+# the adapter sites of one qwen2-0.5b layer, (I, K_a, O), for phase 3
+ADAPTER_SHAPES = {"attn/wq|wo": (896, 224, 896),
+                  "attn/wk|wv": (896, 32, 128),
+                  "mlp/gate|up": (896, 224, 4864),
+                  "mlp/down": (4864, 224, 896)}
+
+
+def adapter_rows(card: str) -> tuple[list, dict]:
+    """Kernel #1 at one qwen2-0.5b layer's 7 adapter sites, a solo
+    tenant's delta at decode (M = 4, f32, the decode route), against the
+    plain version, timed beside the library's ``torch.matmul`` pair on the
+    same tensors and the bound; the layer's headline."""
+    gen = torch.Generator(device="cuda").manual_seed(27)
+    rows = []
+    for name, (i, k, o) in ADAPTER_SHAPES.items():
+        row = lowrank_row("[adapter]", name, 4, i, k, o, torch.float32, gen,
+                          card)
+        if row["route"] != "decode":
+            raise AssertionError(f"adapter site {name} M=4 took "
+                                 f"{row['route']}")
+        rows.append(row)
+    head = layer_headline(
+        "one qwen2-0.5b layer's 7 adapter sites at decode (M=4, f32, "
+        "K_a 224/32)", rows,
+        {n: n.count("|") + 1 for n in ADAPTER_SHAPES}, torch.float32, card)
+    return rows, head
+
+
+class TenantStream:
+    """A tenant's token stream (``finetune_adapters``'s and ``eval_ce``'s
+    ``data``): batch ``step`` is ``ADAPTER_BATCH`` rows of seeded tokens
+    uniform over [lo, lo + ADAPTER_WINDOW), drawn on the card."""
+
+    def __init__(self, lo: int, seed: int):
+        self.lo, self.seed = lo, seed
+
+    def batch(self, step: int, batch_size: int | None = None) -> dict:
+        g = torch.Generator(device="cuda").manual_seed(
+            self.seed * 1_000_003 + step)
+        t = torch.randint(self.lo, self.lo + ADAPTER_WINDOW,
+                          (batch_size or ADAPTER_BATCH, ADAPTER_SEQ + 1),
+                          device="cuda", generator=g)
+        return {"tokens": t[:, :-1], "labels": t[:, 1:]}
+
+
+def adapter_train_want(cfg, n_steps: int) -> dict:
+    """Exact launches of ``n_steps`` fine-tune steps. Each forward run
+    (two a step under ``remat="block"``: the forward and the backward's
+    recompute) takes #2 at all 168 adapter sites and at every base site
+    whose input requires grad, which is all but layer 0's q, k and v
+    (they read the frozen embedding through a frozen norm, so they take
+    #1); the backward takes #3 once for each #2 of the forward; #7 once a
+    run per attention layer; no Gram or CholeskyQR (the refresh walks the
+    adapter tree, which holds no (L, R) pair)."""
+    c = forward_counts(cfg)
+    runs = remat_runs(cfg)
+    want = dict.fromkeys(ops.launch_counts(), 0)
+    want["lowrank_fwd"] = n_steps * 3 * runs
+    want["lowrank_fwd_sketch"] = n_steps * (2 * c["sites"] - 3) * runs
+    want["lowrank_bwd"] = n_steps * (2 * c["sites"] - 3)
+    want["flash_attention"] = n_steps * c["flash"] * runs
+    return want
+
+
+def serve_want(cfg, s, prefills: int, paged: bool, per_site: int) -> dict:
+    """Exact launches of a serve run: #1 ``per_site`` times at each of the
+    168 factored sites per forward (decode step, and dense prefill call
+    or paged chunk): 1 on the base or a mixed-tenant engine, whose deltas
+    are ``bmm`` pairs, 2 on a solo engine over ``merge_adapters``, whose
+    adapter sites take #1 too; #7 24 per dense prefill call."""
+    c = forward_counts(cfg)
+    want = dict.fromkeys(ops.launch_counts(), 0)
+    want["lowrank_fwd"] = per_site * c["sites"] * (s["decode_steps"]
+                                                   + prefills)
+    if not paged:
+        want["flash_attention"] = c["flash"] * prefills
+    return want
+
+
+def leaf_checksum(model) -> list:
+    """Each leaf's bits summed as int32 words (int64 sums)."""
+    return [int(p.detach().view(torch.int32).sum(dtype=torch.int64))
+            for p in model.parameters()]
+
+
+def adapter_plan_bytes(aplan, cfg, fmt: str) -> int:
+    """A tenant's stored bytes from the plan: per layer and stamped site,
+    La (O, K_a) and Ra (K_a, I) in f32, or in int8 with one f32 scale per
+    row of each."""
+    per_layer = sum(
+        4 * s.adapter * (s.in_dim + s.out_dim) if fmt == "f32" else
+        s.adapter * (s.in_dim + s.out_dim) + 4 * (s.out_dim + s.adapter)
+        for s in aplan.specs if s.adapter)
+    return per_layer * cfg.n_layers
+
+
+class delta_launches:
+    """Inside the block, the kernel launches made within
+    ``bind.adapter_delta`` (the adapter sites) add up in ``counts``."""
+
+    def __enter__(self):
+        self.counts: dict = {}
+        self.fn = fn = bind.adapter_delta
+
+        def counted(*a, **kw):
+            before = ops.launch_counts()
+            out = fn(*a, **kw)
+            for k, v in ops.launch_counts().items():
+                self.counts[k] = self.counts.get(k, 0) + v - before[k]
+            return out
+
+        bind.adapter_delta = counted
+        return self
+
+    def __exit__(self, *exc):
+        bind.adapter_delta = self.fn
+
+
+def adapter_finetune(model, aplan, cfg, card: str) -> tuple[dict, dict]:
+    """Each tenant fine-tuned from a fresh adapter (``finetune_adapters``,
+    ``ADAPTER_TCFG``) on its own stream; launches exact; ``eval_ce`` on
+    held-out batches with the adapter below the frozen base's; the base's
+    bits unchanged after all three. Returns (trees, results)."""
+    want = adapter_train_want(cfg, ADAPTER_STEPS)
+    per = forward_counts(cfg)
+    eval_want = dict.fromkeys(ops.launch_counts(), 0)
+    eval_want["lowrank_fwd"] = ADAPTER_EVAL * (per["sites"]
+                                               + 2 * per["sites"])
+    eval_want["flash_attention"] = 2 * ADAPTER_EVAL * per["flash"]
+    before = leaf_checksum(model)
+    trees, out = {}, {}
+    for n, t in enumerate(ADAPTER_TENANTS):
+        lo = ADAPTER_WINDOW + ADAPTER_WINDOW_GAP * n
+        stream = TenantStream(lo, 2700 + n)
+        torch.cuda.synchronize()
+        ops.reset_launches()
+        t0 = time.perf_counter()
+        tree, met = finetune_adapters(model, aplan, stream,
+                                      steps=ADAPTER_STEPS, seed=n,
+                                      batch_size=ADAPTER_BATCH,
+                                      tcfg=ADAPTER_TCFG)
+        torch.cuda.synchronize()
+        secs = time.perf_counter() - t0
+        counts = ops.launch_counts()
+        if counts != want:
+            raise AssertionError(f"tenancy fine-tune {t}: launches {counts}"
+                                 f" != {want}")
+        ops.reset_launches()
+        base_ce = eval_ce(model, cfg, stream, steps=ADAPTER_EVAL,
+                          batch_size=ADAPTER_BATCH)
+        ad_ce = eval_ce(merge_adapters(model, tree), cfg, stream,
+                        steps=ADAPTER_EVAL, batch_size=ADAPTER_BATCH)
+        torch.cuda.synchronize()
+        if ops.launch_counts() != eval_want:
+            raise AssertionError(f"tenancy eval {t}: launches "
+                                 f"{ops.launch_counts()} != {eval_want}")
+        if not ad_ce < base_ce:
+            raise AssertionError(f"tenancy {t}: adapter CE {ad_ce:.4f} does"
+                                 f" not beat the frozen base's {base_ce:.4f}")
+        trees[t] = tree
+        out[t] = dict(window=[lo, lo + ADAPTER_WINDOW], base_ce=base_ce,
+                      adapter_ce=ad_ce, last_step_ce=met["ce"],
+                      grad_norm=met["grad_norm"], seconds=secs,
+                      step_s=secs / ADAPTER_STEPS)
+        print(f"[tenancy] {t}: {ADAPTER_STEPS} steps on tokens "
+              f"[{lo}, {lo + ADAPTER_WINDOW}) at {ADAPTER_BATCH} x "
+              f"{ADAPTER_SEQ}, SGD lr {ADAPTER_TCFG.lr} momentum "
+              f"{ADAPTER_TCFG.momentum} clip {ADAPTER_TCFG.clip_norm}, "
+              f"{secs / ADAPTER_STEPS:.3f} s a step; held-out"
+              f" CE base {base_ce:.4f} -> adapter {ad_ce:.4f} (last step "
+              f"{met['ce']:.4f}, grad norm {met['grad_norm']:.3f}) | {card}",
+              flush=True)
+    if leaf_checksum(model) != before:
+        raise AssertionError("tenancy: the base's leaves changed during "
+                             "fine-tuning")
+    print(f"[tenancy] launches exact for each tenant: "
+          f"{', '.join(f'{k} {v}' for k, v in want.items() if v)} "
+          f"({ADAPTER_STEPS} steps: #1 at layer 0's q, k, v base sites, #2 "
+          f"at the other {per['sites'] - 3} base and all {per['sites']} "
+          f"adapter sites, {remat_runs(cfg)} run(s) a step (remat="
+          f"{cfg.remat}), #3 once); eval {', '.join(f'{k} {v}' for k, v in eval_want.items() if v)};"
+          f" base bits unchanged after all three ({len(before)} leaves) | "
+          f"{card}", flush=True)
+    out["launches_per_tenant"] = want
+    out["eval_launches"] = eval_want
+    return trees, out
+
+
+def adapter_store(trees, aplan, cfg, card: str) -> dict:
+    """t0 and t2 saved f32, t1 int8, t0-copy with t0's tree: three
+    objects (t0-copy lands on t0's), each tenant's bytes the plan's
+    count, the int8 tenant reloaded within half a quantization step."""
+    shutil.rmtree(ADAPTER_STORE, ignore_errors=True)
+    store = AdapterStore(ADAPTER_STORE)
+    t0 = time.perf_counter()
+    metas = {t: store.save(t, trees[t], aplan, fmt=f)
+             for t, f in ADAPTER_FORMATS.items()}
+    metas["t0-copy"] = store.save("t0-copy", trees["t0"], aplan)
+    save_s = time.perf_counter() - t0
+    objects = sorted(n for n in os.listdir(os.path.join(ADAPTER_STORE,
+                                                        "objects")))
+    if metas["t0-copy"]["object"] != metas["t0"]["object"] or \
+            len(objects) != 3:
+        raise AssertionError(f"tenancy store: objects {objects}")
+    for t, m in metas.items():
+        want = adapter_plan_bytes(aplan, cfg, m["format"])
+        if m["bytes"] != want:
+            raise AssertionError(f"tenancy store {t}: {m['bytes']} bytes, "
+                                 f"the plan counts {want}")
+    back = dict(bind.iter_adapter_dicts(store.load("t1", device="cuda")[0]))
+    worst = 0.0
+    for path, pair in bind.iter_adapter_dicts(trees["t1"]):
+        for key, w in pair.items():
+            step = w.abs().amax(dim=-1, keepdim=True) / 127
+            worst = max(worst, ((back[path][key] - w).abs()
+                                / step.clamp_min(1e-30)).max().item())
+    if not worst <= 0.5 + 2 * 127 * EPS32:
+        raise AssertionError(f"tenancy store: int8 t1 reloads {worst:.4f} "
+                             "quantization steps off")
+    print(f"[tenancy] store: {', '.join(f'{t} {m['format']} {m['bytes']} B' for t, m in metas.items())}"
+          f" (each the plan's count); {len(objects)} objects, "
+          f"{store.total_object_bytes()} B on disk (t0-copy on t0's "
+          f"object); int8 t1 reloads within {worst:.4f} of a quantization "
+          f"step; saves {save_s:.1f} s | {card}", flush=True)
+    return dict(bytes={t: m["bytes"] for t, m in metas.items()},
+                objects=len(objects),
+                object_bytes=store.total_object_bytes(),
+                int8_worst_steps=worst, save_s=save_s)
+
+
+def drive_tenants(eng, prompts, tenants, vocab: int):
+    """One warm-up request (no tenant, 9 tokens: no full page), the stats
+    reset, then ``prompts`` with ``tenants``, ``ADAPTER_NEW`` greedy tokens
+    each, run to the end: the handles. The card's runs and their CPU
+    twin (``scheduling_twin``) share it, so they schedule alike."""
+    rng = np.random.default_rng(1)
+    eng.submit(list(map(int, rng.integers(0, vocab, 9))), max_new=4)
+    eng.run()
+    eng.reset_stats()
+    return [eng.submit(p, max_new=ADAPTER_NEW, tenant=t)
+            for p, t in zip(prompts, tenants)]
+
+
+def scheduling_twin(prompts, tenants) -> dict:
+    """The prediction of the card's dense and paged adapter runs'
+    deferrals, adapter evictions and prefix hit tokens: the same engine
+    settings, prompt lengths, shared system prompt and tenants, driven
+    alike on the CPU through qwen2 smoke with zero adapters. Scheduling
+    reads only lengths, tenants, max_new, page and row counts (greedy,
+    no EOS, no deadline), never the model's numbers."""
+    import tempfile
+
+    cfg = configs.get_smoke("qwen2-0.5b")
+    threads = torch.get_num_threads()
+    torch.set_num_threads(1)
+    api.uninstall(cfg)
+    plan = api.install(api.resolve(cfg))
+    model = init_lm(cfg, device="cpu", seed=0)
+    zero = zero_adapters(model, plan.with_adapter(ADAPTER_FRAC))
+    out = {}
+    os.makedirs(os.path.join(ROOT, "build"), exist_ok=True)
+    with tempfile.TemporaryDirectory(dir=os.path.join(ROOT, "build")) as d:
+        store = AdapterStore(d)
+        for t in list(ADAPTER_FORMATS) + ["t0-copy"]:
+            store.save(t, zero, plan.with_adapter(ADAPTER_FRAC))
+        small = [[x % cfg.vocab_size for x in p] for p in prompts]
+        for paged in (False, True):
+            eng = ServeEngine(model, plan=plan, max_slots=4, max_cache=512,
+                              device="cpu", adapters=ResidentAdapters(
+                                  store, capacity=ADAPTER_SLOTS,
+                                  device="cpu"),
+                              **(PAGED_KW if paged else {}))
+            drive_tenants(eng, small, tenants, cfg.vocab_size)
+            eng.run()
+            s = eng.summary()
+            out["paged" if paged else "dense"] = dict(
+                deferred=s["deferred"],
+                adapter_evictions=s["adapter_evictions"],
+                prefix_hit_tokens=s["prefix_hit_tokens"],
+                swaps=s["tenancy"]["swaps"], hits=s["tenancy"]["hits"])
+    api.uninstall(cfg)
+    torch.set_num_threads(threads)
+    return out
+
+
+def adapter_serve(tag: str, model, plan, cfg, prompts, tenants, card: str,
+                  *, adapters: bool, paged: bool = False,
+                  per_site: int = 1) -> dict:
+    """``prompts`` through a 4-slot engine at ``max_cache`` 512 (with the
+    store's banks, ``ADAPTER_SLOTS`` rows, where ``adapters``; paged with
+    phase 25's settings where ``paged``): TTFT, TPOT, decode tok/s, exact
+    launches (``serve_want``), the adapter sites' own launches
+    (``delta_launches``), deferrals, evictions, prefix hits, the
+    allocator's peak; the tokens and the engine are returned."""
+    kw = dict(PAGED_KW) if paged else {}
+    if adapters:
+        kw.update(adapters=ADAPTER_STORE, adapter_slots=ADAPTER_SLOTS)
+    eng = ServeEngine(model, plan=plan, max_slots=4, max_cache=512,
+                      device="cuda", **kw)
+    calls = {"_prefill": 0}
+    if not paged:
+        _count_calls(eng, "_prefill", calls)
+    torch.cuda.synchronize()
+    torch.cuda.reset_peak_memory_stats()
+    with delta_launches() as dl:
+        hs = drive_tenants(eng, prompts, tenants if adapters else
+                           [None] * len(prompts), cfg.vocab_size)
+        calls["_prefill"] = 0
+        dl.counts.clear()
+        ops.reset_launches()
+        eng.run()
+        torch.cuda.synchronize()
+    counts = ops.launch_counts()
+    s = eng.summary()
+    for h in hs:
+        if not (h.finished and len(h.generated) == ADAPTER_NEW):
+            raise AssertionError(f"{tag} request {h.rid} ended {h.status} "
+                                 f"with {len(h.generated)} tokens")
+    prefills = s["prefill_chunks"] if paged else calls["_prefill"]
+    want = serve_want(cfg, s, prefills, paged, per_site)
+    if counts != want:
+        raise AssertionError(f"{tag} launches {counts} != {want} "
+                             f"({s['decode_steps']} decode steps, "
+                             f"{prefills} prefill calls)")
+    delta = {k: v for k, v in dl.counts.items() if v}
+    want_delta = ({"lowrank_fwd": want["lowrank_fwd"] // 2}
+                  if per_site == 2 else {})
+    if delta != want_delta:
+        raise AssertionError(f"{tag} adapter-site launches {delta} != "
+                             f"{want_delta}")
+    res = dict(ttft_ms_median=statistics.median(h.ttft_s for h in hs) * 1e3,
+               tpot_ms_median=statistics.median(h.tpot_s for h in hs) * 1e3,
+               decode_tok_s=s["decode_tok_s"],
+               decode_steps=s["decode_steps"], prefill_calls=prefills,
+               launches=counts, adapter_site_launches=delta,
+               deferred=s["deferred"],
+               adapter_evictions=s["adapter_evictions"],
+               prefix_hit_tokens=s["prefix_hit_tokens"],
+               max_memory_allocated_mib=torch.cuda.max_memory_allocated()
+               / 2**20, tokens=[h.generated for h in hs],
+               sampled=[False] * len(hs))
+    if adapters:
+        t = s["tenancy"]
+        res.update(bank_bytes=s["adapter_bank_bytes"], swaps=t["swaps"],
+                   hits=t["hits"], resident=t["resident"],
+                   events=len(eng.adapter_events))
+    print(f"[{tag}] TTFT median {res['ttft_ms_median']:.3f} ms, TPOT median "
+          f"{res['tpot_ms_median']:.3f} ms, decode {res['decode_tok_s']:.1f}"
+          f" tok/s, {s['decode_steps']} decode steps + {prefills} prefill "
+          f"{'chunks' if paged else 'calls'}; launches exact "
+          f"({', '.join(f'{k} {v}' for k, v in counts.items() if v)}; "
+          f"{per_site} x {forward_counts(cfg)['sites']} a forward"
+          + (f", {delta['lowrank_fwd']} of them at the adapter sites"
+             if delta else "") + f"); deferred {s['deferred']}, adapter "
+          f"evictions {s['adapter_evictions']}, prefix hits "
+          f"{s['prefix_hit_tokens']}; peak allocated "
+          f"{res['max_memory_allocated_mib']:.1f} MiB | {card}", flush=True)
+    res["engine"] = eng
+    return res
+
+
+def profile_adapter_decode(eng, cfg, card: str) -> dict:
+    """Device ms of the deltas per decode tick: 4 slots decoding (t0, t1,
+    no tenant, t1; two bank rows), 5 ticks under the profiler, the
+    kernels starting inside ``adapter_delta`` ranges (the per-site row
+    gathers and ``bmm`` pairs) against the tick's device and wall time."""
+    rng = np.random.default_rng(270)
+    hs = [eng.submit(list(map(int, rng.integers(0, cfg.vocab_size, 16))),
+                     max_new=12, tenant=t)
+          for t in ("t0", "t1", None, "t1")]
+    while not all(h.generated for h in hs):
+        eng.step()
+    _, wall_us, prof, ev = profiled(lambda: [eng.step() for _ in range(5)])
+    eng.run()
+    dev_ms = sum(e.self_device_time_total for e in ev) / 1e3
+    split = range_split(prof, ("adapter_delta",))["adapter_delta"]
+    per = None if split is None else split / 5
+    print(f"[tenancy] 5 decode ticks (4 slots: t0, t1, none, t1): wall "
+          f"{wall_us / 5e3:.3f} ms a tick, device busy {dev_ms / 5:.3f} ms a "
+          f"tick, busy share {dev_ms * 1e3 / wall_us:.3f}; the deltas "
+          f"(adapter_delta: {forward_counts(cfg)['sites']} row gathers and "
+          f"bmm pairs a tick) "
+          + (f"{per:.3f} ms a tick" if per is not None else "not measured")
+          + f" | {card}", flush=True)
+    return dict(tick_wall_ms=wall_us / 5e3, tick_device_ms=dev_ms / 5,
+                busy_share=dev_ms * 1e3 / wall_us, delta_ms=per)
+
+
+def margins_by_request(models, cfg, prompts, tenants, tokens) -> list:
+    """Each request's top-2 margins along ``tokens`` under its own model
+    (its tenant's merged model, or the base)."""
+    return [greedy_margins(models[t], cfg, [p], [g])[0]
+            for p, t, g in zip(prompts, tenants, tokens)]
+
+
+def phase_tenancy(card: str) -> dict:
+    print("== phase 27: tenant adapters on qwen2-0.5b at full width and "
+          "depth (24 layers, f32): three tenants fine-tuned against the "
+          "frozen base, stored content-addressed (f32 and int8), served "
+          "mixed through two resident bank rows, dense and paged", flush=True)
+    cfg = configs.get("qwen2-0.5b").replace(dtype="float32")
+    api.uninstall(cfg)
+    plan = api.install(api.resolve(cfg))
+    aplan = plan.with_adapter(ADAPTER_FRAC)
+    model = init_lm(cfg, device="cuda", seed=0)
+    out: dict = {}
+    trees, out["finetune"] = adapter_finetune(model, aplan, cfg, card)
+    out["store"] = adapter_store(trees, aplan, cfg, card)
+    del trees
+    store = AdapterStore(ADAPTER_STORE)
+    merged = {t: merge_adapters(model, store.load(t, device="cuda")[0])
+              for t in ADAPTER_TENANTS}
+    merged[None] = model
+    system = list(map(int, np.random.default_rng(25).integers(
+        0, cfg.vocab_size, PAGED_SYSTEM)))
+    rng = np.random.default_rng(27)
+    prompts = [system + list(map(int, rng.integers(0, cfg.vocab_size, n)))
+               for n in SERVE_LENGTHS]
+    tenants = [ADAPTER_ASSIGN[i % len(ADAPTER_ASSIGN)]
+               for i in range(len(prompts))]
+    twin = scheduling_twin(prompts, tenants)
+    out["twin"] = twin
+    base = adapter_serve("tenancy_base", model, plan, cfg, prompts, tenants,
+                         card, adapters=False)
+    mixed = adapter_serve("tenancy_dense", model, plan, cfg, prompts,
+                          tenants, card, adapters=True)
+    out["profile"] = profile_adapter_decode(mixed["engine"], cfg, card)
+    for key in ("deferred", "adapter_evictions"):
+        if mixed[key] != twin["dense"][key] or mixed[key] < 1:
+            raise AssertionError(f"tenancy_dense {key} {mixed[key]}, the "
+                                 f"twin predicts {twin['dense'][key]} "
+                                 "(want >= 1)")
+    want_bank = (ADAPTER_SLOTS + 1) * ADAPTER_PARAMS * 4
+    if mixed["bank_bytes"] != want_bank:
+        raise AssertionError(f"tenancy bank bytes {mixed['bank_bytes']} != "
+                             f"{want_bank}")
+    none = [r for r, t in enumerate(tenants) if t is None]
+    for r in none:
+        if mixed["tokens"][r] != base["tokens"][r]:
+            raise AssertionError(f"tenancy: request {r} without a tenant "
+                                 f"{mixed['tokens'][r]} != the no-adapter "
+                                 f"engine's {base['tokens'][r]}")
+    print(f"[tenancy] the {len(none)} requests without a tenant emit the "
+          f"no-adapter engine's tokens whole ({ADAPTER_NEW} each): the "
+          f"identity row adds exactly 0 | {card}", flush=True)
+    out["logits"] = logits_vs_cpu("tenancy_t0", cfg, merged["t0"], card,
+                                  limits=F32_LOGIT_TOLS)
+    api.install(plan)
+    rms = statistics.median(e["rms"] for e in out["logits"]["steps"])
+    limit = F32_LOGIT_TOLS[1] * math.sqrt(cfg.n_layers) * rms
+    solo, solo_delta = {}, 0
+    for t in ADAPTER_TENANTS:
+        rows = [r for r, u in enumerate(tenants) if u == t]
+        run = adapter_serve(f"tenancy_solo_{t}", merged[t], plan, cfg,
+                            [prompts[r] for r in rows], [None] * len(rows),
+                            card, adapters=False, per_site=2)
+        solo_delta += run["adapter_site_launches"]["lowrank_fwd"]
+        margins = margins_by_request(merged, cfg, [prompts[r] for r in rows],
+                                     [t] * len(rows), run["tokens"])
+        run["agreement"] = greedy_agreement(
+            f"tenancy_solo_{t}", run, dict(tokens=[mixed["tokens"][r]
+                                                   for r in rows]),
+            margins, limit, card, against=f"the solo {t} engine's")
+        del run["engine"]
+        solo[t] = run
+    out["solo"] = solo
+    out["solo_adapter_launches"] = solo_delta
+    paged = adapter_serve("tenancy_paged", model, plan, cfg, prompts,
+                          tenants, card, adapters=True, paged=True)
+    for key in ("deferred", "adapter_evictions", "prefix_hit_tokens"):
+        if paged[key] != twin["paged"][key]:
+            raise AssertionError(f"tenancy_paged {key} {paged[key]}, the "
+                                 f"twin predicts {twin['paged'][key]}")
+    peng = paged.pop("engine")
+    peng.check_invariants()
+    peng.release_prefix_cache()
+    peng.check_invariants()
+    if peng.pool.pages_in_use:
+        raise AssertionError(f"tenancy_paged: {peng.pool.pages_in_use} "
+                             "pages in use after release_prefix_cache")
+    del peng
+    dmargins = margins_by_request(merged, cfg, prompts, tenants,
+                                  mixed["tokens"])
+    paged["agreement"] = greedy_agreement(
+        "tenancy_paged", mixed, paged, dmargins, limit, card,
+        against="the dense adapter run's")
+    print(f"[tenancy] paged prefix hits {paged['prefix_hit_tokens']} tokens,"
+          f" as predicted ({PAGED_SYSTEM}-token system prompt shared within "
+          f"each tenant's namespace only); dense and paged deferrals "
+          f"{mixed['deferred']} / {paged['deferred']}, adapter evictions "
+          f"{mixed['adapter_evictions']} / {paged['adapter_evictions']} "
+          f"as predicted | {card}", flush=True)
+    print(f"[tenancy] adapter engine vs no-adapter engine, one call: TPOT "
+          f"median {mixed['tpot_ms_median']:.3f} / "
+          f"{base['tpot_ms_median']:.3f} ms, TTFT median "
+          f"{mixed['ttft_ms_median']:.3f} / {base['ttft_ms_median']:.3f} ms,"
+          f" decode {mixed['decode_tok_s']:.1f} / {base['decode_tok_s']:.1f}"
+          f" tok/s; bank bytes {mixed['bank_bytes']} ({ADAPTER_SLOTS + 1} "
+          f"rows x {ADAPTER_PARAMS * 4}); peak allocated "
+          f"{mixed['max_memory_allocated_mib']:.1f} / "
+          f"{base['max_memory_allocated_mib']:.1f} MiB | {card}", flush=True)
+    del mixed["engine"], base["engine"]
+    out.update(base=base, dense=mixed, paged=paged)
+    del merged, model, store
+    api.uninstall(cfg)
+    shutil.rmtree(ADAPTER_STORE, ignore_errors=True)
+    gc.collect()
+    torch.cuda.empty_cache()
+    return out
+
+
 def main() -> None:
     ap = argparse.ArgumentParser(description=__doc__.splitlines()[0])
     ap.add_argument("--json", default="",
@@ -6090,6 +6684,7 @@ def main() -> None:
     falcon = run(24, phase_falcon_mamba, card)
     paged = run(25, phase_paged, card)
     spec = run(26, phase_spec, card)
+    tenancy = run(27, phase_tenancy, card)
 
     head = k["headline"]
     kernels = [{
@@ -6173,6 +6768,18 @@ def main() -> None:
             "ms": head["ms"], "plain_ms": head["plain_ms"],
             "bound_ms": head["bound_ms"], "bound_by": head["bound_by"],
             "library_ms": head["library_ms"]})
+    # phase 27's solo tenant engines: #1's decode route at the adapter
+    # sites (K_a 224/32, f32), launches counted inside bind.adapter_delta;
+    # timed in phase 3 on one layer's 7 adapter sites
+    h = k["adapter_headline"]
+    kernels.append({
+        "name": "lowrank_fwd_adapter", "route": "cuda",
+        "source": "src/repro_torch/kernels/csrc/lowrank_decode.cu",
+        "replaces": "src/repro/kernels/lowrank.py:58",
+        "launches": tenancy["solo_adapter_launches"],
+        "max_abs_err": max(r["max_abs_err"] for r in k["adapter_rows"]),
+        "ms": h["ms"], "plain_ms": h["plain_ms"], "bound_ms": h["bound_ms"],
+        "bound_by": h["bound_by"], "library_ms": h["library_ms"]})
     line = {"kernels": kernels}
     if args.json:
         os.makedirs(os.path.dirname(os.path.abspath(args.json)),
@@ -6209,7 +6816,9 @@ def main() -> None:
                        "tinyllama": tiny, "dense_configs": dense,
                        "project": project, "ssd_grad": ssd_grad,
                        "zamba2_train": z_train, "falcon_mamba": falcon,
-                       "paged": paged, "spec": spec,
+                       "paged": paged, "spec": spec, "tenancy": tenancy,
+                       "adapter_kernel_rows": k["adapter_rows"],
+                       "adapter_headline": k["adapter_headline"],
                        "kernels": line["kernels"],
                        "phase_seconds": seconds,
                        "seconds": time.perf_counter() - t_start}, f,

@@ -28,8 +28,12 @@ What each path saves for backward is the reference's: Tucker x~ plus the
 sketch's last factor under ``wasi``, Tucker x~ under ``asi``, Tucker x~
 plus L and R in project mode (x, L and R without a state), x plus the
 dense sketch through the fused kernel for factored sites without a state,
-dense x for vanilla. ``apply`` raises on tenant adapter pairs; those
-arrive with a later slice (ROADMAP.md).
+dense x for vanilla.
+
+A linear dict may also carry a tenant's adapter pair beside its base
+leaves (``repro_torch.tenancy``): ``La`` (O, K_a) and ``Ra`` (K_a, I), or
+one row per batch row gathered from the serve engine's banks, and
+``apply`` adds ``adapter_delta`` after the base product, before the bias.
 
 Parameters are built frozen (``requires_grad=False``): serving never
 needs their gradients. Training turns them trainable in one place,
@@ -132,9 +136,6 @@ def apply(spec: LinearSpec, p: Mapping[str, torch.Tensor], x: torch.Tensor,
         raise ValueError(
             f"site {spec.name}: quantized params are serve-only; ASI "
             "states cannot thread through an int8 site")
-    if "La" in p:
-        raise NotImplementedError(
-            f"site {spec.name}: tenant adapters are not ported yet")
     if is_quantized(p):
         # int8 deployment (plan.quantized + convert.quantize): the scales
         # fold into the products, no dequantized weight is ever formed
@@ -178,9 +179,37 @@ def apply(spec: LinearSpec, p: Mapping[str, torch.Tensor], x: torch.Tensor,
         y = asi_matmul(x, p["w"], xt)
     else:
         y = torch.matmul(x, p["w"].T)
+    if "La" in p:
+        y = y + adapter_delta(x, p["La"], p["Ra"])
     if "b" in p:
         y = y + p["b"]
     return y, new_state
+
+
+def adapter_delta(x: torch.Tensor, La, Ra) -> torch.Tensor:
+    """A tenant's additive delta ``x Ra^T La^T`` (``repro_torch.tenancy``),
+    under the profiler range ``adapter_delta``.
+
+    Three layouts. The single-tenant pair La (O, K_a), Ra (K_a, I) goes
+    through the factored kernel every factored site takes
+    (``ops.lowrank_matmul``: kernel #1 serving, #2 and #3 under grad). A
+    gathered per-slot row, La (B, O, K_a) and Ra (B, K_a, I) with one
+    tenant's factors per batch row of x (B, ..., I), contracts row by row
+    in a ``torch.bmm`` pair, as the reference computes that einsum pair
+    outside any kernel. A ``tenancy.adapter.BankRows`` (the serve engine's
+    banks of one layer with its per-slot row indices) is gathered here
+    into that layout first, so no more than one site's rows exist at a
+    time. A zero pair adds exactly 0: the engine's identity row."""
+    with torch.profiler.record_function("adapter_delta"):
+        if not isinstance(La, torch.Tensor):
+            La, Ra = La.rows(), Ra.rows()
+        if La.ndim == 2:
+            from repro_torch.kernels.ops import lowrank_matmul
+            return lowrank_matmul(x, Ra, La)
+        x3 = x.reshape(x.shape[0], -1, x.shape[-1])
+        h = torch.bmm(x3, Ra.transpose(1, 2))
+        y = torch.bmm(h, La.transpose(1, 2))
+        return y.reshape(*x.shape[:-1], La.shape[-2])
 
 
 def linear_out_dim(p: Mapping[str, torch.Tensor]) -> int:
@@ -191,6 +220,13 @@ def is_linear_params(v) -> bool:
     """Does ``v`` look like one linear's param dict (any layout)?"""
     return isinstance(v, (Mapping, nn.ParameterDict)) and ("w" in v
                                                           or "L" in v)
+
+
+def is_adapter_params(v) -> bool:
+    """Does ``v`` carry a tenant's adapter pair? True for an adapter dict
+    ({"La", "Ra"}) and for a merged linear dict holding the pair beside
+    its base leaves."""
+    return isinstance(v, (Mapping, nn.ParameterDict)) and "La" in v
 
 
 def is_quantized(p) -> bool:
@@ -257,6 +293,20 @@ def iter_linear_dicts(tree, prefix: str = ""):
         yield from iter_linear_dicts(v, f"{prefix}/{k}" if prefix else k)
 
 
+def iter_adapter_dicts(tree, prefix: str = ""):
+    """Yield (path, dict) for every dict carrying an adapter pair, in an
+    adapter tree ({"La", "Ra"} at the sites) or a merged param tree (the
+    pair beside the base leaves) alike: the walk per-tenant byte
+    accounting takes."""
+    if is_adapter_params(tree):
+        yield prefix, tree
+        return
+    if is_linear_params(tree):
+        return
+    for k, v in _children(tree):
+        yield from iter_adapter_dicts(v, f"{prefix}/{k}" if prefix else k)
+
+
 def _layout_fits(p, mode: str) -> bool:
     """Does a linear dict's layout fit a site of ``mode``? Factored sites
     carry L and R and no w; dense sites w alone; project sites w, with or
@@ -286,14 +336,22 @@ def check_layout(groups, plan) -> None:
 
 
 def linear_param_bytes(p) -> dict:
-    """Storage of one linear dict: {"weights", "scales", "bias"} bytes."""
-    out = {"weights": 0, "scales": 0, "bias": 0}
+    """Storage of one linear dict, split by payload: {"weights", "scales",
+    "bias", "adapter_weights", "adapter_scales"} bytes (the last two a
+    tenant's La/Ra pair riding beside the base leaves, and the int8 store's
+    sLa/sRa scales)."""
+    out = {"weights": 0, "scales": 0, "bias": 0,
+           "adapter_weights": 0, "adapter_scales": 0}
     for k, v in p.items():
         n = v.numel() * v.element_size()
         if k in ("w", "L", "R"):
             out["weights"] += n
         elif k in ("sW", "sL", "sR"):
             out["scales"] += n
+        elif k in ("La", "Ra"):
+            out["adapter_weights"] += n
+        elif k in ("sLa", "sRa"):
+            out["adapter_scales"] += n
         elif k == "b":
             out["bias"] += n
     return out

@@ -24,9 +24,9 @@ Differences from the reference, all deliberate:
 * Calibration reads tensors on any device (or numpy arrays): each
   slice's singular values come from its own device
   (``core.svd.pick_rank``), the card's for a model on the card.
-* Of the deployment stamps, ``quantized`` and ``with_draft`` are ported;
-  ``with_adapter`` and ``with_sharding`` are not yet. Their fields still
-  load from JSON.
+* Of the deployment stamps, ``quantized``, ``with_draft`` and
+  ``with_adapter`` are ported; ``with_sharding`` is not yet. Its field
+  still loads from JSON.
 """
 from __future__ import annotations
 
@@ -106,8 +106,10 @@ class LinearSpec:
     kernel: Kernel = "einsum"
     # fit rule of the fused backward; None until the training slice
     bwd_fits_vmem: bool | None = None
-    # deployment stamps: ``quant`` is set by SubspacePlan.quantized; the
-    # others are not ported yet and are carried through JSON only
+    # deployment stamps: ``quant`` (SubspacePlan.quantized), ``draft``
+    # (with_draft) and ``adapter``, the per-tenant delta rank K_a
+    # (with_adapter); ``sharding`` is not ported and is carried through
+    # JSON only
     quant: str | None = None
     draft: str | None = None
     adapter: int | None = None
@@ -295,6 +297,29 @@ class SubspacePlan:
             raise ValueError(f"unknown draft source {source!r} "
                              "(expected 'int8' or 'rank:<frac>')")
         return dataclasses.replace(self, specs=specs)
+
+    def with_adapter(self, rank_frac: float = 0.25) -> "SubspacePlan":
+        """Stamp a per-tenant adapter rank per site (``repro_torch.tenancy``).
+
+        Every non-MoE site gains ``adapter = static_rank(in, out,
+        rank_frac)`` (unaligned, at least 1): a fine-tuned tenant adds a
+        rank-K_a delta pair (L_u, R_u) there, which ``bind.apply`` applies
+        as ``y += x R_u^T L_u^T`` wherever the param dict carries ``La`` and
+        ``Ra``. MoE sites stay unstamped. The stamp never changes the base:
+        a tree without adapter factors runs the unstamped forward."""
+        if not 0.0 < rank_frac <= 1.0:
+            raise ValueError(
+                f"adapter rank fraction must be in (0, 1]: {rank_frac!r}")
+        specs = tuple(
+            dataclasses.replace(s, adapter=static_rank(
+                s.in_dim, s.out_dim, rank_frac, align=1, min_rank=1))
+            if s.role != "moe" else s
+            for s in self.specs)
+        return dataclasses.replace(self, specs=specs)
+
+    @property
+    def has_adapters(self) -> bool:
+        return any(s.adapter is not None for s in self.specs)
 
     @property
     def draft_source(self) -> str | None:

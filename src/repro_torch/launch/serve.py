@@ -1,8 +1,8 @@
 """Serving launcher: thin CLI over the continuous-batching engine. Port of
 ``repro.launch.serve`` (dense slots, the paged KV pool with its prefix
-cache and chunked prefill, self-speculative decoding, int8 deployment and
-plan-bearing checkpoints; the adapter and mesh flags arrive with those
-features).
+cache and chunked prefill, self-speculative decoding, tenant adapters,
+int8 deployment and plan-bearing checkpoints; the mesh flag arrives with
+mesh serving).
 
 ``python -m repro_torch.launch.serve --arch qwen2-0.5b --full --tokens 32``
 runs on the CUDA device; ``--device cpu`` asks for the CPU.
@@ -18,6 +18,11 @@ cannot be paged and raise).
 ``--spec-k K`` drafts K tokens a tick through a cheap view of the same
 weights (``--draft int8`` or ``rank:<frac>``) and verifies them in one
 forward; the summary then prints a ``[serve] spec ...`` line.
+``--adapters DIR`` serves tenant adapters hot-swapped from an
+``AdapterStore`` (``launch/finetune_user.py`` writes one) through
+``--adapter-slots`` device-resident bank rows; ``--tenants a,b,`` cycles
+tenant ids over the requests (an empty entry is the bare base) and the
+summary prints a ``[serve] tenancy ...`` line.
 ``--ckpt DIR`` serves the latest step of a plan-bearing checkpoint (its
 plan carries the config; ``--quant`` packs it first unless it is packed
 already). Without ``--ckpt`` the weights are random, drawn from seed 0;
@@ -139,6 +144,17 @@ def build_parser() -> argparse.ArgumentParser:
                     help="draft source for --spec-k: 'int8' (packed "
                          "factors) or 'rank:<frac>' (leading slice of each "
                          "site's L/R, e.g. rank:0.5)")
+    ap.add_argument("--adapters", default="",
+                    help="AdapterStore directory (launch/finetune_user.py "
+                         "writes it): requests carry per-tenant deltas "
+                         "hot-swapped from this store")
+    ap.add_argument("--tenants", default="",
+                    help="comma-separated tenant ids cycled across the "
+                         "submitted requests ('' entries = bare base); "
+                         "requires --adapters")
+    ap.add_argument("--adapter-slots", type=int, default=4,
+                    help="device-resident adapter LRU capacity (tenant "
+                         "churn past it rewrites bank rows in place)")
     ap.add_argument("--stream", action="store_true",
                     help="print tokens as they are generated")
     ap.add_argument("--device", default="cuda", choices=["cuda", "cpu"])
@@ -154,6 +170,10 @@ def main(argv=None) -> dict:
     args = build_parser().parse_args(argv)
     slots = args.max_slots or min(args.batch, 4)
     max_cache = args.prompt_len + args.tokens + 1
+    if args.tenants and not args.adapters:
+        raise SystemExit("--tenants needs --adapters DIR")
+    tenants = ([t or None for t in args.tenants.split(",")]
+               if args.tenants else [None])
     if args.ckpt:
         tree, plan, _ = api.convert.load_checkpoint(args.ckpt)
         if plan is None:
@@ -179,6 +199,9 @@ def main(argv=None) -> dict:
         api.install(plan)
         tree = from_reference(tree, cfg, args.device)
     paged_kw = {}
+    if args.adapters:
+        paged_kw.update(adapters=args.adapters,
+                        adapter_slots=args.adapter_slots)
     if args.spec_k:
         paged_kw.update(spec_k=args.spec_k, draft=args.draft)
     if args.paged:
@@ -196,7 +219,11 @@ def main(argv=None) -> dict:
         0, cfg.vocab_size, (args.batch, args.prompt_len))
     t0 = time.time()
     handles = [engine.submit(list(prompts[i]), max_new=args.tokens,
-                             sampling=sp) for i in range(args.batch)]
+                             sampling=sp, tenant=tenants[i % len(tenants)])
+               for i in range(args.batch)]
+    if args.adapters:
+        for i, h in enumerate(handles):
+            print(f"[serve] rid={h.rid} tenant={tenants[i % len(tenants)]}")
     if args.stream:
         _stream(engine, handles)
     else:
@@ -220,6 +247,14 @@ def main(argv=None) -> dict:
           f"({s['prefill_tok_s']:.1f} tok/s) | decode {s['decode_tokens']} "
           f"tok ({s['decode_tok_s']:.1f} tok/s) | "
           f"{s['requests_s']:.2f} req/s")
+    if args.adapters:
+        t = s["tenancy"]
+        print(f"[serve] tenancy resident={','.join(t['resident']) or '-'} "
+              f"capacity={t['capacity']} swaps={t['swaps']} "
+              f"evictions={t['evictions']} hits={t['hits']} "
+              f"bank={t['bank_bytes'] / 2**20:.2f}MiB "
+              f"store_tenants={t['store_tenants']} "
+              f"deferred={s['deferred']}")
     if args.spec_k:
         print(f"[serve] spec k={s['spec_k']} draft={s['draft_source']} "
               f"acceptance_rate={s['acceptance_rate']:.3f} "

@@ -370,7 +370,8 @@ def lm_backbone(model, x, cfg: ModelConfig, *, states=None, caches=None,
     views). ``page_table`` (B, pages_per_slot) routes every layer's KV
     reads and writes through its paged pool. Returns (x, new_states,
     caches, aux); new_states is None without ``states``."""
-    if isinstance(model, LanguageModel):
+    if hasattr(model, "layer_views"):
+        # a LanguageModel, or a view that serves it (tenancy.SlotAdapters)
         views = model.layer_views()
     else:
         views = tree_layer_views(model, cfg)

@@ -56,10 +56,24 @@ optional paged KV pool, radix prefix sharing and chunked prefill. Port of
   their admission reservation for a tick (``_spec_pages``), returned at
   its end (``_spec_release``).
 
+* Tenant adapters (``adapters=``: a ``tenancy.ResidentAdapters`` or an
+  ``AdapterStore`` directory): ``submit(tenant=...)`` routes a request
+  through that tenant's rank-K_a delta. Each slot carries a row of the
+  device-resident banks (``adapter_ix``; row 0, the zero identity, for no
+  tenant), acquired at admission with the rows of running slots pinned
+  (a request whose tenant finds every row pinned waits for the next
+  admission tick: ``deferred``). Every prefill, chunk and decode call runs
+  a ``tenancy.SlotAdapters`` view of the model, whose stamped sites gather
+  their slots' rows when they run (``bind.adapter_delta``, a ``bmm``
+  pair), one site at a time. LRU displacements land in
+  ``adapter_events`` as EVICTED events (rid -1). Paged prefix sharing is
+  namespaced by tenant: a prefix's K/V under one adapter is not the same
+  K/V under another. Adapters need an f32 model, and exclude speculative
+  decoding, as in the reference.
+
 Where the reference jits and donates the caches, this engine runs eager
 PyTorch under ``torch.inference_mode()`` and updates the caches in place.
-Not ported yet (they raise ``NotImplementedError``): tenant adapters and
-mesh serving.
+Not ported yet (it raises ``NotImplementedError``): mesh serving.
 """
 from __future__ import annotations
 
@@ -184,12 +198,11 @@ class ServeEngine:
                  prefill_chunks_per_tick: int = 1,
                  prefill_every: int = 1,
                  spec_k: int = 0, draft: str = "int8", adapters=None,
-                 mesh=None, device=None):
-        for name, val in (("adapters", adapters), ("mesh", mesh)):
-            if val:
-                raise NotImplementedError(
-                    f"ServeEngine({name}=...) is not ported yet; the port "
-                    "serves dense and paged slots (ROADMAP.md queue 1)")
+                 adapter_slots: int = 4, mesh=None, device=None):
+        if mesh:
+            raise NotImplementedError(
+                "ServeEngine(mesh=...) is not ported yet; the port serves "
+                "dense and paged slots on one device (ROADMAP.md queue 1)")
         if cfg is None:
             if plan is None:
                 raise ValueError("ServeEngine needs a ModelConfig or a "
@@ -251,6 +264,15 @@ class ServeEngine:
             self.draft_params = draft_view(params, self.plan)
             self.draft_extra_bytes = _extra_bytes(self.draft_params, params)
 
+        # tenant adapter banks: each call's slots gather their rows per
+        # site from the device-resident banks (SlotAdapters), so any mix
+        # of tenants, adapter-less slots included, runs one path, and
+        # tenant churn rewrites bank rows in place
+        self.adapters = self.adapter_plan = self._served = None
+        self.adapter_events: list[Event] = []
+        if adapters is not None:
+            self._init_adapters(adapters, adapter_slots)
+
         if paged == "auto":
             paged = supports_paging(cfg)
         elif paged and not supports_paging(cfg):
@@ -301,6 +323,8 @@ class ServeEngine:
         # per-slot decode state, row-aligned with the cache batch axis
         self.pos = np.zeros(max_slots, np.int64)
         self.next_tok = np.zeros(max_slots, np.int64)
+        # per-slot adapter bank row (0 = identity, no tenant)
+        self.adapter_ix = np.zeros(max_slots, np.int64)
         self.temp = np.zeros(max_slots, np.float32)
         self.top_k = np.zeros(max_slots, np.int64)
         self.top_p = np.ones(max_slots, np.float32)
@@ -313,7 +337,41 @@ class ServeEngine:
                       "evicted": 0, "deferred": 0, "wall_s": 0.0,
                       "prefill_s": 0.0, "decode_s": 0.0,
                       "spec_steps": 0, "spec_draft_tokens": 0,
-                      "spec_accepted_tokens": 0, "spec_page_shrinks": 0}
+                      "spec_accepted_tokens": 0, "spec_page_shrinks": 0,
+                      "adapter_evictions": 0}
+
+    def _init_adapters(self, adapters, capacity: int) -> None:
+        from repro_torch.models.lm import _dtype
+        from repro_torch.tenancy.adapter import (
+            SlotAdapters,
+            check_dtype,
+            tree_leaves,
+        )
+        from repro_torch.tenancy.resident import ResidentAdapters
+
+        if self.spec_k:
+            raise ValueError(
+                "speculative decoding and tenant adapters are mutually "
+                "exclusive: the draft view does not carry per-tenant "
+                "deltas, so drafts would systematically diverge")
+        if isinstance(adapters, str):
+            adapters = ResidentAdapters(adapters, capacity=capacity,
+                                        device=self.device)
+        stamped = SubspacePlan.from_json(adapters.plan_json)
+        if stamped.model != self.cfg:
+            raise ValueError(
+                f"adapter store was trained for model "
+                f"{stamped.model.name!r} but the engine serves "
+                f"{self.cfg.name!r}")
+        banks = tree_leaves(adapters.banks)
+        check_dtype(_dtype(self.cfg.dtype), banks[0].dtype)
+        if banks[0].device != self.device:
+            raise ValueError(f"adapter banks live on {banks[0].device}, the "
+                             f"engine serves on {self.device}")
+        self.adapters = adapters
+        self.adapter_plan = stamped
+        adapters.on_evict = self._adapter_evicted
+        self._served = SlotAdapters(self.params, adapters.banks)
 
     @classmethod
     def from_checkpoint(cls, ckpt_dir: str, step: int | None = None,
@@ -345,9 +403,13 @@ class ServeEngine:
         sp = (sampling or SamplingParams()).resolved(
             self._rid, max_new=max_new, eos_id=eos_id)
         if tenant is not None:
-            raise ValueError(
-                "engine has no adapter banks; build it with "
-                "adapters=<ResidentAdapters or store dir>")
+            if self.adapters is None:
+                raise ValueError(
+                    "engine has no adapter banks; build it with "
+                    "adapters=<ResidentAdapters or store dir>")
+            if not self.adapters.store.has(tenant):
+                raise ValueError(f"unknown tenant {tenant!r}: no adapter "
+                                 f"in store {self.adapters.store.root!r}")
         if len(prompt) + sp.max_new > self.max_cache:
             raise ValueError(
                 f"prompt ({len(prompt)}) + max_new ({sp.max_new}) exceeds "
@@ -362,7 +424,8 @@ class ServeEngine:
                     f"{self.pool.usable_pages} usable (total_pages too "
                     "small for this prompt + max_new)")
         req = Request(rid=self._rid, prompt=list(map(int, prompt)),
-                      sampling=sp, submitted_at=time.perf_counter())
+                      sampling=sp, tenant=tenant,
+                      submitted_at=time.perf_counter())
         self._rid += 1
         self.sched.add(req)
         return GenerationHandle(self, req)
@@ -418,12 +481,44 @@ class ServeEngine:
 
     # -- internals ----------------------------------------------------------
 
+    def _adapter_evicted(self, tenant: str) -> None:
+        """A bank row's LRU displacement, as an EVICTED event (rid -1: no
+        one request owns a bank row)."""
+        self.adapter_events.append(Event(
+            EventKind.EVICTED, rid=-1,
+            reason=f"adapter lru tenant={tenant}", t=time.perf_counter()))
+        self.stats["adapter_evictions"] += 1
+
+    def _acquire_adapter(self, req: Request, admitted: list) -> int | None:
+        """Bank row for this request's tenant (0 = identity). Rows held by
+        slots still generating, and by requests admitted earlier this
+        round (dense prefills them as one batch after the pop loop), are
+        pinned. ``None``: every row is pinned; the caller defers."""
+        if self.adapters is None or req.tenant is None:
+            return 0
+        pinned = {int(self.adapter_ix[s]) for s, r in enumerate(self.slots)
+                  if r is not None}
+        pinned.update(int(self.adapter_ix[s]) for s, _ in admitted)
+        pinned.discard(0)
+        return self.adapters.acquire(req.tenant, pinned)
+
+    def _fwd(self, rows=None):
+        """What a prefill, chunk or decode call runs: the model, or on an
+        adapter engine its ``SlotAdapters`` view with the rows of the
+        call's slots (``rows``; every slot when None)."""
+        if self._served is None:
+            return self.params
+        ix = self.adapter_ix if rows is None else self.adapter_ix[rows]
+        self._served.ix = torch.as_tensor(ix, device=self.device)
+        return self._served
+
     def _free_slot(self, slot: int) -> None:
         """Recycle a slot and reset its sampling row to greedy. In paged
         mode also release the slot's page references and point its table
         row at the trash page, so the dead row's lockstep writes can never
         land in a page the pool hands to someone else."""
         self.slots[slot] = None
+        self.adapter_ix[slot] = 0     # unpin the tenant's bank row
         self.temp[slot] = 0.0
         self.top_k[slot] = 0
         self.top_p[slot] = 1.0
@@ -486,8 +581,8 @@ class ServeEngine:
         dev = self.device
         rows_t = torch.as_tensor(rows, device=dev)
         sub = map_states(lambda a: a[:, rows_t], self.caches)
-        logits, sub = lm_prefill(self.params, torch.as_tensor(toks,
-                                                              device=dev),
+        logits, sub = lm_prefill(self._fwd(rows),
+                                 torch.as_tensor(toks, device=dev),
                                  self.cfg, caches=sub,
                                  valid_len=torch.as_tensor(vlen, device=dev),
                                  last_only=True)
@@ -510,7 +605,14 @@ class ServeEngine:
                 break
             if req.terminal:
                 continue
-            admitted.append((free.pop(0), req))
+            row = self._acquire_adapter(req, admitted)
+            if row is None:
+                self.sched.add(req)       # every bank row pinned: wait
+                self.stats["deferred"] += 1
+                break
+            slot = free.pop(0)
+            self.adapter_ix[slot] = row
+            admitted.append((slot, req))
         # group by bucket so same-shape prompts prefill as one batch
         groups: dict[int, list[tuple[int, Request]]] = \
             collections.defaultdict(list)
@@ -556,14 +658,21 @@ class ServeEngine:
                 break
             if req.terminal:
                 continue
+            # paged admission fills self.slots inside the loop, so pinning
+            # the running slots covers this round's admissions too
+            row = self._acquire_adapter(req, [])
+            if row is None:
+                self.sched.add(req)        # every bank row pinned: wait
+                self.stats["deferred"] += 1
+                break
             prompt = req.prompt
             need = pages_needed(len(prompt) + req.sampling.max_new, pg)
             shared: list[int] = []
             if self.radix is not None:
                 # cap the shared pages so at least ONE prompt token is left
                 # to prefill: the final chunk must produce next-token
-                # logits. Tenant-namespaced, as in the reference (the port
-                # serves no tenant yet, so the namespace is None)
+                # logits. Tenant-namespaced: a prefix prefilled under one
+                # adapter is not the same K/V under another (or the base)
                 shared = self.radix.match(
                     prompt, namespace=req.tenant)[:(len(prompt) - 1) // pg]
                 for p in shared:       # protect from our own eviction below
@@ -579,6 +688,7 @@ class ServeEngine:
                 self.stats["deferred"] += 1
                 break
             slot = free.pop(0)
+            self.adapter_ix[slot] = row
             pages = shared + alloc
             self.tables[slot, :] = 0
             self.tables[slot, :len(pages)] = pages
@@ -618,7 +728,7 @@ class ServeEngine:
             cur = self._cursor[slot]
             rows = slice(slot, slot + 1)
             logits, end = paged_chunk_prefill(
-                self.params, self.cfg, self.caches, req.prompt, cur,
+                self._fwd([slot]), self.cfg, self.caches, req.prompt, cur,
                 self.prefill_chunk, self.tables[slot], self.page_size,
                 self.device)
             self.stats["prefill_tokens"] += end - cur
@@ -663,7 +773,7 @@ class ServeEngine:
                     tbl[s, :] = 0
             table = torch.as_tensor(tbl, device=dev)
         logits, self.caches = lm_decode_step(
-            self.params, torch.as_tensor(self.next_tok[:, None], device=dev),
+            self._fwd(), torch.as_tensor(self.next_tok[:, None], device=dev),
             self.caches, torch.as_tensor(self.pos, device=dev), self.cfg,
             page_table=table)
         nxt = sample_tokens(logits, self.temp, self.top_k, self.top_p,
@@ -902,6 +1012,13 @@ class ServeEngine:
             s["pages_in_use"] = self.pool.pages_in_use
             s["prefix_cache_pages"] = (self.radix.n_nodes
                                        if self.radix is not None else 0)
+        if self.adapters is not None:
+            # the base-vs-adapter split: bank bytes are the per-tenant
+            # device cost, store bytes the per-tenant disk cost
+            t = self.adapters.summary()
+            t["bytes_by_tenant"] = self.adapters.store.bytes_by_tenant()
+            s["tenancy"] = t
+            s["adapter_bank_bytes"] = t["bank_bytes"]
         if self.spec_k:
             s["spec_k"] = self.spec_k
             s["draft_source"] = self.draft_source

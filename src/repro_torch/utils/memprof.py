@@ -17,6 +17,8 @@ device allocator's peak.
    such counter: output says "n/a" there, never a made-up number.
 4. ``kv_cache_bytes``: a serve engine's decode-cache storage, dense or
    paged, from the real ``init_lm_cache`` on the ``meta`` device.
+5. ``model_weight_bytes`` / ``adapter_bytes``: the resident base's
+   linear-site storage, and a tenant adapter's (``repro_torch.tenancy``).
 """
 from __future__ import annotations
 
@@ -149,21 +151,48 @@ def measured_residual_bytes(fn: Callable, *args, **kwargs) -> ResidualReport:
 
 def model_weight_bytes(params) -> dict:
     """Linear-site weight storage of a param tree: {"weights_bytes",
-    "scales_bytes", "bias_bytes", "total_bytes", "n_linears"}. Like the
-    reference it counts every linear-layout dict, tied embedding included;
-    norms are excluded."""
+    "scales_bytes", "bias_bytes", "adapter_bytes", "total_bytes",
+    "n_linears"}. Like the reference it counts every linear-layout dict,
+    tied embedding included; norms are excluded. ``adapter_bytes`` counts
+    the tenant La/Ra pairs (and int8 storage scales) riding beside the
+    base leaves of a merged tree: 0 on a base tree."""
     from repro_torch.api.bind import iter_linear_dicts, linear_param_bytes
 
     out = {"weights_bytes": 0, "scales_bytes": 0, "bias_bytes": 0,
-           "n_linears": 0}
+           "adapter_bytes": 0, "n_linears": 0}
     for _, p in iter_linear_dicts(params):
         b = linear_param_bytes(p)
         out["weights_bytes"] += b["weights"]
         out["scales_bytes"] += b["scales"]
         out["bias_bytes"] += b["bias"]
+        out["adapter_bytes"] += b["adapter_weights"] + b["adapter_scales"]
         out["n_linears"] += 1
     out["total_bytes"] = (out["weights_bytes"] + out["scales_bytes"]
-                          + out["bias_bytes"])
+                          + out["bias_bytes"] + out["adapter_bytes"])
+    return out
+
+
+def adapter_bytes(params, plan=None) -> dict:
+    """Per-tenant delta storage of an adapter tree or a merged tree:
+    {"adapter_bytes", "n_sites", "by_site"} over every dict carrying La/Ra
+    (with the int8 store's sLa/sRa). ``model_weight_bytes`` sizes the
+    resident base; this sizes what each further tenant costs. With an
+    adapter-stamped ``plan``, a tree carrying no pair raises rather than
+    reporting 0."""
+    from repro_torch.api.bind import iter_adapter_dicts
+
+    by_site = {}
+    for path, p in iter_adapter_dicts(params):
+        by_site[path] = sum(array_bytes(v) for k, v in p.items()
+                            if k in ("La", "Ra", "sLa", "sRa"))
+    out = {"adapter_bytes": sum(by_site.values()),
+           "n_sites": len(by_site), "by_site": by_site}
+    if plan is not None:
+        stamped = sum(1 for s in plan.specs if s.adapter)
+        if stamped and not by_site:
+            raise ValueError(
+                f"plan stamps {stamped} adapter sites but the tree carries "
+                "none; the accounting would report 0")
     return out
 
 

@@ -1632,3 +1632,151 @@ def test_spec_engine_on_the_card_matches_the_non_spec_engine(cuda, draft,
         assert eng.pool.pages_in_use == 0
     assert out[1] == out[0]
     api.uninstall(cfg)
+
+
+# ---------------------------------------------------------------------------
+# tenant adapters: #1 at the adapter ranks, the fused gradient with frozen
+# factors, bank gathers and in-place rows, the mixed-tenant engine
+# ---------------------------------------------------------------------------
+
+# qwen2-0.5b's adapter sites at rank_frac 0.25: (I, K_a, O)
+ADAPTER_SITES = [(896, 224, 896), (896, 32, 128), (896, 224, 4864),
+                 (4864, 224, 896)]
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("i,k,o", ADAPTER_SITES)
+def test_decode_route_at_adapter_ranks(cuda, i, k, o):
+    """A solo tenant's f32 delta at M = 4 takes #1's decode route at
+    K_a 224 and 32, one launch a call, within the plain version's f32
+    tolerance, the same bits twice."""
+    x, r, l_ = _inputs((4,), i, k, o, cuda, torch.float32)
+    assert lowrank.forward_route(4, i, k, o, torch.float32,
+                                 (x, r, l_)) == "decode"
+    ops.reset_launches()
+    got = ops.lowrank_matmul(x, r, l_)
+    torch.cuda.synchronize()
+    assert ops.launch_counts()["lowrank_fwd"] == 1
+    assert torch.equal(got, ops.lowrank_matmul(x, r, l_))
+    want = ref.lowrank_matmul_ref(x, r, l_)
+    tol = 2 * (i + k) * EPS32 * max(want.abs().max().item(), 1.0)
+    assert (got - want).abs().max().item() <= tol
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("x_grad", [False, True])
+def test_fused_gradient_with_frozen_factors_and_adapter_pairs(cuda, x_grad):
+    """A fine-tune's site: frozen base factors (no grad) beside an adapter
+    pair that requires grad, x with or without grad. The base product
+    launches #1 when nothing of it requires grad, else #2 and #3 (dx
+    only reaches x); the adapter product always #2 and #3. Values and
+    gradients within the f32 tolerance of autograd through the plain
+    version."""
+    i, k, o, ka, m = 896, 256, 4864, 224, 64
+    g = torch.Generator().manual_seed(5)
+    x = torch.randn(m, i, generator=g).to(cuda)
+    rb = (torch.randn(k, i, generator=g) * i ** -0.5).to(cuda)
+    lb = (torch.randn(o, k, generator=g) * k ** -0.5).to(cuda)
+    ra = (torch.randn(ka, i, generator=g) * 0.02).to(cuda).requires_grad_()
+    la = (torch.randn(o, ka, generator=g) * 0.02).to(cuda).requires_grad_()
+    x.requires_grad_(x_grad)
+    dy = torch.randn(m, o, generator=g).to(cuda)
+    ops.reset_launches()
+    y = ops.lowrank_matmul(x, rb, lb) + ops.lowrank_matmul(x, ra, la)
+    grads = torch.autograd.grad(y, [ra, la] + ([x] if x_grad else []), dy)
+    torch.cuda.synchronize()
+    n = ops.launch_counts()
+    assert (n["lowrank_fwd"], n["lowrank_fwd_sketch"], n["lowrank_bwd"]) == \
+        ((0, 2, 2) if x_grad else (1, 1, 1))
+    xs = x.detach().clone().requires_grad_(x_grad)
+    ras, las = (t.detach().clone().requires_grad_() for t in (ra, la))
+    ys = ref.lowrank_matmul_ref(xs, rb, lb) + ref.lowrank_matmul_ref(
+        xs, ras, las)
+    want = torch.autograd.grad(ys, [ras, las] + ([xs] if x_grad else []), dy)
+    tol = 4 * (i + o + k + m) * EPS32
+    for a, b in zip((y,) + grads, (ys,) + want):
+        assert (a - b).abs().max().item() <= tol * max(
+            b.abs().max().item(), 1.0)
+
+
+@pytest.mark.cuda
+def test_bank_gather_and_in_place_rows_on_the_card(cuda):
+    """``set_bank_row`` writes a row in place (the banks keep their
+    storage), ``gather_rows`` and a ``SlotAdapters`` site's ``BankRows``
+    gather the same rows as on the CPU, bit for bit."""
+    import types
+
+    from repro_torch.tenancy.adapter import (
+        BankRows,
+        gather_rows,
+        make_banks,
+        set_bank_row,
+        tree_leaves,
+    )
+
+    g = torch.Generator().manual_seed(2)
+    tree = {"groups": [[{"attn": {"wq": {
+        "La": torch.randn(3, 64, 16, generator=g),
+        "Ra": torch.randn(3, 16, 64, generator=g)}}}]]}
+    banks = make_banks(tree, 2, device=cuda)
+    ptrs = [t.data_ptr() for t in tree_leaves(banks)]
+    set_bank_row(banks, 2, tree)
+    assert [t.data_ptr() for t in tree_leaves(banks)] == ptrs
+    ix = torch.tensor([2, 0, 2, 1], device=cuda)
+    got = gather_rows(banks, ix)
+    want = gather_rows(set_bank_row(make_banks(tree, 2), 2, tree), ix.cpu())
+    for a, b in zip(tree_leaves(got), tree_leaves(want)):
+        assert a.device.type == "cuda" and torch.equal(a.cpu(), b)
+        assert a[:, 0].any() and not a[:, 1].any()    # row 2 set, row 0 zero
+    slots = types.SimpleNamespace(ix=ix)
+    la = banks["groups"][0][0]["attn"]["wq"]["La"]
+    rows = BankRows(la, slots)[1].rows()
+    assert torch.equal(rows, la[1].index_select(0, ix))
+    assert torch.equal(rows[0].cpu(), tree["groups"][0][0]["attn"]["wq"]
+                       ["La"][1])
+
+
+@pytest.mark.cuda
+def test_mixed_tenant_engine_on_the_card_matches_solo_engines(cuda):
+    """qwen2 smoke (f32, trained weights) on the card: a mixed-tenant
+    engine's greedy tokens equal each solo ``merge_adapters`` engine's,
+    and the base request the no-adapter engine's; dense and paged."""
+    import tempfile
+
+    from repro_torch import api
+    from repro_torch.serve import ServeEngine
+    from repro_torch.tenancy import AdapterStore, merge_adapters
+    from repro_torch.tenancy.adapter import init_adapters, tree_map
+    from repro_torch.tenancy.resident import ResidentAdapters
+
+    cfg, model = _trained_smoke(cuda)
+    aplan = api.resolve(cfg).with_adapter(0.25)
+    store = AdapterStore(tempfile.mkdtemp())
+    for n, t in enumerate(("a", "b", "c")):
+        ad = init_adapters(model, aplan,
+                           generator=torch.Generator().manual_seed(n))
+        store.save(t, tree_map(lambda x, n=n: x + 0.01 * (n + 1), ad), aplan)
+    rng = np.random.default_rng(7)
+    prompts = [list(map(int, rng.integers(0, cfg.vocab_size, n)))
+               for n in (3, 7, 12, 20)]
+    tenants = ["a", "b", None, "c"]
+    for paged in (False, True):
+        kw = dict(max_slots=4, max_cache=32, buckets=(4, 8, 16), device=cuda)
+        if paged:
+            kw.update(paged=True, page_size=8, prefill_chunk=8)
+        api.uninstall(cfg)
+        eng = ServeEngine(model, cfg, adapters=ResidentAdapters(
+            store, capacity=2, device=cuda), **kw)
+        hs = [eng.submit(p, max_new=8, tenant=t)
+              for p, t in zip(prompts, tenants)]
+        eng.run()
+        assert eng.stats["adapter_evictions"] >= 1
+        for h, p, t in zip(hs, prompts, tenants):
+            solo = model if t is None else merge_adapters(
+                model, store.load(t, device=cuda)[0])
+            api.uninstall(cfg)
+            ref_eng = ServeEngine(solo, cfg, **kw)
+            r = ref_eng.submit(p, max_new=8)
+            ref_eng.run()
+            assert h.generated == r.generated, (paged, t)
+    api.uninstall(cfg)

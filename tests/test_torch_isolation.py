@@ -63,6 +63,8 @@ def test_port_imports_with_jax_blocked():
             "import repro_torch.models.vit, repro_torch.configs.vit_base\n"
             "import repro_torch.kernels.flash_attention\n"
             "import repro_torch.serve.kvpool\n"
+            "import repro_torch.tenancy, repro_torch.tenancy.resident\n"
+            "import repro_torch.launch.finetune_user\n"
             "print('ok')\n")
     env = dict(os.environ, PYTHONPATH=str(ROOT / "src"))
     proc = subprocess.run([sys.executable, "-c", code], env=env,

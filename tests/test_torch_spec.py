@@ -522,9 +522,12 @@ def test_spec_refusals(world):
     with pytest.raises(ValueError, match="roll back"):
         ServeEngine(gemma, gcfg, device="cpu", spec_k=2, **ENGINE_KW)
     tapi.uninstall(gcfg)
-    for name in ("adapters", "mesh"):
-        with pytest.raises(NotImplementedError):
-            _engine(world, spec_k=2, **{name: object()})
+    with pytest.raises(NotImplementedError):
+        _engine(world, spec_k=2, mesh=object())
+    # tenant adapters are ported; with spec_k they are the reference's
+    # refusal
+    with pytest.raises(ValueError, match="mutually exclusive"):
+        _engine(world, spec_k=2, adapters=object())
     tapi.uninstall(cfg)
 
 
