@@ -194,12 +194,14 @@ Phases, in order; any failure raises and the script exits non-zero:
    embeddings); exact launches; each config's logits against the f32
    CPU at reduced depth (gemma3: one pattern of 6 layers, a 1,100-token
    prompt, then decode reading wrapped rolling caches);
-21. tinyllama-1.1b in the paper's project mode, full width and depth:
+21. tinyllama-1.1b in the paper's project mode, full width and half its
+   depth (``PROJ_LAYERS``, 11 of 22 layers):
    dense weights drawn on the card (method ``none``, a pretrained
    checkpoint's place) -> ``api.resolve(cfg, calibration=dense)``, the
-   epsilon-0.8 ranks of every site (the max over its 22-layer stack,
-   rank_align 128), timed, with ``mlp/gate``'s unaligned rank at layers 0
-   and 21 held to ``pick_rank`` on the CPU -> ``convert.factorize`` to the
+   epsilon-0.8 ranks of every site (the max over its stack of layers,
+   rank_align 128), timed, with ``mlp/gate``'s unaligned rank at the
+   first and last layer held to ``pick_rank`` on the CPU ->
+   ``convert.factorize`` to the
    project layout {w, L, R}; kernel #1 held to its plain version at the
    calibrated sites' shapes; per method (``wasi``, ``wsi``): the
    converted factors as warm WSI states (``make_train_state``), the saved
@@ -224,8 +226,8 @@ Phases, in order; any failure raises and the script exits non-zero:
    a forward and none a
    backward; the forward's and the backward's device time at one
    zamba2 training layer (4 x 512);
-23. zamba2-7b trained at full width and a third of its depth (27
-   layers: the pattern 4 times and the tail; bf16, the config's
+23. zamba2-7b trained at full width and a ninth of its depth (9
+   layers: the pattern once and the tail; bf16, the config's
    ``remat="block"``), batch 4 x 512 of seeded uniform tokens,
    SGD+momentum 0.9 at a constant 0.05, refresh every 8, under ``wasi``
    and ``wsi``: the saved-for-backward bytes and peak of one loss, 8
@@ -258,7 +260,8 @@ Phases, in order; any failure raises and the script exits non-zero:
    chunks, then from the radix cache's 16 pages) against the f32 CPU
    (``logits_vs_cpu``); the int8 deployment served paged (168 of #6 per
    forward, none of #1);
-26. self-speculative decoding: qwen2-0.5b at full width and depth (bf16)
+26. self-speculative decoding: qwen2-0.5b at full width and half its
+   depth (``SPEC_LAYERS``, 12 of 24 layers; bf16)
    through 4 slots at ``max_cache`` 512, spec_k 4: phase 5's eight
    lengths with 32 new tokens, all greedy on the dense cache and mixed
    (half at temperature 0.8, top-p 0.95) paged behind phase 25's system
@@ -293,7 +296,28 @@ Phases, in order; any failure raises and the script exits non-zero:
    solo ``merge_adapters`` engines' unless parting at a near-tie, paged
    to dense; merged logits against the f32 CPU; the deltas' device ms a
    decode tick under the ``adapter_delta`` range; TPOT and TTFT against
-   the no-adapter engine).
+   the no-adapter engine);
+28. the MoE family (``nn/moe.py``): mixtral-8x7b at full width and depth
+   (32 ``moe_swa`` layers, bf16, weights drawn on the card) serves phase
+   5's requests (weight bytes, TTFT, TPOT, peak, exact launches: 128 of
+   #1 a forward at the attention sites, 32 of #7 a prefill call, none at
+   the expert banks, which are ``torch.bmm`` pairs; a decode tick's
+   device ms by the ranges ``moe_attention``, ``moe_dispatch``,
+   ``moe_experts``, ``moe_combine``), then int8 (#6, 128 a forward);
+   routing and logits at reduced depth (mixtral 2 layers, deepseek's
+   dense layer 0 and 2 moe layers; a 320-token group in which capacity
+   binds) against the f32 CPU, in f32 on the card (routing identical
+   outside f32's rounding of the router logits) and in bf16 (each
+   token's first flip within a margin limit from bf16's rounding of the
+   router input; logits on the CPU's routing, ``moe_vs_cpu``);
+   deepseek-moe-16b trained at full width and ``1 + D_TRAIN_MOE``
+   layers under ``wsi`` and ``wasi`` (4 x 512, SGD + momentum, one
+   refresh of 17 stacks over the (repeat, E) expert banks; exact
+   launches, each stack's routes, the refresh timed, aux), the trained
+   weights served and one step against the f32 CPU; its full-depth
+   expert stacks (27 x 64 matrices) held and timed through #5 and #4's
+   global factor; deepseek at full depth served paged behind phase 25's
+   system prompt (115 of #1 a forward, 1,024 prefix-hit tokens).
 
 Every full-sequence attention (training, a forward without caches, the
 prefill at offset 0) goes through kernel #7, so phases 5, 7, 8, 10, 12,
@@ -316,6 +340,7 @@ PATH.
 from __future__ import annotations
 
 import argparse
+import contextlib
 import dataclasses
 import gc
 import json
@@ -390,7 +415,12 @@ from repro_torch.serve.engine import (  # noqa: E402
     _tree_leaves,
     paged_chunk_prefill,
 )
-from repro_torch.utils.memprof import kv_cache_bytes  # noqa: E402
+from repro_torch.utils.memprof import (  # noqa: E402
+    kv_cache_bytes,
+    model_weight_bytes,
+)
+from repro_torch.nn.moe import moe_capacity  # noqa: E402
+from repro_torch.api.bind import map_factored  # noqa: E402
 from repro_torch.api import bind  # noqa: E402
 from repro_torch.tenancy import (  # noqa: E402
     AdapterStore,
@@ -1193,7 +1223,8 @@ SCAN_RANGE = "selective_scan"
 #: every profiler range whose device span repeats its kernels' time: the
 #: Mamba-1 scan's and the spec engine's draft, verify and accept
 RANGES = (SCAN_RANGE, "spec_draft", "spec_verify", "spec_accept",
-          "adapter_delta")
+          "adapter_delta", "moe_attention", "moe_dispatch", "moe_experts",
+          "moe_combine")
 
 
 class DeviceRow(NamedTuple):
@@ -3743,20 +3774,27 @@ def forward_counts(cfg) -> dict:
     (L, R) leaves of the tree, one CholeskyQR and one Gram each a
     refresh."""
     specs = [s.name for s in api.plan_of(cfg).specs]
-    blk = sum(not n.startswith("ssm/") for n in specs)   # attention + MLP
-    mixer = len(specs) - blk
+    n_attn = sum(n.startswith("attn/") for n in specs)
+    blk = n_attn + sum(n.startswith("mlp/") for n in specs)  # attn + MLP
+    mixer = sum(n.startswith("ssm/") for n in specs)
+    # an MoE layer's expert banks (routed, and shared where the config has
+    # them) are torch.bmm pairs: no launch, but factored stacks a refresh
+    banks = sum(n.startswith("moe/") for n in specs) * (
+        1 + (cfg.moe.n_shared > 0))
     out = dict(sites=0, stateless=0, flash=0, ssd=0, stacks=0)
     for g in cfg.groups:
         for kind in g.pattern:
-            attn = kind in ("dense", "local", "mamba2_attn")
-            own = blk if kind in ("dense", "local") else mixer
+            moe = kind in ("moe", "moe_swa")
+            attn = moe or kind in ("dense", "local", "mamba2_attn")
+            own = (blk if kind in ("dense", "local") else n_attn if moe
+                   else mixer)
             out["sites"] += g.repeat * (own + (blk if kind == "mamba2_attn"
                                                else 0))
             out["stateless"] += g.repeat * (blk if kind == "mamba2_attn" else
                                             1 if kind == "mamba1" else 0)
             out["flash"] += g.repeat * attn
             out["ssd"] += g.repeat * (kind in ("mamba2", "mamba2_attn"))
-            out["stacks"] += own
+            out["stacks"] += own + (banks if moe else 0)
     if any("mamba2_attn" in g.pattern for g in cfg.groups):
         out["stacks"] += blk                 # the shared block, one copy
     return out
@@ -4176,6 +4214,7 @@ def train_run(tag: str, state, step, batch_fn, tcfg, cfg, method: str,
                              f"{losses}")
     step_s = statistics.median(h["sec"] for h in hist[1:])
     return state, dict(remat=cfg.remat, losses=losses,
+                       aux=[h.get("aux") for h in hist],
                        step_ms=[h["sec"] * 1e3 for h in hist],
                        step_ms_median=step_s * 1e3, tok_s=tokens / step_s,
                        dev_peak_mib=max(h["mem_dev_peak_mib"] for h in hist),
@@ -4456,7 +4495,12 @@ def phase_dense_configs(card: str) -> dict:
 # factorized under the calibrated plan in factored mode and served.
 PROJ_METHODS = ("wasi", "wsi")
 PROJ_STEPS = 6
-PROJ_RANK_LAYERS = (0, 21)      # layers whose ranks are held to the CPU's
+# depth: 11 of tinyllama's 22 layers, so that the script stays inside its
+# time limit beside phase 28 (at 22 layers the phase took 125.8-149.8 s,
+# 52 of them two batched f32 SVD conversions, on an H100); every kind of
+# layer, site and kernel of the 22 is in the 11
+PROJ_LAYERS = 11
+PROJ_RANK_LAYERS = (0, PROJ_LAYERS - 1)  # layers held to the CPU's ranks
 PROJ_RANK_SITE = "mlp/gate"
 PROJ_CKPT = os.path.join(ROOT, "build", "chip_smoke_project_ckpt")
 # the reduced-depth check: 2 layers at full width, batch 2 x 64; bf16 on
@@ -4664,7 +4708,7 @@ def project_method(method: str, tree, plan, card: str):
     """One method in project mode at full width: the converted tree's
     factors as warm states, the saved bytes and peaks under ``block`` and
     ``none``, PROJ_STEPS steps under ``block`` through ``train_run`` (#7
-    alone, 44 a step), a profiled step, a profiled WSI step, and the
+    alone, 2 a layer a step), a profiled step, a profiled WSI step, and the
     reduced-depth check. Returns (row, state)."""
     from repro_torch.models.lm import init_lm_states
 
@@ -4724,10 +4768,14 @@ def project_method(method: str, tree, plan, card: str):
 
 def phase_project(card: str) -> dict:
     print("== phase 21: tinyllama-1.1b, the paper's project mode, full width"
-          " and depth (22 layers, d 2048, bf16): epsilon-calibrated ranks, "
+          f" and {PROJ_LAYERS} of its 22 layers (d 2048, bf16): "
+          "epsilon-calibrated ranks, "
           "a converted checkpoint, wasi and wsi training, the calibrated "
           "factored checkpoint served", flush=True)
-    full = configs.get("tinyllama-1.1b")
+    from repro_torch.config import LayerGroup
+
+    full = reduced(configs.get("tinyllama-1.1b"),
+                   (LayerGroup(pattern=("dense",), repeat=PROJ_LAYERS),))
     dense_cfg = with_wasi(full, method="none")
     api.install(api.resolve(dense_cfg))
     gen = torch.Generator(device="cuda").manual_seed(21)
@@ -4803,8 +4851,9 @@ def phase_project(card: str) -> dict:
     out["routes"] = routes
     out["serve"] = serve_requests("project", fplan.model, eng.params,
                                   fplan, card, engine=eng)
-    if out["serve"]["launches_per_forward"] != 154:
-        raise AssertionError("project: 154 launches of #1 per forward")
+    if out["serve"]["launches_per_forward"] != 7 * PROJ_LAYERS:
+        raise AssertionError(f"project: {7 * PROJ_LAYERS} launches of #1 "
+                             "per forward")
     out["serve"]["cpu_logits"] = logits_vs_cpu("project", fplan.model,
                                                eng.params, card)
     del eng
@@ -4979,12 +5028,13 @@ def phase_ssd_grad(card: str) -> dict:
 # phase 23: zamba2-7b trained at full width, phase 19's optimizer
 # (SGD+momentum 0.9 at a constant 0.05), refresh every 8: 8 steps (the
 # refresh at the 8th) and a profiled step per method, batch 4 x 512.
-# Depth: the pattern ``Z_TRAIN_REPEATS`` times of its 13 and the tail, 27
+# Depth: the pattern ``Z_TRAIN_REPEATS`` times of its 13 and the tail, 9
 # of 81 layers, so that the script stays inside its time limit beside
-# phase 27 (at 81 layers the phase took 157 s of a 1,032 s script on an
-# H100); every kind of layer, site and kernel of the 81 is in the 27
+# phases 27 and 28 (at 81 layers the phase took 157 s of a 1,032 s script
+# on an H100, at 27 layers 87.5 s of 914.9 s); every kind of layer, site
+# and kernel of the 81 is in the 9
 Z_TRAIN_B, Z_TRAIN_S, Z_TRAIN_STEPS, Z_REFRESH = 4, 512, 8, 8
-Z_TRAIN_REPEATS = 4
+Z_TRAIN_REPEATS = 1
 Z_METHODS = ("wasi", "wsi")
 # the reduced-depth check: one repeat of the pattern and the tail (9
 # layers) at full width, batch 1 x 320 (two chunks of #8, the second
@@ -5011,7 +5061,7 @@ Z_INT8_DIR = os.path.join(ROOT, "build", "chip_smoke_zamba2_int8")
 
 def zamba2_train_cfg(cfg):
     """zamba2 at full width, its pattern ``Z_TRAIN_REPEATS`` times and
-    the tail (27 layers)."""
+    the tail (9 layers)."""
     from repro_torch.config import LayerGroup
 
     return reduced(cfg, (LayerGroup(pattern=cfg.groups[0].pattern,
@@ -5033,7 +5083,7 @@ def with_method(cfg, method: str, refresh: int):
 
 
 def mamba_vs_cpu(tag: str, cfg, method: str, card: str, b: int, s: int,
-                 loss_tol: float) -> dict:
+                 loss_tol: float, model=None) -> dict:
     """One step's loss and gradients at reduced depth (``cfg``), weights
     drawn on the card in bf16: under ``block`` and ``none`` on the card in
     bf16 (exact launches; the same bits expected, held to 2^-8 as phase
@@ -5042,12 +5092,19 @@ def mamba_vs_cpu(tag: str, cfg, method: str, card: str, b: int, s: int,
     ``MAMBA_F32_LOSS_TOL`` and ``MAMBA_F32_GRAD_TOL`` per square root of
     the depth; bf16 card against f32 CPU: ``loss_tol`` per square root of
     the depth and every gradient's cosine with the CPU's at least
-    ``MAMBA_BF16_COS``."""
+    ``MAMBA_BF16_COS``. ``model``: bf16 weights on the card to check
+    (phase 28's trained ones) instead of a seeded draw. An MoE config runs
+    the f32 CPU first and its bf16 runs take the CPU's experts at every
+    layer (``RouteLog(replay=)``): a bf16 routing flip reads another
+    expert's output, an O(1) change no rounding limit holds, and phase
+    28's ``moe_vs_cpu`` holds the flips themselves; the f32 card routes
+    freely."""
     from repro_torch.models.lm import init_lm_states, map_states
 
     plan = api.install(api.resolve(cfg, batch=b, seq=s))
-    gen = torch.Generator(device="cuda").manual_seed(2323)
-    model = init_lm(cfg, device="cuda", generator=gen)
+    if model is None:
+        gen = torch.Generator(device="cuda").manual_seed(2323)
+        model = init_lm(cfg, device="cuda", generator=gen)
     model.requires_grad_(True)
     tree = to_reference(model)
     g = torch.Generator().manual_seed(2324)
@@ -5056,11 +5113,15 @@ def mamba_vs_cpu(tag: str, cfg, method: str, card: str, b: int, s: int,
         cfg, b, s, dtype=torch.float32, device="cpu", seed=2325))
         if cfg.wasi.compress_acts else None)
     cfg32 = cfg.replace(dtype="float32", remat="none")
+    runs = (("bf16_block", "cuda", cfg),
+            ("bf16_none", "cuda", cfg.replace(remat="none")),
+            ("f32_card", "cuda", cfg32), ("f32_cpu", "cpu", cfg32))
+    moe = any(k in ("moe", "moe_swa") for g in cfg.groups for k in g.pattern)
+    if moe:
+        runs = runs[3:] + runs[:3]
+    cpu_routes = None
     out = {}
-    for key, dev, c in (("bf16_block", "cuda", cfg),
-                        ("bf16_none", "cuda", cfg.replace(remat="none")),
-                        ("f32_card", "cuda", cfg32),
-                        ("f32_cpu", "cpu", cfg32)):
+    for key, dev, c in runs:
         api.install(dataclasses.replace(plan, model=c))
         m = model if c.dtype == "bfloat16" else from_reference(
             tree, c, dev, trainable=True)
@@ -5069,7 +5130,12 @@ def mamba_vs_cpu(tag: str, cfg, method: str, card: str, b: int, s: int,
         batch = {"tokens": toks[:, :-1].to(dev),
                  "labels": toks[:, 1:].to(dev)}
         ops.reset_launches()
-        loss, _, grads, _ = value_and_grad(lm_loss, m, batch, c, st)
+        log = (RouteLog(cpu_routes if c.dtype == "bfloat16" else None)
+               if moe else contextlib.nullcontext())
+        with log:
+            loss, _, grads, _ = value_and_grad(lm_loss, m, batch, c, st)
+        if moe and key == "f32_cpu":
+            cpu_routes = log.calls
         if dev == "cuda":
             torch.cuda.synchronize()
             want = train_want(c, method, 1, 0)
@@ -5136,7 +5202,7 @@ def mamba_vs_cpu(tag: str, cfg, method: str, card: str, b: int, s: int,
 
 
 def zamba2_train_method(method: str, card: str) -> dict:
-    """One method at full width and 27 layers (``zamba2_train_cfg``)
+    """One method at full width and 9 layers (``zamba2_train_cfg``)
     under the config's ``block``:
     the saved-for-backward bytes and the allocator's peak of one loss,
     ``Z_TRAIN_STEPS`` steps through ``train_loop`` with exact launches, a
@@ -5224,7 +5290,7 @@ def zamba2_int8(card: str) -> dict:
 
 
 def phase_zamba2_train(card: str) -> dict:
-    print("== phase 23: zamba2-7b trained at full width and 27 of its 81 "
+    print("== phase 23: zamba2-7b trained at full width and 9 of its 81 "
           "layers (d 3584, bf16, remat block) under wasi and wsi; card vs "
           "CPU at 9 layers; int8 from a plan-bearing checkpoint", flush=True)
     out = {}
@@ -5573,6 +5639,11 @@ def phase_paged(card: str) -> dict:
 # without spec and with each draft: all greedy on the dense cache, and
 # mixed (half at SPEC_MIXED) paged behind phase 25's system prompt
 SPEC_K, SPEC_NEW = 4, 32
+# depth: 12 of qwen2's 24 layers, so that the script stays inside its time
+# limit beside phase 28 (at 24 layers the phase took 91-107 s of a 915 s
+# script on an H100); every kind of layer, site and kernel of the 24 is in
+# the 12
+SPEC_LAYERS = 12
 SPEC_DRAFTS = ("int8", "rank:0.5")
 SPEC_RANGES = ("spec_draft", "spec_verify", "spec_accept")
 SPEC_MIXED = SamplingParams(temperature=0.8, top_p=0.95)
@@ -6014,12 +6085,16 @@ def profile_spec(eng, cfg, card: str) -> dict:
 
 def phase_spec(card: str) -> dict:
     print("== phase 26: qwen2-0.5b served speculatively at full width and "
-          f"depth (24 layers, bf16): spec_k {SPEC_K}, {SPEC_NEW} new tokens, "
+          f"{SPEC_LAYERS} of its 24 layers (bf16): spec_k {SPEC_K}, "
+          f"{SPEC_NEW} new tokens, "
           f"drafts {list(SPEC_DRAFTS)} (#6; #1 on L views) on the request "
           f"sets {[f'{a} {b}' for a, b in SPEC_RUNS]}, each against the "
           "same requests without spec; greedy and the rollback in f32",
           flush=True)
-    cfg = configs.get("qwen2-0.5b")
+    from repro_torch.config import LayerGroup
+
+    cfg = reduced(configs.get("qwen2-0.5b"),
+                  (LayerGroup(pattern=("dense",), repeat=SPEC_LAYERS),))
     plan = api.install(api.resolve(cfg))
     model = init_lm(cfg, device="cuda", seed=0)
     system = list(map(int, np.random.default_rng(25).integers(
@@ -6624,6 +6699,590 @@ def phase_tenancy(card: str) -> dict:
     return out
 
 
+# ---------------------------------------------------------------------------
+# phase 28: the MoE family (nn/moe.py): mixtral-8x7b served, deepseek-moe-16b
+# trained and served
+# ---------------------------------------------------------------------------
+
+#: the profiler ranges of an MoE block (models/blocks.py, nn/moe.py)
+MOE_RANGES = ("moe_attention", "moe_dispatch", "moe_experts", "moe_combine")
+# the card-against-CPU routing check: a phrase of 32 seeded tokens said 10
+# times (320 tokens, one capacity group): tokens at one place in the
+# phrase route alike, so experts overfill and capacity binds
+MOE_PHRASE, MOE_REPEAT = 32, 10
+# f32's own rounding of a router logit, a d-term dot product in f32:
+# |fl(h.w) - h.w| <= gamma_d sum_i |h_i||w_i|, gamma_d = d u / (1 - d u),
+# u = 2^-24; a choice may part from the CPU's only where the CPU's logit
+# gap to the next expert lies within the two experts' bounds summed
+MOE_U32 = 2.0 ** -24
+# bf16: the router reads a bf16 input h, whose rounding moves each element
+# by at most 2^-8 of itself, and h carries the roundings of the L layers
+# before it, each of that size at this depth: a pair's logit gap moves by at
+# most (1 + L) 2^-8 sum_i |h_i| (|w_a,i| + |w_b,i|). Set before any reading
+MOE_U16 = 2.0 ** -8
+# deepseek-moe-16b training: layer 0 and D_TRAIN_MOE of its 27 moe layers
+# (the SGD momenta, the gradients and their clipped copy of all 28 layers
+# would need ~78 GB beside the weights; the phase's time is the tighter
+# limit), phase 19's optimiser, batch 4 x 512, refresh every 8, 8 steps
+D_TRAIN_MOE = 8
+D_TRAIN_B, D_TRAIN_S, D_STEPS, D_REFRESH = 4, 512, 8, 8
+D_CHECK_B, D_CHECK_S = 1, 32
+# the global factor's first run on a full-depth expert stack: deepseek's
+# 27 layers x 64 experts at rank 384, both bank shapes
+D_FULL_STACKS = {"moe/w_gate|w_up": (27 * 64, 1408, 384),
+                 "moe/w_down": (27 * 64, 2048, 384)}
+
+
+def deepseek_cfg(n_moe: int):
+    """deepseek-moe-16b at full width: its dense layer 0 and ``n_moe`` moe
+    layers."""
+    from repro_torch.config import LayerGroup
+
+    cfg = configs.get("deepseek-moe-16b")
+    return reduced(cfg, (cfg.groups[0], LayerGroup(pattern=("moe",),
+                                                   repeat=n_moe)))
+
+
+def mixtral_cfg(n: int):
+    """mixtral-8x7b at full width and ``n`` layers."""
+    from repro_torch.config import LayerGroup
+
+    return reduced(configs.get("mixtral-8x7b"),
+                   (LayerGroup(pattern=("moe_swa",), repeat=n),))
+
+
+class RouteLog:
+    """Records every ``nn.moe.route`` call inside the block: each MoE
+    layer's router logits, top-k experts, kept choices, and
+    ``sum_i |h_i| |w_e,i|`` per expert (the rounding bounds' scale), on
+    the CPU. ``replay``: another run's recorded calls, whose experts each
+    layer takes instead of its own (gates from its own probabilities,
+    positions recounted): the same routing, so the same function."""
+
+    def __init__(self, replay=None):
+        self.replay = replay
+
+    def __enter__(self):
+        from repro_torch.nn import moe
+
+        self.calls, self._mod, self._route = [], moe, moe.route
+        self._layers = {}
+
+        def rec(p, x, cfg):
+            out = self._route(p, x, cfg)
+            # a layer is its router's view: a checkpoint's recompute
+            # calls the same layer again, with the same view
+            layer = self._layers.setdefault(p["router"]["w"].data_ptr(),
+                                            len(self._layers))
+            if self.replay is not None:
+                top_e = self.replay[layer]["top_e"].to(x.device)
+                top_p = torch.gather(out[1], -1, top_e)
+                top_p = top_p / torch.clamp(top_p.sum(-1, keepdim=True),
+                                            min=1e-9)
+                out = out[:2] + (top_p, top_e) + moe.capacity_positions(
+                    top_e, cfg)
+            logits, _, _, top_e, _, fits = out
+            with torch.no_grad():
+                absdot = torch.matmul(x.detach().float().abs(),
+                                      p["router"]["w"].detach().float()
+                                      .abs().mT)
+            self.calls.append(dict(logits=logits.detach().cpu(),
+                                   top_e=top_e.cpu(), fits=fits.cpu(),
+                                   absdot=absdot.cpu()))
+            return out
+
+        moe.route = rec
+        return self
+
+    def __exit__(self, *exc):
+        self._mod.route = self._route
+
+
+def routing_agreement(card_calls, cpu_calls, k: int, limit) -> dict:
+    """The card's routing against the CPU's, layer by layer (one group).
+    A token's first flip (a (layer, choice) whose expert is not the
+    CPU's, at a token routed alike at every earlier layer) must lie where
+    the CPU's logit gap at that choice is within ``limit(scale)``, scale
+    the two experts' ``sum |h||w|``: only there can rounding of the router
+    input reorder them. A token routed otherwise at an earlier layer
+    reads another expert's output from then on, so its later flips are
+    consequences, counted apart. A kept/dropped difference at a token that
+    did not flip is allowed only after a flip earlier in the group at that
+    layer (capacity positions count earlier tokens' choices). Attention
+    is causal and capacity counts earlier tokens only, so the tokens
+    before the first token routed otherwise at any layer computed the
+    CPU's function: ``matched``. Returns flips with their margins, the
+    smallest top-k margin, drops per layer and ``matched``."""
+    n = card_calls[0]["top_e"].shape[1]
+    prior = torch.zeros(n, dtype=torch.bool)
+    first_any = n
+    flips, drops, smallest, bad = [], [], math.inf, []
+    for layer, (a, b) in enumerate(zip(card_calls, cpu_calls)):
+        srt, idx = torch.sort(b["logits"][0], dim=-1, descending=True,
+                              stable=True)
+        gaps = srt[:, :k] - srt[:, 1:k + 1]
+        smallest = min(smallest, gaps.min().item())
+        ce, be = a["top_e"][0], b["top_e"][0]
+        flipped = (ce != be).any(-1)
+        for t in torch.nonzero(flipped).flatten().tolist():
+            j = int(torch.nonzero(ce[t] != be[t])[0])
+            ea, eb = int(idx[t, j]), int(idx[t, j + 1])
+            scale = (b["absdot"][0, t, ea] + b["absdot"][0, t, eb]).item()
+            f = dict(layer=layer, token=t, choice=j,
+                     margin=gaps[t, j].item(), limit=limit(scale),
+                     consequence=bool(prior[t]))
+            flips.append(f)
+            if not f["consequence"] and f["margin"] > f["limit"]:
+                bad.append(f)
+        fits_diff = (a["fits"][0] != b["fits"][0]).any(-1)
+        first = (int(torch.nonzero(flipped)[0]) if flipped.any() else n)
+        early = fits_diff & ~flipped & (torch.arange(n) <= first)
+        if early.any():
+            bad.append(dict(layer=layer, capacity_without_flip=int(
+                early.sum())))
+        changed = flipped | fits_diff
+        if changed.any():
+            first_any = min(first_any, int(torch.nonzero(changed)[0]))
+        prior |= changed
+        drops.append(int((~b["fits"]).sum()))
+    return dict(flips=flips, bad=bad, drops=drops, smallest_margin=smallest,
+                matched=torch.arange(n) < first_any)
+
+
+def moe_vs_cpu(tag: str, cfg, card: str) -> dict:
+    """Full-sequence logits of one 320-token prompt at reduced depth
+    (``cfg``), weights drawn on the card in bf16, run in f32 on the card
+    (TF32 off), in bf16 on the card and in f32 on the CPU from the same
+    values (``routing_agreement``). f32: routing identical at every
+    (layer, token, choice) outside f32's rounding of the router logits
+    (``MOE_U32``), logits within ``F32_LOGIT_TOLS`` sqrt(L) of each
+    token's RMS logit. bf16: every first flip within the limit of
+    ``MOE_U16``; logits of every token within ``logits_vs_cpu``'s
+    limits. Logits come from a second run on each device dtype that takes
+    the CPU's experts at every layer (``RouteLog(replay=)``): a flip reads
+    another expert's output, an O(1) change, from then on in that token
+    and, through attention and capacity, in every later one; with the
+    routing identical (f32) the replay is the free run. Capacity must
+    bind: dropped choices > 0 in some layer."""
+    plan = api.install(api.resolve(cfg))
+    gen = torch.Generator(device="cuda").manual_seed(2800)
+    model = init_lm(cfg, device="cuda", generator=gen)
+    tree = to_reference(model)
+    cfg32 = cfg.replace(dtype="float32")
+    rng = np.random.default_rng(2801)
+    toks = torch.from_numpy(np.tile(rng.integers(0, cfg.vocab_size,
+                                                 MOE_PHRASE), MOE_REPEAT))[None]
+
+    def run(m, c, dev, replay=None):
+        with RouteLog(replay) as log, torch.inference_mode():
+            lg, *_ = lm_forward(m, toks.to(dev), c)
+        return lg[0].float().cpu(), log.calls
+
+    api.install(dataclasses.replace(plan, model=cfg32))
+    m = from_reference(tree, cfg32, "cpu")
+    lg_cpu, r_cpu = run(m, cfg32, "cpu")
+    m = from_reference(tree, cfg32, "cuda")
+    del tree
+    _, r_32 = run(m, cfg32, "cuda")
+    lg_32, _ = run(m, cfg32, "cuda", replay=r_cpu)
+    del m
+    api.install(plan)
+    _, r_bf = run(model, cfg, "cuda")
+    lg_bf, _ = run(model, cfg, "cuda", replay=r_cpu)
+    del model
+    gc.collect()
+    torch.cuda.empty_cache()
+    d, k, n_l = cfg.d_model, cfg.moe.top_k, cfg.n_layers
+    gamma = d * MOE_U32 / (1 - d * MOE_U32)
+    f32 = routing_agreement(r_32, r_cpu, k, lambda sc: gamma * sc)
+    bf = routing_agreement(r_bf, r_cpu, k,
+                           lambda sc: (1 + n_l) * MOE_U16 * sc)
+
+    def flip_text(r, digits):
+        first = [(f["layer"], f["token"], f["choice"],
+                  round(f["margin"], digits), round(f["limit"], digits))
+                 for f in r["flips"] if not f["consequence"]]
+        return (f"{len(first)} first flips (layer, token, choice, margin, "
+                f"limit) {first}, {len(r['flips']) - len(first)} later "
+                "flips of tokens already routed otherwise")
+    root = math.sqrt(n_l)
+
+    def logit_errs(lg, mask):
+        rms = lg_cpu.square().mean(-1).sqrt()
+        diff = lg - lg_cpu
+        rel_rms = (diff.square().mean(-1).sqrt() / rms)[mask]
+        rel_max = (diff.abs().amax(-1) / rms)[mask]
+        return rel_rms.max().item(), rel_max.max().item()
+
+    n_tok = toks.shape[1]
+    every = torch.ones(n_tok, dtype=torch.bool)
+    e32 = logit_errs(lg_32, every)
+    ebf = logit_errs(lg_bf, every)
+    lim32 = (F32_LOGIT_TOLS[0] * root, F32_LOGIT_TOLS[1] * root)
+    limbf = (LOGIT_RMS_TOL * root, LOGIT_MAX_TOL * root)
+    print(f"[moe] {tag} {n_l} layers, one {n_tok}-token group, capacity "
+          f"{moe_capacity(n_tok, cfg)}: dropped choices per MoE layer (CPU)"
+          f" {f32['drops']}; f32 card vs f32 CPU: {flip_text(f32, 7)}, "
+          f"smallest top-k margin {f32['smallest_margin']:.3e}, "
+          f"{int(f32['matched'].sum())}/{n_tok} tokens before any routed "
+          f"otherwise; logits on the CPU's routing: largest "
+          f"RMS error {e32[0]:.3e} (limit {lim32[0]:.2e}), largest error "
+          f"{e32[1]:.3e} (limit {lim32[1]:.2e}) of the token's RMS logit | "
+          f"{card}", flush=True)
+    print(f"[moe] {tag} bf16 card vs f32 CPU (limit (1 + {n_l}) 2^-8 "
+          f"sum|h||w|): {flip_text(bf, 5)}, "
+          f"{int(bf['matched'].sum())}/{n_tok} tokens before any routed "
+          f"otherwise; logits of all {n_tok} tokens on the CPU's routing "
+          f"(``RouteLog(replay=)``): largest RMS "
+          f"error {ebf[0]:.3e} (limit "
+          f"{limbf[0]:.4f}), largest error {ebf[1]:.3e} (limit "
+          f"{limbf[1]:.4f}) | {card}", flush=True)
+    if not max(f32["drops"]) > 0:
+        raise AssertionError(f"{tag}: capacity never bound")
+    if f32["bad"] or bf["bad"]:
+        raise AssertionError(f"{tag}: routing flips outside their limits: "
+                             f"f32 {f32['bad']}, bf16 {bf['bad'][:8]}")
+    if not (e32[0] <= lim32[0] and e32[1] <= lim32[1]):
+        raise AssertionError(f"{tag}: f32 card logits {e32} vs {lim32}")
+    if not (ebf[0] <= limbf[0] and ebf[1] <= limbf[1]):
+        raise AssertionError(f"{tag}: bf16 card logits {ebf} vs {limbf}")
+
+    def strip(r):
+        return dict(flips=r["flips"], drops=r["drops"],
+                    smallest_margin=r["smallest_margin"],
+                    matched_tokens=int(r["matched"].sum()))
+    return dict(n_layers=n_l, tokens=n_tok, f32=strip(f32), bf16=strip(bf),
+                f32_logit_rel=e32, bf16_logit_rel=ebf, f32_limits=lim32,
+                bf16_limits=limbf)
+
+
+def moe_tick_split(eng, cfg, card: str, tag: str) -> dict:
+    """5 decode ticks of 4 slots under torch.profiler: the device ms a tick
+    by the MoE block's ranges (``MOE_RANGES``: the attention sites, the
+    router and scatter, the experts, the gather), the rest (embedding,
+    norms, residual adds, the head) apart, and the busy share."""
+    rng = np.random.default_rng(2802)
+    hs = [eng.submit(list(map(int, rng.integers(0, cfg.vocab_size, 16))),
+                     max_new=12) for _ in range(4)]
+    eng.step()
+    while not all(h.generated for h in hs):
+        eng.step()
+    torch.cuda.synchronize()
+    acts = [torch.profiler.ProfilerActivity.CPU,
+            torch.profiler.ProfilerActivity.CUDA]
+    with torch.profiler.profile(activities=acts) as prof:
+        t0 = time.perf_counter()
+        for _ in range(5):
+            eng.step()
+        torch.cuda.synchronize()
+        wall = (time.perf_counter() - t0) * 1e3 / 5
+    eng.run()
+    dev = sum(e.self_device_time_total for e in device_events(prof)) / 5e3
+    split = {k: (None if v is None else v / 5)
+             for k, v in range_split(prof, MOE_RANGES).items()}
+    if dev <= 0 or None in split.values():
+        print(f"[{tag}] decode tick: no device time by range in the trace:"
+              f" not measured | {card}", flush=True)
+        return dict(tick_wall_ms=wall, tick_device_ms=dev, split_ms=split)
+    other = dev - sum(split.values())
+    print(f"[{tag}] one decode tick (4 slots): wall {wall:.3f} ms, device "
+          f"{dev:.3f} ms (busy share {dev / wall:.3f}): "
+          + ", ".join(f"{k} {v:.3f} ms ({v / dev:.3f})"
+                      for k, v in split.items())
+          + f", outside the ranges {other:.3f} ms | {card}", flush=True)
+    return dict(tick_wall_ms=wall, tick_device_ms=dev, split_ms=split,
+                other_ms=other, busy_share=dev / wall,
+                moe_share=sum(split[k] for k in MOE_RANGES[1:]) / dev)
+
+
+def mixtral_serve(card: str) -> dict:
+    """mixtral-8x7b at full width and depth in bf16 (weights drawn on the
+    card): phase 5's requests through 4 slots (128 launches of #1 a forward,
+    32 of #7 a prefill call, none at the expert banks), the weight bytes,
+    a decode tick split by range; then int8 through #6."""
+    cfg = configs.get("mixtral-8x7b")
+    plan = api.install(api.resolve(cfg))
+    fc = forward_counts(cfg)
+    if (fc["sites"], fc["flash"]) != (128, 32) or any(
+            s.name.startswith("mlp/") for s in plan.specs):
+        raise AssertionError(f"mixtral plan {plan.specs} counts {fc}")
+    t0 = time.perf_counter()
+    gen = torch.Generator(device="cuda").manual_seed(2810)
+    model = init_lm(cfg, device="cuda", generator=gen)
+    torch.cuda.synchronize()
+    wb = model_weight_bytes(model.tree())
+    n = sum(p.numel() for p in model.parameters())
+    print(f"[mixtral] init {time.perf_counter() - t0:.1f}s: {n:,} "
+          f"parameters, weight bytes {wb['total_bytes']:,} "
+          f"({wb['total_bytes'] / 1e9:.2f} GB; predicted ~30.8 GB) | {card}",
+          flush=True)
+    eng = ServeEngine(model, plan=plan, max_slots=4, max_cache=512,
+                      device="cuda")
+    res = serve_requests("mixtral", cfg, model, plan, card, engine=eng)
+    res.update(params=n, weight_bytes=wb["total_bytes"],
+               tick=moe_tick_split(eng, cfg, card, "mixtral"))
+    del eng
+    qplan = plan.quantized("int8")
+    t0 = time.perf_counter()
+    q = convert.quantize(model, qplan)
+    del model
+    gc.collect()
+    torch.cuda.empty_cache()
+    api.install(qplan)
+    qmodel = from_reference(q, cfg, "cuda")
+    del q
+    gc.collect()
+    torch.cuda.empty_cache()
+    qb = model_weight_bytes(qmodel.tree())
+    print(f"[mixtral_int8] quantize and carry {time.perf_counter() - t0:.1f}"
+          f"s: weight bytes {qb['total_bytes']:,} (weights "
+          f"{qb['weights_bytes']:,}, scales {qb['scales_bytes']:,}) | "
+          f"{card}", flush=True)
+    res["int8"] = serve_requests("mixtral_int8", cfg, qmodel, qplan, card,
+                                 kernel="lowrank_q8")
+    res["int8"]["weight_bytes"] = qb["total_bytes"]
+    del qmodel
+    api.install(plan)
+    gc.collect()
+    torch.cuda.empty_cache()
+    return res
+
+
+def refresh_routes(model, card: str) -> list:
+    """Each factored stack of the tree (the refresh's unit): its shape and
+    the routes of #5 and #4 it takes."""
+    rows = []
+    for path, p in bind.iter_linear_dicts(model.tree()):
+        if "L" not in p or "w" in p:
+            continue
+        L = p["L"]
+        k = L.shape[-1]
+        b = math.prod(L.shape[:-2])
+        rows.append(dict(stack=path, shape=tuple(L.shape), matrices=b,
+                         gram=kgram.gram_route(L.dtype, k, (L,)),
+                         choleskyqr="/".join(kqr.qr_route(k, L.dtype,
+                                                          (L, L)))))
+    for r in rows:
+        print(f"[deepseek] refresh stack {r['stack']} {r['shape']} "
+              f"({r['matrices']} matrices): gram {r['gram']}, choleskyqr "
+              f"{r['choleskyqr']} | {card}", flush=True)
+    return rows
+
+
+def deepseek_cut(model, n_moe: int):
+    """The trained deepseek model cut to its layer 0 and first ``n_moe``
+    moe layers (copies on the card), with that config."""
+    cfg = deepseek_cfg(n_moe)
+
+    def tree(node, n=None):
+        if isinstance(node, (dict, torch.nn.ModuleDict,
+                             torch.nn.ParameterDict)):
+            return {k: tree(v, n) for k, v in node.items()}
+        return node.detach() if n is None else node.detach()[:n]
+
+    t = {k: tree(getattr(model, k)) for k in ("embed", "final_norm",
+                                               "lm_head")}
+    t["groups"] = [[tree(model.groups[0][0])],
+                   [tree(model.groups[1][0], n_moe)]]
+    return from_reference(t, cfg, "cuda"), cfg
+
+
+def deepseek_train_method(method: str, card: str,
+                          check: bool = False) -> dict:
+    """``method`` at full width and ``D_TRAIN_MOE`` + 1 layers under the
+    config's ``block``: saved bytes of one loss, ``D_STEPS`` steps with
+    exact launches (one refresh: #4 and #5 once per stack), the refresh's
+    stacks and routes and one more refresh timed, aux. With ``check`` the
+    trained weights are then served (phase 5's requests, 4 slots), and one
+    step at 1 x 32 runs on their first 3 layers (layer 0 and 2 moe
+    layers) against the same values in f32 on the CPU
+    (``mamba_vs_cpu``)."""
+    from repro_torch.core.wsi import wsi_refresh_factored
+    from repro_torch.models.lm import init_lm_states
+    from repro_torch.utils.memprof import measured_residual_bytes
+
+    b, s = D_TRAIN_B, D_TRAIN_S
+    cfg = with_method(deepseek_cfg(D_TRAIN_MOE), method, D_REFRESH)
+    tcfg = TrainConfig(optimizer="sgd", lr=TINY_LR, momentum=0.9,
+                       schedule="constant", steps=D_STEPS + 1,
+                       checkpoint_every=0)
+    t0 = time.perf_counter()
+    api.install(api.resolve(cfg, batch=b, seq=s))
+    gen = torch.Generator(device="cuda").manual_seed(2820)
+    model = init_lm(cfg, device="cuda", generator=gen)
+    asi = (init_lm_states(cfg, b, s, dtype=torch.bfloat16, device="cuda",
+                          generator=gen) if cfg.wasi.compress_acts else None)
+    state = make_train_state(model, cfg, tcfg, asi_states=asi)
+    step = make_train_step(lm_loss, cfg, tcfg)
+    torch.cuda.synchronize()
+    fc = forward_counts(cfg)
+    res = dict(method=method, build_s=time.perf_counter() - t0,
+               n_layers=cfg.n_layers, stacks=fc["stacks"],
+               params=sum(p.numel() for p in model.parameters()))
+    if fc["stacks"] != 17:
+        raise AssertionError(f"deepseek: {fc['stacks']} factored stacks, "
+                             "want 17 (layer 0's 7, the moe group's 4 + 3 "
+                             "+ 3)")
+    batch_fn = uniform_batches(cfg, b, s, 2820)
+    rep = measured_residual_bytes(
+        lambda: lm_loss(state.params, batch_fn(200), cfg, states=state.asi))
+    res.update(residual_bytes_block=rep.total_bytes)
+    del rep
+    torch.cuda.empty_cache()
+    state, row = train_run("deepseek", state, step, batch_fn, tcfg, cfg,
+                           method, 0, D_STEPS, b * s)
+    res.update(row)
+    res["refresh_stacks"] = refresh_routes(state.params, card)
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    map_factored(state.params.tree(), wsi_refresh_factored)
+    torch.cuda.synchronize()
+    res["refresh_ms"] = (time.perf_counter() - t0) * 1e3
+    print(f"[deepseek] {method} at {cfg.n_layers} layers, batch {b} x {s}: "
+          f"step_ms_median={row['step_ms_median']:.3f} tok_s="
+          f"{row['tok_s']:.1f} dev_peak_mib={row['dev_peak_mib']:.1f} "
+          f"saved_for_backward_mib="
+          f"{res['residual_bytes_block'] / 2**20:.1f} refresh_ms (17 "
+          f"stacks, host clock)={res['refresh_ms']:.2f} losses "
+          f"{[round(x, 4) for x in row['losses']]} aux "
+          f"{[round(x, 4) for x in row['aux']]} | {card}", flush=True)
+    model = state.params
+    del state, step
+    gc.collect()
+    torch.cuda.empty_cache()
+    if check:
+        model.requires_grad_(False)
+        plan = api.install(api.resolve(cfg))
+        res["serve"] = serve_requests(f"deepseek_{method}", cfg, model,
+                                      plan, card)
+        cut, ccfg = deepseek_cut(model, 2)
+        del model
+        res["cpu_check"] = mamba_vs_cpu(
+            "deepseek", with_method(ccfg, method, D_REFRESH), method, card,
+            D_CHECK_B, D_CHECK_S, Z_LOSS_TOL, model=cut)
+        model = cut
+    del model
+    gc.collect()
+    torch.cuda.empty_cache()
+    return res
+
+
+def full_stack(name, b, o, k, gen, card: str) -> dict:
+    """One full-depth expert stack of a deepseek refresh, (b, O, K) bf16
+    Gaussian (cond ~3): ``ops.cholesky_qr_mix`` (#5, then #4 on its
+    route) held to the plain ``cholesky_qr_mix_ref`` at
+    ``refresh_stack``'s tolerances, then timed beside the plain version,
+    the library (``library_choleskyqr``) and the bound: CUDA events
+    around 3 eager calls each, the median (one call moves GBs, so the
+    host's launch cost is noise)."""
+    y = (torch.randn(b, o, k, generator=gen, device="cuda")
+         * o ** -0.5).to(torch.bfloat16)
+    route = "/".join(kqr.qr_route(k, y.dtype, (y, y)))
+    g_route = kgram.gram_route(y.dtype, k, (y,))
+    q, mix = ops.cholesky_qr_mix(y)
+    wq, wmix = cholesky_qr_mix_ref(y)
+    qs, ms = wq.float().abs().max().item(), wmix.abs().max().item()
+    eq = (q.float() - wq.float()).abs().max().item()
+    em = (mix - wmix).abs().max().item()
+    ortho = orthonormality_error(q).max().item()
+    tol_q, tol_o = 1e-3 * qs + 2.0 ** -7 * qs, 1e-3 + k * 2.0 ** -8
+    if not (eq <= tol_q and em <= 1e-3 * ms and ortho <= tol_o):
+        raise AssertionError(
+            f"full stack {name}: Q err {eq:.3e} (tol {tol_q:.3e}), mix err "
+            f"{em:.3e} (tol {1e-3 * ms:.3e}), |Q^T Q - I| {ortho:.3e} (tol "
+            f"{tol_o:.3e})")
+    del q, mix, wq, wmix
+
+    def ms_of(fn):
+        fn(y)
+        times = []
+        for _ in range(3):
+            start, end = (torch.cuda.Event(enable_timing=True)
+                          for _ in range(2))
+            start.record()
+            fn(y)
+            end.record()
+            end.synchronize()
+            times.append(start.elapsed_time(end))
+        return statistics.median(times)
+
+    nb, fl = choleskyqr_work(b, o, k, y.dtype)
+    bound_ms, bound_by = bound_of(nb, fl, y.dtype)
+    row = dict(stack=name, shape=(b, o, k), gram_route=g_route,
+               route=route, q_err=eq, mix_err=em, ortho=ortho,
+               ms=ms_of(ops.cholesky_qr_mix),
+               plain_ms=ms_of(cholesky_qr_mix_ref),
+               library_ms=ms_of(library_choleskyqr), bound_ms=bound_ms,
+               bound_by=bound_by)
+    print(f"[deepseek] full-depth stack {name} ({b},{o},{k}) bf16: gram "
+          f"{g_route}, choleskyqr {route}; Q err {eq:.2e} (tol "
+          f"{tol_q:.2e}), mix err {em:.2e}, |Q^T Q - I|_F {ortho:.2e}; #5 "
+          f"then #4 {row['ms']:.3f} ms, plain {row['plain_ms']:.3f}, "
+          f"library {row['library_ms']:.3f}, bound {bound_ms:.3f} "
+          f"({bound_by}) | {card}", flush=True)
+    del y
+    torch.cuda.empty_cache()
+    return row
+
+
+def deepseek_paged(card: str) -> dict:
+    """deepseek-moe-16b at full width and depth in bf16 served paged
+    behind phase 25's system prompt (115 launches of #1 per decode step or
+    prefill chunk: layer 0's 7 sites and 4 in each moe layer; no #7), the
+    prefix hits phase 25's scheduling predicts."""
+    cfg = configs.get("deepseek-moe-16b")
+    plan = api.install(api.resolve(cfg))
+    if forward_counts(cfg)["sites"] != 115:
+        raise AssertionError("deepseek: 115 factored sites a forward")
+    gen = torch.Generator(device="cuda").manual_seed(2830)
+    model = init_lm(cfg, device="cuda", generator=gen)
+    system = list(map(int, np.random.default_rng(25).integers(
+        0, cfg.vocab_size, PAGED_SYSTEM)))
+    res = serve_requests("deepseek_paged", cfg, model, plan, card,
+                         prefix=system, engine_kw=PAGED_KW)
+    want = 4 * PAGED_SYSTEM
+    if res["prefix_hit_tokens"] != want:
+        raise AssertionError(f"deepseek paged: prefix hits "
+                             f"{res['prefix_hit_tokens']}, want {want}")
+    res["params"] = sum(p.numel() for p in model.parameters())
+    del model
+    gc.collect()
+    torch.cuda.empty_cache()
+    return res
+
+
+def phase_moe(card: str) -> dict:
+    print("== phase 28: the MoE family: mixtral-8x7b served at full width "
+          "and depth (32 moe_swa layers, d 4096, 8 experts top-2, bf16 and "
+          "int8); routing and logits against the f32 CPU at reduced depth; "
+          f"deepseek-moe-16b trained at full width and {1 + D_TRAIN_MOE} "
+          "layers under wsi and wasi, its full-depth expert stacks through "
+          "#4 and #5, served dense and, at full depth, paged", flush=True)
+    out, seconds = {}, {}
+
+    def part(name, fn, *a, **kw):
+        t = time.perf_counter()
+        out[name] = fn(*a, **kw)
+        seconds[name] = time.perf_counter() - t
+        print(f"[moe] {name}: {seconds[name]:.1f}s", flush=True)
+
+    def full_stacks():
+        gen = torch.Generator(device="cuda").manual_seed(2840)
+        return [full_stack(name, b, o, k, gen, card)
+                for name, (b, o, k) in D_FULL_STACKS.items()]
+
+    part("mixtral", mixtral_serve, card)
+    part("mixtral_cpu", moe_vs_cpu, "mixtral", mixtral_cfg(2), card)
+    part("deepseek_cpu", moe_vs_cpu, "deepseek", deepseek_cfg(2), card)
+    for method in ("wsi", "wasi"):
+        part(f"deepseek_{method}", deepseek_train_method, method, card,
+             check=method == "wasi")
+    part("deepseek_full_stacks", full_stacks)
+    part("deepseek_paged", deepseek_paged, card)
+    out["seconds"] = seconds
+    return out
+
+
 def main() -> None:
     ap = argparse.ArgumentParser(description=__doc__.splitlines()[0])
     ap.add_argument("--json", default="",
@@ -6685,6 +7344,7 @@ def main() -> None:
     paged = run(25, phase_paged, card)
     spec = run(26, phase_spec, card)
     tenancy = run(27, phase_tenancy, card)
+    moe = run(28, phase_moe, card)
 
     head = k["headline"]
     kernels = [{
@@ -6817,6 +7477,7 @@ def main() -> None:
                        "project": project, "ssd_grad": ssd_grad,
                        "zamba2_train": z_train, "falcon_mamba": falcon,
                        "paged": paged, "spec": spec, "tenancy": tenancy,
+                       "moe": moe,
                        "adapter_kernel_rows": k["adapter_rows"],
                        "adapter_headline": k["adapter_headline"],
                        "kernels": line["kernels"],

@@ -77,8 +77,10 @@ def init_params(spec: LinearSpec, *, generator: torch.Generator,
     gen_dev = generator.device
 
     def normal(shape, s):
+        # scaled in place: an MoE group's expert bank is one leaf of
+        # billions of values, and a second f32 copy of it would not fit
         t = torch.randn(*lead, *shape, generator=generator, device=gen_dev,
-                        dtype=torch.float32) * s
+                        dtype=torch.float32).mul_(s)
         return nn.Parameter(t.to(device=device, dtype=dtype),
                             requires_grad=False)
 
@@ -322,7 +324,10 @@ def check_layout(groups, plan) -> None:
     not have its plan site's layout (``_layout_fits``), or is int8-packed
     where the plan stamps no ``quant`` (or the other way round)."""
     for path, p in iter_linear_dicts(groups):
-        spec = plan.spec(LEAF_TO_SPEC[path.split("/")[-1]][0])
+        key = path.split("/")[-1]
+        if key not in LEAF_TO_SPEC:
+            continue        # an MoE router: f32, no plan site
+        spec = plan.spec(LEAF_TO_SPEC[key][0])
         if not _layout_fits(p, spec.mode):
             raise ValueError(f"{path}: layout does not match the plan's "
                              f"{spec.mode} site {spec.name}")
@@ -363,8 +368,10 @@ def map_factored(params, fn):
     returns a new tree, the result is copied IN PLACE into the stacked
     leaves under ``torch.no_grad``: their storage, and with it every
     per-layer view and optimizer reference to them, stays the same. ``fn``
-    sees the whole stack, leaves (repeat, O, K) and (repeat, K, I). int8
-    factors (``sL``) are serve-frozen and left alone. Returns ``params``."""
+    sees the whole stack, leaves (repeat, O, K) and (repeat, K, I), or
+    (repeat, E, O, K) and (repeat, E, K, I) for an MoE layer's expert
+    banks. int8 factors (``sL``) are serve-frozen and left alone. Returns
+    ``params``."""
     from repro_torch.core.wsi import WSIState
 
     with torch.no_grad():

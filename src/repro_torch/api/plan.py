@@ -392,22 +392,26 @@ def model_config_from_json(d: Mapping[str, Any]) -> ModelConfig:
 def _site_dims(cfg: ModelConfig) -> list[tuple[str, str, int, int, bool, int]]:
     """Enumerate (name, role, in_dim, out_dim, bias, act_in_dim) linear
     sites for a config, by family + block kinds, as the reference does:
-    attention and the MLP (gated only under SwiGLU) where a block kind
-    has them, the Mamba sites, deduplicated by name. Families and kinds
-    the port cannot run yet raise."""
+    attention where a block kind has it, the MLP (gated only under
+    SwiGLU) where a kind has a dense one (an MoE kind has none), the
+    Mamba sites and the expert banks' three sites at ``expert_d_ff``,
+    deduplicated by name. Families and kinds the port cannot run yet
+    raise."""
     kinds = {k for g in cfg.groups for k in g.pattern}
-    unported = kinds - {"dense", "local", "mamba1", "mamba2", "mamba2_attn"}
+    unported = kinds - {"dense", "local", "mamba1", "mamba2", "mamba2_attn",
+                        "moe", "moe_swa"}
     if cfg.family not in ("lm", "vit") or unported:
         raise NotImplementedError(
             f"config {cfg.name!r} ({cfg.family}, blocks {sorted(kinds)}) "
-            "is not ported yet; only dense (with local), Mamba-1 and "
-            "Mamba-2 decoder LMs and ViTs are (ROADMAP.md)")
+            "is not ported yet; only dense (with local), Mamba-1, Mamba-2 "
+            "and MoE decoder LMs and ViTs are (ROADMAP.md)")
     d, f = cfg.d_model, cfg.d_ff
     h, kvh, dh = cfg.n_heads, cfg.n_kv_heads, cfg.resolved_head_dim
     sites: list[tuple[str, str, int, int, bool, int]] = []
     has_attn = cfg.family == "vit" or bool(
+        kinds & {"dense", "local", "moe", "moe_swa", "mamba2_attn"})
+    has_mlp = cfg.family == "vit" or bool(
         kinds & {"dense", "local", "mamba2_attn"})
-    has_mlp = has_attn
     if has_attn:
         sites += [("attn/wq", "attn", d, h * dh, cfg.qkv_bias, d),
                   ("attn/wk", "attn", d, kvh * dh, cfg.qkv_bias, d),
@@ -432,6 +436,11 @@ def _site_dims(cfg: ModelConfig) -> list[tuple[str, str, int, int, bool, int]]:
         sites += [("ssm/in_proj", "ssm", d, 2 * di, False, d),
                   ("ssm/bcdt_proj", "ssm_small", d, 2 * n + nh, False, d),
                   ("ssm/out_proj", "ssm", di, d, False, di)]
+    if kinds & {"moe", "moe_swa"}:
+        fe = cfg.moe.expert_d_ff or f
+        sites += [("moe/w_gate", "moe", d, fe, False, d),
+                  ("moe/w_up", "moe", d, fe, False, d),
+                  ("moe/w_down", "moe", fe, d, False, fe)]
     seen, out = set(), []
     for s in sites:
         if s[0] not in seen:

@@ -1,9 +1,8 @@
 """Architecture config registry. ``get(name)`` resolves ``--arch <id>``.
 
 Only the architectures the port can run are listed, in the JAX package's
-order (``repro.configs.ARCHS``); the others (whisper-tiny,
-deepseek-moe-16b, mixtral-8x7b) arrive with their model families, in the
-order ROADMAP.md gives."""
+order (``repro.configs.ARCHS``); the one other, whisper-tiny, arrives with
+the encoder-decoder family (ROADMAP.md queue 1)."""
 from __future__ import annotations
 
 import importlib
@@ -18,6 +17,8 @@ ARCHS = (
     "stablelm-3b",
     "internvl2-26b",
     "falcon-mamba-7b",
+    "deepseek-moe-16b",
+    "mixtral-8x7b",
     # the paper's own models
     "tinyllama-1.1b",
     "vit-base",

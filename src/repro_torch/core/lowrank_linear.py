@@ -156,18 +156,24 @@ class _WasiMatmulProject(torch.autograd.Function):
 class _WsiMatmulProjectExact(torch.autograd.Function):
     """Project mode without activation compression (the reference's
     ``wsi_matmul_project_exact``): factored forward, exact dense gradient
-    dW = dy^T x; saves x, L and R."""
+    dW = dy^T x; saves x, L and R. A bank of experts, w (E, O, I), L
+    (E, O, K), R (E, K, I) and x (E, C, I), is the reference's ``vmap``
+    of it over E: one product per expert, dW (E, O, I)."""
 
     @staticmethod
     def forward(ctx, x, w, l_factor, r_factor):
         ctx.save_for_backward(x, l_factor, r_factor)
-        return (x @ r_factor.T) @ l_factor.T
+        ctx.bank = w.dim() == 3
+        return (x @ r_factor.mT) @ l_factor.mT
 
     @staticmethod
     def backward(ctx, dy):
         x, l_factor, r_factor = ctx.saved_tensors
         dx = (dy @ l_factor) @ r_factor
-        dw = dy.reshape(-1, dy.shape[-1]).T @ x.reshape(-1, x.shape[-1])
+        if ctx.bank:
+            dw = dy.mT @ x
+        else:
+            dw = dy.reshape(-1, dy.shape[-1]).T @ x.reshape(-1, x.shape[-1])
         return (dx, dw, _zeros_if_needed(ctx, 2, l_factor),
                 _zeros_if_needed(ctx, 3, r_factor))
 
@@ -198,7 +204,8 @@ def wasi_matmul_project(x: torch.Tensor, w: torch.Tensor,
 def wsi_matmul_project_exact(x: torch.Tensor, w: torch.Tensor,
                              l_factor: torch.Tensor,
                              r_factor: torch.Tensor) -> torch.Tensor:
-    """y = (x @ R^T) @ L^T with the exact dense gradient dW = dy^T x."""
+    """y = (x @ R^T) @ L^T with the exact dense gradient dW = dy^T x; a
+    bank (w 3-D) takes one product per expert."""
     return _WsiMatmulProjectExact.apply(x, w, l_factor, r_factor)
 
 

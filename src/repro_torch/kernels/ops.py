@@ -207,12 +207,16 @@ def cholesky_qr_mix(y: torch.Tensor):
     ``core/wsi.py`` routes through. CUDA: the CholeskyQR kernel (Gram,
     factor, apply) over every stacked index at once; the reference sends a
     stacked operand to its jnp version instead, and the kernel computes the
-    same function, shift ladder included. CPU:
-    ``core.orthogonal.cholesky_qr_mix_ref``, batched."""
+    same function, shift ladder included. A stack with several leading
+    dims (an MoE layer group's (repeat, E, O, K) expert banks) goes in
+    flattened to one stack axis, and both outputs come back in its shape.
+    CPU: ``core.orthogonal.cholesky_qr_mix_ref``, batched."""
     if _on_cpu(y):
         from repro_torch.core.orthogonal import cholesky_qr_mix_ref
         return cholesky_qr_mix_ref(y)
-    return choleskyqr(y.contiguous())
+    lead, (m, k) = y.shape[:-2], y.shape[-2:]
+    q, mix = choleskyqr(y.reshape(-1, m, k).contiguous())
+    return q.reshape(*lead, m, k), mix.reshape(*lead, k, k)
 
 
 #: above this many query or key tokens the attention backward is tiled

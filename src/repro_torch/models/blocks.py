@@ -1,21 +1,28 @@
 """Per-kind transformer block init/apply. Port of ``repro.models.blocks``
 for the ``dense`` kind (attention + MLP, pre-norm residuals), ``local``
 (the same block with sliding-window attention over ``cfg.window`` keys and
-a rolling KV cache of ``cfg.window`` slots; gemma3's local layers) and the
+a rolling KV cache of ``cfg.window`` slots; gemma3's local layers), the
 Mamba kinds: ``mamba1`` (pre-norm Mamba-1 mixer; falcon-mamba),
 ``mamba2`` (pre-norm Mamba-2 mixer) and zamba2's ``mamba2_attn`` (the
 mixer, then the SHARED attention + MLP block, whose weights are passed in
 as ``shared``: one copy for the whole net, while each occurrence keeps
-its own KV cache). The other kinds arrive with their
-model families and raise until then.
+its own KV cache), and the MoE kinds: ``moe`` (causal attention, then the
+routed expert FFN of ``nn/moe.py``; deepseek) and ``moe_swa`` (the same
+with sliding-window attention; mixtral). The encoder-decoder kinds
+arrive with their model family and raise until then.
 
     init_block(kind, cfg, ...)              -> params (nn.ModuleDict)
     init_block_state(kind, cfg, B, S, ...)  -> ASI warm-start states
     init_block_cache(kind, cfg, B, S, ...)  -> decode cache (a paged
                                                pool for ``dense``)
     apply_block(kind, params, x, cfg, ...)  -> (x, cache, states, aux)
+
+An MoE block's ``aux`` is its router's load-balancing loss; every other
+kind's is 0.0.
 """
 from __future__ import annotations
+
+import contextlib
 
 import torch
 from torch import nn
@@ -39,10 +46,13 @@ from repro_torch.nn.mamba import (
     init_mamba2_state,
 )
 from repro_torch.nn.mlp import apply_mlp, init_mlp, init_mlp_state
+from repro_torch.nn.moe import apply_moe, init_moe
 from repro_torch.nn.norms import apply_norm, init_norm
 
-PORTED_KINDS = ("dense", "local", "mamba1", "mamba2", "mamba2_attn")
+PORTED_KINDS = ("dense", "local", "mamba1", "mamba2", "mamba2_attn", "moe",
+                "moe_swa")
 MAMBA_KINDS = ("mamba1", "mamba2", "mamba2_attn")
+MOE_KINDS = ("moe", "moe_swa")
 
 
 def _check_kind(kind: str) -> None:
@@ -67,11 +77,12 @@ def init_block(kind: str, cfg: ModelConfig, *, generator: torch.Generator,
         return nn.ModuleDict({
             "ln": init_norm(cfg.norm, d, **kw),
             "mixer": init(cfg, generator=generator, **kw)})
+    ffn = ("moe", init_moe) if kind in MOE_KINDS else ("mlp", init_mlp)
     return nn.ModuleDict({
         "ln1": init_norm(cfg.norm, d, **kw),
         "attn": init_attention(cfg, generator=generator, **kw),
         "ln2": init_norm(cfg.norm, d, **kw),
-        "mlp": init_mlp(cfg, generator=generator, **kw),
+        ffn[0]: ffn[1](cfg, generator=generator, **kw),
     })
 
 
@@ -81,7 +92,8 @@ def init_block_state(kind: str, cfg: ModelConfig, batch: int, seq: int, *,
     """ASI warm-start states of one layer: {"attn": ..., "mlp": ...}, or
     {"mixer": ...} for a Mamba layer; the shared attention of
     ``mamba2_attn`` runs without ASI (its weights are shared across
-    layers), so its entry is {}."""
+    layers), so its entry is {}. An MoE layer has its attention's states
+    only: the experts train with exact gradients, as in the reference."""
     _check_kind(kind)
     kw = dict(generator=generator, dtype=dtype, device=device)
     if kind == "mamba1":
@@ -91,6 +103,8 @@ def init_block_state(kind: str, cfg: ModelConfig, batch: int, seq: int, *,
     if kind == "mamba2_attn":
         return {"mixer": init_mamba2_state(cfg, batch, seq, **kw),
                 "shared_attn": {}}
+    if kind in MOE_KINDS:
+        return {"attn": init_attention_state(cfg, batch, seq, **kw)}
     return {"attn": init_attention_state(cfg, batch, seq, **kw),
             "mlp": init_mlp_state(cfg, batch, seq, **kw)}
 
@@ -102,12 +116,13 @@ def init_block_cache(kind: str, cfg: ModelConfig, batch: int, seq: int, *,
     """{"kv": KVCache} of an attention layer, {"ssm": MambaState} of a
     Mamba layer, both for ``mamba2_attn`` (its shared attention sees the
     full sequence). With ``pages`` and ``page_size`` an attention layer's
-    cache is a paged pool, {"kv": PagedKVCache}: only the ``dense`` kind
-    (causal full attention) can hold one, every other kind raises."""
+    cache is a paged pool, {"kv": PagedKVCache}: only the ``dense`` and
+    ``moe`` kinds (causal full attention) can hold one, every other kind
+    raises."""
     _check_kind(kind)
     kw = dict(lead=lead, dtype=dtype, device=device)
     if pages is not None:
-        if kind != "dense":
+        if kind not in ("dense", "moe"):
             raise ValueError(f"block kind {kind!r} cannot use a paged KV "
                              "cache (causal full attention only)")
         return {"kv": init_paged_cache(cfg, pages, page_size, **kw)}
@@ -158,14 +173,27 @@ def apply_block(kind: str, p, x: torch.Tensor, cfg: ModelConfig, *,
             if new_cache is not None:
                 new_cache["kv"] = new_kv
         return x, new_cache, new_st, 0.0
-    h = apply_norm(cfg.norm, p["ln1"], x)
-    a, new_kv, s_attn = apply_attention(
-        p["attn"], h, cfg, causal=True, window=block_window(kind, cfg),
-        cache=None if cache is None else cache["kv"], pos=pos,
-        states=st.get("attn"), valid_len=valid_len, page_table=page_table)
+    # an MoE block's attention runs under the profiler range
+    # "moe_attention", beside nn/moe.py's ranges, so a trace splits the
+    # block's device time between the attention sites and the experts
+    with (torch.profiler.record_function("moe_attention")
+          if kind in MOE_KINDS else contextlib.nullcontext()):
+        h = apply_norm(cfg.norm, p["ln1"], x)
+        a, new_kv, s_attn = apply_attention(
+            p["attn"], h, cfg, causal=True, window=block_window(kind, cfg),
+            cache=None if cache is None else cache["kv"], pos=pos,
+            states=st.get("attn"), valid_len=valid_len,
+            page_table=page_table)
     x = x + a
     h = apply_norm(cfg.norm, p["ln2"], x)
-    f, s_mlp = apply_mlp(p["mlp"], h, cfg, st.get("mlp"))
+    new_st = {"attn": s_attn}
+    aux = 0.0
+    if kind in MOE_KINDS:
+        # the reference hands apply_moe no valid_len: a bucketed prefill's
+        # pad tokens take capacity too
+        f, aux = apply_moe(p["moe"], h, cfg)
+    else:
+        f, new_st["mlp"] = apply_mlp(p["mlp"], h, cfg, st.get("mlp"))
     x = x + f
     new_cache = None if cache is None else {"kv": new_kv}
-    return x, new_cache, {"attn": s_attn, "mlp": s_mlp}, 0.0
+    return x, new_cache, new_st, aux

@@ -1,7 +1,9 @@
 """Decoder language model over layer groups. Port of ``repro.models.lm``
-for dense decoder LMs, Mamba-1 (falcon-mamba) and the Mamba-2 hybrid
+for dense decoder LMs, Mamba-1 (falcon-mamba), the Mamba-2 hybrid
 (zamba2: ``shared_attn``, one attention + MLP block whose weights every
-``mamba2_attn`` layer shares).
+``mamba2_attn`` layer shares) and the MoE family (mixtral, deepseek:
+``moe`` subtrees whose banks carry (repeat, E, ...) leaves and an f32
+router; the layers' load-balancing losses summed into ``aux``).
 
 The parameter tree is the reference's, as modules: ``embed`` and
 ``final_norm`` are ``ParameterDict``s, ``groups`` is a ``ModuleList`` (one
@@ -277,8 +279,9 @@ def init_lm_cache(cfg: ModelConfig, batch: int, seq: int, *,
 def supports_paging(cfg: ModelConfig) -> bool:
     """True when every layer's decode state can live in a paged pool:
     causal full attention only (no sliding window, no recurrent SSM or
-    conv state, no shared-attention interleave). The reference's rule,
-    ``moe`` included (that kind is not ported yet and raises at init)."""
+    conv state, no shared-attention interleave). The reference's rule:
+    ``dense`` and ``moe`` layers qualify (deepseek-moe-16b), a window
+    (``local``, mixtral's ``moe_swa``) does not."""
     return all(kind in ("dense", "moe") and not block_window(kind, cfg)
                for g in cfg.groups for kind in g.pattern)
 
@@ -329,18 +332,21 @@ def _apply_pattern(pattern, cfg: ModelConfig, x, params: list, states,
                    page_table=None):
     """One repeat of a group's pattern, the reference's scan body: each
     pattern position's block in turn on its layer's ``params``, ``states``
-    and ``caches`` slices. Returns (x, new states per position)."""
+    and ``caches`` slices. Returns (x, new states per position, the sum of
+    the blocks' MoE aux losses: 0.0 without an MoE block)."""
     new = []
+    aux_sum = 0.0
     for pi, kind in enumerate(pattern):
         cache = None if caches is None else caches[pi]
-        x, nc, ns, _ = apply_block(
+        x, nc, ns, aux = apply_block(
             kind, params[pi], x, cfg, shared=shared, cache=cache, pos=pos,
             states=None if states is None else states[pi],
             valid_len=valid_len, page_table=page_table)
         if cache is not None:
             _write_back(cache, nc)
         new.append(ns)
-    return x, new
+        aux_sum = aux_sum + aux
+    return x, new, aux_sum
 
 
 def _checkpointed_pattern(pattern, cfg: ModelConfig, x, params: list,
@@ -369,7 +375,9 @@ def lm_backbone(model, x, cfg: ModelConfig, *, states=None, caches=None,
     ride into each checkpoint as flat arguments with the layer's other
     views). ``page_table`` (B, pages_per_slot) routes every layer's KV
     reads and writes through its paged pool. Returns (x, new_states,
-    caches, aux); new_states is None without ``states``."""
+    caches, aux); new_states is None without ``states``; aux is the MoE
+    layers' load-balancing losses summed over every layer (f32 scalar),
+    0.0 for a model without one."""
     if hasattr(model, "layer_views"):
         # a LanguageModel, or a view that serves it (tenancy.SlotAdapters)
         views = model.layer_views()
@@ -381,6 +389,7 @@ def lm_backbone(model, x, cfg: ModelConfig, *, states=None, caches=None,
     if remat and shared is not None:
         shared = _as_tree(shared)
     new_states = []
+    aux_total = 0.0
     for gi, g in enumerate(cfg.groups):
         out = [[] for _ in g.pattern]
         for j in range(g.repeat):
@@ -388,20 +397,22 @@ def lm_backbone(model, x, cfg: ModelConfig, *, states=None, caches=None,
             st = (None if states is None else
                   [_layer_states(s, j) for s in states[gi]])
             if remat:
-                x, ns = _checkpointed_pattern(g.pattern, cfg, x, params, st,
-                                              shared, pos, valid_len)
+                x, ns, aux = _checkpointed_pattern(
+                    g.pattern, cfg, x, params, st, shared, pos, valid_len)
             else:
                 cache = (None if caches is None else
                          [_layer_cache(c, j) for c in caches[gi]])
-                x, ns = _apply_pattern(g.pattern, cfg, x, params, st, shared,
-                                       cache, pos, valid_len, page_table)
+                x, ns, aux = _apply_pattern(g.pattern, cfg, x, params, st,
+                                            shared, cache, pos, valid_len,
+                                            page_table)
+            aux_total = aux_total + aux
             if states is not None:
                 for o, s in zip(out, ns):
                     o.append(s)
         if states is not None:
             new_states.append([_stack_states(o) for o in out])
     x = apply_norm(cfg.norm, _part(model, "final_norm"), x)
-    return x, (new_states if states is not None else None), caches, 0.0
+    return x, (new_states if states is not None else None), caches, aux_total
 
 
 def _logits(model, x, cfg: ModelConfig):

@@ -31,7 +31,17 @@ SCALE_KEY = {"L": "sL", "R": "sR", "w": "sW"}
 
 def quantize_tensor(w: torch.Tensor) -> tuple[torch.Tensor, torch.Tensor]:
     """w (..., C, D) -> (q int8 (..., C, D), scale f32 (..., C)):
-    symmetric per-channel absmax over the last axis, on w's device."""
+    symmetric per-channel absmax over the last axis, on w's device. A
+    stacked leaf packs one leading index at a time (the same values), so
+    its f32 temporaries never exceed one slice: an MoE group's expert bank
+    holds billions of weights."""
+    if w.dim() > 2:
+        q = torch.empty(w.shape, dtype=torch.int8, device=w.device)
+        scale = torch.empty(w.shape[:-1], dtype=torch.float32,
+                            device=w.device)
+        for i in range(w.shape[0]):
+            q[i], scale[i] = quantize_tensor(w[i])
+        return q, scale
     wf = w.detach().float()
     absmax = wf.abs().amax(dim=-1)
     scale = torch.where(absmax > 0, absmax / QMAX, torch.ones_like(absmax))

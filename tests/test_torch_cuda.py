@@ -1780,3 +1780,57 @@ def test_mixed_tenant_engine_on_the_card_matches_solo_engines(cuda):
             ref_eng.run()
             assert h.generated == r.generated, (paged, t)
     api.uninstall(cfg)
+
+
+@pytest.mark.cuda
+def test_apply_moe_on_the_card_matches_its_cpu_self(cuda):
+    """deepseek smoke's MoE layer (routed and shared experts) in f32, TF32
+    off, at a capacity that binds: the card routes every (token, choice)
+    to the CPU's expert and position, drops the same choices, and y
+    agrees within f32 sums in another order (1e-5 of its scale over the
+    d_model and expert_d_ff terms of each product pair)."""
+    import dataclasses
+
+    import repro_torch.configs as tconfigs
+    from repro_torch.nn import moe
+
+    torch.backends.cuda.matmul.allow_tf32 = False
+    cfg = tconfigs.get_smoke("deepseek-moe-16b")
+    cfg = cfg.replace(moe=dataclasses.replace(cfg.moe, capacity_factor=0.5))
+    p = moe.init_moe(cfg, generator=torch.Generator().manual_seed(3))
+    x = torch.randn(3, 32, cfg.d_model,
+                    generator=torch.Generator().manual_seed(4))
+    y_cpu, aux_cpu = moe.apply_moe(p, x, cfg)
+    route_cpu = moe.route(p, x, cfg)
+    p_dev = p.to(cuda)
+    y, aux = moe.apply_moe(p_dev, x.to(cuda), cfg)
+    route = moe.route(p_dev, x.to(cuda), cfg)
+    for a, b in zip(route[3:], route_cpu[3:]):        # top_e, pos, fits
+        assert torch.equal(a.cpu(), b)
+    assert int((~route_cpu[5]).sum()) > 0
+    scale = y_cpu.abs().max().item()
+    assert (y.cpu() - y_cpu).abs().max().item() <= 1e-5 * scale
+    assert abs(aux.item() - aux_cpu.item()) <= 1e-5 * aux_cpu.item()
+
+
+@pytest.mark.cuda
+def test_mixtral_smoke_forward_launch_counts(cuda):
+    """One mixtral-smoke forward over a full sequence: kernel #1 at the 4
+    attention sites of each of the 2 layers, #7 once a layer, nothing at
+    the expert banks (``torch.bmm``) and no other kernel."""
+    import repro_torch.configs as tconfigs
+    from repro_torch import api
+    from repro_torch.models.lm import init_lm, lm_forward
+
+    cfg = tconfigs.get_smoke("mixtral-8x7b")
+    api.uninstall(cfg)
+    model = init_lm(cfg, device=cuda, seed=0)
+    toks = torch.randint(0, cfg.vocab_size, (2, 16), device=cuda)
+    ops.reset_launches()
+    with torch.inference_mode():
+        logits, *_ = lm_forward(model, toks, cfg)
+    torch.cuda.synchronize()
+    want = dict.fromkeys(ops.launch_counts(), 0)
+    want.update(lowrank_fwd=4 * cfg.n_layers, flash_attention=cfg.n_layers)
+    assert ops.launch_counts() == want
+    assert bool(torch.isfinite(logits).all())

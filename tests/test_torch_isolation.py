@@ -65,6 +65,8 @@ def test_port_imports_with_jax_blocked():
             "import repro_torch.serve.kvpool\n"
             "import repro_torch.tenancy, repro_torch.tenancy.resident\n"
             "import repro_torch.launch.finetune_user\n"
+            "import repro_torch.nn.moe, repro_torch.configs.mixtral_8x7b\n"
+            "import repro_torch.configs.deepseek_moe_16b\n"
             "print('ok')\n")
     env = dict(os.environ, PYTHONPATH=str(ROOT / "src"))
     proc = subprocess.run([sys.executable, "-c", code], env=env,

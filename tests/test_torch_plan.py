@@ -76,7 +76,7 @@ def test_install_plan_of_uninstall():
 def test_unported_paths_raise():
     """Calibrated resolution is ported: a {site: weight} mapping gives the
     reference's epsilon rank at that site (and the static ranks
-    elsewhere), the plan marked calibrated. mixtral-8x7b still raises."""
+    elsewhere), the plan marked calibrated. whisper-tiny still raises."""
     rcfg, cfg = _cfgs(False)
     w = np.random.default_rng(0).standard_normal((128, 64)).astype(
         np.float32)
@@ -87,4 +87,4 @@ def test_unported_paths_raise():
         [tuple(getattr(s, f) for f in FIELDS) for s in want.specs]
     assert got.spec("mlp/up").rank != tapi.resolve(cfg).spec("mlp/up").rank
     with pytest.raises(KeyError, match="ROADMAP"):
-        tconfigs.get("mixtral-8x7b")
+        tconfigs.get("whisper-tiny")
