@@ -244,8 +244,11 @@ Phases, in order; any failure raises and the script exits non-zero:
    (phase 5's requests and a 700-token prompt, 256 launches of #1 a
    forward, the plain selective scan's device time in a profiled prefill
    tick and alone at the buckets' shapes), then int8 through #6; logits
-   against the f32 CPU at 4 layers; one ``wasi`` and one ``wsi`` run of 2
-   steps at 4 layers, batch 4 x 512 (exact #2 and #3 launches);
+   against the f32 CPU at 4 layers, and qwen2-0.5b's at 4 layers beside
+   them, each within ``SPREAD_X`` times its own bf16 spread on the CPU
+   (the same weights in bf16 against f32); one ``wasi`` and one ``wsi``
+   run of 2 steps at 4 layers, batch 4 x 512 (exact #2 and #3
+   launches);
 25. paged serving: qwen2-0.5b at full width and depth (bf16) through 4
    slots at ``max_cache`` 512, pages of 16, chunks of 256: phase 5's
    eight lengths, each behind one shared 256-token system prompt, served
@@ -309,15 +312,36 @@ Phases, in order; any failure raises and the script exits non-zero:
    binds) against the f32 CPU, in f32 on the card (routing identical
    outside f32's rounding of the router logits) and in bf16 (each
    token's first flip within a margin limit from bf16's rounding of the
-   router input; logits on the CPU's routing, ``moe_vs_cpu``);
+   router input; logits on the CPU's routing, ``moe_vs_cpu``; then, on
+   the card's own routing, 8 seeded 32-token groups, the logits of each
+   group's tokens before its first one routed otherwise within the same
+   limits, ``own_routing_rows``);
    deepseek-moe-16b trained at full width and ``1 + D_TRAIN_MOE``
    layers under ``wsi`` and ``wasi`` (4 x 512, SGD + momentum, one
    refresh of 17 stacks over the (repeat, E) expert banks; exact
    launches, each stack's routes, the refresh timed, aux), the trained
-   weights served and one step against the f32 CPU; its full-depth
+   weights served and one step against the f32 CPU (its bf16 loss also
+   on the card's own routing, ``own_routing_loss``); its full-depth
    expert stacks (27 x 64 matrices) held and timed through #5 and #4's
    global factor; deepseek at full depth served paged behind phase 25's
-   system prompt (115 of #1 a forward, 1,024 prefix-hit tokens).
+   system prompt (115 of #1 a forward, 1,024 prefix-hit tokens);
+29. the encoder-decoder family (``models/encdec.py``): #7 at whisper-tiny's
+   new shapes against its plain version and timed beside SDPA (the
+   cross-attention's 448 and 1 queries against 1,500 frames, the
+   encoder's 1,500 x 1,500, the decoder's causal 448; bf16, and f32 at
+   B = 1); encoder memory, logits and loss of one 1 x 32-token batch over
+   1,500 frames on the card against the f32 CPU (whisper smoke and
+   whisper-tiny in f32, whisper-tiny in bf16; ``logits_vs_cpu``'s rule;
+   exact launches); whisper-tiny at full width and depth (4 + 4 layers,
+   d 384, bf16, ``remat="block"``) trained through ``launch/train.py``'s
+   build on ``SyntheticAudio`` under ``wasi`` and ``wsi`` (4 x 448
+   decoder tokens over 1,500 frames, SGD + momentum 0.9 at 0.05, 8
+   steps, refresh every 4; step time, tokens/s, peak, saved bytes, exact
+   launches: #7 24 a step, #2 and #3 at the 16 cross-attention sites
+   alone under ``wasi``, #4 and #5 16 a refresh; the loss falls); then
+   ``encode`` of 4 x 1,500 frames and 32 greedy ``encdec_decode_step``s
+   on a 448-token bf16 cache (TPOT, busy share, 40 of #1 and 4 of #7 a
+   step, tokens against the f32 CPU's under the near-tie rule).
 
 Every full-sequence attention (training, a forward without caches, the
 prefill at offset 0) goes through kernel #7, so phases 5, 7, 8, 10, 12,
@@ -377,7 +401,7 @@ from repro_torch.core.orthogonal import (  # noqa: E402
     cholesky_qr_mix_ref,
     orthonormality_error,
 )
-from repro_torch.data.synthetic import SyntheticLM  # noqa: E402
+from repro_torch.data.synthetic import SyntheticAudio, SyntheticLM  # noqa: E402,E501
 from repro_torch.kernels import flash_attention as kflash  # noqa: E402
 from repro_torch.kernels import gram as kgram  # noqa: E402
 from repro_torch.kernels import lowrank as klowrank  # noqa: E402
@@ -402,6 +426,14 @@ from repro_torch.models.lm import (  # noqa: E402
     lm_forward,
     lm_loss,
     lm_prefill,
+)
+from repro_torch.models.encdec import (  # noqa: E402
+    decode_train,
+    encdec_decode_step,
+    encdec_loss,
+    encode,
+    init_encdec,
+    init_encdec_cache,
 )
 from repro_torch.quant import quantize_tensor  # noqa: E402
 from repro_torch.serve import (  # noqa: E402
@@ -1099,7 +1131,7 @@ def serve_requests(tag: str, cfg, model, plan, card: str, *, extra=(),
 def logits_vs_cpu(tag: str, cfg, model, card: str, *, prompt_len: int = 16,
                   decode: int = 4,
                   limits: tuple = (LOGIT_RMS_TOL, LOGIT_MAX_TOL),
-                  toks=None, card_run=None) -> dict:
+                  toks=None, card_run=None, derive: float = 0.0) -> dict:
     """One prompt prefilled, then ``decode`` - 1 teacher-forced decode
     steps, bf16 on the card against the same weights in f32 on the CPU:
     the one logits check of phases 5, 18, 19 and 20. bf16 rounds every
@@ -1120,7 +1152,11 @@ def logits_vs_cpu(tag: str, cfg, model, card: str, *, prompt_len: int = 16,
     prompts, one run each (default one of seeded tokens); ``card_run(m,
     cfg, toks)``: the card's run of all of them, returning each one's
     logits in turn (default the dense run the CPU makes; phase 25's runs
-    them paged)."""
+    them paged). ``derive`` > 0 replaces ``limits`` by that multiple of
+    the CPU's own bf16 spread: the same weights run on the CPU in the
+    card model's dtypes against the CPU's f32, the largest RMS error and
+    largest error over the steps, each over the step's RMS logit (phase
+    24)."""
     if toks is None:
         toks = torch.from_numpy(np.random.default_rng(20).integers(
             0, cfg.vocab_size, (1, prompt_len + decode)))
@@ -1150,9 +1186,27 @@ def logits_vs_cpu(tag: str, cfg, model, card: str, *, prompt_len: int = 16,
         gpu = card_run(model, cfg, toks)
     tree = to_reference(model)
     cpu32 = from_reference(tree, cfg32, "cpu").float()
-    del tree
     cpu = run(cpu32, cfg32, "cpu", torch.float32)
     del cpu32
+    spread = None
+    if derive > 0:
+        cpu16 = from_reference(tree, cfg32, "cpu")
+        dtypes = {n: p.dtype for n, p in model.named_parameters()}
+        with torch.no_grad():
+            for n, p in cpu16.named_parameters():
+                p.data = p.data.to(dtypes[n])
+        api.install(plan)
+        low = run(cpu16, cfg, "cpu", _dtype(cfg.dtype))
+        api.install(dataclasses.replace(plan, model=cfg32))
+        del cpu16
+        spread = (max(((a - b).square().mean().sqrt()
+                       / b.square().mean().sqrt()).item()
+                      for a, b in zip(low, cpu)),
+                  max(((a - b).abs().max() / b.square().mean().sqrt()).item()
+                      for a, b in zip(low, cpu)))
+        root = math.sqrt(cfg.n_layers)
+        limits = (derive * spread[0] / root, derive * spread[1] / root)
+    del tree
     gc.collect()
     errs = []
     rms_tol = limits[0] * math.sqrt(cfg.n_layers)
@@ -1173,6 +1227,12 @@ def logits_vs_cpu(tag: str, cfg, model, card: str, *, prompt_len: int = 16,
                                  f"{rms:.3e})")
     worst = max(e["rms_err"] / e["rms"] for e in errs)
     worst_max = max(e["max_abs_err"] / e["rms"] for e in errs)
+    if spread is not None:
+        print(f"[{tag}] the CPU's own {cfg.dtype} against its f32: largest "
+              f"RMS error {spread[0]:.3e}, largest error {spread[1]:.3e} of "
+              f"the step's RMS logit; limits {derive} x those: card/CPU "
+              f"spread {worst / spread[0]:.3f} (RMS), "
+              f"{worst_max / spread[1]:.3f} (largest) | {card}", flush=True)
     print(f"[{tag}] {cfg.n_layers} layers, {len(toks)} x a {prompt_len}-"
           f"token prompt and {decode - 1} decode steps, {cfg.dtype} card vs "
           f"f32 CPU logits: "
@@ -1188,7 +1248,7 @@ def logits_vs_cpu(tag: str, cfg, model, card: str, *, prompt_len: int = 16,
     api.install(plan)
     return dict(steps=errs, worst_rel=worst, worst_max_rel=worst_max,
                 rms_tol=rms_tol, max_tol=max_tol, prompt_len=prompt_len,
-                n_layers=cfg.n_layers)
+                n_layers=cfg.n_layers, cpu_spread=spread, derive=derive)
 
 
 def phase_full_width(card: str) -> dict:
@@ -3037,12 +3097,14 @@ def visible_pairs(sq, sk, causal, window) -> int:
     return int(ok.sum())
 
 
-def flash_work(b, s, h, kvh, dh, causal, window, dtype):
+def flash_work(b, s, h, kvh, dh, causal, window, dtype, sk=None):
     """(bytes, flops): q, k, v read once, o written once; 4 dh flops per
-    visible (query, key) pair and head (q k^T and p v)."""
+    visible (query, key) pair and head (q k^T and p v). ``sk``: the keys'
+    length where it is not the queries' ``s`` (cross-attention)."""
+    sk = s if sk is None else sk
     item = itemsize(dtype)
-    nbytes = (2 * b * s * h * dh + 2 * b * s * kvh * dh) * item
-    return nbytes, 4 * b * h * visible_pairs(s, s, causal, window) * dh
+    nbytes = (2 * b * s * h * dh + 2 * b * sk * kvh * dh) * item
+    return nbytes, 4 * b * h * visible_pairs(s, sk, causal, window) * dh
 
 
 def flash_route(dtype) -> str:
@@ -3074,10 +3136,13 @@ def flash_tol(want, dtype) -> float:
     return 2 * 2.0 ** (math.floor(math.log2(scale)) - 7)
 
 
-def flash_inputs(b, s, h, kvh, dh, dtype, gen, n_sets=1):
-    return [tuple(torch.randn(b, s, n, dh, device="cuda",
+def flash_inputs(b, s, h, kvh, dh, dtype, gen, n_sets=1, sk=None):
+    """``n_sets`` of (q (b, s, h, dh), k and v (b, sk or s, kvh, dh))."""
+    sk = s if sk is None else sk
+    return [tuple(torch.randn(b, n_s, n, dh, device="cuda",
                               generator=gen).to(dtype)
-                  for n in (h, kvh, kvh)) for _ in range(n_sets)]
+                  for n_s, n in ((s, h), (sk, kvh), (sk, kvh)))
+            for _ in range(n_sets)]
 
 
 def library_flash(causal, window, s):
@@ -3772,10 +3837,19 @@ def forward_counts(cfg) -> dict:
     attention layers (#7, full-sequence passes only); ``ssd``, the Mamba-2
     layers (#8, full-sequence passes only). ``stacks``: the factored
     (L, R) leaves of the tree, one CholeskyQR and one Gram each a
-    refresh."""
+    refresh. The encoder-decoder family (no groups): each encoder layer
+    an attention and an MLP, each decoder layer those and a
+    cross-attention, whose four sites take no ASI state and whose flash
+    call runs the decoder's queries against the encoder's memory; a stack
+    per site and side."""
     specs = [s.name for s in api.plan_of(cfg).specs]
     n_attn = sum(n.startswith("attn/") for n in specs)
     blk = n_attn + sum(n.startswith("mlp/") for n in specs)  # attn + MLP
+    if cfg.family == "encdec":
+        ne, nd = cfg.n_enc_layers, cfg.n_layers
+        return dict(sites=ne * blk + nd * (blk + n_attn),
+                    stateless=nd * n_attn, flash=ne + 2 * nd, ssd=0,
+                    stacks=2 * blk + n_attn)
     mixer = sum(n.startswith("ssm/") for n in specs)
     # an MoE layer's expert banks (routed, and shared where the config has
     # them) are torch.bmm pairs: no launch, but factored stacks a refresh
@@ -5191,6 +5265,8 @@ def mamba_vs_cpu(tag: str, cfg, method: str, card: str, b: int, s: int,
             and bf16_loss <= loss_tol * root
             and bf16_cos[wbf] >= MAMBA_BF16_COS):
         raise AssertionError(f"{tag} {method}: card vs CPU at reduced depth")
+    own = (own_routing_loss(tag, cfg, model, tree, loss_tol * root, card)
+           if moe else None)
     del model
     gc.collect()
     torch.cuda.empty_cache()
@@ -5198,7 +5274,95 @@ def mamba_vs_cpu(tag: str, cfg, method: str, card: str, b: int, s: int,
                 bf16_loss_rel=bf16_loss, bf16_grad_rms_rel=bf16_rel,
                 bf16_grad_cos=bf16_cos, grad_bit_equal_block_none=bits,
                 grad_max_rel_diff_block_none=remat_worst,
-                n_layers=cfg.n_layers)
+                n_layers=cfg.n_layers, own_routing=own)
+
+
+def own_routing_rows(cfg, model, tree, rows, measure) -> dict:
+    """An MoE model on the card's own bf16 routing (no replay): each row
+    of ``rows`` (R, n) its own capacity group, run in f32 on the CPU and
+    in bf16 on the card; ``routing_agreement`` (the bf16 first-flip rule
+    of ``moe_vs_cpu``, its ``bad`` flips refused) gives the tokens before
+    the row's first one routed otherwise at any layer, p. Attention is
+    causal and capacity counts earlier tokens only, so those p tokens
+    computed the CPU's function on the card's own routing: no flip lies
+    among them. The row is not run again cut to p tokens: a group of
+    another length takes other kernel routes (#1's decode route at M <= 8,
+    other flash plans), whose other roundings may flip a tiny margin
+    anywhere (on an H100, deepseek's token 0 flipped at margin 0.0046 in
+    a 7-token rerun of a row whose 32-token run routed it alike).
+    ``measure(m, c, dev, i, t)`` -> a (len(t), ...) tensor on the CPU
+    for row ``i``'s inputs ``t`` (1, len); returns the first p values of
+    each row, card and CPU, and p per row."""
+    k, n_l = cfg.moe.top_k, cfg.n_layers
+    plan = api.plan_of(cfg)
+    cfg32 = cfg.replace(dtype="float32")
+    cpu = from_reference(tree, cfg32, "cpu")
+
+    def limit(sc):
+        return (1 + n_l) * MOE_U16 * sc
+
+    card_v, cpu_v, held = [], [], []
+    for i, row in enumerate(rows):
+        out = []
+        for m, c, dev in ((cpu, cfg32, "cpu"), (model, cfg, "cuda")):
+            api.install(dataclasses.replace(plan, model=c))
+            with RouteLog() as log, torch.inference_mode():
+                out.append((measure(m, c, dev, i, row[None]), log.calls))
+        (v0, r0), (v1, r1) = out
+        agree = routing_agreement(r1, r0, k, limit)
+        if agree["bad"]:
+            raise AssertionError(f"row {i}: routing flips outside their "
+                                 f"limits {agree['bad'][:8]}")
+        p = int(agree["matched"].sum())
+        held.append(p)
+        if p:
+            card_v.append(v1[:p])
+            cpu_v.append(v0[:p])
+    api.install(plan)
+    del cpu
+    gc.collect()
+    return dict(card=card_v, cpu=cpu_v, held=held)
+
+
+def own_routing_loss(tag: str, cfg, model, tree, limit: float,
+                     card: str) -> dict:
+    """An MoE model's bf16 loss on the card's own routing
+    (``own_routing_rows``): ``OWN_ROWS`` seeded rows of ``D_CHECK_S``
+    tokens and their next tokens; each token's cross-entropy in f32 from
+    the logits (no grad, ``remat="none"``; the ASI states shape only what
+    a backward keeps, not the loss's value), the mean over every row's
+    tokens before its first one routed otherwise, card against the f32
+    CPU, held within ``limit`` (relative)."""
+    g = torch.Generator().manual_seed(2326)
+    toks = torch.randint(0, cfg.vocab_size, (OWN_ROWS, D_CHECK_S + 1),
+                         generator=g)
+    c = cfg.replace(remat="none")
+
+    def ce(m, c_, dev, i, t):
+        lg = lm_forward(m, t.to(dev), c_)[0][0].float().cpu()
+        labels = toks[i, 1:t.shape[1] + 1]
+        return torch.logsumexp(lg, -1) - lg[torch.arange(len(labels)),
+                                            labels]
+
+    own = own_routing_rows(c, model, tree, toks[:, :-1], ce)
+    n = sum(own["held"])
+    if n == 0:
+        raise AssertionError(f"{tag}: every row's first token is routed "
+                             "otherwise")
+    loss_card = torch.cat(own["card"]).mean().item()
+    loss_cpu = torch.cat(own["cpu"]).mean().item()
+    rel = abs(loss_card / loss_cpu - 1)
+    print(f"[{tag}] bf16 loss on the card's own routing, {OWN_ROWS} rows of "
+          f"{D_CHECK_S} tokens: tokens before each row's first one routed "
+          f"otherwise {own['held']} (no flip among them); the mean "
+          f"cross-entropy of those {n} tokens {loss_card:.5f} / "
+          f"{loss_cpu:.5f} f32 CPU (relative error {rel:.2e}, limit "
+          f"{limit:.2e}) | {card}", flush=True)
+    if not rel <= limit:
+        raise AssertionError(f"{tag}: bf16 loss on its own routing "
+                             f"{rel:.3e} > {limit:.3e}")
+    return dict(held=own["held"], tokens=n, loss_card=loss_card,
+                loss_cpu=loss_cpu, rel=rel, limit=limit)
 
 
 def zamba2_train_method(method: str, card: str) -> dict:
@@ -5308,13 +5472,19 @@ def phase_zamba2_train(card: str) -> dict:
 F_SITES = {"ssm/in_proj": (4096, 16384, 1024), "ssm/x_proj": (8192, 288, 128),
            "ssm/dt_proj": (256, 8192, 128), "ssm/out_proj": (8192, 4096, 1024)}
 F_LOGIT_LAYERS, F_TRAIN_LAYERS = 4, 4
-# ``logits_vs_cpu``'s limits for falcon-mamba, per sqrt(L): 2x the
-# attention models'. Mamba-1 takes dt, rounded to bf16, into exp(dt A)
-# with |A| up to 16 and sums the state over the whole prompt, so its bf16
-# logits stray further: the prefill read 0.0171 and 0.073 sqrt(L) of the
-# RMS logit at 4 layers on an H100. In f32 on the card the same check
-# holds 1e-4 and 5e-4 sqrt(L): a wrong kernel or layout reads near 1.
-F_LOGIT_TOLS = (2 * LOGIT_RMS_TOL, 2 * LOGIT_MAX_TOL)
+# ``logits_vs_cpu``'s bf16 limits at 4 layers, for falcon-mamba and for
+# qwen2-0.5b beside it: ``SPREAD_X`` times the model's own bf16 spread on
+# the CPU (the same weights and tokens in bf16 against f32; ``derive``).
+# The card's bf16 and the CPU's bf16 round the same activations to 8
+# significant bits in other orders, so the card's error is one more draw
+# of the spread the CPU shows; 2x leaves room for that draw. Mamba-1
+# takes dt, rounded to bf16, into exp(dt A) with |A| up to 16 and sums
+# the state over the whole prompt, which the spread measures rather than
+# a fixed factor over the attention models (the limits were once theirs
+# doubled, after a first reading of 0.0171 and 0.073 sqrt(L)). In f32 on
+# the card the same check holds 1e-4 and 5e-4 sqrt(L): a wrong kernel or
+# layout reads near 1.
+SPREAD_X = 2.0
 F32_LOGIT_TOLS = (1e-4, 5e-4)
 F_TRAIN_B, F_TRAIN_S, F_TRAIN_STEPS = 4, 512, 2
 
@@ -5459,12 +5629,26 @@ def phase_falcon_mamba(card: str) -> dict:
     model = init_lm(red, device="cuda",
                     generator=torch.Generator(device="cuda").manual_seed(25))
     out["cpu_logits"] = logits_vs_cpu("falcon", red, model, card,
-                                      limits=F_LOGIT_TOLS)
+                                      derive=SPREAD_X)
     red32 = red.replace(dtype="float32")
     api.install(dataclasses.replace(api.plan_of(red), model=red32))
     model = from_reference(to_reference(model), red32, "cuda")
     out["cpu_logits_f32"] = logits_vs_cpu("falcon_f32", red32, model, card,
                                           limits=F32_LOGIT_TOLS)
+    del model
+    qred = reduced(configs.get("qwen2-0.5b"), (LayerGroup(
+        pattern=("dense",), repeat=F_LOGIT_LAYERS),))
+    api.install(api.resolve(qred))
+    model = init_lm(qred, device="cuda",
+                    generator=torch.Generator(device="cuda").manual_seed(26))
+    out["qwen2_cpu_logits"] = logits_vs_cpu("falcon_qwen2", qred, model,
+                                            card, derive=SPREAD_X)
+    f, q = out["cpu_logits"]["cpu_spread"], out["qwen2_cpu_logits"][
+        "cpu_spread"]
+    print(f"[falcon] bf16 spreads on the CPU at {F_LOGIT_LAYERS} layers, "
+          f"falcon-mamba / qwen2-0.5b: RMS {f[0] / q[0]:.3f}, largest "
+          f"{f[1] / q[1]:.3f} (the earlier fixed factor: 2) | {card}",
+          flush=True)
     del model
     gc.collect()
     torch.cuda.empty_cache()
@@ -6710,6 +6894,9 @@ MOE_RANGES = ("moe_attention", "moe_dispatch", "moe_experts", "moe_combine")
 # times (320 tokens, one capacity group): tokens at one place in the
 # phrase route alike, so experts overfill and capacity binds
 MOE_PHRASE, MOE_REPEAT = 32, 10
+# the checks on the card's own bf16 routing: this many seeded rows of
+# MOE_PHRASE (logits) or D_CHECK_S (loss) tokens, each its own group
+OWN_ROWS = 8
 # f32's own rounding of a router logit, a d-term dot product in f32:
 # |fl(h.w) - h.w| <= gamma_d sum_i |h_i||w_i|, gamma_d = d u / (1 - d u),
 # u = 2^-24; a choice may part from the CPU's only where the CPU's logit
@@ -6863,7 +7050,12 @@ def moe_vs_cpu(tag: str, cfg, card: str) -> dict:
     another expert's output, an O(1) change, from then on in that token
     and, through attention and capacity, in every later one; with the
     routing identical (f32) the replay is the free run. Capacity must
-    bind: dropped choices > 0 in some layer."""
+    bind: dropped choices > 0 in some layer.
+
+    Then the card's own bf16 routing (no replay), ``own_routing_rows``
+    on ``OWN_ROWS`` seeded phrases of ``MOE_PHRASE`` tokens, each its own
+    group: the logits of the tokens before each group's first one routed
+    otherwise held to the same limits as the replayed ones."""
     plan = api.install(api.resolve(cfg))
     gen = torch.Generator(device="cuda").manual_seed(2800)
     model = init_lm(cfg, device="cuda", generator=gen)
@@ -6878,9 +7070,14 @@ def moe_vs_cpu(tag: str, cfg, card: str) -> dict:
             lg, *_ = lm_forward(m, toks.to(dev), c)
         return lg[0].float().cpu(), log.calls
 
+    def logits(m, c, dev, i, t):
+        return lm_forward(m, t.to(dev), c)[0][0].float().cpu()
+
+    rows = torch.from_numpy(np.random.default_rng(2802).integers(
+        0, cfg.vocab_size, (OWN_ROWS, MOE_PHRASE)))
+    own = own_routing_rows(cfg, model, tree, rows, logits)
     api.install(dataclasses.replace(plan, model=cfg32))
-    m = from_reference(tree, cfg32, "cpu")
-    lg_cpu, r_cpu = run(m, cfg32, "cpu")
+    lg_cpu, r_cpu = run(from_reference(tree, cfg32, "cpu"), cfg32, "cpu")
     m = from_reference(tree, cfg32, "cuda")
     del tree
     _, r_32 = run(m, cfg32, "cuda")
@@ -6889,14 +7086,17 @@ def moe_vs_cpu(tag: str, cfg, card: str) -> dict:
     api.install(plan)
     _, r_bf = run(model, cfg, "cuda")
     lg_bf, _ = run(model, cfg, "cuda", replay=r_cpu)
-    del model
-    gc.collect()
-    torch.cuda.empty_cache()
     d, k, n_l = cfg.d_model, cfg.moe.top_k, cfg.n_layers
     gamma = d * MOE_U32 / (1 - d * MOE_U32)
     f32 = routing_agreement(r_32, r_cpu, k, lambda sc: gamma * sc)
-    bf = routing_agreement(r_bf, r_cpu, k,
-                           lambda sc: (1 + n_l) * MOE_U16 * sc)
+
+    def bf16_limit(sc):
+        return (1 + n_l) * MOE_U16 * sc
+
+    bf = routing_agreement(r_bf, r_cpu, k, bf16_limit)
+    del model
+    gc.collect()
+    torch.cuda.empty_cache()
 
     def flip_text(r, digits):
         first = [(f["layer"], f["token"], f["choice"],
@@ -6907,9 +7107,9 @@ def moe_vs_cpu(tag: str, cfg, card: str) -> dict:
                 "flips of tokens already routed otherwise")
     root = math.sqrt(n_l)
 
-    def logit_errs(lg, mask):
-        rms = lg_cpu.square().mean(-1).sqrt()
-        diff = lg - lg_cpu
+    def logit_errs(lg, mask, base=lg_cpu):
+        rms = base.square().mean(-1).sqrt()
+        diff = lg - base
         rel_rms = (diff.square().mean(-1).sqrt() / rms)[mask]
         rel_max = (diff.abs().amax(-1) / rms)[mask]
         return rel_rms.max().item(), rel_max.max().item()
@@ -6918,6 +7118,10 @@ def moe_vs_cpu(tag: str, cfg, card: str) -> dict:
     every = torch.ones(n_tok, dtype=torch.bool)
     e32 = logit_errs(lg_32, every)
     ebf = logit_errs(lg_bf, every)
+    n_own = sum(own["held"])
+    eown = ((math.nan, math.nan) if n_own == 0 else logit_errs(
+        torch.cat(own["card"]), torch.ones(n_own, dtype=torch.bool),
+        base=torch.cat(own["cpu"])))
     lim32 = (F32_LOGIT_TOLS[0] * root, F32_LOGIT_TOLS[1] * root)
     limbf = (LOGIT_RMS_TOL * root, LOGIT_MAX_TOL * root)
     print(f"[moe] {tag} {n_l} layers, one {n_tok}-token group, capacity "
@@ -6937,6 +7141,12 @@ def moe_vs_cpu(tag: str, cfg, card: str) -> dict:
           f"error {ebf[0]:.3e} (limit "
           f"{limbf[0]:.4f}), largest error {ebf[1]:.3e} (limit "
           f"{limbf[1]:.4f}) | {card}", flush=True)
+    print(f"[moe] {tag} bf16 on the card's own routing, {OWN_ROWS} groups "
+          f"of {MOE_PHRASE} tokens: tokens before each group's first one "
+          f"routed otherwise {own['held']} (no flip among them); logits "
+          f"of those {n_own} tokens: largest RMS error "
+          f"{eown[0]:.3e} (limit {limbf[0]:.4f}), largest error "
+          f"{eown[1]:.3e} (limit {limbf[1]:.4f}) | {card}", flush=True)
     if not max(f32["drops"]) > 0:
         raise AssertionError(f"{tag}: capacity never bound")
     if f32["bad"] or bf["bad"]:
@@ -6946,6 +7156,9 @@ def moe_vs_cpu(tag: str, cfg, card: str) -> dict:
         raise AssertionError(f"{tag}: f32 card logits {e32} vs {lim32}")
     if not (ebf[0] <= limbf[0] and ebf[1] <= limbf[1]):
         raise AssertionError(f"{tag}: bf16 card logits {ebf} vs {limbf}")
+    if not (eown[0] <= limbf[0] and eown[1] <= limbf[1]):
+        raise AssertionError(f"{tag}: bf16 card logits on its own routing "
+                             f"{eown} vs {limbf}")
 
     def strip(r):
         return dict(flips=r["flips"], drops=r["drops"],
@@ -6953,7 +7166,8 @@ def moe_vs_cpu(tag: str, cfg, card: str) -> dict:
                     matched_tokens=int(r["matched"].sum()))
     return dict(n_layers=n_l, tokens=n_tok, f32=strip(f32), bf16=strip(bf),
                 f32_logit_rel=e32, bf16_logit_rel=ebf, f32_limits=lim32,
-                bf16_limits=limbf)
+                bf16_limits=limbf, own_held=own["held"],
+                own_logit_rel=eown)
 
 
 def moe_tick_split(eng, cfg, card: str, tag: str) -> dict:
@@ -7283,6 +7497,403 @@ def phase_moe(card: str) -> dict:
     return out
 
 
+# ---------------------------------------------------------------------------
+# phase 29: the encoder-decoder family (models/encdec.py): whisper-tiny
+# ---------------------------------------------------------------------------
+
+# training: 4 x 448 decoder tokens (Whisper's text context) over 1,500
+# frames of d 384 from ``SyntheticAudio``, SGD+momentum 0.9 at 0.05, 8
+# steps, refresh every 4 (two refreshes); decoding: 32 greedy tokens of 4
+# rows on a 448-token bf16 cache; the card-against-CPU batch: 1 x 32
+# tokens over 1,500 frames
+W_B, W_S, W_STEPS, W_REFRESH, W_LR = 4, 448, 8, 4, 0.05
+W_NEW, W_CACHE, W_CHECK_S = 32, 448, 32
+W_METHODS = ("wasi", "wsi")
+# #7 at whisper-tiny's shapes (6 heads of dh 64): (B, Sq, Sk, H, causal,
+# dtype): the cross-attention of a training step (448 queries against the
+# 1,500 frames) and of a decode step (one query), the encoder's
+# bidirectional self-attention, the decoder's causal one; the f32 rows
+# are the card-against-CPU check's
+W_FLASH = {
+    "whisper_cross_train": (4, 448, 1500, 6, False, torch.bfloat16),
+    "whisper_cross_decode": (4, 1, 1500, 6, False, torch.bfloat16),
+    "whisper_encoder": (4, 1500, 1500, 6, False, torch.bfloat16),
+    "whisper_decoder": (4, 448, 448, 6, True, torch.bfloat16),
+    "whisper_cross_train_f32": (1, 448, 1500, 6, False, torch.float32),
+    "whisper_cross_decode_f32": (1, 1, 1500, 6, False, torch.float32)}
+
+
+def whisper_cfg(method: str = "wasi", smoke: bool = False):
+    cfg = (configs.get_smoke if smoke else configs.get)("whisper-tiny")
+    return with_method(cfg, method, W_REFRESH)
+
+
+def whisper_flash_rows(card: str) -> list:
+    """#7 at whisper's shapes against its plain version (``flash_tol``),
+    timed beside the plain version, SDPA and the bound."""
+    gen = torch.Generator(device="cuda").manual_seed(2900)
+    dh, rows = 64, []
+    for name, (b, sq, sk, h, causal, dtype) in W_FLASH.items():
+        (q, k, v), = flash_inputs(b, sq, h, h, dh, dtype, gen, sk=sk)
+        got = ops.flash_attention(q, k, v, causal=causal)
+        torch.cuda.synchronize()
+        want = ref.flash_attention_ref(q, k, v, causal=causal)
+        err = (got.float() - want.float()).abs().max().item()
+        tol = flash_tol(want, dtype)
+        if not err <= tol:
+            raise AssertionError(f"flash_attention {name}: max abs err "
+                                 f"{err:.3e} > tol {tol:.3e}")
+        del got, want
+        nbytes, flops = flash_work(b, sq, h, h, dh, causal, 0, dtype, sk=sk)
+        sets = flash_inputs(b, sq, h, h, dh, dtype, gen,
+                            max(1, min(24, int(120e6 // nbytes) + 1)), sk=sk)
+
+        def kern(q_, k_, v_, causal=causal):
+            return ops.flash_attention(q_, k_, v_, causal=causal)
+
+        def plain(q_, k_, v_, causal=causal):
+            return ref.flash_attention_ref(q_, k_, v_, causal=causal)
+
+        k_ms, p_ms = time_ms(kern, sets), time_ms(plain, sets)
+        l_ms = time_ms(library_flash(causal, 0, sq), sets)
+        b_ms, b_by = flash_bound(nbytes, flops, dtype)
+        plan = kflash.flash_plan(b, sq, sk, h, dh, dtype)
+        rows.append(dict(case=name, B=b, Sq=sq, Sk=sk, H=h, dh=dh,
+                         causal=causal, dtype=str(dtype)[6:],
+                         route=flash_route(dtype), plan=plan._asdict(),
+                         kernel_ms=k_ms, plain_ms=p_ms, library_ms=l_ms,
+                         bound_ms=b_ms, bound_by=b_by, max_abs_err=err,
+                         tol=tol))
+        print(f"[whisper] flash_attention {name:24s} B={b} Sq={sq} Sk={sk} "
+              f"H={h} dh={dh} causal={int(causal)} {str(dtype)[6:]:8s} "
+              f"plan=(bq {plan.bq}, ks {plan.ks}, stages {plan.stages}) "
+              f"err={err:.2e} (tol {tol:.2e}) kernel_ms={k_ms:.4f} "
+              f"plain_ms={p_ms:.4f} library_ms={l_ms:.4f} bound_ms="
+              f"{b_ms:.5f} ({b_by}) | {card}", flush=True)
+        del sets
+    return rows
+
+
+def whisper_frames(d: int, b: int, seed: int) -> torch.Tensor:
+    """(b, 1,500, d) standard-normal frames from ``SyntheticAudio``."""
+    return SyntheticAudio(vocab_size=2, enc_seq=1500, d_model=d, seq_len=1,
+                          global_batch=b, seed=seed).batch(0)["frames"]
+
+
+def per_token_errs(got, want) -> tuple[float, float]:
+    """Largest (RMS error, largest error) over the rows of the last dim,
+    each over that row's RMS (``logits_vs_cpu``'s measure)."""
+    got, want = got.float().reshape(-1, got.shape[-1]), want.float().reshape(
+        -1, want.shape[-1])
+    rms = want.square().mean(-1).sqrt().clamp(min=1e-30)
+    diff = got - want
+    return ((diff.square().mean(-1).sqrt() / rms).max().item(),
+            (diff.abs().amax(-1) / rms).max().item())
+
+
+def whisper_vs_cpu(tag: str, cfg, card: str) -> dict:
+    """Encoder memory, decoder logits and loss of one 1 x 32-token batch
+    over 1,500 frames, weights drawn on the card, against the same values
+    in f32 on the CPU, inference: memory at depth L = ``n_enc_layers``,
+    logits and loss at the whole depth, each held to ``logits_vs_cpu``'s
+    rule (per row of the last dim: RMS error within the RMS limit x
+    sqrt(L) of the row's RMS, largest error within the largest-error
+    limit x sqrt(L); the loss's relative error within the RMS limit x
+    sqrt(L)): f32 ``F32_LOGIT_TOLS``, bf16 the attention models' (0.015,
+    0.07). One forward's launches exact: #1 at every site, #7 at every
+    attention."""
+    api.install(api.resolve(cfg, batch=1, seq=W_CHECK_S))
+    gen = torch.Generator(device="cuda").manual_seed(2910)
+    model = init_encdec(cfg, device="cuda", generator=gen)
+    g = torch.Generator().manual_seed(2911)
+    toks = torch.randint(0, cfg.vocab_size, (1, W_CHECK_S + 1), generator=g)
+    batch = {"frames": whisper_frames(cfg.d_model, 1, 2912),
+             "tokens": toks[:, :-1], "labels": toks[:, 1:]}
+
+    def run(m, c, dev):
+        bt = {k: v.to(dev) for k, v in batch.items()}
+        with torch.inference_mode():
+            mem, _ = encode(m, bt["frames"], c)
+            logits, _ = decode_train(m, bt["tokens"], mem, c)
+            loss, _ = encdec_loss(m, bt, c)
+        return mem.float().cpu(), logits.float().cpu(), float(loss)
+
+    ops.reset_launches()
+    mem, logits, loss = run(model, cfg, "cuda")
+    torch.cuda.synchronize()
+    fc = forward_counts(cfg)
+    want = dict.fromkeys(ops.launch_counts(), 0)
+    want["lowrank_fwd"] = 2 * fc["sites"]
+    want["flash_attention"] = 2 * fc["flash"]
+    if ops.launch_counts() != want:
+        raise AssertionError(f"{tag}: launches {ops.launch_counts()} != "
+                             f"{want} (2 forwards)")
+    cfg32 = cfg.replace(dtype="float32")
+    api.install(dataclasses.replace(api.plan_of(cfg), model=cfg32))
+    cpu32 = from_reference(to_reference(model), cfg32, "cpu").float()
+    del model
+    mem0, logits0, loss0 = run(cpu32, cfg32, "cpu")
+    del cpu32
+    gc.collect()
+    torch.cuda.empty_cache()
+    tols = F32_LOGIT_TOLS if cfg.dtype == "float32" else (LOGIT_RMS_TOL,
+                                                          LOGIT_MAX_TOL)
+    out = dict(n_enc=cfg.n_enc_layers, n_dec=cfg.n_layers, dtype=cfg.dtype,
+               loss_card=loss, loss_cpu=loss0, launches=want)
+    bad = []
+    for name, (a, b_), depth in (
+            ("memory", (mem, mem0), cfg.n_enc_layers),
+            ("logits", (logits, logits0), cfg.n_enc_layers + cfg.n_layers)):
+        root = math.sqrt(depth)
+        e = per_token_errs(a, b_)
+        lim = (tols[0] * root, tols[1] * root)
+        out[name] = dict(rms_rel=e[0], max_rel=e[1], limits=lim, depth=depth)
+        if not (e[0] <= lim[0] and e[1] <= lim[1]):
+            bad.append((name, e, lim))
+    root = math.sqrt(cfg.n_enc_layers + cfg.n_layers)
+    loss_rel = abs(loss / loss0 - 1)
+    out["loss_rel"], out["loss_limit"] = loss_rel, tols[0] * root
+    if not loss_rel <= tols[0] * root:
+        bad.append(("loss", loss_rel, tols[0] * root))
+    print(f"[whisper] {tag} ({cfg.name}, {cfg.n_enc_layers} + "
+          f"{cfg.n_layers} layers, d {cfg.d_model}, {cfg.dtype}) card vs f32 "
+          f"CPU, 1 x {W_CHECK_S} tokens over 1,500 frames: memory largest "
+          f"RMS error {out['memory']['rms_rel']:.3e} (limit "
+          f"{out['memory']['limits'][0]:.2e}), largest error "
+          f"{out['memory']['max_rel']:.3e} (limit "
+          f"{out['memory']['limits'][1]:.2e}); logits "
+          f"{out['logits']['rms_rel']:.3e} (limit "
+          f"{out['logits']['limits'][0]:.2e}), "
+          f"{out['logits']['max_rel']:.3e} (limit "
+          f"{out['logits']['limits'][1]:.2e}) of the row's RMS; loss "
+          f"{loss:.6f} / {loss0:.6f} (relative error {loss_rel:.2e}, limit "
+          f"{tols[0] * root:.2e}); launches of 2 forwards {want} | {card}",
+          flush=True)
+    api.install(api.plan_of(cfg))
+    if bad:
+        raise AssertionError(f"{tag}: card vs CPU {bad}")
+    return out
+
+
+def whisper_train(method: str, card: str) -> dict:
+    """whisper-tiny at full width and depth under ``method`` and the
+    config's ``remat="block"`` through ``launch/train.py``'s build on
+    ``SyntheticAudio``: the saved-for-backward bytes of one loss, then
+    ``W_STEPS`` steps with exact launches (``train_want`` on
+    ``forward_counts``), finite losses, the last below the first. The
+    stream's tokens are uniform and independent of its frames, so fresh
+    batches hold nothing to learn (a first run on the card read 10.930 to
+    10.944 over 8 of them, ln V = 10.86 plus the init's spread): every
+    step takes batch 0 again, which a working step learns."""
+    from repro_torch.utils.memprof import measured_residual_bytes
+
+    tcfg = TrainConfig(optimizer="sgd", lr=W_LR, momentum=0.9,
+                       schedule="constant", steps=W_STEPS, seed=29,
+                       checkpoint_every=0)
+    t0 = time.perf_counter()
+    cfg, _, state, step, data = launch_train.build(
+        "whisper-tiny", smoke=False, batch=W_B, seq=W_S, wasi=method,
+        tcfg=tcfg, device="cuda", refresh_every=W_REFRESH)
+    torch.cuda.synchronize()
+    build_s = time.perf_counter() - t0
+
+    batch = {k: v.to("cuda") for k, v in data.batch(0).items()}
+
+    def batch_fn(i):
+        return batch
+
+    rep = measured_residual_bytes(
+        lambda: encdec_loss(state.params, batch, cfg, states=state.asi))
+    saved = rep.total_bytes
+    del rep
+    torch.cuda.empty_cache()
+    state, row = train_run("whisper", state, step, batch_fn, tcfg, cfg,
+                           method, 0, W_STEPS, W_B * W_S)
+    losses = row["losses"]
+    print(f"[whisper] {method} remat=block, {cfg.n_enc_layers} + "
+          f"{cfg.n_layers} layers, batch {W_B} x {W_S} over 1,500 frames: "
+          f"build {build_s:.1f}s, step_ms_median={row['step_ms_median']:.3f}"
+          f" tok_s={row['tok_s']:.1f} dev_peak_mib={row['dev_peak_mib']:.1f}"
+          f" saved_for_backward_mib={saved / 2**20:.1f} losses "
+          f"{[round(x, 4) for x in losses]} | {card}", flush=True)
+    if not losses[-1] < losses[0]:
+        raise AssertionError(f"whisper {method}: loss did not fall "
+                             f"{losses}")
+    row.update(build_s=build_s, residual_bytes_block=saved,
+               params=sum(p.numel() for p in state.params.parameters()))
+    model = state.params
+    del state, step
+    gc.collect()
+    torch.cuda.empty_cache()
+    return row, model
+
+
+def greedy(model, cfg, mem, dev, n: int, dtype):
+    """``n`` greedy ``encdec_decode_step``s from token 0 for every row of
+    ``mem`` on a ``W_CACHE``-token cache: (tokens (B, n), each step's
+    logits (B, V) as f32 on the CPU, each step's host ms)."""
+    b = mem.shape[0]
+    caches = init_encdec_cache(cfg, b, W_CACHE, dtype=dtype, device=dev)
+    tok = torch.zeros(b, 1, dtype=torch.long, device=dev)
+    toks, logits, ms = [], [], []
+    with torch.inference_mode():
+        for pos in range(n):
+            t0 = time.perf_counter()
+            lg, caches = encdec_decode_step(model, tok, mem, caches, pos, cfg)
+            tok = lg.argmax(-1, keepdim=True)
+            if dev == "cuda":
+                torch.cuda.synchronize()
+            ms.append((time.perf_counter() - t0) * 1e3)
+            toks.append(tok[:, 0].cpu())
+            logits.append(lg.float().cpu())
+    return torch.stack(toks, 1), logits, ms
+
+
+def whisper_decode(model, card: str) -> dict:
+    """``encode`` 4 x 1,500 frames once (timed on its second call), then
+    ``W_NEW`` greedy tokens through ``encdec_decode_step`` on a 448-token
+    bf16 cache: TPOT, exact #1 and #7 launches a step (every decoder site;
+    the cross-attention at Sq = 1), the busy share of 4 profiled steps,
+    and the tokens against the f32 CPU's from the same weights and frames
+    (``greedy_agreement``'s near-tie rule: the runs may part only where
+    the CPU's top-2 margin lies within the bf16 largest-error limit,
+    0.07 sqrt(L) of the step's RMS logit)."""
+    cfg = model.cfg.replace(remat="none")
+    api.install(api.resolve(cfg, batch=W_B, seq=1))
+    frames = whisper_frames(cfg.d_model, W_B, 2920).to("cuda")
+    with torch.inference_mode():
+        encode(model, frames, cfg)
+        torch.cuda.synchronize()
+        ops.reset_launches()
+        t0 = time.perf_counter()
+        mem, _ = encode(model, frames, cfg)
+        torch.cuda.synchronize()
+        encode_ms = (time.perf_counter() - t0) * 1e3
+    fc = forward_counts(cfg)
+    enc_sites = cfg.n_enc_layers * len(api.plan_of(cfg).specs)
+    enc_want = dict.fromkeys(ops.launch_counts(), 0)
+    enc_want.update(lowrank_fwd=enc_sites, flash_attention=cfg.n_enc_layers)
+    if ops.launch_counts() != enc_want:
+        raise AssertionError(f"whisper encode launches "
+                             f"{ops.launch_counts()} != {enc_want}")
+    ops.reset_launches()
+    toks, card_logits, ms = greedy(model, cfg, mem, "cuda", W_NEW,
+                                   _dtype(cfg.dtype))
+    dec_sites = fc["sites"] - enc_sites
+    want = dict.fromkeys(ops.launch_counts(), 0)
+    want.update(lowrank_fwd=W_NEW * dec_sites,
+                flash_attention=W_NEW * cfg.n_layers)
+    if ops.launch_counts() != want:
+        raise AssertionError(f"whisper decode launches "
+                             f"{ops.launch_counts()} != {want}")
+    caches = init_encdec_cache(cfg, W_B, W_CACHE, dtype=_dtype(cfg.dtype),
+                               device="cuda")
+    tok = toks[:, :1].to("cuda")
+    with torch.inference_mode():
+        encdec_decode_step(model, tok, mem, caches, 0, cfg)
+
+        def four():
+            for pos in range(1, 5):
+                encdec_decode_step(model, tok, mem, caches, pos, cfg)
+
+        _, wall_us, _, ev = profiled(four)
+    dev_us = sum(e.self_device_time_total for e in ev)
+    busy = dev_us / wall_us if dev_us > 0 else None
+    tpot = statistics.median(ms[1:])
+    # the f32 CPU's greedy run from the same weights and frames
+    cfg32 = cfg.replace(dtype="float32")
+    api.install(dataclasses.replace(api.plan_of(cfg), model=cfg32))
+    cpu32 = from_reference(to_reference(model), cfg32, "cpu").float()
+    with torch.inference_mode():
+        mem0, _ = encode(cpu32, frames.cpu(), cfg32)
+    ctoks, cpu_logits, _ = greedy(cpu32, cfg32, mem0, "cpu", W_NEW,
+                                  torch.float32)
+    del cpu32
+    api.install(api.plan_of(cfg))
+    gc.collect()
+    root = math.sqrt(cfg.n_enc_layers + cfg.n_layers)
+    margins, rms = [], []
+    for lg in cpu_logits:
+        top = torch.topk(lg, 2, dim=-1).values
+        margins.append((top[:, 0] - top[:, 1]).tolist())
+        rms.append(lg.square().mean(-1).sqrt().tolist())
+    parted = {}
+    for r in range(W_B):
+        d = next((j for j in range(W_NEW) if int(toks[r, j]) !=
+                  int(ctoks[r, j])), None)
+        if d is None:
+            continue
+        limit = LOGIT_MAX_TOL * root * rms[d][r]
+        if margins[d][r] > limit:
+            raise AssertionError(f"whisper decode row {r}: card token "
+                                 f"{int(toks[r, d])} != CPU "
+                                 f"{int(ctoks[r, d])} at step {d}, top-2 "
+                                 f"margin {margins[d][r]:.4g} > near-tie "
+                                 f"limit {limit:.4g}")
+        parted[r] = dict(step=d, margin=margins[d][r], limit=limit)
+    where = {r: (p["step"], round(p["margin"], 4), round(p["limit"], 4))
+             for r, p in parted.items()}
+    print(f"[whisper] decode: encode 4 x 1,500 frames {encode_ms:.3f} ms "
+          f"(#1 {enc_sites}, #7 {cfg.n_enc_layers}); {W_NEW} greedy steps of "
+          f"{W_B} rows on a {W_CACHE}-token bf16 cache: TPOT median "
+          f"{tpot:.3f} ms (host clock, synchronized), busy share of 4 "
+          f"profiled steps {busy if busy is None else round(busy, 4)} "
+          f"({dev_us / 4e3:.4f} ms of device a step in "
+          f"{wall_us / 4e3:.3f} ms wall); launches a step #1 {dec_sites}, "
+          f"#7 {cfg.n_layers} (held: {want}); tokens equal the f32 CPU's "
+          f"in {W_B - len(parted)} of {W_B} rows, the others part at a "
+          f"near-tie as row: (step, margin, limit) {where} | {card}",
+          flush=True)
+    return dict(encode_ms=encode_ms, tpot_ms=tpot, step_ms=ms,
+                busy_share=busy, device_ms_step=dev_us / 4e3,
+                wall_ms_step=wall_us / 4e3, launches=want,
+                launches_per_step=dict(lowrank_fwd=dec_sites,
+                                       flash_attention=cfg.n_layers),
+                parted=parted, tokens=toks.tolist())
+
+
+def phase_encdec(card: str) -> dict:
+    print("== phase 29: the encoder-decoder family: whisper-tiny (4 + 4 "
+          "layers, d 384, bf16) trained under wasi and wsi and greedy-"
+          "decoded at full width; card vs CPU (smoke and full, f32 and "
+          "bf16); #7 at whisper's shapes", flush=True)
+    out, seconds = {}, {}
+
+    def part(name, fn, *a):
+        t = time.perf_counter()
+        out[name] = fn(*a)
+        seconds[name] = time.perf_counter() - t
+        print(f"[whisper] {name}: {seconds[name]:.1f}s", flush=True)
+        return out[name]
+
+    cfg = whisper_cfg()
+    plan = api.install(api.resolve(cfg, batch=W_B, seq=W_S))
+    fc = forward_counts(cfg)
+    if ({sp.name: (sp.in_dim, sp.out_dim, sp.rank) for sp in plan.specs}
+            != {"attn/wq": (384, 384, 128), "attn/wk": (384, 384, 128),
+                "attn/wv": (384, 384, 128), "attn/wo": (384, 384, 128),
+                "mlp/up": (384, 1536, 128), "mlp/down": (1536, 384, 128)}
+            or fc != dict(sites=64, stateless=16, flash=12, ssd=0,
+                          stacks=16)):
+        raise AssertionError(f"whisper plan {plan.specs} counts {fc}")
+    part("flash", whisper_flash_rows, card)
+    part("cpu_smoke_f32", whisper_vs_cpu, "smoke_f32",
+         whisper_cfg("wsi", smoke=True), card)
+    full = whisper_cfg("wsi").replace(remat="none")
+    part("cpu_full_f32", whisper_vs_cpu, "full_f32",
+         full.replace(dtype="float32"), card)
+    part("cpu_full_bf16", whisper_vs_cpu, "full_bf16", full, card)
+    model = None
+    for method in W_METHODS:
+        t = time.perf_counter()
+        out[f"train_{method}"], model = whisper_train(method, card)
+        seconds[f"train_{method}"] = time.perf_counter() - t
+    model.requires_grad_(False)
+    part("decode", whisper_decode, model, card)
+    out["seconds"] = seconds
+    return out
+
+
 def main() -> None:
     ap = argparse.ArgumentParser(description=__doc__.splitlines()[0])
     ap.add_argument("--json", default="",
@@ -7345,6 +7956,7 @@ def main() -> None:
     spec = run(26, phase_spec, card)
     tenancy = run(27, phase_tenancy, card)
     moe = run(28, phase_moe, card)
+    encdec = run(29, phase_encdec, card)
 
     head = k["headline"]
     kernels = [{
@@ -7440,6 +8052,18 @@ def main() -> None:
         "max_abs_err": max(r["max_abs_err"] for r in k["adapter_rows"]),
         "ms": h["ms"], "plain_ms": h["plain_ms"], "bound_ms": h["bound_ms"],
         "bound_by": h["bound_by"], "library_ms": h["library_ms"]})
+    # phase 29: #7 at whisper-tiny's cross-attention (448 queries of a
+    # training step against the 1,500 frames), launches of its wasi run
+    h = next(r for r in encdec["flash"] if r["case"] == "whisper_cross_train")
+    kernels.append({
+        "name": "flash_attention_cross", "route": "cuda",
+        "source": "src/repro_torch/kernels/csrc/flash_attn.cu",
+        "replaces": "src/repro/kernels/flash_attention.py:26",
+        "launches": encdec["train_wasi"]["launches"]["flash_attention"],
+        "max_abs_err": max(r["max_abs_err"] for r in encdec["flash"]),
+        "ms": h["kernel_ms"], "plain_ms": h["plain_ms"],
+        "bound_ms": h["bound_ms"], "bound_by": h["bound_by"],
+        "library_ms": h["library_ms"]})
     line = {"kernels": kernels}
     if args.json:
         os.makedirs(os.path.dirname(os.path.abspath(args.json)),
@@ -7477,7 +8101,7 @@ def main() -> None:
                        "project": project, "ssd_grad": ssd_grad,
                        "zamba2_train": z_train, "falcon_mamba": falcon,
                        "paged": paged, "spec": spec, "tenancy": tenancy,
-                       "moe": moe,
+                       "moe": moe, "encdec": encdec,
                        "adapter_kernel_rows": k["adapter_rows"],
                        "adapter_headline": k["adapter_headline"],
                        "kernels": line["kernels"],

@@ -1,10 +1,11 @@
 """Weights carried across between the JAX package and the port.
 
 ``from_reference(tree, cfg, device)`` takes the reference's parameter
-pytree as ``init_lm`` or ``init_vit`` returns it (nested dicts/lists;
-leaves numpy arrays, or anything ``numpy.asarray`` accepts) and gives the
-port's :class:`~repro_torch.models.lm.LanguageModel` or
-:class:`~repro_torch.models.vit.VisionTransformer` (by ``cfg.family``)
+pytree as ``init_lm``, ``init_vit`` or ``init_encdec`` returns it (nested
+dicts/lists; leaves numpy arrays, or anything ``numpy.asarray`` accepts)
+and gives the port's :class:`~repro_torch.models.lm.LanguageModel`,
+:class:`~repro_torch.models.vit.VisionTransformer` or
+:class:`~repro_torch.models.encdec.EncoderDecoder` (by ``cfg.family``)
 holding the same values. ``to_reference(model)`` gives the nested
 dict/list of numpy arrays back.
 
@@ -15,8 +16,9 @@ ASI warm-start states of the ``wasi``/``asi`` methods), the weight carry
 of the training parity tests. ``states_from_reference`` /
 ``states_to_reference`` carry ASI states alone: the reference's
 ``init_lm_states`` tree (groups, pattern positions, block dicts,
-``ASIState(us=...)`` with a leading ``repeat`` dim) or ``init_vit_states``
-tree, identity modes None on both sides, so the leaves keep JAX's flatten
+``ASIState(us=...)`` with a leading ``repeat`` dim), ``init_vit_states``
+or ``init_encdec_states`` tree (``cross_attn`` an empty dict), identity
+modes None on both sides, so the leaves keep JAX's flatten
 order. ``wsi_from_reference`` carries project mode's ``{path:
 WSIState(L, R)}`` dict in, whose paths the two packages spell alike;
 ``states_to_reference`` takes it out as it takes any state tree.
@@ -53,7 +55,8 @@ from repro_torch.models.lm import LanguageModel, needs_shared
 from repro_torch.utils.device import resolve_device
 
 _TOP = {"lm": ("embed", "final_norm", "groups"),
-        "vit": ("patch", "cls", "pos", "blocks", "final_norm", "head")}
+        "vit": ("patch", "cls", "pos", "blocks", "final_norm", "head"),
+        "encdec": ("embed", "enc", "enc_norm", "dec", "final_norm")}
 
 
 def _tensor(a, device) -> torch.Tensor:
@@ -90,34 +93,39 @@ def from_reference(tree: Mapping, cfg: ModelConfig, device=None, *,
                    trainable: bool = False):
     """The port's model holding the reference tree's values on ``device``
     (default CUDA; raises if absent); frozen leaves unless ``trainable``.
-    A ``LanguageModel``, or a ``VisionTransformer`` for the ``vit``
-    family."""
+    A ``LanguageModel``, a ``VisionTransformer`` for the ``vit`` family,
+    or an ``EncoderDecoder`` for ``encdec`` (stacks ``enc`` and ``dec``
+    on their leading layer dims)."""
     dev = resolve_device(device)
-    top = _TOP["vit" if cfg.family == "vit" else "lm"]
-    if cfg.family != "vit" and needs_shared(cfg):
+    top = _TOP[cfg.family]
+    if cfg.family == "lm" and needs_shared(cfg):
         top += ("shared_attn",)       # zamba2's shared attention block
     missing = [k for k in top if k not in tree]
     if missing:
         raise ValueError(f"not a {cfg.family} param tree: missing "
                          f"{missing}")
-    extra = set(tree) - set(top) - ({"lm_head"} if cfg.family != "vit"
+    extra = set(tree) - set(top) - ({"lm_head"} if cfg.family == "lm"
                                      else set())
     if extra:
         raise NotImplementedError(
             f"param tree keys {sorted(extra)} belong to model parts that "
             "are not ported yet")
-    layers = tree["blocks" if cfg.family == "vit" else "groups"]
-    if trainable and any(bind.is_quantized(p) for _, p in
-                         bind.iter_linear_dicts(layers)):
+    layers = {"vit": ("blocks",), "encdec": ("enc", "dec")}.get(
+        cfg.family, ("groups",))
+    if trainable and any(bind.is_quantized(p) for k in layers
+                         for _, p in bind.iter_linear_dicts(tree[k])):
         raise ValueError("an int8-packed param tree is serve-only: int8 "
                          "leaves cannot require grad; dequantize it "
                          "(api.convert.dequantize) to train")
-    if cfg.family == "vit":
+    if cfg.family in ("vit", "encdec"):
+        from repro_torch.models.encdec import EncoderDecoder
         from repro_torch.models.vit import VisionTransformer
 
         mods = {k: _module(tree[k], dev, trainable) for k in top}
-        bind.check_layout(mods["blocks"], plan_of(cfg))
-        return VisionTransformer(cfg, **mods)
+        for k in layers:
+            bind.check_layout(mods[k], plan_of(cfg))
+        cls = VisionTransformer if cfg.family == "vit" else EncoderDecoder
+        return cls(cfg, **mods)
     groups = _module(tree["groups"], dev, trainable)
     if len(groups) != len(cfg.groups):
         raise ValueError(f"tree has {len(groups)} layer groups, config "

@@ -395,23 +395,19 @@ def _site_dims(cfg: ModelConfig) -> list[tuple[str, str, int, int, bool, int]]:
     attention where a block kind has it, the MLP (gated only under
     SwiGLU) where a kind has a dense one (an MoE kind has none), the
     Mamba sites and the expert banks' three sites at ``expert_d_ff``,
-    deduplicated by name. Families and kinds the port cannot run yet
-    raise."""
+    deduplicated by name. ViTs and the encoder-decoder family (its
+    ``enc``/``dec`` stacks: self- and cross-attention share the four
+    ``attn/*`` sites) have attention and a dense MLP whatever their
+    groups."""
     kinds = {k for g in cfg.groups for k in g.pattern}
-    unported = kinds - {"dense", "local", "mamba1", "mamba2", "mamba2_attn",
-                        "moe", "moe_swa"}
-    if cfg.family not in ("lm", "vit") or unported:
-        raise NotImplementedError(
-            f"config {cfg.name!r} ({cfg.family}, blocks {sorted(kinds)}) "
-            "is not ported yet; only dense (with local), Mamba-1, Mamba-2 "
-            "and MoE decoder LMs and ViTs are (ROADMAP.md)")
     d, f = cfg.d_model, cfg.d_ff
     h, kvh, dh = cfg.n_heads, cfg.n_kv_heads, cfg.resolved_head_dim
     sites: list[tuple[str, str, int, int, bool, int]] = []
-    has_attn = cfg.family == "vit" or bool(
-        kinds & {"dense", "local", "moe", "moe_swa", "mamba2_attn"})
-    has_mlp = cfg.family == "vit" or bool(
-        kinds & {"dense", "local", "mamba2_attn"})
+    has_attn = cfg.family in ("vit", "encdec") or bool(
+        kinds & {"dense", "local", "moe", "moe_swa", "mamba2_attn", "enc",
+                 "dec"})
+    has_mlp = cfg.family in ("vit", "encdec") or bool(
+        kinds & {"dense", "local", "mamba2_attn", "enc", "dec"})
     if has_attn:
         sites += [("attn/wq", "attn", d, h * dh, cfg.qkv_bias, d),
                   ("attn/wk", "attn", d, kvh * dh, cfg.qkv_bias, d),

@@ -1,8 +1,7 @@
 """Architecture config registry. ``get(name)`` resolves ``--arch <id>``.
 
-Only the architectures the port can run are listed, in the JAX package's
-order (``repro.configs.ARCHS``); the one other, whisper-tiny, arrives with
-the encoder-decoder family (ROADMAP.md queue 1)."""
+Every architecture of the JAX package, in its order
+(``repro.configs.ARCHS``)."""
 from __future__ import annotations
 
 import importlib
@@ -11,6 +10,7 @@ from repro_torch.config import ModelConfig
 
 ARCHS = (
     "zamba2-7b",
+    "whisper-tiny",
     "gemma3-4b",
     "qwen2-0.5b",
     "granite-3-8b",
@@ -27,8 +27,7 @@ ARCHS = (
 
 def _module(name: str):
     if name not in ARCHS:
-        raise KeyError(f"arch {name!r} is not ported yet (ported: {ARCHS}); "
-                       "ROADMAP.md queue 1 lists when it comes")
+        raise KeyError(f"unknown arch {name!r}; known: {ARCHS}")
     return importlib.import_module(
         "repro_torch.configs." + name.replace("-", "_").replace(".", "_"))
 

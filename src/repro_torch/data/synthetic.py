@@ -1,5 +1,5 @@
-"""Deterministic synthetic data. Port of ``SyntheticLM`` and
-``SyntheticVision`` of ``repro.data.synthetic``.
+"""Deterministic synthetic data. Port of ``SyntheticLM``,
+``SyntheticVision`` and ``SyntheticAudio`` of ``repro.data.synthetic``.
 
 A Markov token stream with per-sequence latent "topics": the next-token
 distribution mixes a global (vocab, vocab) bigram table and a topic's
@@ -7,10 +7,11 @@ unigram boost, so a model measurably learns. Batches are a pure function
 of (seed, step).
 
 ``SyntheticVision``: per-class prototype patch sequences plus Gaussian
-noise, for the ViT path.
+noise, for the ViT path. ``SyntheticAudio``: Gaussian frame embeddings
+(the encoder-decoder's frontend stub) and uniform tokens, for whisper.
 
-The draws come from ``torch.Generator`` streams on the CPU, so the tokens
-and patches differ from the reference's ``jax.random`` ones for the same
+The draws come from ``torch.Generator`` streams on the CPU, so the tokens,
+patches and frames differ from the reference's ``jax.random`` ones for the same
 seed; parity tests hand the reference's batches across as numpy. Tokens
 and labels are int64.
 Like the reference, the bigram table is dense: at a vocab of 151936 it
@@ -94,3 +95,27 @@ class SyntheticVision:
         noise = torch.randn(b, self.n_patches, self.patch_dim, generator=g)
         return {"patches": self._protos()[labels] + self.noise * noise,
                 "labels": labels}
+
+
+@dataclass(frozen=True)
+class SyntheticAudio:
+    vocab_size: int
+    enc_seq: int
+    d_model: int
+    seq_len: int
+    global_batch: int
+    seed: int = 0
+
+    def batch(self, step: int, batch_size: int | None = None) -> dict:
+        """Batch for a global step: {frames (B, S_enc, d) f32 standard
+        normal, tokens (B, S), labels (B, S)}, the tokens uniform over the
+        vocab and the labels the next token of the same draw; a pure
+        function of (seed, step), on the CPU."""
+        b = batch_size or self.global_batch
+        g = torch.Generator().manual_seed(
+            (self.seed + 1) * 1_000_003 + int(step))
+        frames = torch.randn(b, self.enc_seq, self.d_model, generator=g)
+        toks = torch.randint(0, self.vocab_size, (b, self.seq_len + 1),
+                             generator=g)
+        return {"frames": frames, "tokens": toks[:, :-1],
+                "labels": toks[:, 1:]}

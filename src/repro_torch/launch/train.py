@@ -26,7 +26,9 @@ Under ``wasi`` and ``wsi`` the WSI refresh runs the CholeskyQR kernels
 (gram.cu, choleskyqr.cu) every ``refresh_every`` steps. ``--memprof`` logs
 the measured memory columns (``train/loop.py``). Weights are random,
 drawn from ``TrainConfig.seed``, and the batches come from ``SyntheticLM``
-with the same seed.
+with the same seed (``SyntheticAudio`` for the encoder-decoder family:
+``--arch whisper-tiny`` trains ``models/encdec.py``'s ``encdec_loss`` on
+``--batch`` x ``--seq`` decoder tokens over ``enc_seq`` frames).
 """
 from __future__ import annotations
 
@@ -37,7 +39,12 @@ import repro_torch.configs as configs
 from repro_torch import api
 from repro_torch.checkpoint import CheckpointManager
 from repro_torch.config import TrainConfig
-from repro_torch.data.synthetic import SyntheticLM
+from repro_torch.data.synthetic import SyntheticAudio, SyntheticLM
+from repro_torch.models.encdec import (
+    encdec_loss,
+    init_encdec,
+    init_encdec_states,
+)
 from repro_torch.models.lm import _dtype, init_lm, init_lm_states, lm_loss
 from repro_torch.train.loop import train_loop
 from repro_torch.train.step import make_train_state, make_train_step
@@ -60,17 +67,27 @@ def build(arch: str, *, smoke: bool, batch: int, seq: int, wasi: str | None,
     if refresh_every is not None:
         cfg = cfg.replace(wasi=dataclasses.replace(
             cfg.wasi, refresh_every=refresh_every))
-    if cfg.family != "lm":
-        raise NotImplementedError(f"family {cfg.family!r} is not ported yet")
-    dataset = SyntheticLM(vocab_size=cfg.vocab_size, seq_len=seq,
-                          global_batch=batch, seed=tcfg.seed)
+    if cfg.family == "encdec":
+        dataset = SyntheticAudio(vocab_size=cfg.vocab_size,
+                                 enc_seq=cfg.enc_seq, d_model=cfg.d_model,
+                                 seq_len=seq, global_batch=batch,
+                                 seed=tcfg.seed)
+        init, init_states, loss_fn = (init_encdec, init_encdec_states,
+                                      encdec_loss)
+    elif cfg.family == "lm":
+        dataset = SyntheticLM(vocab_size=cfg.vocab_size, seq_len=seq,
+                              global_batch=batch, seed=tcfg.seed)
+        init, init_states, loss_fn = init_lm, init_lm_states, lm_loss
+    else:
+        raise NotImplementedError(f"family {cfg.family!r} has no launcher "
+                                  "(the reference has none either)")
     plan = api.install(api.resolve(cfg, batch=batch, seq=seq))
-    model = init_lm(cfg, device=dev, seed=tcfg.seed)
-    asi = (init_lm_states(cfg, batch, seq, dtype=_dtype(cfg.dtype),
-                          device=dev, seed=tcfg.seed)
+    model = init(cfg, device=dev, seed=tcfg.seed)
+    asi = (init_states(cfg, batch, seq, dtype=_dtype(cfg.dtype), device=dev,
+                       seed=tcfg.seed)
            if cfg.wasi.compress_acts else None)
     state = make_train_state(model, cfg, tcfg, asi_states=asi)
-    step = make_train_step(lm_loss, cfg, tcfg)
+    step = make_train_step(loss_fn, cfg, tcfg)
     return cfg, plan, state, step, dataset
 
 

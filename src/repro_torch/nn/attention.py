@@ -12,7 +12,10 @@ offset 0) goes through ``kernels.ops.flash_attention``: the flash kernel
 on the card, its plain version on the CPU. The reference runs
 ``dense_attention`` there up to ``chunked_threshold`` tokens and
 ``chunked_attention`` above; the kernel computes the same function at
-every length. A prefill at an offset > 0 keeps the reference's choice
+every length. The cross-attention of the encoder-decoder family (q from
+the decoder, K/V from the encoder's memory, no mask) goes through it too,
+where the reference runs ``dense_attention``. A prefill at an offset > 0
+keeps the reference's choice
 (the kernel has no query offset), and decode keeps ``decode_attention``.
 ``dense_attention`` and ``chunked_attention`` stay as the counterparts of
 the reference's functions.
@@ -518,6 +521,10 @@ def apply_attention(p, x: torch.Tensor, cfg: ModelConfig, *,
                  (B,) per-slot tensor), cache updated in place; a row whose
                  ``valid_len`` is 0 writes nothing (a draft step's parked
                  row)
+      - cross:   ``kv_memory`` (B, S_enc, d) given -> q from x, k and v
+                 projected from the encoder memory, no RoPE and no mask
+                 (the flash kernel, Sq and S_enc apart, 1 at a decode
+                 step); the cache is returned as it came
 
     A :class:`PagedKVCache` (``page_table`` required, (B, pages_per_slot))
     switches prefill and decode to the paged pool: reads gather the
@@ -534,8 +541,6 @@ def apply_attention(p, x: torch.Tensor, cfg: ModelConfig, *,
             raise ValueError("PagedKVCache needs a page_table")
         if window > 0 or kv_memory is not None or not causal:
             raise ValueError("paged KV supports causal full attention only")
-    if kv_memory is not None:
-        raise NotImplementedError("cross-attention is not ported yet")
     h, kvh, dh = cfg.n_heads, cfg.n_kv_heads, cfg.resolved_head_dim
     b, sq, _ = x.shape
     plan = plan_of(cfg)
@@ -556,6 +561,13 @@ def apply_attention(p, x: torch.Tensor, cfg: ModelConfig, *,
         return apply_rope(t, positions, cfg.rope_theta)
 
     q = proj("wq", x).reshape(b, sq, h, dh)
+    if kv_memory is not None:  # cross-attention: K/V from encoder memory
+        sk = kv_memory.shape[1]
+        k = proj("wk", kv_memory).reshape(b, sk, kvh, dh)
+        v = proj("wv", kv_memory).reshape(b, sk, kvh, dh)
+        o = ops.flash_attention(q, k, v, causal=False)
+        out = proj("wo", o.reshape(b, sq, h * dh))
+        return out, cache, new_st
     k = proj("wk", x).reshape(b, sq, kvh, dh)
     v = proj("wv", x).reshape(b, sq, kvh, dh)
     if cache is None:  # train / full-sequence forward

@@ -59,7 +59,8 @@ from repro_torch.optim import (
 class TrainState(NamedTuple):
     """The reference's ``TrainState`` without the PowerSGD states, which
     are not ported."""
-    params: Any         # the model (LanguageModel, VisionTransformer);
+    params: Any         # the model (LanguageModel, VisionTransformer,
+                        # EncoderDecoder);
                         # leaves updated in place
     opt: OptState
     step: int = 0

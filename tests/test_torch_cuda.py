@@ -1834,3 +1834,108 @@ def test_mixtral_smoke_forward_launch_counts(cuda):
     want.update(lowrank_fwd=4 * cfg.n_layers, flash_attention=cfg.n_layers)
     assert ops.launch_counts() == want
     assert bool(torch.isfinite(logits).all())
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("sq", [448, 1])
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+def test_flash_kernel_cross_attention_shapes(cuda, sq, dtype):
+    """Kernel #7 at whisper-tiny's cross-attention: ``sq`` decoder queries
+    (a training step's 448, a decode step's 1) against the encoder's
+    1,500 frames, 6 heads of dh 64, no mask: against the plain version,
+    every plan, two calls bit-equal."""
+    g = torch.Generator().manual_seed(sq)
+    q, k, v = (torch.randn(2, s, 6, 64, generator=g).to(cuda, dtype)
+               for s in (sq, 1500, 1500))
+    before = ops.launch_counts()["flash_attention"]
+    got = ops.flash_attention(q, k, v, causal=False)
+    torch.cuda.synchronize()
+    assert ops.launch_counts()["flash_attention"] == before + 1
+    assert got.shape == q.shape and got.dtype == dtype
+    want = ref.flash_attention_ref(q, k, v, causal=False)
+    assert (got.float() - want.float()).abs().max().item() <= \
+        flash_tol(want, dtype)
+    assert torch.equal(got, ops.flash_attention(q, k, v, causal=False))
+    for plan in kflash.plans(64, dtype):
+        _nan_before(q.shape, dtype)
+        o = kflash.flash_attention_cuda(q, k, v, causal=False, plan=plan)
+        assert (o.float() - want.float()).abs().max().item() <= \
+            flash_tol(want, dtype), plan
+
+
+def _whisper_smoke(cuda):
+    import repro_torch.configs as tconfigs
+    from repro_torch import api
+    from repro_torch.models.encdec import init_encdec
+
+    cfg = tconfigs.get_smoke("whisper-tiny")
+    api.uninstall(cfg)
+    return cfg, init_encdec(cfg, device=cuda, seed=0)
+
+
+@pytest.mark.cuda
+def test_whisper_smoke_forward_launch_counts(cuda):
+    """``encode`` then ``decode_train`` of whisper smoke (2 + 2 layers):
+    kernel #1 at the 6 sites of each encoder layer and the 10 of each
+    decoder layer (self-attention, cross-attention, MLP), #7 once per
+    encoder layer and twice per decoder layer (causal self-attention, the
+    cross-attention over the memory), no other kernel."""
+    from repro_torch.models.encdec import decode_train, encode
+
+    cfg, model = _whisper_smoke(cuda)
+    g = torch.Generator().manual_seed(1)
+    frames = torch.randn(2, cfg.enc_seq, cfg.d_model, generator=g).to(cuda)
+    toks = torch.randint(0, cfg.vocab_size, (2, 12), generator=g).to(cuda)
+    ops.reset_launches()
+    with torch.inference_mode():
+        mem, _ = encode(model, frames, cfg)
+        logits, _ = decode_train(model, toks, mem, cfg)
+    torch.cuda.synchronize()
+    want = dict.fromkeys(ops.launch_counts(), 0)
+    want.update(lowrank_fwd=6 * cfg.n_enc_layers + 10 * cfg.n_layers,
+                flash_attention=cfg.n_enc_layers + 2 * cfg.n_layers)
+    assert ops.launch_counts() == want
+    assert logits.shape == (2, 12, cfg.padded_vocab)
+    assert bool(torch.isfinite(logits).all())
+
+
+@pytest.mark.cuda
+def test_whisper_decode_step_on_the_card_matches_the_cpu(cuda):
+    """``encode`` and one ``encdec_decode_step`` at position 3 of an f32
+    cache holding 3 earlier steps' K/V: the card's logits and the cache it
+    writes against the CPU's on the same weights, within 1e-5 of the
+    logits' RMS (f32 on both, TF32 off); #1 at the 10 sites of each
+    decoder layer, #7 at each cross-attention."""
+    from repro_torch.api.bridge import from_reference, to_reference
+    from repro_torch.models.encdec import (
+        encdec_decode_step,
+        encode,
+        init_encdec_cache,
+    )
+
+    torch.backends.cuda.matmul.allow_tf32 = False
+    cfg, model = _whisper_smoke(cuda)
+    cpu = from_reference(to_reference(model), cfg, "cpu")
+    g = torch.Generator().manual_seed(2)
+    frames = torch.randn(2, cfg.enc_seq, cfg.d_model, generator=g)
+    out = {}
+    for dev, m in ((cuda, model), (torch.device("cpu"), cpu)):
+        caches = init_encdec_cache(cfg, 2, 8, dtype=torch.float32,
+                                   device=dev)
+        with torch.inference_mode():
+            mem, _ = encode(m, frames.to(dev), cfg)
+            for pos in range(3):
+                tok = torch.full((2, 1), 5 + pos, device=dev)
+                encdec_decode_step(m, tok, mem, caches, pos, cfg)
+            ops.reset_launches()
+            lg, caches = encdec_decode_step(
+                m, torch.full((2, 1), 9, device=dev), mem, caches, 3, cfg)
+        out[dev.type] = (lg.cpu(), caches["kv"].k.cpu(),
+                         ops.launch_counts())
+    (lg, k, counts), (lg0, k0, counts0) = out["cuda"], out["cpu"]
+    rms = lg0.square().mean().sqrt().item()
+    assert (lg - lg0).abs().max().item() <= 1e-5 * rms
+    assert (k - k0).abs().max().item() <= 1e-5 * k0.abs().max().item()
+    want = dict.fromkeys(counts, 0)
+    want.update(lowrank_fwd=10 * cfg.n_layers, flash_attention=cfg.n_layers)
+    assert counts == want and set(counts0.values()) == {0}
